@@ -1,0 +1,101 @@
+"""Model / parallelism configs (copy of ``repro.configs.base`` without jax).
+
+Every architecture the port runs gets a module ``repro_torch/configs/<id>.py``
+exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``.  Field names and
+defaults match the reference so a config means the same model on both
+sides; only the dense ``((ATTN, DENSE_FFN),)`` pattern runs in the port so
+far (``models.model.init_model`` rejects the rest).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+# Layer-pattern vocabulary (same strings as the reference).
+ATTN = "attn"          # softmax attention (GQA)
+MLA = "mla"            # DeepSeek multi-head latent attention
+MAMBA = "mamba"        # Mamba-1 selective-scan mixer
+RWKV = "rwkv6"         # RWKV-6 (Finch) time-mix
+DENSE_FFN = "ffn"      # SwiGLU dense FFN
+MOE_FFN = "moe"        # routed expert FFN
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    pattern: Tuple[Tuple[str, str], ...] = ((ATTN, DENSE_FFN),)
+    leading_dense_layers: int = 0
+    rope_theta: float = 10000.0
+    rope_style: str = "rope"         # rope | none (mrope not ported)
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    max_seq_len: int = 524288
+    sub_quadratic: bool = False
+    compute_dtype: str = "bfloat16"  # activation dtype (fp32 for num. tests)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How a model maps onto devices: the reference's fields that the port
+    reads so far (one card: ``parallel.sharding.TPContext`` raises on
+    tp>1; the overlap knobs, data parallelism, ZeRO, pipelines, tuned
+    profiles and wire precision come with their slices).  ``kernel_decode`` turns on the
+    hand-written kernels (``TPContext.use_kernels``): in this slice the
+    flash-attention kernel of the prefill path."""
+    tp: int = 1
+    fuse_w13: bool = False
+    kernel_decode: bool = False
+
+
+def get_config(arch: str) -> ModelConfig:
+    import importlib
+
+    arch = arch.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    import importlib
+
+    arch = arch.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    if hasattr(mod, "SMOKE_CONFIG"):
+        return mod.SMOKE_CONFIG
+    return shrink(mod.CONFIG)
+
+
+def shrink(cfg: ModelConfig, **overrides: Any) -> ModelConfig:
+    """Generic reduction used for smoke testing: tiny dims, same family/pattern
+    (the reference's ``shrink`` restricted to the fields ported here)."""
+    period = len(cfg.pattern)
+    small: Dict[str, Any] = dict(
+        num_layers=max(2 * period, 2),
+        d_model=128,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        d_ff=256,
+        vocab_size=512,
+        head_dim=32 if cfg.num_heads else 0,
+        leading_dense_layers=min(cfg.leading_dense_layers, 1),
+        max_seq_len=4096,
+    )
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,104 @@
+"""Shared layers (port of ``repro.models.layers``): norm, rotary embedding,
+embedding lookup, and the per-slot / paged KV-cache utilities.
+
+The cache writers update their cache IN PLACE and return it: the reference
+is functional and its server donates the cache buffers to ``jit``
+(``donate_argnums``), which is the same reuse of memory spelled for an
+eager framework.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in fp32, cast back to ``x.dtype``, THEN scale by gamma (the
+    reference's order)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S] absolute token positions.
+    Rotate-half (split into halves, not interleaved), in fp32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [Dh/2]
+    ang = positions[..., None].float() * freqs                  # [B,S,Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table: [V, D]; tokens: [B, S].  Out-of-table ids contribute 0 (the
+    vocab-parallel lookup at tp=1: the whole table is this rank's shard)."""
+    v_loc = table.shape[0]
+    in_shard = (tokens >= 0) & (tokens < v_loc)
+    x = table[tokens.clamp(0, v_loc - 1)]
+    return x.masked_fill(~in_shard[..., None], 0)
+
+
+def cache_update_rows(cache: torch.Tensor, new: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """Per-row KV-cache write ``cache[b, pos[b]:pos[b]+L] = new[b]``, in
+    place.  cache: [B, S_max, ...]; new: [B, L, ...]; pos: [B] int.  A start
+    past ``S_max - L`` clamps, as ``lax.dynamic_update_slice`` does."""
+    b, l = new.shape[0], new.shape[1]
+    start = pos.long().clamp(0, cache.shape[1] - l)
+    rows = start[:, None] + torch.arange(l, device=cache.device)
+    bidx = torch.arange(b, device=cache.device)[:, None]
+    cache[bidx, rows] = new.to(cache.dtype)
+    return cache
+
+
+def pool_update_rows(pool: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
+                     start: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged KV write THROUGH a block table, in place.
+
+    pool: [N_blocks, bs, ...]; new: [B, L, ...]; bt: [B, P] per-row block
+    tables; start: [B] logical write offsets.  Rows with i >= valid[b] are
+    padding and land in physical block 0, the reserved null block (never
+    read unmasked), so duplicate writes there are harmless."""
+    n_blocks, bs = pool.shape[0], pool.shape[1]
+    b, l = new.shape[0], new.shape[1]
+    ar = torch.arange(l, device=pool.device)
+    logical = start.long()[:, None] + ar                            # [B, L]
+    blk = torch.gather(bt.long(), 1,
+                       torch.clamp(logical // bs, 0, bt.shape[1] - 1))
+    flat = blk * bs + logical % bs
+    if valid is not None:
+        ok = ar[None, :] < valid.long()[:, None]
+        flat = torch.where(ok, flat, logical % bs)                  # null rows
+    pool_flat = pool.view(n_blocks * bs, *pool.shape[2:])
+    pool_flat[flat.reshape(-1)] = new.reshape(b * l, *new.shape[2:]).to(
+        pool.dtype)
+    return pool
+
+
+def pool_view(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Each row's logical K/V timeline through its block table:
+    pool [N_blocks, bs, ...], bt [B, P] -> [B, P*bs, ...].  Positions past a
+    row's length are stale or null rows the caller masks."""
+    g = pool[bt.long()]                                   # [B, P, bs, ...]
+    return g.reshape(bt.shape[0], bt.shape[1] * pool.shape[1],
+                     *pool.shape[2:])
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row gather ``x[b, idx[b]]`` with idx clamped into range:
+    x [B, S, ...], idx [B] -> [B, ...]."""
+    idx = idx.long().clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]

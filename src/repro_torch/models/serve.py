@@ -1,0 +1,195 @@
+"""Serving paths (port of ``repro.models.serve``): batched prefill, dense and
+paged single-token decode, and the paged chunked prefill.
+
+Caches are a list with one ``{"k", "v"}`` dict per layer (expanded-pattern
+order), shaped by ``cache_specs`` ([B, S_max, Hkv, Dh]) or
+``paged_cache_specs`` ([N_blocks, block_size, Hkv, Dh]), always bf16.
+``decode_step`` and ``prefill_chunk_step`` write their caches IN PLACE and
+return them — the reference's server donates the cache buffers to
+``jit`` for the same reuse.
+
+Contracts kept from the reference:
+
+* ``decode_step`` takes ``pos: [B]`` — each row RoPE-rotates at, masks to
+  and writes at its own position (a scalar broadcasts).  ``active: [B]``
+  keeps inactive rows of DENSE caches unchanged; paged pools need no mask
+  (inactive slots pass all-zero table rows, which write the null block).
+* ``prefill_step`` takes optional ``lengths: [B]`` — true prompt lengths of
+  a right-padded batch: attention is pad-safe by causality, and the next
+  token is read at ``lengths - 1`` per row.
+* the next token is the first maximum of the logits against the tied
+  ``embed`` table, with the padded vocab columns masked to -inf.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.models import attention, ffn, layers
+from repro_torch.models.model import Model, check_ported, expanded_pattern
+from repro_torch.parallel.sharding import TPContext
+
+Caches = List[Dict[str, torch.Tensor]]
+
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
+                pool: Optional[Tuple[int, int]] = None
+                ) -> List[Dict[str, TensorSpec]]:
+    """Per-layer ``{"k", "v"}`` specs: dense [batch, s_max, Hkv, Dh], or with
+    ``pool=(num_blocks, block_size)`` shared [num_blocks, block_size, Hkv,
+    Dh] pools addressed through per-slot block tables.  bf16 whatever the
+    compute dtype."""
+    check_ported(cfg)
+    if pool is not None:
+        nb, bs = pool
+        shape = attention.gqa_cache_shape(cfg, par.tp, nb, bs)
+    else:
+        shape = attention.gqa_cache_shape(cfg, par.tp, batch, s_max)
+    spec = TensorSpec(shape, torch.bfloat16)
+    return [{"k": spec, "v": spec} for _ in expanded_pattern(cfg)]
+
+
+def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
+                      block_size: int, max_batch: int
+                      ) -> List[Dict[str, TensorSpec]]:
+    """Cache specs for the paged serving runtime (see ``cache_specs``)."""
+    return cache_specs(cfg, par, max_batch, 0, pool=(num_blocks, block_size))
+
+
+def zeros_from_specs(specs: List[Dict[str, TensorSpec]],
+                     device: torch.device) -> Caches:
+    return [{n: torch.zeros(s.shape, dtype=s.dtype, device=device)
+             for n, s in layer.items()} for layer in specs]
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor,
+                          vocab_real: int) -> torch.Tensor:
+    """Greedy sampling over logits [B, V_pad] -> [B] (first maximum); the
+    padded vocab tail (columns >= ``vocab_real``) is masked with -inf."""
+    if vocab_real < logits.shape[-1]:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(col >= vocab_real, float("-inf"))
+    return torch.argmax(logits, dim=-1)
+
+
+@torch.no_grad()
+def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
+                   ctx: TPContext, cfg: ModelConfig,
+                   lengths: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Caches]:
+    """Full-sequence prefill up to the logits of each row's last true
+    position: returns (logits [B, V_pad], caches)."""
+    check_ported(cfg)
+    x = layers.embed_lookup(params.embed, batch["tokens"])
+    x = x.to(_compute_dtype(cfg))
+    caches: Caches = []
+    for blk in params.layers:
+        dy, mc = attention.gqa_train(blk.mixer, x, ctx, cfg, with_cache=True)
+        x = x + dy
+        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+        caches.append(mc)
+    h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if lengths is None:
+        h_last = h[:, -1]
+    else:
+        h_last = layers.take_rows(h, lengths.to(h.device) - 1)
+    return torch.matmul(h_last, params.embed.T), caches
+
+
+def prefill_step(params: Model, batch: Dict[str, torch.Tensor],
+                 ctx: TPContext, cfg: ModelConfig,
+                 lengths: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Caches]:
+    """Full-sequence prefill: returns (next_token [B, 1], caches).  With
+    ``ctx.use_kernels`` every layer's attention is the flash kernel."""
+    logits, caches = prefill_logits(params, batch, ctx, cfg, lengths)
+    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+
+
+@torch.no_grad()
+def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
+                ctx: TPContext, cfg: ModelConfig,
+                block_tables: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
+    positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
+    caches are paged pools.  Returns (next_token [B, 1], caches), the
+    caches updated in place."""
+    check_ported(cfg)
+    dev = params.embed.device
+    b = tokens.shape[0]
+    pos = torch.as_tensor(pos, device=dev).reshape(-1).long().expand(b)
+    ctx = ctx.with_layout(False)
+    x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
+    inactive = None
+    if active is not None and block_tables is None:
+        inactive = ~torch.as_tensor(active, device=dev).reshape(-1).bool()
+    for i, blk in enumerate(params.layers):
+        lc = caches[i]
+        if block_tables is not None:
+            dy, _ = attention.gqa_decode_paged(blk.mixer, x, lc, block_tables,
+                                               pos, ctx, cfg)
+        else:
+            saved = _rows_at(lc, pos) if inactive is not None else None
+            dy, _ = attention.gqa_decode(blk.mixer, x, lc, pos, ctx, cfg)
+            if saved is not None:
+                _restore_rows(lc, pos, saved, inactive)
+        x = x + dy
+        x = x + ffn.ffn_decode(blk.ffn, x, ctx, cfg.norm_eps)
+    h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = torch.matmul(h[:, -1], params.embed.T)
+    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+
+
+def _rows_at(cache: Dict[str, torch.Tensor], pos: torch.Tensor):
+    """Each row's cache entry at its (clamped) write position."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return {n: t[rows, pos.clamp(0, t.shape[1] - 1)].clone()
+            for n, t in cache.items()}
+
+
+def _restore_rows(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                  saved: Dict[str, torch.Tensor], inactive: torch.Tensor):
+    """Undo the decode write of inactive rows (the reference's
+    ``_freeze_inactive`` on a dense cache)."""
+    rows = torch.arange(pos.shape[0], device=pos.device)[inactive]
+    for n, t in cache.items():
+        t[rows, pos[inactive].clamp(0, t.shape[1] - 1)] = saved[n][inactive]
+
+
+@torch.no_grad()
+def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
+                       block_tables: torch.Tensor, off: int, chunk_len: int,
+                       ctx: TPContext, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Caches]:
+    """One fixed-shape chunk of an incremental paged prefill: tokens [1, C]
+    (right-padded past ``chunk_len``), written at logical offset ``off``
+    through ``block_tables`` [1, pages].  (The reference also takes the
+    slot, for the dense per-slot state of recurrent families; attention-
+    only models have none.)  Returns (next_token [1, 1] — meaningful on the
+    final chunk only — and the caches, updated in place)."""
+    check_ported(cfg)
+    ctx = ctx.with_layout(False)
+    x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
+    for i, blk in enumerate(params.layers):
+        dy, _ = attention.gqa_prefill_chunk(blk.mixer, x, caches[i],
+                                            block_tables, off, chunk_len,
+                                            ctx, cfg)
+        x = x + dy
+        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+    h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
+    logits = torch.matmul(layers.take_rows(h, last), params.embed.T)
+    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches

@@ -64,6 +64,10 @@ def pytest_configure(config):
         "markers",
         "multidev: spawns a multi-device subprocess (skipped by "
         "scripts/verify.sh --fast)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); skips "
+        "inside the test when none is present")
 
 
 def pytest_collection_modifyitems(config, items):
