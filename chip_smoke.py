@@ -7,10 +7,12 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a) and runs from
 a checkout of this repository.  Phases, one JSON object per line each:
 
 1. device  — the card, its power limit, torch and CUDA versions;
-2. build   — every kernel built from ``src/repro_torch/csrc`` with nvcc;
-3. kernel  — each kernel against its plain PyTorch version on the card at
-             the main path's shapes and a few edge cases, with its time,
-             the plain version's, the library call's and the bound;
+2. build   — every kernel built from ``src/repro_torch/csrc`` with nvcc, in
+             parallel;
+3. kernel  — each kernel (flash attention, MLA decode) against its plain
+             PyTorch version on the card at the main paths' shapes and a
+             few edge cases, with its time, the plain version's, the
+             library call's and the bound;
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
              prefill through ``prefill_step`` with ``kernel_decode=True``
              (one flash-kernel launch per layer), checked against the same
@@ -18,7 +20,16 @@ a checkout of this repository.  Phases, one JSON object per line each:
 5. server_lane — ``repro_torch.launch.serve`` answering 8 requests through
              the paged ``Server`` at full width, and the same requests
              served one at a time: a smoke check of the runtime (short
-             prompts), not a serving workload.
+             prompts), not a serving workload;
+6. mla_lane — deepseek_v3_671b's first four layers at full width (three
+             MLA + dense-FFN layers, one MLA + MoE layer; seeded random
+             weights): batched prefill, then dense ``decode_step``s with
+             ``kernel_decode=True`` (one MLA-decode launch per layer a step)
+             teacher-forced against the same steps with plain attention,
+             and one paged step through block tables;
+7. mla_server_lane — the paged ``Server`` over the same four layers: 8
+             requests served together, one at a time, and again on the
+             same server (prefix reuse); a smoke check, no kernel runs.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -28,6 +39,7 @@ and ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is then nonzero and no result line is printed.  Without a CUDA card,
 or outside a checkout (no ``src/repro_torch``), it fails the same way.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,11 +58,20 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # (the inputs of layer 40 carry 39 layers of bf16 rounding of attention
 # outputs summed in another order)
 LANE_RTOL = 5e-2
+# MLA decode kernel vs plain: fp32 sums in another order over up to 32k
+# positions of values ~1
+MLA_TOL = 1e-4
+# the mla lane, kernel decode vs plain decode over 4 bf16 layers: relative
+# L2 difference of the last layer's latent cache (its inputs carry three
+# layers of attention outputs summed in another order, rounded to bf16)
+MLA_LANE_RTOL = 1e-2
 # warm repeats of each host-clock timing; the median is reported
 REPEATS = 5
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+PEAK_TF32 = 495e12                                      # fp32 inputs, tensor cores
 PEAK_BYTES = 3.35e12                                    # H100 SXM HBM3
-KERNEL_SOURCES = ("flash_attention",)
+L2_FLUSH_BYTES = 128 << 20                              # > the 50 MB L2
+KERNEL_SOURCES = ("flash_attention", "mla_decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -88,6 +109,27 @@ def time_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def time_ms_cold(torch, fn, iters, warmup=2):
+    """Mean device time of one call of ``fn`` with the L2 cache flushed
+    before each call (CUDA events around each call): a decode step finds
+    its layer's cache cold, after the other layers' weights went through
+    L2."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    marks = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / iters
+
+
 def wall_ms(torch, fn, repeats=REPEATS):
     """Host-clock ms of ``fn`` run to completion on the card, ``repeats``
     warm calls: (median, all samples)."""
@@ -99,6 +141,21 @@ def wall_ms(torch, fn, repeats=REPEATS):
         torch.cuda.synchronize()
         samples.append((time.perf_counter() - t0) * 1e3)
     return sorted(samples)[len(samples) // 2], samples
+
+
+def step_and_enqueue_ms(torch, fn, repeats=REPEATS):
+    """Where one call of ``fn`` spends its time: host-clock medians over
+    ``repeats`` warm calls of (the whole call to completion on the card,
+    the host's enqueue alone)."""
+    enqueue, whole = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    return sorted(whole)[repeats // 2], sorted(enqueue)[repeats // 2]
 
 
 def attention_bound(q, k, v, causal, kv_offset):
@@ -118,6 +175,36 @@ def attention_bound(q, k, v, causal, kv_offset):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def mla_bound(q_eff, q_rope, c, kr, valid):
+    """Least time for the MLA decode attention's work on an H100.  The work
+    is the cache rows each batch row needs (those before its valid length;
+    all S for a valid length <= 0): 2 * H * (2R + Dr) operations a row over
+    the TF32 tensor-core rate (fp32 queries), against the bytes (those
+    rows of c and kr, q_eff and q_rope read once, the fp32 output written
+    once) over HBM bandwidth.  Also the operations' time on the fp32 CUDA
+    cores, which the first kernel computes on."""
+    b, h, r = q_eff.shape
+    s, dr = c.shape[1], kr.shape[-1]
+    rows = sum(s if v <= 0 else min(v, s) for v in valid.tolist())
+    flops = 2.0 * h * (2 * r + dr) * rows
+    nbytes = (rows * (r + dr) * c.element_size() + q_eff.nbytes
+              + q_rope.nbytes + b * h * r * 4)
+    t_ops = flops / PEAK_TF32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
+            flops / PEAK_FLOPS["float32"] * 1e3, flops, nbytes)
+
+
+def sdpa_backend(torch, *args, **kw):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except Exception as e:   # a private API: report, do not fail
+        return f"unknown ({type(e).__name__}: {e})"[:120]
 
 
 def device_profile(torch, fn):
@@ -247,6 +334,95 @@ def phase_kernel(torch):
     return results["minicpm_prefill"]
 
 
+def phase_mla_kernel(torch):
+    """MLA-decode kernel vs its plain version; returns the lane's case."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import layers
+
+    h, r, dr = 128, 512, 64                  # deepseek_v3_671b
+    scale = (128 + 64) ** -0.5               # (qk_nope + qk_rope) ** -0.5
+    gen = torch.Generator(device="cuda")
+    cases = [  # name, B, S, valid lengths, paged
+        ("mla_lane_decode", 4, 1041, [257, 513, 778, 1025], False),
+        ("long_cache", 8, 32768, [1000] + [32768] * 7, False),
+        ("ragged_valid_1", 4, 777, [1, 777, 400, 600], False),
+        ("paged_view", 4, 66 * 16, [257, 513, 778, 1025], True),
+    ]
+    results = {}
+    for name, b, s, valid, paged in cases:
+        gen.manual_seed(100 + len(results))
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        q_eff, q_rope = randn(b, h, r), randn(b, h, dr)
+        if paged:   # rows scattered over a shuffled pool, as the Server has
+            n_blk, bs = b * (s // 16) + 1, 16
+            pool_c = randn(n_blk, bs, r).bfloat16()
+            pool_kr = randn(n_blk, bs, dr).bfloat16()
+            perm = 1 + torch.randperm(n_blk - 1, generator=gen, device="cuda")
+            bt = perm.reshape(b, s // 16)
+            c = layers.pool_view(pool_c, bt)
+            kr = layers.pool_view(pool_kr, bt)
+            del pool_c, pool_kr
+        else:
+            c, kr = randn(b, s, r).bfloat16(), randn(b, s, dr).bfloat16()
+        vl = torch.tensor(valid, device="cuda")
+        out = md.mla_decode_attention(q_eff, q_rope, c, kr, vl, scale=scale)
+        torch.cuda.synchronize()
+        want = md.mla_decode_attention_ref(q_eff, q_rope, c, kr, vl, scale)
+        err = (out - want).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        check(torch.allclose(out, want, atol=MLA_TOL, rtol=MLA_TOL),
+              f"{name}: kernel vs plain max_abs_err {err} > tol {MLA_TOL}")
+
+        # the library call: one SDPA over [q_eff | q_rope] against [c | kr]
+        # and c, in fp32 (the kernel's math).  The H heads share one latent
+        # row, so they are the query rows of one head: the same function
+        # as one kv head under enable_gqa, without the math backend's copy
+        # of k and v per query head (77 GB at the long case)
+        q_l = torch.cat([q_eff, q_rope], dim=-1)[:, None]
+        k_l = torch.cat([c, kr], dim=-1).float()[:, None]
+        v_l = c.float()[:, None]
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < vl[:, None])[:, None, None]
+        sdpa_kw = dict(attn_mask=mask, scale=scale)
+        lib_out = F.scaled_dot_product_attention(q_l, k_l, v_l, **sdpa_kw)
+        lib_err = (lib_out[:, 0] - want).abs().max().item()
+        del lib_out
+
+        def kern():
+            return md.mla_decode_attention(q_eff, q_rope, c, kr, vl,
+                                           scale=scale)
+        kernel_ms = time_ms_cold(torch, kern, 20)
+        kernel_warm_ms = time_ms(torch, kern, 20)
+        plain_ms = time_ms_cold(torch, lambda: md.mla_decode_attention_ref(
+            q_eff, q_rope, c, kr, vl, scale), 5)
+        library_ms = time_ms_cold(torch, lambda: F.scaled_dot_product_attention(
+            q_l, k_l, v_l, **sdpa_kw), 10)
+        bound_ms, bound_by, cuda_core_ms, flops, nbytes = mla_bound(
+            q_eff, q_rope, c, kr, vl)
+        res = {"phase": "kernel", "kernel": "mla_decode", "case": name,
+               "shape": {"B": b, "H": h, "R": r, "Dr": dr, "S": s},
+               "valid_len": valid, "paged": paged, "tol": MLA_TOL,
+               "max_abs_err": err, "kernel_ms": kernel_ms,
+               "kernel_warm_l2_ms": kernel_warm_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "scaled_dot_product_attention",
+               "library_backend": sdpa_backend(torch, q_l, k_l, v_l,
+                                               **sdpa_kw),
+               "library_max_abs_err": lib_err,
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "fp32_cuda_core_ms": cuda_core_ms,
+               "bound_share": bound_ms / kernel_ms}
+        emit(res)
+        results[name] = res
+        del q_eff, q_rope, c, kr, out, want, q_l, k_l, v_l
+    torch.cuda.empty_cache()
+    return results["mla_lane_decode"]
+
+
 def phase_kernel_lane(torch):
     from repro_torch.configs.base import ParallelConfig, get_config
     from repro_torch.kernels import flash_attention as fa
@@ -320,16 +496,7 @@ def phase_kernel_lane(torch):
 
     # dense decode from the kernel prefill's caches: glue them into s_max
     n_decode = 16
-    s_max = s + n_decode + 1
-    caches = []
-    for layer in caches_k:
-        dense = {}
-        for n, t in layer.items():
-            d = torch.zeros((t.shape[0], s_max, *t.shape[2:]), dtype=t.dtype,
-                            device=t.device)
-            d[:, :s] = t
-            dense[n] = d
-        caches.append(dense)
+    caches = _dense_caches(torch, caches_k, s + n_decode + 1)
     del caches_k
     tok, tokens, step_samples = nxt, [nxt], []
     for step in range(n_decode):
@@ -350,16 +517,7 @@ def phase_kernel_lane(torch):
     def one_step():
         return S.decode_step(params, caches, tok, lengths + n_decode,
                              ctx_k, cfg)
-    enqueue, whole = [], []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_step()
-        enqueue.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        whole.append((time.perf_counter() - t0) * 1e3)
-    enqueue_ms = sorted(enqueue)[REPEATS // 2]
-    step_ms = sorted(whole)[REPEATS // 2]
+    step_ms, enqueue_ms = step_and_enqueue_ms(torch, one_step)
     decode_prof = device_profile(torch, one_step)
     emit({"phase": "kernel_lane", "arch": cfg.name, "params": n_params,
           "init_s": init_s, "batch": 4, "lengths": lengths.tolist(),
@@ -437,6 +595,261 @@ def phase_server_lane(torch):
           "concurrent_equals_isolated": f"{agree}/{len(done)}"})
 
 
+def _dense_caches(torch, caches, s_max):
+    """Prefill caches [B, S, ...] glued into zero [B, s_max, ...] decode
+    caches."""
+    out = []
+    for layer in caches:
+        dense = {}
+        for n, t in layer.items():
+            d = torch.zeros((t.shape[0], s_max, *t.shape[2:]), dtype=t.dtype,
+                            device=t.device)
+            d[:, :t.shape[1]] = t
+            dense[n] = d
+        out.append(dense)
+    return out
+
+
+def _paged_caches(torch, caches, gen, block):
+    """Dense [B, S, ...] caches scattered into shuffled [N, block, ...]
+    pools: (pools, block tables [B, ceil(S / block)]); block 0 stays the
+    null block."""
+    b, s = caches[0]["c"].shape[:2]
+    pages = -(-s // block)
+    bt = (1 + torch.randperm(b * pages, generator=gen, device="cuda")
+          ).reshape(b, pages)
+    pools = []
+    for layer in caches:
+        pool = {}
+        for n, t in layer.items():
+            p = torch.zeros((b * pages + 1, block, *t.shape[2:]),
+                            dtype=t.dtype, device=t.device)
+            rows = torch.zeros((b, pages * block, *t.shape[2:]),
+                               dtype=t.dtype, device=t.device)
+            rows[:, :s] = t
+            p[bt.reshape(-1)] = rows.reshape(b * pages, block, *t.shape[2:])
+            pool[n] = p
+        pools.append(pool)
+    return pools, bt
+
+
+def phase_mla_lane(torch):
+    """deepseek_v3_671b's first four layers at full width: prefill, then
+    the main path — 16 dense decode steps through the MLA-decode kernel —
+    teacher-forced against plain attention, and one paged step.  Returns
+    (params, cfg, main-path launches) for the server lane."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+
+    # the model's own first layers: 3 leading MLA + dense FFN, 1 MLA + MoE
+    cfg = dataclasses.replace(get_config("deepseek_v3_671b"), num_layers=4)
+    par_k = ParallelConfig(kernel_decode=True)
+    ctx_k, ctx_p = make_ctx(par_k), make_ctx(ParallelConfig())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, par_k, seed=0, dtype=torch.bfloat16,
+                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+
+    lengths = torch.tensor([256, 512, 777, 1024], device="cuda")
+    s = int(lengths.max())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
+                         device="cuda")
+    toks = toks.masked_fill(torch.arange(s, device="cuda")[None]
+                            >= lengths[:, None], 0)       # right padding
+    batch = {"tokens": toks}
+
+    # prefill: MLA attends in plain code here, as in the reference
+    logits, caches = S.prefill_logits(params, batch, ctx_k, cfg, lengths)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "non-finite prefill logits")
+    m = cfg.mla
+    check(all(tuple(c["c"].shape) == (4, s, m.kv_lora_rank)
+              and tuple(c["kr"].shape) == (4, s, m.qk_rope_head_dim)
+              for c in caches), "latent cache shapes")
+    nxt, _ = S.prefill_step(params, batch, ctx_k, cfg, lengths)
+    check(torch.equal(nxt[:, 0], S.vocab_parallel_argmax(
+        logits, cfg.vocab_size)), "prefill_step vs prefill_logits tokens")
+    prefill_ms, prefill_samples = wall_ms(torch, lambda: S.prefill_step(
+        params, batch, ctx_k, cfg, lengths))
+    del logits
+
+    n_decode = 16
+    s_max = s + n_decode + 1
+    caches_p = _dense_caches(torch, caches, s_max)
+    caches_k = _dense_caches(torch, caches, s_max)
+    del caches
+
+    # plain attention first: its tokens feed both lanes (teacher forcing)
+    plain_tokens = [nxt]
+    tok = nxt
+    for step in range(n_decode):
+        tok, caches_p = S.decode_step(params, caches_p, tok, lengths + step,
+                                      ctx_p, cfg)
+        plain_tokens.append(tok)
+    torch.cuda.synchronize()
+
+    # the main path: counts to 0, 16 decode steps through the kernel, read
+    md.mla_decode_attention.launches = 0
+    fa.flash_attention.launches = 0
+    step_samples, agree = [], 0
+    for step in range(n_decode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_tok, caches_k = S.decode_step(params, caches_k, plain_tokens[step],
+                                        lengths + step, ctx_k, cfg)
+        torch.cuda.synchronize()
+        step_samples.append((time.perf_counter() - t0) * 1e3)
+        agree += int((k_tok == plain_tokens[step + 1]).sum())
+    launches = md.mla_decode_attention.launches
+    check(launches == cfg.num_layers * n_decode,
+          f"MLA-decode kernel launched {launches} times in {n_decode} decode "
+          f"steps, expected {cfg.num_layers * n_decode} (one per layer a "
+          "step)")
+    check(fa.flash_attention.launches == 0,
+          "the flash kernel ran on the MLA decode path")
+    check(all(torch.equal(caches_k[0][n], caches_p[0][n]) for n in
+              ("c", "kr")),
+          "layer-0 latent caches differ between kernel and plain decode")
+    last_rel = max(((caches_k[-1][n].float() - caches_p[-1][n].float()).norm()
+                    / caches_p[-1][n].float().norm()).item()
+                   for n in ("c", "kr"))
+    check(last_rel <= MLA_LANE_RTOL,
+          f"kernel vs plain last-layer latent caches differ by {last_rel} "
+          f"(relative L2) > {MLA_LANE_RTOL}")
+    decode_ms = sorted(step_samples)[n_decode // 2]
+    del caches_p
+
+    # one paged step through block tables against the same dense step
+    pos = lengths + n_decode
+    pools, bt = _paged_caches(torch, caches_k, gen, 16)
+    md.mla_decode_attention.launches = 0
+    paged_tok, _ = S.decode_step(params, pools, plain_tokens[-1], pos, ctx_k,
+                                 cfg, block_tables=bt)
+    torch.cuda.synchronize()
+    paged_launches = md.mla_decode_attention.launches
+    check(paged_launches == cfg.num_layers,
+          f"paged step launched the MLA-decode kernel {paged_launches} "
+          f"times, expected {cfg.num_layers}")
+    dense_tok, _ = S.decode_step(params, [{n: t.clone() for n, t in
+                                           layer.items()}
+                                          for layer in caches_k],
+                                 plain_tokens[-1], pos, ctx_k, cfg)
+    check(torch.equal(paged_tok, dense_tok),
+          f"paged next tokens {paged_tok.tolist()} != dense "
+          f"{dense_tok.tolist()}")
+    del pools
+
+    # where one more decode step's time goes: host enqueue vs device work
+    # (the step rewrites the same position each time)
+    def one_step():
+        return S.decode_step(params, caches_k, plain_tokens[-1], pos, ctx_k,
+                             cfg)
+    step_ms, enqueue_ms = step_and_enqueue_ms(torch, one_step)
+    decode_prof = device_profile(torch, one_step)
+    out = torch.cat(plain_tokens, dim=1)
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "decoded token out of [0, vocab)")
+    emit({"phase": "mla_lane", "arch": cfg.name, "layers": cfg.num_layers,
+          "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
+          "batch": 4, "lengths": lengths.tolist(), "s_max": s_max,
+          "prefill_ms_median": prefill_ms,
+          "prefill_ms_samples": prefill_samples,
+          "decode_steps": n_decode, "mla_launches": launches,
+          "mla_launches_per_step": launches / n_decode,
+          "paged_step_mla_launches": paged_launches,
+          "paged_tokens_equal_dense": True,
+          "last_layer_latent_cache_rel_l2": last_rel,
+          "rtol": MLA_LANE_RTOL,
+          "next_token_agree_kernel_vs_plain": f"{agree}/{4 * n_decode}",
+          "decode_ms_per_step_median": decode_ms,
+          "decode_ms_samples": step_samples,
+          "decode_step_ms_median": step_ms,
+          "decode_host_enqueue_ms_median": enqueue_ms,
+          "decode_profile": decode_prof,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "tokens_row0": out[0].tolist()})
+    del caches_k
+    torch.cuda.empty_cache()
+    return params, cfg, launches
+
+
+def phase_mla_server_lane(torch, params, cfg):
+    """The paged Server over the mla lane's four layers: 8 short requests
+    served together and one at a time, then again on the same server,
+    whose freed prompt blocks stay matchable (prefix reuse).  A smoke check
+    of the runtime; the Server runs no kernel, as the reference's does
+    not."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    par = ParallelConfig()
+    sc = ServeConfig(max_batch=8, max_seq=256, eos_token=-1,
+                     max_new_tokens=16, block_size=16, prefill_chunk=32)
+    reqs = make_requests(cfg.vocab_size, 8, 40)
+    md.mla_decode_attention.launches = 0
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    server = Server(cfg, par, params, sc)
+    done = server.serve(reqs)
+    wall_s = time.perf_counter() - t0
+    launches = (md.mla_decode_attention.launches
+                + fa.flash_attention.launches)
+    check(launches == 0, f"{launches} kernel launches in the MLA server "
+          "lane, which runs no kernel")
+    check(len(done) == 8, f"{len(done)} of 8 requests finished")
+    for r in done:
+        check(r.done and r.error is None, f"request {r.rid}: {r.error}")
+        check(len(r.output) == 16, f"request {r.rid}: {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"request {r.rid}: token out of [0, vocab)")
+    concurrent = {r.rid: r.output for r in done}
+    ttfts = sorted(r.ttft_s() for r in done)
+    tpots = sorted(r.per_token_s() for r in done)
+    n_tok = sum(len(r.output) for r in done)
+    span = max(r.t_finish for r in done) - min(r.t_arrival for r in done)
+    first_hits = server.pool.reuse_hits
+
+    again = server.serve([Request(rid=r.rid, prompt=r.prompt) for r in reqs])
+    check(all(r.output == concurrent[r.rid] for r in again),
+          "serving the same prompts again (prefix reuse) changed tokens")
+    agree = 0
+    for r in reqs:
+        alone = Server(cfg, par, params, sc)
+        out = alone.serve([Request(rid=r.rid, prompt=r.prompt)])[0].output
+        agree += int(out == concurrent[r.rid])
+    check(agree == len(reqs),
+          f"concurrent serving equals isolated serving for {agree}/8")
+    emit({"phase": "mla_server_lane", "scale": "smoke", "arch": cfg.name,
+          "layers": cfg.num_layers, "requests": len(done),
+          "kernel_launches": launches, "max_batch": sc.max_batch,
+          "block_size": sc.block_size, "prefill_chunk": sc.prefill_chunk,
+          "prompt_lens": [len(r.prompt) for r in done],
+          "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+          "tpot_p50_ms": tpots[len(tpots) // 2] * 1e3,
+          "tokens_per_s": n_tok / span, "serve_wall_s": wall_s,
+          "pool_peak_blocks": server.pool.peak_blocks_in_use,
+          "pool_blocks": server.pool.num_blocks - 1,
+          "prefix_reuse_hits_first_pass": first_hits,
+          "prefix_reuse_hits_second_pass": server.pool.reuse_hits - first_hits,
+          "reused_tokens": server.pool.reused_tokens,
+          "second_pass_equals_first": True,
+          "concurrent_equals_isolated": f"{agree}/{len(reqs)}"})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -448,19 +861,33 @@ def main():
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
-    main_case = phase_kernel(torch)
-    launches = phase_kernel_lane(torch)
+    flash_case = phase_kernel(torch)
+    mla_case = phase_mla_kernel(torch)
+    flash_launches = phase_kernel_lane(torch)
     phase_server_lane(torch)
+    params, cfg, mla_launches = phase_mla_lane(torch)
+    phase_mla_server_lane(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:21",
-        "launches": launches, "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    emit({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:21",
+         "launches": flash_launches,
+         "max_abs_err": flash_case["max_abs_err"],
+         "ms": flash_case["kernel_ms"], "plain_ms": flash_case["plain_ms"],
+         "bound_ms": flash_case["bound_ms"],
+         "bound_by": flash_case["bound_by"],
+         "library_ms": flash_case["library_ms"]},
+        {"name": "mla_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/mla_decode.cu",
+         "replaces": "src/repro/kernels/mla_decode.py:28",
+         "launches": mla_launches, "max_abs_err": mla_case["max_abs_err"],
+         "ms": mla_case["kernel_ms"], "plain_ms": mla_case["plain_ms"],
+         "bound_ms": mla_case["bound_ms"], "bound_by": mla_case["bound_by"],
+         "library_ms": mla_case["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,14 +3,15 @@
 Every architecture the port runs gets a module ``repro_torch/configs/<id>.py``
 exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``.  Field names and
 defaults match the reference so a config means the same model on both
-sides; only the dense ``((ATTN, DENSE_FFN),)`` pattern runs in the port so
-far (``models.model.init_model`` rejects the rest).
+sides; the port runs the (ATTN, DENSE_FFN), (MLA, DENSE_FFN) and
+(MLA, MOE_FFN) layer kinds so far (``models.model.check_ported`` rejects
+the rest).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # Layer-pattern vocabulary (same strings as the reference).
 ATTN = "attn"          # softmax attention (GQA)
@@ -19,6 +20,26 @@ MAMBA = "mamba"        # Mamba-1 selective-scan mixer
 RWKV = "rwkv6"         # RWKV-6 (Finch) time-mix
 DENSE_FFN = "ffn"      # SwiGLU dense FFN
 MOE_FFN = "moe"        # routed expert FFN
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_ffn: int                  # d_ff of each routed expert
+    num_shared_experts: int = 0      # DeepSeek-style shared expert(s)
+    shared_ffn: int = 0              # d_ff of the shared expert path
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -34,11 +55,14 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     pattern: Tuple[Tuple[str, str], ...] = ((ATTN, DENSE_FFN),)
     leading_dense_layers: int = 0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rope_theta: float = 10000.0
     rope_style: str = "rope"         # rope | none (mrope not ported)
     qkv_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    mtp_depth: int = 0               # DeepSeek multi-token-prediction heads
     max_seq_len: int = 524288
     sub_quadratic: bool = False
     compute_dtype: str = "bfloat16"  # activation dtype (fp32 for num. tests)
@@ -54,11 +78,13 @@ class ModelConfig:
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
     reads so far (one card: ``parallel.sharding.TPContext`` raises on
-    tp>1; the overlap knobs, data parallelism, ZeRO, pipelines, tuned
-    profiles and wire precision come with their slices).  ``kernel_decode`` turns on the
-    hand-written kernels (``TPContext.use_kernels``): in this slice the
-    flash-attention kernel of the prefill path."""
+    tp>1 and ep>1; the overlap knobs, data parallelism, ZeRO, pipelines,
+    tuned profiles and wire precision come with their slices).
+    ``kernel_decode`` turns on the hand-written kernels
+    (``TPContext.use_kernels``): the flash-attention kernel of the GQA
+    prefill and the MLA-decode kernel of every MLA decode step."""
     tp: int = 1
+    ep: int = 1
     fuse_w13: bool = False
     kernel_decode: bool = False
 
@@ -97,5 +123,13 @@ def shrink(cfg: ModelConfig, **overrides: Any) -> ModelConfig:
         leading_dense_layers=min(cfg.leading_dense_layers, 1),
         max_seq_len=4096,
     )
+    if cfg.moe is not None:
+        small["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2), expert_ffn=128,
+            shared_ffn=128 if cfg.moe.shared_ffn else 0)
+    if cfg.mla is not None:
+        small["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                 qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                 v_head_dim=32)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

@@ -1,13 +1,15 @@
 """Hand the reference's parameters (and caches) across to the port.
 
 The reference's parameter tree is ``{"embed", "final_norm", "lead": [...],
-"periods": [per pattern position: leaves stacked [reps, ...]]}`` (see
-``repro.models.model.init_model``); its caches mirror it under
-``{"lead", "periods": [{"mixer": {"k", "v"}, "ffn": {}}]}``.  Layer ``i``
-of the expanded pattern is ``lead[i]`` for the leading layers and
-``periods[pos][rep]`` after them (``i = lead + rep * period + pos``).
-Arrays cross as numpy: bf16 leaves go as float32 and are cast back, which
-is exact.
+"periods": [per pattern position: leaves stacked [reps, ...]], "mtp"}``
+(see ``repro.models.model.init_model``; leaves may nest, as the MoE's
+``shared`` expert does); its caches mirror it under ``{"lead", "periods":
+[{"mixer": {"k", "v"} or {"c", "kr"}, "ffn": {}}]}``.  Layer ``i`` of the
+expanded pattern is ``lead[i]`` for the leading layers and
+``periods[pos][rep]`` after them (``i = lead + rep * period + pos``).  The
+multi-token-prediction head (``mtp``) is not carried: serving never reads
+it.  Arrays cross as numpy: bf16 leaves go as float32 and are cast back,
+which is exact.
 """
 from __future__ import annotations
 
@@ -18,12 +20,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.ffn import FP32_PARAMS
 from repro_torch.models.model import Block, Model, check_ported, n_periods
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(
         device=device, dtype=dtype)
+
+
+def _unstack(tree, rep: int):
+    """Layer ``rep`` of a stacked (``[reps, ...]``) nested subtree."""
+    if isinstance(tree, dict):
+        return {n: _unstack(a, rep) for n, a in tree.items()}
+    return tree[rep]
 
 
 def _layer_trees(tree: Dict[str, Any],
@@ -34,23 +44,30 @@ def _layer_trees(tree: Dict[str, Any],
     out = list(tree.get("lead", []))[:lead]
     for rep in range(n_periods(cfg)):
         for pos in range(period):
-            stacked = tree["periods"][pos]
-            out.append({part: {n: a[rep] for n, a in leaves.items()}
-                        for part, leaves in stacked.items()})
+            out.append(_unstack(tree["periods"][pos], rep))
     return out
+
+
+def _params(leaves: Dict[str, Any], dtype: torch.dtype,
+            device: torch.device) -> Dict:
+    """A (nested) leaf dict as tensors: ``dtype``, except the leaves the
+    reference keeps in fp32 whatever its dtype (the MoE router)."""
+    return {n: _params(a, dtype, device) if isinstance(a, dict)
+            else _tensor(a, torch.float32 if n in FP32_PARAMS else dtype,
+                         device)
+            for n, a in leaves.items()}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Model:
-    """The reference's parameter tree (leaves as numpy arrays) -> ``Model``."""
+    """The reference's parameter tree (leaves as numpy arrays) -> ``Model``
+    with ``dtype`` leaves (the router stays fp32, as in the reference)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    blocks = [Block({n: _tensor(a, dtype, dev)
-                     for n, a in layer["mixer"].items()},
-                    {n: _tensor(a, dtype, dev)
-                     for n, a in layer["ffn"].items()})
+    blocks = [Block(_params(layer["mixer"], dtype, dev),
+                    _params(layer["ffn"], dtype, dev))
               for layer in _layer_trees(tree, cfg)]
     return Model(_tensor(tree["embed"], dtype, dev),
                  _tensor(tree["final_norm"], dtype, dev), blocks)
@@ -60,7 +77,7 @@ def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> List[Dict[str, torch.Tensor]]:
     """The reference's attention caches (leaves as numpy) -> the port's
-    per-layer ``{"k", "v"}`` list, bf16."""
+    per-layer list of ``{"k", "v"}`` (GQA) or ``{"c", "kr"}`` (MLA), bf16."""
     dev = resolve_device(device)
     return [{n: _tensor(a, torch.bfloat16, dev)
              for n, a in layer["mixer"].items()}

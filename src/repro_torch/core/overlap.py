@@ -1,15 +1,18 @@
 """TP-seam ops (port of ``repro.core.overlap``): ``Epilogue`` + ``FusedOp``.
 
-``FusedOp(kind="ag"|"rs"|"ar", ...)`` is the one object model code calls
-for a tensor-parallel seam (built by ``ctx.op(seam)``):
+``FusedOp(kind="ag"|"rs"|"ar"|"a2a", ...)`` is the one object model code
+calls for a parallel seam (built by ``ctx.op(seam)``):
 
     ag   x[B, S, D] , w[D, F]  ->  epilogue(x @ w)       (n_weights >= 1)
     rs   y[B, S, F] , w[F, D]  ->  epilogue(y @ w)
     ar   y[B, m, F] , w[F, D]  ->  epilogue(y @ w)
+    a2a  x[ep, E_loc, cap, D], (w1, w3)[E_loc, D, F], w2[E_loc, F, D]
+         ->  per-expert act(x @ w1) * (x @ w3) @ w2     (the MoE exchange)
 
-On one card (tp=1) every seam is the local GEMM plus its epilogue — what
-the reference's ``_fused_ag`` / ``_rs_core`` / ``_ar_core`` do at axis
-size 1.  The collective transports (``xla``, the ``decomposed*`` rings,
+On one card (tp=1, ep=1) every seam is the local GEMM plus its epilogue —
+what the reference's ``_fused_ag`` / ``_rs_core`` / ``_ar_core`` do at
+axis size 1 — and the a2a seam is the local expert FFN (``_a2a_impl`` with
+an empty EP group).  The collective transports (``xla``, the ``decomposed*`` rings,
 the fused ``flux`` kernels) and their knobs (overlap mode, chunking, ring
 direction, scatter axis) exist only at tp>1; they come with that slice
 (ROADMAP 'Modules still to port', item 2), and ``TPContext`` rejects tp>1
@@ -23,12 +26,12 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-VALID_KINDS = ("ag", "rs", "ar")
+VALID_KINDS = ("ag", "rs", "ar", "a2a")
 
 # model-level seam name -> its collective kind
 SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
                               "attn_ag": "ag", "attn_rs": "rs",
-                              "decode_ar": "ar"}
+                              "decode_ar": "ar", "moe_a2a": "a2a"}
 
 
 def _sqrelu(v):
@@ -103,6 +106,17 @@ class FusedOp:
             raise ValueError(f"invalid kind {self.kind!r}")
         if self.n_weights < 1:
             raise ValueError("n_weights must be >= 1")
+        if self.kind == "a2a":
+            # the op owns the whole expert computation: the (w1, w3, w2)
+            # triple and the pure pair-gate epilogue
+            if self.n_weights != 3:
+                raise ValueError(
+                    'kind="a2a" takes the expert (w1, w3, w2) triple')
+            e = self.epilogue
+            if e.gate != "pair" or e.bias or e.scale or e.residual:
+                raise ValueError(
+                    'kind="a2a" needs a pure gate="pair" epilogue')
+            return
         if self.kind != "ag" and self.n_weights != 1:
             raise ValueError(f"kind={self.kind!r} ops take exactly one weight")
         if self.epilogue.gate == "pair":
@@ -131,7 +145,20 @@ class FusedOp:
                 raise ValueError(
                     f"epilogue.{name}={flag} but {name} operand "
                     f"{'missing' if flag else 'given'}")
+        if self.kind == "a2a":
+            return _expert_fn(epi, x, *ws)
         ys = [torch.matmul(x, w) for w in ws]
         if not self.combines:
             return tuple(ys)
         return epi.apply(ys, bias=bias, scale=scale, residual=residual)
+
+
+def _expert_fn(epi: Epilogue, b: torch.Tensor, w1: torch.Tensor,
+               w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Per-local-expert gated FFN on the dispatch buffer:
+    b[..., E_loc, c, D] @ (w1, w3)[E_loc, D, F] -> pair gate ->
+    @ w2[E_loc, F, D]."""
+    a1 = torch.einsum("...ecd,edf->...ecf", b, w1)
+    a3 = torch.einsum("...ecd,edf->...ecf", b, w3)
+    h = epi.apply([a1, a3])
+    return torch.einsum("...ecf,efd->...ecd", h, w2)

@@ -28,11 +28,13 @@ _ALIGN = 16              # float4 / 4 x bf16 vector loads
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, scale: Optional[float] = None,
                         kv_offset: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: q [B, Hq, Sq, D], k/v
-    [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in q's dtype.  Scores in fp32,
-    causal mask ``kv_offset + i >= k_pos`` with -1e30, softmax denominator
-    floored at 1e-30 (``kernels/ref.py`` plus the TPU kernel's offset and
-    mask semantics).  GQA reads kv head h // (Hq / Hkv)."""
+    """Plain PyTorch version of the kernel: q [B, Hq, Sq, D], k
+    [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] -> [B, Hq, Sq, Dv] in q's dtype
+    (Dv may differ from D, as in MLA's prefill; the kernel takes Dv == D).
+    Scores in fp32, causal mask ``kv_offset + i >= k_pos`` with -1e30,
+    softmax denominator floored at 1e-30 (``kernels/ref.py`` plus the TPU
+    kernel's offset and mask semantics).  GQA reads kv head h // (Hq /
+    Hkv)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -49,7 +51,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     o = o / torch.clamp(l, min=MIN_DENOM)
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
 def _check(q, k, v):

@@ -1,17 +1,28 @@
-"""Dense SwiGLU FFN (port of ``repro.models.ffn``, dense part).
+"""FFN blocks (port of ``repro.models.ffn``): dense SwiGLU and the routed
+MoE at ep=1.
 
 ``ffn_train`` runs the two TP seams: ``mlp_ag`` with the SwiGLU gate as its
 epilogue (``gate="pair"`` over separate w1/w3, or ``gate="split"`` over the
 packed per-device ``w13``) and ``mlp_rs`` for w2.  ``ffn_decode`` is the
 one-token path with the ``decode_ar`` seam.
+
+``moe_train`` routes in fp32 (softmax, top-k, renormalised gates), buckets
+the (token, k) assignments by expert with a capacity, and hands the
+``[ep, E_loc, cap, D]`` dispatch buffer to ONE ``ctx.op("moe_a2a")`` seam,
+which at ep=1 is the local batched expert SwiGLU; ``moe_decode`` uses the
+statistical decode capacity.  A shared expert, when configured, is a dense
+FFN on the same pre-norm.  The reference's ``segment_sum`` combine is a sum
+over each token's k contiguous assignments here (deterministic on the
+card, where an atomic ``index_add_`` would not be).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import overlap
 from repro_torch.models import init_utils as iu
 from repro_torch.models import layers
@@ -65,3 +76,167 @@ def ffn_decode(p, x: torch.Tensor, ctx: TPContext,
         a = torch.matmul(h, p["w1"])
         g = torch.matmul(h, p["w3"])
     return ctx.op("decode_ar")(F.silu(a) * g, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (ep=1)
+# ---------------------------------------------------------------------------
+# leaves the reference keeps in fp32 whatever the model's dtype
+FP32_PARAMS = ("router",)
+
+
+def _normal_stack(gen: torch.Generator, shape, std: float, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """normal(0, std) [E, ...] drawn one expert at a time, so the fp32
+    draw never holds more than one expert (11 GB of fp32 per full-width
+    DeepSeek-V3 expert stack otherwise)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        out[e] = torch.randn(shape[1:], generator=gen, device=device) * std
+    return out
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, tp: int,
+             dtype: torch.dtype, device: torch.device,
+             fuse13: bool = False) -> Dict:
+    """The reference's GLOBAL expert stacks (ep=1: every expert is local):
+    router [D, E] fp32, w1/w3 [E, D, F], w2 [E, F, D], the pre-norm, and
+    the shared expert as a dense FFN without its own norm."""
+    mc = cfg.moe
+    dm = cfg.d_model
+    e, f = mc.num_experts, mc.expert_ffn
+    std = dm ** -0.5
+    p = {"router": torch.randn((dm, e), generator=gen, device=device) * std,
+         "w1": _normal_stack(gen, (e, dm, f), std, dtype, device),
+         "w3": _normal_stack(gen, (e, dm, f), std, dtype, device),
+         "w2": _normal_stack(gen, (e, f, dm), f ** -0.5, dtype, device),
+         "norm": torch.ones(dm, dtype=dtype, device=device)}
+    if mc.num_shared_experts:
+        shared = init_ffn(gen, dm, mc.shared_ffn * mc.num_shared_experts, tp,
+                          dtype, device, fuse13=fuse13)
+        del shared["norm"]      # the shared path uses the MoE pre-norm
+        p["shared"] = shared
+    return p
+
+
+def _capacity(tokens: int, mc: MoEConfig) -> int:
+    per_expert = tokens * mc.top_k / mc.num_experts
+    c = int(per_expert * mc.capacity_factor) + 1
+    return max(c, 4)
+
+
+def _route(p, ht: torch.Tensor, mc: MoEConfig):
+    """fp32 router: (probs [t, E], gate [t, k] renormalised, eidx [t, k])."""
+    probs = torch.softmax(torch.matmul(ht.float(), p["router"].float()),
+                          dim=-1)
+    gate, eidx = torch.topk(probs, mc.top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, eidx
+
+
+def _bucket(flat_e: torch.Tensor, e: int, cap: int,
+            counted: Optional[torch.Tensor] = None):
+    """Arrival order of each (token, k) assignment at its expert: (slot
+    [t*k] clamped into the capacity, keep [t*k]).  Assignments with
+    ``counted`` False take no capacity and are never kept."""
+    oh = F.one_hot(flat_e, e)
+    if counted is not None:
+        oh = oh * counted[:, None]
+    pos = (torch.cumsum(oh, dim=0) * oh).sum(-1) - 1
+    keep = (pos >= 0) & (pos < cap)
+    return pos.clamp(0, cap - 1), keep
+
+
+def _dispatch(ht: torch.Tensor, flat_e, slot, keep, e: int, cap: int,
+              top_k: int) -> torch.Tensor:
+    """[E, cap, D] buffer holding each kept assignment's token row."""
+    src = torch.arange(ht.shape[0], device=ht.device).repeat_interleave(top_k)
+    disp = torch.zeros((e, cap, ht.shape[-1]), dtype=ht.dtype,
+                       device=ht.device)
+    return disp.index_put_((flat_e, slot),
+                           torch.where(keep[:, None], ht[src], 0),
+                           accumulate=True)
+
+
+def _combine(out: torch.Tensor, flat_e, slot, keep, gate: torch.Tensor
+             ) -> torch.Tensor:
+    """Each token's gate-weighted sum of its kept expert outputs: [t, D]
+    fp32 (the reference's segment_sum over the k assignments)."""
+    t, k = gate.shape
+    vals = torch.where(keep[:, None], out[flat_e, slot], 0)
+    return (vals * gate.reshape(-1)[:, None]).reshape(t, k, -1).sum(1)
+
+
+def _shared(p) -> Dict:
+    return {"norm": p["norm"], **p["shared"]}
+
+
+def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
+              eps: float = 1e-5, lengths: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> ([B, S, D], aux_loss).
+
+    Router -> capacity-bucketed dispatch -> ONE ``moe_a2a`` seam (at ep=1
+    the batched per-expert SwiGLU) -> gate-weighted combine.  ``lengths``
+    ([B], optional): true prompt lengths of a right-padded batch; pad
+    tokens take no expert capacity, are not dispatched or combined, and do
+    not count in the load-balance aux loss."""
+    mc = cfg.moe
+    b, s_loc, dm = x.shape
+    t = b * s_loc
+    e = mc.num_experts
+    h = layers.rms_norm(x, p["norm"], eps)
+    ht = h.reshape(t, dm)
+    probs, gate, eidx = _route(p, ht, mc)
+
+    valid_t = None
+    if lengths is not None:
+        valid_t = (layers.seq_positions(b, s_loc, x.device)
+                   < lengths.to(x.device)[:, None]).reshape(t)
+    # Switch-style load-balance loss over the valid tokens
+    vmask = (torch.ones(t, device=x.device) if valid_t is None
+             else valid_t.float())
+    me = (probs * vmask[:, None]).sum(0)
+    ce = (F.one_hot(eidx[:, 0], e).float() * vmask[:, None]).sum(0)
+    cnt = torch.clamp(vmask.sum(), min=1.0)
+    aux = e * torch.sum((me / cnt) * (ce / cnt))
+
+    cap = _capacity(t, mc)
+    flat_e = eidx.reshape(-1)
+    counted = (None if valid_t is None
+               else valid_t.repeat_interleave(mc.top_k))
+    slot, keep = _bucket(flat_e, e, cap, counted)
+    disp = _dispatch(ht, flat_e, slot, keep, e, cap, mc.top_k)
+    # dim 0 of the [ep, E_loc, cap, D] buffer is the destination EP rank
+    ret = ctx.op("moe_a2a", epilogue=overlap.Epilogue(
+        activation="silu", gate="pair"), n_weights=3)(
+        disp.reshape(1, e, cap, dm), p["w1"], p["w3"], p["w2"])
+    y = _combine(ret.reshape(e, cap, dm), flat_e, slot, keep, gate)
+    y = y.reshape(b, s_loc, dm).to(x.dtype)
+    if "shared" in p:
+        y = y + ffn_train(_shared(p), x, ctx, eps)
+    return y, aux
+
+
+def moe_decode(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
+               eps: float = 1e-5) -> torch.Tensor:
+    """x: [B, 1, D] -> [B, 1, D].  Every expert is local (ep=1); the
+    statistical decode capacity ``min(t*k, max(32, 8*t*k/E))`` sizes the
+    buckets near the mean per-expert load; overflow drops."""
+    mc = cfg.moe
+    b, dm = x.shape[0], x.shape[-1]
+    e, k = mc.num_experts, mc.top_k
+    h = layers.rms_norm(x, p["norm"], eps)
+    ht = h.reshape(b, dm)
+    _, gate, eidx = _route(p, ht, mc)
+    cap = int(min(b * k, max(32, (b * k * 8) // e)))
+    flat_e = eidx.reshape(-1)
+    slot, keep = _bucket(flat_e, e, cap)
+    disp = _dispatch(ht, flat_e, slot, keep, e, cap, k)
+    a1 = torch.einsum("ecd,edf->ecf", disp, p["w1"])
+    a3 = torch.einsum("ecd,edf->ecf", disp, p["w3"])
+    out = torch.einsum("ecf,efd->ecd", F.silu(a1) * a3, p["w2"])
+    y = _combine(out, flat_e, slot, keep, gate).reshape(b, 1, dm).to(x.dtype)
+    if "shared" in p:
+        y = y + ffn_decode(_shared(p), x, ctx, eps)
+    return y

@@ -1,5 +1,6 @@
 """Shared layers (port of ``repro.models.layers``): norm, rotary embedding,
-embedding lookup, and the per-slot / paged KV-cache utilities.
+embedding lookup, sequence positions, and the per-slot / paged KV-cache
+utilities.
 
 The cache writers update their cache IN PLACE and return it: the reference
 is functional and its server donates the cache buffers to ``jit``
@@ -48,6 +49,15 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     in_shard = (tokens >= 0) & (tokens < v_loc)
     x = table[tokens.clamp(0, v_loc - 1)]
     return x.masked_fill(~in_shard[..., None], 0)
+
+
+def seq_positions(batch: int, s_local: int, device: torch.device,
+                  offset: int = 0) -> torch.Tensor:
+    """Absolute positions of the local sequence rows: [B, S_local].  On one
+    card the local rows ARE the global rows (the reference adds the shard
+    offset ``tp_index * s_local`` under sequence sharding, 0 at tp=1)."""
+    pos = offset + torch.arange(s_local, device=device)
+    return pos.expand(batch, s_local)
 
 
 def cache_update_rows(cache: torch.Tensor, new: torch.Tensor,

@@ -1,13 +1,15 @@
 """Model assembly (port of ``repro.models.model``).
 
-A model is ``num_layers`` blocks of its layer pattern.  The port holds the
-weights in ``Model`` (an ``nn.Module``): the tied ``embed`` table
-[V_pad, D], ``final_norm`` [D] and one ``Block`` per layer in expanded-
-pattern order, whose ``mixer`` / ``ffn`` parameter dicts carry the
-reference's leaf names and packed layouts.  (The reference stacks a
-period's layers ``[reps, ...]`` for ``lax.scan``; an eager loop needs no
-stacking — ``convert.params_from_jax`` unstacks.)  Only the dense
-``((ATTN, DENSE_FFN),)`` pattern is ported.
+A model is ``num_layers`` blocks of its layer pattern, after its leading
+dense layers.  The port holds the weights in ``Model`` (an ``nn.Module``):
+the tied ``embed`` table [V_pad, D], ``final_norm`` [D] and one ``Block``
+per layer in expanded-pattern order, whose ``mixer`` / ``ffn`` parameter
+dicts carry the reference's leaf names and packed layouts (nested for the
+MoE's ``shared`` expert).  (The reference stacks a period's layers
+``[reps, ...]`` for ``lax.scan``; an eager loop needs no stacking —
+``convert.params_from_jax`` unstacks.)  The ported layer kinds are
+``PORTED_KINDS``; DeepSeek-V3's multi-token-prediction head is not built:
+serving never reads it.
 """
 from __future__ import annotations
 
@@ -16,12 +18,17 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, ModelConfig,
-                                      ParallelConfig)
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, MOE_FFN,
+                                      ModelConfig, ParallelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, ffn
 from repro_torch.models import init_utils as iu
-from repro_torch.parallel.sharding import TP_NOT_PORTED, pad_vocab
+from repro_torch.parallel.sharding import (EP_NOT_PORTED, TP_NOT_PORTED,
+                                           pad_vocab)
+
+# (mixer, ffn) layer kinds the port runs
+PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
+                          (MLA, MOE_FFN)})
 
 
 def expanded_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -42,26 +49,29 @@ def n_periods(cfg: ModelConfig) -> int:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is the dense (ATTN, DENSE_FFN) pair."""
-    kinds = set(expanded_pattern(cfg))
-    if kinds != {(ATTN, DENSE_FFN)}:
+    """Raise unless every layer is one of ``PORTED_KINDS``."""
+    other = set(expanded_pattern(cfg)) - PORTED_KINDS
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} — only (attn, ffn) "
-            "is ported (ROADMAP 'Modules still to port', the other "
-            "families)")
+            f"{cfg.name}: layer kinds {sorted(other)} are not ported; the "
+            f"port runs {sorted(PORTED_KINDS)} (ROADMAP 'Modules still to "
+            "port', the other families)")
 
 
-def _frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in params.items()})
+def _frozen(params: Dict) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: _frozen(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False)
+        for k, v in params.items()})
 
 
 class Block(nn.Module):
-    """One layer: ``mixer`` (wqkv, wo, norm[, bqkv]) and ``ffn`` (w1, w3 |
-    w13, w2, norm) parameter dicts."""
+    """One layer: ``mixer`` (GQA: wqkv, wo, norm[, bqkv]; MLA: w_dq, w_uq,
+    w_dkv, w_ukv, w_o, q_norm, kv_norm, norm) and ``ffn`` (dense: w1, w3 |
+    w13, w2, norm; MoE: router, w1, w3, w2, norm[, shared]) parameter
+    dicts."""
 
-    def __init__(self, mixer: Dict[str, torch.Tensor],
-                 ffn_params: Dict[str, torch.Tensor]):
+    def __init__(self, mixer: Dict, ffn_params: Dict):
         super().__init__()
         self.mixer = _frozen(mixer)
         self.ffn = _frozen(ffn_params)
@@ -84,11 +94,14 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
                device: Optional[Union[str, torch.device]] = None) -> Model:
     """Seeded random init (``torch.Generator``) with the reference's shapes,
     packing and zero padding: normal(0, 1/sqrt(fan_in)) weights, ones for
-    norms, zeros for the QKV bias and for every padded row/column.  The
-    numbers differ from JAX's for the same seed; tests hand the reference's
-    weights across with ``convert.params_from_jax``."""
+    norms, zeros for the QKV bias and for every padded row/column; the MoE
+    router is fp32 whatever ``dtype``.  The numbers differ from JAX's for
+    the same seed; tests hand the reference's weights across with
+    ``convert.params_from_jax``."""
     if par.tp != 1:
         raise NotImplementedError(TP_NOT_PORTED)
+    if par.ep != 1:
+        raise NotImplementedError(EP_NOT_PORTED)
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -98,10 +111,17 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
         torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
         * cfg.d_model ** -0.5, v_pad).to(dtype)
     blocks = []
-    for _ in range(cfg.num_layers):
-        mixer = attention.init_gqa(gen, cfg, par.tp, dtype, dev)
-        f = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
-                         fuse13=par.fuse_w13)
+    for mixer_kind, ffn_kind in expanded_pattern(cfg):
+        if mixer_kind == MLA:
+            mixer = attention.init_mla(gen, cfg, par.tp, dtype, dev)
+        else:
+            mixer = attention.init_gqa(gen, cfg, par.tp, dtype, dev)
+        if ffn_kind == MOE_FFN:
+            f = ffn.init_moe(gen, cfg, par.tp, dtype, dev,
+                             fuse13=par.fuse_w13)
+        else:
+            f = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
+                             fuse13=par.fuse_w13)
         blocks.append(Block(mixer, f))
     return Model(embed, torch.ones(cfg.d_model, dtype=dtype, device=dev),
                  blocks)

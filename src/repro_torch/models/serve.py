@@ -1,9 +1,11 @@
 """Serving paths (port of ``repro.models.serve``): batched prefill, dense and
 paged single-token decode, and the paged chunked prefill.
 
-Caches are a list with one ``{"k", "v"}`` dict per layer (expanded-pattern
-order), shaped by ``cache_specs`` ([B, S_max, Hkv, Dh]) or
-``paged_cache_specs`` ([N_blocks, block_size, Hkv, Dh]), always bf16.
+Caches are a list with one dict per layer (expanded-pattern order): GQA
+``{"k", "v"}`` shaped [B, S_max, Hkv, Dh] by ``cache_specs`` or
+[N_blocks, block_size, Hkv, Dh] by ``paged_cache_specs``; MLA's latent
+``{"c", "kr"}`` shaped [B, S_max, R] / [B, S_max, Dr] or their pools;
+always bf16.
 ``decode_step`` and ``prefill_chunk_step`` write their caches IN PLACE and
 return them — the reference's server donates the cache buffers to
 ``jit`` for the same reuse.
@@ -15,8 +17,9 @@ Contracts kept from the reference:
   keeps inactive rows of DENSE caches unchanged; paged pools need no mask
   (inactive slots pass all-zero table rows, which write the null block).
 * ``prefill_step`` takes optional ``lengths: [B]`` — true prompt lengths of
-  a right-padded batch: attention is pad-safe by causality, and the next
-  token is read at ``lengths - 1`` per row.
+  a right-padded batch: attention is pad-safe by causality, MoE routing
+  keeps pad tokens out of expert capacity, and the next token is read at
+  ``lengths - 1`` per row.
 * the next token is the first maximum of the logits against the tied
   ``embed`` table, with the padded vocab columns masked to -inf.
 """
@@ -26,7 +29,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models.model import Model, check_ported, expanded_pattern
 from repro_torch.parallel.sharding import TPContext
@@ -39,21 +43,28 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
+def _mixer_cache_shapes(kind: str, cfg: ModelConfig, tp: int, rows: int,
+                        width: int) -> Dict[str, Tuple[int, ...]]:
+    if kind == ATTN:
+        shape = attention.gqa_cache_shape(cfg, tp, rows, width)
+        return {"k": shape, "v": shape}
+    if kind == MLA:
+        return attention.mla_cache_shapes(cfg, rows, width)
+    raise ValueError(kind)
+
+
 def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
                 pool: Optional[Tuple[int, int]] = None
                 ) -> List[Dict[str, TensorSpec]]:
-    """Per-layer ``{"k", "v"}`` specs: dense [batch, s_max, Hkv, Dh], or with
-    ``pool=(num_blocks, block_size)`` shared [num_blocks, block_size, Hkv,
-    Dh] pools addressed through per-slot block tables.  bf16 whatever the
-    compute dtype."""
+    """Per-layer cache specs (GQA ``{"k", "v"}``, MLA ``{"c", "kr"}``):
+    dense [batch, s_max, ...], or with ``pool=(num_blocks, block_size)``
+    shared [num_blocks, block_size, ...] pools addressed through per-slot
+    block tables.  bf16 whatever the compute dtype."""
     check_ported(cfg)
-    if pool is not None:
-        nb, bs = pool
-        shape = attention.gqa_cache_shape(cfg, par.tp, nb, bs)
-    else:
-        shape = attention.gqa_cache_shape(cfg, par.tp, batch, s_max)
-    spec = TensorSpec(shape, torch.bfloat16)
-    return [{"k": spec, "v": spec} for _ in expanded_pattern(cfg)]
+    rows, width = pool if pool is not None else (batch, s_max)
+    return [{n: TensorSpec(shape, torch.bfloat16) for n, shape in
+             _mixer_cache_shapes(mk, cfg, par.tp, rows, width).items()}
+            for mk, _ in expanded_pattern(cfg)]
 
 
 def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
@@ -83,6 +94,21 @@ def vocab_parallel_argmax(logits: torch.Tensor,
     return torch.argmax(logits, dim=-1)
 
 
+def _mixer_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig):
+    if kind == ATTN:
+        return attention.gqa_train(p, x, ctx, cfg, with_cache=True)
+    return attention.mla_train(p, x, ctx, cfg, with_cache=True)
+
+
+def _ffn_full(kind: str, p, x, ctx: TPContext, cfg: ModelConfig,
+              lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """The FFN over a prefill batch or chunk; ``lengths`` keeps MoE pad
+    tokens out of expert capacity."""
+    if kind == DENSE_FFN:
+        return ffn.ffn_train(p, x, ctx, cfg.norm_eps)
+    return ffn.moe_train(p, x, ctx, cfg, cfg.norm_eps, lengths=lengths)[0]
+
+
 @torch.no_grad()
 def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
                    ctx: TPContext, cfg: ModelConfig,
@@ -93,17 +119,19 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     check_ported(cfg)
     x = layers.embed_lookup(params.embed, batch["tokens"])
     x = x.to(_compute_dtype(cfg))
+    if lengths is not None:
+        lengths = lengths.to(x.device)
     caches: Caches = []
-    for blk in params.layers:
-        dy, mc = attention.gqa_train(blk.mixer, x, ctx, cfg, with_cache=True)
+    for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers):
+        dy, mc = _mixer_prefill(mk, blk.mixer, x, ctx, cfg)
         x = x + dy
-        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+        x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lengths)
         caches.append(mc)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     if lengths is None:
         h_last = h[:, -1]
     else:
-        h_last = layers.take_rows(h, lengths.to(h.device) - 1)
+        h_last = layers.take_rows(h, lengths - 1)
     return torch.matmul(h_last, params.embed.T), caches
 
 
@@ -112,9 +140,21 @@ def prefill_step(params: Model, batch: Dict[str, torch.Tensor],
                  lengths: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Caches]:
     """Full-sequence prefill: returns (next_token [B, 1], caches).  With
-    ``ctx.use_kernels`` every layer's attention is the flash kernel."""
+    ``ctx.use_kernels`` every GQA layer's attention is the flash kernel
+    (MLA prefill attends in plain code, as the reference does)."""
     logits, caches = prefill_logits(params, batch, ctx, cfg, lengths)
     return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+
+
+def _mixer_decode(kind: str, p, x, cache, pos, ctx: TPContext,
+                  cfg: ModelConfig, bt: Optional[torch.Tensor]):
+    if kind == ATTN:
+        if bt is not None:
+            return attention.gqa_decode_paged(p, x, cache, bt, pos, ctx, cfg)
+        return attention.gqa_decode(p, x, cache, pos, ctx, cfg)
+    if bt is not None:
+        return attention.mla_decode_paged(p, x, cache, bt, pos, ctx, cfg)
+    return attention.mla_decode(p, x, cache, pos, ctx, cfg)
 
 
 @torch.no_grad()
@@ -125,8 +165,9 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
                 ) -> Tuple[torch.Tensor, Caches]:
     """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
     positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
-    caches are paged pools.  Returns (next_token [B, 1], caches), the
-    caches updated in place."""
+    caches are paged pools.  With ``ctx.use_kernels`` every MLA layer's
+    attention is the MLA-decode kernel.  Returns (next_token [B, 1],
+    caches), the caches updated in place."""
     check_ported(cfg)
     dev = params.embed.device
     b = tokens.shape[0]
@@ -136,18 +177,19 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     inactive = None
     if active is not None and block_tables is None:
         inactive = ~torch.as_tensor(active, device=dev).reshape(-1).bool()
-    for i, blk in enumerate(params.layers):
+    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
+                                            params.layers)):
         lc = caches[i]
-        if block_tables is not None:
-            dy, _ = attention.gqa_decode_paged(blk.mixer, x, lc, block_tables,
-                                               pos, ctx, cfg)
-        else:
-            saved = _rows_at(lc, pos) if inactive is not None else None
-            dy, _ = attention.gqa_decode(blk.mixer, x, lc, pos, ctx, cfg)
-            if saved is not None:
-                _restore_rows(lc, pos, saved, inactive)
+        saved = _rows_at(lc, pos) if inactive is not None else None
+        dy, _ = _mixer_decode(mk, blk.mixer, x, lc, pos, ctx, cfg,
+                              block_tables)
+        if saved is not None:
+            _restore_rows(lc, pos, saved, inactive)
         x = x + dy
-        x = x + ffn.ffn_decode(blk.ffn, x, ctx, cfg.norm_eps)
+        if fk == DENSE_FFN:
+            x = x + ffn.ffn_decode(blk.ffn, x, ctx, cfg.norm_eps)
+        else:
+            x = x + ffn.moe_decode(blk.ffn, x, ctx, cfg, cfg.norm_eps)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = torch.matmul(h[:, -1], params.embed.T)
     return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
@@ -183,12 +225,16 @@ def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
     check_ported(cfg)
     ctx = ctx.with_layout(False)
     x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
-    for i, blk in enumerate(params.layers):
-        dy, _ = attention.gqa_prefill_chunk(blk.mixer, x, caches[i],
-                                            block_tables, off, chunk_len,
-                                            ctx, cfg)
+    lenv = torch.full((x.shape[0],), chunk_len, device=x.device)
+    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
+                                            params.layers)):
+        chunk = (attention.gqa_prefill_chunk if mk == ATTN
+                 else attention.mla_prefill_chunk)
+        dy, _ = chunk(blk.mixer, x, caches[i], block_tables, off, chunk_len,
+                      ctx, cfg)
         x = x + dy
-        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+        # MoE: rows past chunk_len are padding, kept out of expert capacity
+        x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lenv)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
     logits = torch.matmul(layers.take_rows(h, last), params.embed.T)

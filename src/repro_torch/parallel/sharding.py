@@ -3,7 +3,9 @@
 Every TP seam routes through ``repro_torch.core.overlap`` (``ctx.op(seam)``),
 as in the reference.  The port runs one card: tp>1 (the tensor-parallel
 seams over NCCL, the fused AllGather-GEMM / GEMM-ReduceScatter kernels)
-raises until its slice lands.
+and ep>1 (the MoE expert exchange over NCCL) raise until their slices
+land.  At ep=1 the expert-parallel group is empty, so the ``moe_a2a``
+seam is the local expert FFN.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from repro_torch.core.overlap import SEAM_KINDS, Epilogue, FusedOp
 TP_NOT_PORTED = ("tensor parallelism (tp>1) is not ported yet: ROADMAP "
                  "'Modules still to port', item 2 (core/overlap.py ag/rs "
                  "seams over NCCL) with the ag_gemm / gemm_rs kernels")
+EP_NOT_PORTED = ("expert parallelism (ep>1) is not ported yet: ROADMAP "
+                 "'Modules still to port', item 8 (the MoE a2a seam over "
+                 "NCCL, FusedOp(kind='a2a') at ep>1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,18 +27,24 @@ class TPContext:
     """How the current region is parallelized.
 
     tp          : tensor-parallel degree; only 1 runs so far, tp>1 raises
-    use_kernels : route hot paths through the hand-written kernels (this
-                  slice: ``gqa_train``'s attention -> flash kernel)
+    ep          : expert-parallel degree; only 1 runs so far (an empty EP
+                  group: ``moe_a2a`` is the local expert FFN), ep>1 raises
+    use_kernels : route hot paths through the hand-written kernels
+                  (``gqa_train``'s attention -> flash kernel; MLA decode
+                  attention -> MLA-decode kernel)
     seq_sharded : residual-stream layout (sequence-sharded by default; the
                   serving decode and chunked prefill switch it off)
     """
     tp: int = 1
+    ep: int = 1
     use_kernels: bool = False
     seq_sharded: bool = True
 
     def __post_init__(self):
         if self.tp != 1:
             raise NotImplementedError(TP_NOT_PORTED)
+        if self.ep != 1:
+            raise NotImplementedError(EP_NOT_PORTED)
 
     @property
     def seq_factor(self) -> int:
@@ -57,7 +68,7 @@ class TPContext:
 def make_ctx(par) -> TPContext:
     """The context a ``ParallelConfig`` implies (the reference's
     ``trainer.make_ctx``): ``use_kernels`` from ``kernel_decode``."""
-    return TPContext(tp=par.tp, use_kernels=par.kernel_decode)
+    return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode)
 
 
 def ceil_mult(x: int, m: int) -> int:

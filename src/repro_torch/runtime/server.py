@@ -14,7 +14,9 @@ Two model calls serve everything, as in the reference:
 
 Prefix reuse: full prompt blocks register in the pool's hash-chain cache;
 a later admission sharing the prefix acquires them and starts prefilling
-at the first unmatched position (shared blocks are never written).
+at the first unmatched position (shared blocks are never written).  Only
+models whose every layer keeps its sequence memory in the pool (GQA, MLA)
+reuse prefixes (``_arch_supports_reuse``).
 
 The reference jits both programs with the cache donated
 (``donate_argnums``); here the model calls update ``self.caches`` in place.
@@ -28,9 +30,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.configs.base import (ATTN, MLA, RWKV, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.models import serve as S
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, expanded_pattern
 from repro_torch.parallel.sharding import TPContext
 from repro_torch.runtime.kvpool import BlockTable, KVPool
 
@@ -83,6 +86,16 @@ class PrefillJob:
     off: int
 
 
+def _arch_supports_reuse(cfg: ModelConfig) -> bool:
+    """Prefix blocks are reusable only when EVERY layer's sequence memory
+    lives in the paged pool.  Recurrent families (Mamba SSM/conv, RWKV
+    wkv/token-shift) fold history into dense states that are not
+    block-addressable, so hybrids keep paging + eviction but skip the
+    prefix cache."""
+    return all(mk in (ATTN, MLA) and fk != RWKV
+               for mk, fk in expanded_pattern(cfg))
+
+
 class Server:
     def __init__(self, cfg: ModelConfig, par: ParallelConfig, params: Model,
                  sc: ServeConfig):
@@ -92,7 +105,7 @@ class Server:
         self.params = params
         self.device = params.embed.device
         # per-replica serving: both model calls force the replicated layout
-        self.ctx = TPContext(tp=par.tp)
+        self.ctx = TPContext(tp=par.tp, ep=par.ep)
         self.pages = -(-sc.max_seq // sc.block_size)   # table width
         nb = sc.num_blocks or (sc.max_batch * self.pages + 1)
         self.pool = KVPool(nb, sc.block_size)
@@ -104,7 +117,7 @@ class Server:
         self.slots: List[Optional[Request]] = [None] * sc.max_batch
         self.ready: List[bool] = [False] * sc.max_batch  # prefill complete
         self.tables: List[Optional[BlockTable]] = [None] * sc.max_batch
-        self._reuse_ok = sc.prefix_reuse     # attention-only models
+        self._reuse_ok = sc.prefix_reuse and _arch_supports_reuse(cfg)
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
 

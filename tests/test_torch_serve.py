@@ -1,14 +1,17 @@
 """The serving slice as a whole: the port against the reference, end to end.
 
-On the minicpm_2b and codeqwen15_7b SMOKE_CONFIGs with fp32 compute and
-fp32 params (so the comparison is of algorithms, not of bf16 rounding),
-the reference's parameters cross with ``convert.params_from_jax``:
+On the minicpm_2b, codeqwen15_7b and deepseek_v3_671b (MLA + MoE: one
+leading MLA + dense-FFN layer, one MLA + MoE layer) SMOKE_CONFIGs with fp32
+compute and fp32 params (so the comparison is of algorithms, not of bf16
+rounding), the reference's parameters cross with
+``convert.params_from_jax``:
 
 * ``prefill_step`` on a right-padded batch — the reference with
   ``TPContext(use_kernels=True)`` (its Pallas flash kernel, interpreted)
   vs the port with ``kernel_decode=True`` (the flash wrapper, which on CPU
-  tensors runs its plain version): next tokens equal, caches within 2e-2
-  (caches are bf16 on both sides: one bf16 ulp at |x| ~ 2-4);
+  tensors runs its plain version; MLA prefill attends in plain code on
+  both sides): next tokens equal, caches (GQA K/V, MLA latent c/kr)
+  within 2e-2 (caches are bf16 on both sides: one bf16 ulp at |x| ~ 2-4);
 * 8 dense ``decode_step``s from those caches, copied into an ``s_max``
   cache by the same glue for both frameworks: identical tokens;
 * the paged ``Server`` serving 4 staggered requests (multi-chunk prompts,
@@ -41,7 +44,7 @@ from repro_torch.models import serve as TS
 from repro_torch.parallel.sharding import make_ctx
 from repro_torch.runtime.server import Request, ServeConfig, Server
 
-ARCHS = ["minicpm_2b", "codeqwen15_7b"]
+ARCHS = ["minicpm_2b", "codeqwen15_7b", "deepseek_v3_671b"]
 B, S, S_MAX, N_DECODE = 2, 64, 80, 8
 CACHE_TOL = 2e-2
 
@@ -127,7 +130,8 @@ def test_prefill_matches_reference_kernel_lane(model, prefilled):
     want = convert.caches_from_jax(_np_tree(jcaches), model[1], device="cpu")
     assert len(tcaches) == len(want) == jcfg.num_layers
     for got_l, want_l in zip(tcaches, want):
-        for n in ("k", "v"):
+        assert got_l.keys() == want_l.keys()
+        for n in got_l:
             assert got_l[n].dtype == torch.bfloat16
             torch.testing.assert_close(got_l[n].float(), want_l[n].float(),
                                        atol=CACHE_TOL, rtol=CACHE_TOL)
@@ -137,10 +141,14 @@ def test_dense_decode_matches_reference(model, prefilled):
     jcfg, tcfg, jpar, jparams, tparams = model
     _, lengths, jnxt, jcaches, tnxt, tcaches = prefilled
     # the same glue for both frameworks' own prefill caches
-    jc = jax.tree.map(   # leaves are stacked [reps, B, S, H, Dh]
-        lambda a: jnp.asarray(np.stack([_to_s_max(x) for x in
-                                        np.asarray(a, np.float32)]),
-                              jnp.bfloat16), jcaches)
+    jc = {  # lead leaves are [B, S, ...], period leaves [reps, B, S, ...]
+        "lead": jax.tree.map(
+            lambda a: jnp.asarray(_to_s_max(np.asarray(a, np.float32)),
+                                  jnp.bfloat16), jcaches["lead"]),
+        "periods": jax.tree.map(
+            lambda a: jnp.asarray(np.stack([_to_s_max(x) for x in
+                                            np.asarray(a, np.float32)]),
+                                  jnp.bfloat16), jcaches["periods"])}
     tc = [{n: torch.from_numpy(_to_s_max(t.float().numpy())).bfloat16()
            for n, t in layer.items()} for layer in tcaches]
 
@@ -178,7 +186,7 @@ def test_decode_active_mask_freezes_dense_rows(model, prefilled):
                    make_ctx(ParallelConfig()), tcfg,
                    active=torch.tensor([False, True]))
     for got, old in zip(tc, before):
-        for n in ("k", "v"):
+        for n in got:
             assert torch.equal(got[n][0], old[n][0])
             assert not torch.equal(got[n][1], old[n][1])
 
