@@ -29,7 +29,16 @@ a checkout of this repository.  Phases, one JSON object per line each:
              and one paged step through block tables;
 7. mla_server_lane — the paged ``Server`` over the same four layers: 8
              requests served together, one at a time, and again on the
-             same server (prefix reuse); a smoke check, no kernel runs.
+             same server (prefix reuse); a smoke check, no kernel runs;
+8. matmul_kernel — the GEMM kernel against its plain version at the
+             op-level shapes (GPT-3 175B at TP 8, bf16), a ragged shape and
+             fp32, with its time, the plain version's, cuBLAS's
+             (``torch.matmul``), the bound and the compiler's registers and
+             spills;
+9. op_level_lane — ``repro_torch.launch.op_level`` over its full sweep
+             (12 GEMM_non-split shapes through the flux wrappers at one
+             device, each beside ``torch.matmul``), then each row's result
+             against the plain version once.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -71,7 +80,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_TF32 = 495e12                                      # fp32 inputs, tensor cores
 PEAK_BYTES = 3.35e12                                    # H100 SXM HBM3
 L2_FLUSH_BYTES = 128 << 20                              # > the 50 MB L2
-KERNEL_SOURCES = ("flash_attention", "mla_decode")
+KERNEL_SOURCES = ("flash_attention", "mla_decode", "matmul")
+L2_BYTES = 50 << 20                                     # H100 L2 cache
+# GEMM kernel vs plain: bf16 outputs within 2 bf16 ulps (rtol 2^-7) plus
+# atol 1e-3 * max|C| for values near 0; fp32 atol 1e-5 * sqrt(K), rtol 1e-5
+# (summation order only; tests/test_kernels.py's matmul tolerance)
+GEMM_BF16_RTOL = 2.0 ** -7
+GEMM_BF16_ATOL_REL = 1e-3
+GEMM_F32_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -195,6 +211,47 @@ def mla_bound(q_eff, q_rope, c, kr, valid):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
             flops / PEAK_FLOPS["float32"] * 1e3, flops, nbytes)
+
+
+def gemm_bound(m, k, n, dtype):
+    """Least time of an [m, k] x [k, n] GEMM on an H100: the larger of
+    2 m n k operations over the peak rate of the input type and the bytes
+    (A and B read once, C written once, in the input type) over HBM
+    bandwidth."""
+    t_ops = 2.0 * m * n * k / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = ({"bfloat16": 2, "float32": 4}[dtype] * (m * k + k * n + m * n)
+               / PEAK_BYTES * 1e3)
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def gemm_check(torch, out, want, k):
+    """The GEMM tolerance (see GEMM_BF16_RTOL): (ok, max abs err, atol,
+    rtol)."""
+    o, w = out.float(), want.float()
+    err = (o - w).abs().max().item()
+    if out.dtype == torch.bfloat16:
+        atol = GEMM_BF16_ATOL_REL * w.abs().max().item()
+        rtol = GEMM_BF16_RTOL
+    else:
+        atol, rtol = GEMM_F32_TOL * k ** 0.5, GEMM_F32_TOL
+    ok = bool(((o - w).abs() <= atol + rtol * w.abs()).all())
+    return ok, err, atol, rtol
+
+
+def ptxas_report(name):
+    """Registers, stack and spills of each kernel in ``csrc/<name>.cu``,
+    from its build's ``-Xptxas -v`` log: {entry: "..."}."""
+    from repro_torch.kernels import build
+    log = build.library_path(name).with_suffix(".log")
+    out, entry = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            out[entry] = ""
+        elif entry and ("spill" in ln or "registers" in ln):
+            out[entry] = (out[entry] + "; " + ln.split(": ")[-1].strip()
+                          ).strip("; ")
+    return out
 
 
 def sdpa_backend(torch, *args, **kw):
@@ -850,6 +907,119 @@ def phase_mla_server_lane(torch, params, cfg):
           "concurrent_equals_isolated": f"{agree}/{len(reqs)}"})
 
 
+def phase_matmul_kernel(torch):
+    """GEMM kernel vs its plain version; returns the main-path case (the
+    AG seam's per-rank GEMM at m 8192)."""
+    from repro_torch.kernels import matmul as mm
+
+    cases = [  # name, dtype, M, K, N
+        ("ag_m8192", torch.bfloat16, 8192, 12288, 6144),
+        ("rs_m8192", torch.bfloat16, 8192, 6144, 12288),
+        ("ag_m64", torch.bfloat16, 64, 12288, 6144),
+        ("ragged", torch.bfloat16, 777, 1000, 1032),
+        ("fp32_1024", torch.float32, 1024, 1024, 1024),
+    ]
+    gen = torch.Generator(device="cuda")
+    ptxas = ptxas_report("matmul")
+    results = {}
+    for name, dtype, m, k, n in cases:
+        gen.manual_seed(200 + len(results))
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        out = mm.matmul(a, b)
+        torch.cuda.synchronize()
+        want = mm.matmul_ref(a, b)
+        ok, err, atol, rtol = gemm_check(torch, out, want, k)
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        check(ok, f"{name}: kernel vs plain max_abs_err {err} beyond atol "
+              f"{atol} + rtol {rtol} * |C|")
+        dt = str(dtype).replace("torch.", "")
+        block = mm.plan_blocks(m, n) if dtype == torch.bfloat16 else None
+        kernel_ms = time_ms(torch, lambda: mm.matmul(a, b), 20)
+        plain_ms = time_ms(torch, lambda: mm.matmul_ref(a, b), 3)
+        library_ms = time_ms(torch, lambda: torch.matmul(a, b), 20)
+        bound_ms, bound_by = gemm_bound(m, k, n, dt)
+        nbytes = a.nbytes + b.nbytes + out.nbytes
+        res = {"phase": "matmul_kernel", "kernel": "matmul", "case": name,
+               "dtype": dt, "shape_mkn": [m, k, n], "block": block,
+               "atol": atol, "rtol": rtol, "max_abs_err": err,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library": "torch.matmul (cuBLAS)",
+               "timing": "mean of 20 warm calls (CUDA events); L2 "
+                         + ("cannot hold the operands" if nbytes > L2_BYTES
+                            else "warm: the operands fit"),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / kernel_ms,
+               "tflops": 2.0 * m * n * k / kernel_ms / 1e9,
+               "library_tflops": 2.0 * m * n * k / library_ms / 1e9}
+        emit(res)
+        results[name] = res
+        del a, b, out, want
+    emit({"phase": "matmul_kernel", "ptxas": ptxas})
+    torch.cuda.empty_cache()
+    return results["ag_m8192"]
+
+
+def phase_op_level_lane(torch):
+    """The main path of the GEMM kernel: ``launch.op_level``'s full sweep
+    on the card, counts set to 0 just before and read just after; then
+    each row's GEMM against the plain version once (not counted)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.launch import op_level
+
+    fa.flash_attention.launches = 0
+    md.mla_decode_attention.launches = 0
+    mm.matmul.launches = 0
+    csv = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(csv):
+        rows = op_level.main()
+    wall_s = time.perf_counter() - t0
+    launches = mm.matmul.launches
+    want_launches = sum(r["calls"] for r in rows)
+    check(launches == want_launches,
+          f"op_level launched the GEMM kernel {launches} times, expected "
+          f"{want_launches} (one per timed call of its {len(rows)} rows)")
+    check(fa.flash_attention.launches + md.mla_decode_attention.launches == 0,
+          "an attention kernel ran on the op-level path")
+    lines = csv.getvalue().strip().splitlines()
+    check(lines[0] == "name,us_per_call,derived" and len(lines) == 25,
+          f"op_level CSV: {lines[:2]} ... ({len(lines)} lines)")
+
+    dev = torch.device("cuda")
+    out_rows = []
+    for r in rows:
+        m, k, n = r["shape"]
+        a, b = op_level.gemm_inputs(m, k, n, dev)
+        out = op_level.seam_gemm(r["seam"], a, b)
+        torch.cuda.synchronize()
+        ok, err, atol, rtol = gemm_check(torch, out, mm.matmul_ref(a, b), k)
+        check(ok, f"op_level {r['seam']} m{r['m']}: kernel vs plain "
+              f"max_abs_err {err} beyond atol {atol} + rtol {rtol} * |C|")
+        out_rows.append({"seam": r["seam"], "m": r["m"],
+                         "shape_mkn": r["shape"],
+                         "block": list(mm.plan_blocks(m, n)),
+                         "kernel_ms": r["kernel_s"] * 1e3,
+                         "library_ms": r["library_s"] * 1e3,
+                         "bound_ms": r["bound_s"] * 1e3,
+                         "bound_by": r["bound_by"],
+                         "bound_share": r["bound_s"] / r["kernel_s"],
+                         "library_bound_share": r["bound_s"] / r["library_s"],
+                         "max_abs_err": err, "atol": atol, "rtol": rtol})
+        del a, b, out
+    torch.cuda.empty_cache()
+    emit({"phase": "op_level_lane", "rows": out_rows,
+          "matmul_launches": launches, "timed_calls_per_row": rows[0]["calls"],
+          "timing": "median of warm calls (CUDA events); the operands of "
+                    "every row exceed the 50 MB L2",
+          "wall_s": wall_s, "csv": lines})
+    return launches, out_rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -869,6 +1039,8 @@ def main():
     phase_mla_server_lane(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
+    matmul_case = phase_matmul_kernel(torch)
+    matmul_launches, _ = phase_op_level_lane(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [
@@ -887,7 +1059,16 @@ def main():
          "launches": mla_launches, "max_abs_err": mla_case["max_abs_err"],
          "ms": mla_case["kernel_ms"], "plain_ms": mla_case["plain_ms"],
          "bound_ms": mla_case["bound_ms"], "bound_by": mla_case["bound_by"],
-         "library_ms": mla_case["library_ms"]}]})
+         "library_ms": mla_case["library_ms"]},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:19",
+         "launches": matmul_launches,
+         "max_abs_err": matmul_case["max_abs_err"],
+         "ms": matmul_case["kernel_ms"], "plain_ms": matmul_case["plain_ms"],
+         "bound_ms": matmul_case["bound_ms"],
+         "bound_by": matmul_case["bound_by"],
+         "library_ms": matmul_case["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
