@@ -35,10 +35,28 @@ a checkout of this repository.  Phases, one JSON object per line each:
              fp32, with its time, the plain version's, cuBLAS's
              (``torch.matmul``), the bound and the compiler's registers and
              spills;
-9. op_level_lane — ``repro_torch.launch.op_level`` over its full sweep
-             (12 GEMM_non-split shapes through the flux wrappers at one
-             device, each beside ``torch.matmul``), then each row's result
-             against the plain version once.
+9. op_level_lane — ``repro_torch.launch.op_level --tp 1`` over its full
+             sweep (12 GEMM_non-split shapes through the flux wrappers at
+             one device, each beside ``torch.matmul``), then each row's
+             result against the plain version once;
+10. ag_gemm_kernel, gemm_rs_kernel — the fused AllGather-GEMM and
+             GEMM-ReduceScatter kernels, 8 (or 4) ranks of a ``RankGroup``
+             on the one card, against their plain versions at the §5.1
+             shapes (m 8192 and 64), a ragged shape, silu + bias, the
+             reversed ring, the tp lane's shape and fp32; each with the
+             fused n-rank time, the ``xla`` mode's, n x the GEMM kernel's,
+             the plain version's and the bound;
+11. tp_op_level_lane — ``launch.op_level`` at TP 8: 2 seams x 6 m x 3
+             modes = 36 rows through ``FusedOp``, the fused kernels'
+             launches counted, then every row against the plain version;
+12. tp_lane — full-width minicpm_2b at tp=4 (4 ranks on the one card,
+             seeded weights drawn as at tp=1, w1|w3 packed, cut per
+             rank): one flux prefill with the kernels (320 AG-GEMM, 320
+             GEMM-RS and 160 flash launches), then xla and decomposed;
+             last-position logits
+             against the tp=1 kernel lane's and flux against xla.  The
+             ranks share the card, so no ECT or overlap efficiency comes
+             from these times.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -80,7 +98,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_TF32 = 495e12                                      # fp32 inputs, tensor cores
 PEAK_BYTES = 3.35e12                                    # H100 SXM HBM3
 L2_FLUSH_BYTES = 128 << 20                              # > the 50 MB L2
-KERNEL_SOURCES = ("flash_attention", "mla_decode", "matmul")
+KERNEL_SOURCES = ("flash_attention", "mla_decode", "matmul", "ag_gemm",
+                  "gemm_rs")
 L2_BYTES = 50 << 20                                     # H100 L2 cache
 # GEMM kernel vs plain: bf16 outputs within 2 bf16 ulps (rtol 2^-7) plus
 # atol 1e-3 * max|C| for values near 0; fp32 atol 1e-5 * sqrt(K), rtol 1e-5
@@ -88,6 +107,18 @@ L2_BYTES = 50 << 20                                     # H100 L2 cache
 GEMM_BF16_RTOL = 2.0 ** -7
 GEMM_BF16_ATOL_REL = 1e-3
 GEMM_F32_TOL = 1e-5
+# GEMM-RS kernel vs plain: each rank's partial tile is rounded to bf16 once
+# in both, from fp32 sums taken in another order (one bf16 ulp of the
+# partial apart at worst), and n of them are summed: atol adds
+# n * 2^-8 * max|partial| to the GEMM rule; fp32 partials add n * the fp32
+# GEMM rule
+RS_PARTIAL_ULP = 2.0 ** -8
+# the tp lane: tp=4 prefill vs the tp=1 kernel lane's logits (same
+# canonical weights, reduce-scatter sums in another order over 40 bf16
+# layers), and flux vs xla: relative L2 of the last-position logits
+TP_LANE_RTOL = 5e-2
+TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
+TP_LANE = 4              # minicpm_2b prefill's ranks
 
 
 class SmokeFailure(RuntimeError):
@@ -549,6 +580,7 @@ def phase_kernel_lane(torch):
           f"kernel vs plain last-layer caches differ by {last_rel} "
           f"(relative L2) > {LANE_RTOL}")
     tok_agree = int((nxt[:, 0] == lp.argmax(-1)).sum())
+    lane_logits = lk.cpu()
     del caches_p, logits_p, logits_k
 
     # dense decode from the kernel prefill's caches: glue them into s_max
@@ -594,7 +626,7 @@ def phase_kernel_lane(torch):
           "tokens_row0": out[0].tolist()})
     del params, caches
     torch.cuda.empty_cache()
-    return launches
+    return launches, lane_logits
 
 
 def phase_server_lane(torch):
@@ -977,7 +1009,7 @@ def phase_op_level_lane(torch):
     csv = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(csv):
-        rows = op_level.main()
+        rows = op_level.main(tp=1)
     wall_s = time.perf_counter() - t0
     launches = mm.matmul.launches
     want_launches = sum(r["calls"] for r in rows)
@@ -1020,6 +1052,418 @@ def phase_op_level_lane(torch):
     return launches, out_rows
 
 
+def fused_check(torch, out, want, k, n_ranks=1, max_partial=0.0):
+    """The fused kernels' tolerance: the GEMM rule (see GEMM_BF16_RTOL),
+    widened for GEMM-RS by n partials of one ulp each (RS_PARTIAL_ULP):
+    (ok, max abs err, atol, rtol)."""
+    o, w = out.float(), want.float()
+    err = (o - w).abs().max().item()
+    if out.dtype == torch.bfloat16:
+        atol = (GEMM_BF16_ATOL_REL * w.abs().max().item()
+                + n_ranks * RS_PARTIAL_ULP * max_partial)
+        rtol = GEMM_BF16_RTOL
+    else:
+        atol, rtol = GEMM_F32_TOL * k ** 0.5 * n_ranks, GEMM_F32_TOL
+    ok = bool(((o - w).abs() <= atol + rtol * w.abs()).all())
+    return ok, err, atol, rtol
+
+
+def _rank_inputs(torch, gen, shapes, n, dtype):
+    return [tuple(torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                  for sh in shapes) for _ in range(n)]
+
+
+def _spmd_ms(torch, group, fn, args, iters, warmup=2):
+    """Mean device ms of one n-rank call of ``fn``: CUDA events on the
+    caller's stream around ``iters`` calls on every rank."""
+    def body(*a, reps):
+        for _ in range(reps):
+            out = fn(*a)
+        return out
+
+    def loop(reps):
+        return group.spmd(lambda *a: body(*a, reps=reps), args)
+    loop(warmup)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loop(iters)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _copy_activities(torch, group, fn, args):
+    """Device activities of one n-rank call under torch.profiler: the
+    names of the copies and how many, and the kernels' names (the shard
+    pulls must be copy-engine memcpys, not kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    group.spmd(fn, args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        group.spmd(fn, args)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return {n: c for n, c in names.items()}
+
+
+def phase_fused_kernel(torch, which):
+    """The AG-GEMM (``which="ag"``) or GEMM-RS kernel against its plain
+    version, n ranks of a RankGroup on the one card; returns the §5.1
+    m 8192 case.  Each case: every rank's error, the fused n-rank time,
+    the xla mode's (gather + torch.matmul, or torch.matmul + the slots'
+    sum), n x the GEMM kernel at one rank's shape, the plain version's
+    and the bound."""
+    from repro_torch.core.overlap import Epilogue, FusedOp
+    from repro_torch.dist import RankGroup
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.launch.op_level import tp_bound_s
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # name, ranks, dtype, rows (AG: m_sh a rank; RS: M), K (RS: K_sh), N
+    # (AG: N_loc), activation, bias, reverse
+    cases = [
+        (f"{which}_m8192", 8, bf16, 1024 if which == "ag" else 8192,
+         12288 if which == "ag" else 6144, 6144 if which == "ag" else 12288,
+         None, False, False),
+        (f"{which}_m64", 8, bf16, 8 if which == "ag" else 64,
+         12288 if which == "ag" else 6144, 6144 if which == "ag" else 12288,
+         None, False, False),
+        (f"{which}_ragged", 8, bf16, 97 if which == "ag" else 776, 1000,
+         1032, None, False, False),
+        (f"{which}_silu_bias", 8, bf16, 128 if which == "ag" else 1024, 2304,
+         1536, "silu", True, False),
+        (f"{which}_reverse", 8, bf16, 128 if which == "ag" else 1024, 2304,
+         1536, None, False, True),
+        (f"{which}_tp_lane_mlp", 4, bf16, 1024 if which == "ag" else 4096,
+         2304 if which == "ag" else 1536, 3072 if which == "ag" else 2304,
+         None, False, False),
+        (f"{which}_fp32", 4, f32, 64 if which == "ag" else 256, 512, 384,
+         "gelu", True, False),
+    ]
+    kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
+    groups = {n: RankGroup(n, "cuda", timeout_s=60) for n in (4, 8)}
+    gen = torch.Generator(device="cuda")
+    ptxas = ptxas_report("ag_gemm" if which == "ag" else "gemm_rs")
+    results = {}
+    for name, n, dtype, rows, k, nn, act, with_bias, rev in cases:
+        g = groups[n]
+        gen.manual_seed(300 + len(results) + (0 if which == "ag" else 50))
+        shapes = ((rows, k), (k, nn))
+        args = _rank_inputs(torch, gen, shapes, n, dtype)
+        bias = (torch.randn((nn,), generator=gen, device="cuda").to(dtype)
+                if with_bias else None)
+        kw = dict(group=g, reverse=rev, activation=act, bias=bias)
+        outs = g.spmd(lambda a, b: kern(a, b, **kw), args)
+        torch.cuda.synchronize()
+        errs, oks, max_partial = [], [], 0.0
+        if which == "ag":
+            shards = [a for a, _ in args]
+            wants = [AG.ag_gemm_ref(shards, b, act, bias) for _, b in args]
+        else:
+            parts = [(a.float() @ b.float()).to(dtype) for a, b in args]
+            max_partial = max(p.abs().max().item() for p in parts)
+            wants = [RS.reduce_ref(parts, r, act, bias, dtype)
+                     for r in range(n)]
+            del parts
+        for out, want in zip(outs, wants):
+            check(bool(torch.isfinite(out).all()),
+                  f"{name}: non-finite output")
+            ok, err, atol, rtol = fused_check(
+                torch, out, want, k, n if which == "rs" else 1, max_partial)
+            errs.append(err)
+            oks.append(ok)
+        check(all(oks), f"{name}: kernel vs plain max_abs_err {max(errs)} "
+              f"beyond atol {atol} + rtol {rtol} * |C| on ranks "
+              f"{[r for r, o in enumerate(oks) if not o]}")
+        del outs, wants
+
+        m_tot = rows * n if which == "ag" else rows
+        # the whole op's (m, k, n) and one rank's GEMM
+        op_mkn = ((m_tot, k, nn * n) if which == "ag" else
+                  (m_tot, k * n, nn))
+        rank_mkn = (m_tot, k, nn)
+        fused_ms = _spmd_ms(torch, g, lambda a, b: kern(a, b, **kw), args, 10)
+        epi = Epilogue(bias=with_bias, activation=act)
+        xla = FusedOp(which, axis=g, mode="xla", epilogue=epi)
+        xla_ms = _spmd_ms(torch, g, lambda a, b: xla(a, b, bias=bias),
+                          args, 10)
+        a1, b1 = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                  for sh in ((rank_mkn[0], rank_mkn[1]),
+                             (rank_mkn[1], rank_mkn[2])))
+        nonsplit_ms = n * time_ms(torch, lambda: mm.matmul(a1, b1), 10)
+        del a1, b1
+        if which == "ag":
+            shards = [a for a, _ in args]
+            plain = lambda: [AG.ag_gemm_ref(shards, b, act, bias)  # noqa
+                             for _, b in args]
+        else:
+            def plain():    # each rank's partial once, then every reduce
+                parts = [(a.float() @ b.float()).to(dtype) for a, b in args]
+                return [RS.reduce_ref(parts, r, act, bias, dtype)
+                        for r in range(n)]
+        plain_ms = time_ms(torch, plain, 1, warmup=1)
+        bound_ms, bound_by = tp_bound_s(*op_mkn)
+        bound_ms *= 1e3
+        res = {"phase": f"{'ag_gemm' if which == 'ag' else 'gemm_rs'}_kernel",
+               "case": name, "ranks": n, "dtype": str(dtype)[6:],
+               "rank_rows": rows, "K": k, "N": nn, "activation": act,
+               "bias": with_bias, "reverse": rev,
+               "tile": list(mm.plan_blocks(m_tot, nn)) if dtype == bf16
+               else None,
+               "max_abs_err": max(errs), "atol": atol, "rtol": rtol,
+               "fused_ms": fused_ms, "xla_ms": xla_ms,
+               "nonsplit_x_ranks_ms": nonsplit_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / fused_ms,
+               "timing": f"mean of 10 calls of all {n} ranks on one card "
+                         "(CUDA events around the ranks' loop)"}
+        if name == f"{which}_m8192" and which == "ag":
+            acts = _copy_activities(torch, g, lambda a, b: kern(a, b, **kw),
+                                    args)
+            res["profiler_activities"] = acts
+            res["shard_copies_are_memcpy"] = any(
+                "Memcpy" in a and "DtoD" in a for a in acts)
+        emit(res)
+        results[name] = res
+        del args, bias
+        for grp in groups.values():
+            grp.free_symmetric()
+        torch.cuda.empty_cache()
+    emit({"phase": results[f"{which}_m8192"]["phase"], "ptxas": ptxas})
+    return results[f"{which}_m8192"]
+
+
+def phase_tp_op_level_lane(torch):
+    """The main path of the fused kernels at the op level:
+    ``launch.op_level`` at TP 8 (2 seams x 6 m x 3 modes = 36 rows through
+    ``FusedOp``), counts set to 0 just before and read just after; then
+    every row once against the plain version (not counted)."""
+    import contextlib
+    import io
+    from repro_torch.core.overlap import FusedOp
+    from repro_torch.dist import RankGroup
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.launch import op_level
+
+    for fn in (AG.ag_gemm, RS.gemm_rs, mm.matmul):
+        fn.launches = 0
+    RS.gemm_rs.reduce_launches = 0
+    csv = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(csv):
+        rows = op_level.main(tp=TP_OP_LEVEL)
+    wall_s = time.perf_counter() - t0
+    counts = {"ag_gemm": AG.ag_gemm.launches,
+              "gemm_rs": RS.gemm_rs.launches,
+              "gemm_rs_reduce": RS.gemm_rs.reduce_launches,
+              "matmul": mm.matmul.launches}
+    check(len(rows) == 36, f"{len(rows)} op-level rows, expected 36")
+    for seam, name in (("ag", "ag_gemm"), ("rs", "gemm_rs")):
+        want = sum(r["calls"] * TP_OP_LEVEL for r in rows
+                   if r["seam"] == seam and r["mode"] == "flux")
+        check(counts[name] == want,
+              f"{name} launched {counts[name]} times in the op-level lane, "
+              f"expected {want} (flux rows x calls x ranks); the xla and "
+              "decomposed rows launch none")
+    check(counts["gemm_rs_reduce"] == counts["gemm_rs"],
+          "gemm_rs reduce launches differ from its GEMM launches")
+    lines = csv.getvalue().strip().splitlines()
+    check(lines[0] == "name,us_per_call,derived" and len(lines) == 49,
+          f"op_level CSV: {lines[:2]} ... ({len(lines)} lines)")
+
+    group = RankGroup(TP_OP_LEVEL, "cuda", timeout_s=60)
+    checks = []
+    for seam, (n, k) in op_level.SEAMS:
+        for m in op_level.M_SWEEP:
+            args = op_level.tp_inputs(seam, m, k, n, TP_OP_LEVEL,
+                                      torch.device("cuda"))
+            max_partial = 0.0
+            if seam == "ag":
+                shards = [a for a, _ in args]
+                wants = [AG.ag_gemm_ref(shards, b) for _, b in args]
+            else:
+                parts = [(a.float() @ b.float()).bfloat16() for a, b in args]
+                max_partial = max(p.abs().max().item() for p in parts)
+                wants = [RS.reduce_ref(parts, r, None, None, torch.bfloat16)
+                         for r in range(TP_OP_LEVEL)]
+                del parts
+            kdim = k if seam == "ag" else k // TP_OP_LEVEL
+            for mode in op_level.MODES:
+                op = FusedOp(seam, axis=group, mode=mode)
+                outs = op_level.run_tp(group, op, args)
+                torch.cuda.synchronize()
+                res = [fused_check(torch, o, w, kdim,
+                                   TP_OP_LEVEL if seam == "rs" else 1,
+                                   max_partial)
+                       for o, w in zip(outs, wants)]
+                err = max(r[1] for r in res)
+                check(all(r[0] for r in res),
+                      f"op_level {seam} m{m} {mode}: vs plain max_abs_err "
+                      f"{err} beyond atol {res[0][2]} + rtol {res[0][3]}")
+                checks.append({"seam": seam, "m": m, "mode": mode,
+                               "max_abs_err": err, "atol": res[0][2]})
+                del outs
+            del args, wants
+            group.free_symmetric()
+            torch.cuda.empty_cache()
+    out_rows = [{"seam": r["seam"], "m": r["m"], "mode": r["mode"],
+                 "shape_mkn": r["shape_mkn"], "ms": r["seconds"] * 1e3,
+                 "nonsplit_x8_ms": r["nonsplit_x_tp_s"] * 1e3,
+                 "bound_ms": r["bound_s"] * 1e3, "bound_by": r["bound_by"],
+                 "bound_share": r["bound_s"] / r["seconds"]}
+                for r in rows]
+    for o, c in zip(out_rows, checks):
+        o.update(max_abs_err=c["max_abs_err"], atol=c["atol"])
+    emit({"phase": "tp_op_level_lane", "ranks": TP_OP_LEVEL, "rows": out_rows,
+          "launches": counts, "calls_per_row": rows[0]["calls"],
+          "timing": f"mean of {rows[0]['calls'] - 2} warm calls of all "
+                    f"{TP_OP_LEVEL} ranks on one card (CUDA events)",
+          "wall_s": wall_s, "csv": lines})
+    return counts
+
+
+def phase_tp_lane(torch, tp1_logits):
+    """minicpm_2b at full width, tp=4 on one card: seeded weights drawn
+    as at tp=1, packed for tp and cut per rank; the kernel lane's batch.
+    The main path — one flux prefill with the kernels — with its counts;
+    then xla and decomposed; last-position logits against the tp=1 kernel
+    lane's and flux against xla."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.dist import RankGroup
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+
+    cfg = get_config("minicpm_2b")
+    tp = TP_LANE
+    group = RankGroup(tp, "cuda", timeout_s=120)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # w1|w3 packed once here (fuse_w13): the mlp_ag seam's pair gate is
+    # then one AG-GEMM over one weight, with no per-call concatenation
+    full = M.init_model(cfg, ParallelConfig(tp=tp, fuse_w13=True), seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+
+    lengths = torch.tensor([256, 512, 777, 1024], device="cuda")
+    s = int(lengths.max())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)                    # the kernel lane's tokens
+    toks = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
+                         device="cuda")
+    toks = toks.masked_fill(torch.arange(s, device="cuda")[None]
+                            >= lengths[:, None], 0)
+    batch = {"tokens": toks}
+    ctxs = {mode: make_ctx(ParallelConfig(tp=tp, kernel_decode=True,
+                                          overlap_mode=mode), group)
+            for mode in ("flux", "xla", "decomposed")}
+    args = [(p,) for p in ranks]
+
+    def step(mode):
+        return group.spmd(lambda p: S.prefill_step(p, batch, ctxs[mode], cfg,
+                                                   lengths), args)
+
+    def logits(mode):
+        outs = group.spmd(lambda p: S.prefill_logits(
+            p, batch, ctxs[mode], cfg, lengths)[0], args)
+        return torch.cat(outs, dim=-1)[:, :cfg.vocab_size].float()
+
+    def zero_counts():
+        for fn in (AG.ag_gemm, RS.gemm_rs, fa.flash_attention, mm.matmul,
+                   md.mla_decode_attention):
+            fn.launches = 0
+        RS.gemm_rs.reduce_launches = 0
+
+    def read_counts():
+        return {"ag_gemm": AG.ag_gemm.launches,
+                "gemm_rs": RS.gemm_rs.launches,
+                "gemm_rs_reduce": RS.gemm_rs.reduce_launches,
+                "flash_attention": fa.flash_attention.launches,
+                "matmul": mm.matmul.launches,
+                "mla_decode": md.mla_decode_attention.launches}
+
+    # the main path: counts to 0, one flux prefill, counts read
+    zero_counts()
+    outs = step("flux")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    per_seam = cfg.num_layers * tp
+    want = {"ag_gemm": 2 * per_seam, "gemm_rs": 2 * per_seam,
+            "gemm_rs_reduce": 2 * per_seam, "flash_attention": per_seam,
+            "matmul": 0, "mla_decode": 0}
+    check(counts == want, f"flux prefill launches {counts}, expected {want}")
+    nxt = outs[0][0]
+    check(all(torch.equal(o[0], nxt) for o in outs),
+          "the ranks' next tokens differ")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del outs
+
+    lf = logits("flux")
+    check(bool(torch.isfinite(lf).all()), "non-finite tp logits")
+    lt1 = tp1_logits.to("cuda")
+    rel_tp1 = ((lf - lt1).norm() / lt1.norm()).item()
+    check(rel_tp1 <= TP_LANE_RTOL,
+          f"tp={tp} flux logits vs tp=1 differ by {rel_tp1} (relative L2) "
+          f"> {TP_LANE_RTOL}")
+    res = {"phase": "tp_lane", "arch": cfg.name, "tp": tp,
+           "layers": cfg.num_layers, "init_s": init_s,
+           "weights_gb_all_ranks": sum(
+               p.numel() * p.element_size() for r in ranks
+               for p in r.parameters()) / 1e9,
+           "allocated_gb_after_init": allocated_gb, "batch": 4,
+           "lengths": lengths.tolist(), "flux_launches": counts,
+           "next_tokens": nxt[:, 0].tolist(),
+           "next_tokens_tp1": lt1.argmax(-1).tolist(),
+           "logits_rel_l2_flux_vs_tp1": rel_tp1,
+           "prefill_peak_mem_gb": peak_gb, "rtol": TP_LANE_RTOL}
+    for mode in ("xla", "decomposed"):
+        zero_counts()
+        lm = logits(mode)
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+              f"{mode} prefill launched the fused kernels: {c}")
+        rel = ((lf - lm).norm() / lm.norm()).item()
+        if mode == "xla":
+            check(rel <= TP_LANE_RTOL,
+                  f"flux vs xla logits differ by {rel} (relative L2) > "
+                  f"{TP_LANE_RTOL}")
+        res[f"logits_rel_l2_flux_vs_{mode}"] = rel
+        res[f"{mode}_launches"] = c
+        del lm
+    for mode in ("flux", "xla", "decomposed"):
+        med, samples = wall_ms(torch, lambda: step(mode))
+        res[f"prefill_ms_median_{mode}"] = med
+        res[f"prefill_ms_samples_{mode}"] = samples
+    res["prefill_profile_flux"] = device_profile(torch, lambda: step("flux"))
+    res["prefill_profile_xla"] = device_profile(torch, lambda: step("xla"))
+    emit(res)
+    del ranks, args
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1033,7 +1477,7 @@ def main():
     phase_build()
     flash_case = phase_kernel(torch)
     mla_case = phase_mla_kernel(torch)
-    flash_launches = phase_kernel_lane(torch)
+    flash_launches, tp1_logits = phase_kernel_lane(torch)
     phase_server_lane(torch)
     params, cfg, mla_launches = phase_mla_lane(torch)
     phase_mla_server_lane(torch, params, cfg)
@@ -1041,6 +1485,10 @@ def main():
     torch.cuda.empty_cache()
     matmul_case = phase_matmul_kernel(torch)
     matmul_launches, _ = phase_op_level_lane(torch)
+    ag_case = phase_fused_kernel(torch, "ag")
+    rs_case = phase_fused_kernel(torch, "rs")
+    tp_counts = phase_tp_op_level_lane(torch)
+    phase_tp_lane(torch, tp1_logits)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [
@@ -1068,7 +1516,23 @@ def main():
          "ms": matmul_case["kernel_ms"], "plain_ms": matmul_case["plain_ms"],
          "bound_ms": matmul_case["bound_ms"],
          "bound_by": matmul_case["bound_by"],
-         "library_ms": matmul_case["library_ms"]}]})
+         "library_ms": matmul_case["library_ms"]},
+        {"name": "ag_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/ag_gemm.cu",
+         "replaces": "src/repro/kernels/ag_gemm.py:45",
+         "launches": tp_counts["ag_gemm"],
+         "max_abs_err": ag_case["max_abs_err"],
+         "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
+         "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
+         "library_ms": ag_case["xla_ms"]},
+        {"name": "gemm_rs", "route": "cuda",
+         "source": "src/repro_torch/csrc/gemm_rs.cu",
+         "replaces": "src/repro/kernels/gemm_rs.py:33",
+         "launches": tp_counts["gemm_rs"],
+         "max_abs_err": rs_case["max_abs_err"],
+         "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
+         "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],
+         "library_ms": rs_case["xla_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

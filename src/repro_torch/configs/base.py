@@ -77,16 +77,18 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
-    reads so far (one card: ``parallel.sharding.TPContext`` raises on
-    tp>1 and ep>1; the overlap knobs, data parallelism, ZeRO, pipelines,
-    tuned profiles and wire precision come with their slices).
-    ``kernel_decode`` turns on the hand-written kernels
-    (``TPContext.use_kernels``): the flash-attention kernel of the GQA
-    prefill and the MLA-decode kernel of every MLA decode step."""
+    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1
+    raises; data parallelism, ZeRO, pipelines, tuned profiles and wire
+    precision come with their slices).  ``kernel_decode`` turns on the
+    hand-written kernels (``TPContext.use_kernels``): the flash-attention
+    kernel of the GQA prefill and the MLA-decode kernel of every MLA
+    decode step.  ``overlap_mode`` is the TP seams' transport
+    (``core.overlap``)."""
     tp: int = 1
     ep: int = 1
     fuse_w13: bool = False
     kernel_decode: bool = False
+    overlap_mode: str = "decomposed"
 
 
 def get_config(arch: str) -> ModelConfig:

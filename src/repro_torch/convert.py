@@ -10,6 +10,11 @@ expanded pattern is ``lead[i]`` for the leading layers and
 multi-token-prediction head (``mtp``) is not carried: serving never reads
 it.  Arrays cross as numpy: bf16 leaves go as float32 and are cast back,
 which is exact.
+
+At tp>1 the reference's tree (``init_model`` with ``ParallelConfig(tp)``,
+before ``shard_map`` cuts it) holds the GLOBAL weights packed for that tp;
+``rank_params_from_jax`` converts it once and cuts each rank's copy with
+``model.shard_params``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.ffn import FP32_PARAMS
-from repro_torch.models.model import Block, Model, check_ported, n_periods
+from repro_torch.models.model import (Block, Model, check_ported,
+                                      n_periods, shard_params)
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -71,6 +77,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
               for layer in _layer_trees(tree, cfg)]
     return Model(_tensor(tree["embed"], dtype, dev),
                  _tensor(tree["final_norm"], dtype, dev), blocks)
+
+
+def rank_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, tp: int,
+                         dtype: torch.dtype = torch.bfloat16,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> List[Model]:
+    """The reference's global tp-packed tree -> one ``Model`` per rank."""
+    full = params_from_jax(tree, cfg, dtype=dtype, device=device)
+    return [shard_params(full, r, tp, cfg) for r in range(tp)]
 
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

@@ -1,37 +1,73 @@
 """TP-seam ops (port of ``repro.core.overlap``): ``Epilogue`` + ``FusedOp``.
 
-``FusedOp(kind="ag"|"rs"|"ar"|"a2a", ...)`` is the one object model code
-calls for a parallel seam (built by ``ctx.op(seam)``):
+``FusedOp(kind="ag"|"rs"|"ar"|"a2a", axis=..., mode=..., ...)`` is the one
+object model code calls for a parallel seam (built by ``ctx.op(seam)``).
+With the sequence-sharded ("seq") residual stream of Megatron-SP:
 
-    ag   x[B, S, D] , w[D, F]  ->  epilogue(x @ w)       (n_weights >= 1)
-    rs   y[B, S, F] , w[F, D]  ->  epilogue(y @ w)
-    ar   y[B, m, F] , w[F, D]  ->  epilogue(y @ w)
+    ag   x[B, S/N, D] , w[D, F/N]  ->  epilogue((AllGather_S x) @ w)
+    rs   y[B, S, F/N] , w[F/N, D]  ->  epilogue(ReduceScatter_S(y @ w))
+    ar   y[B, m, F]   , w[F, D]    ->  epilogue(y @ w)          (tp=1 only)
     a2a  x[ep, E_loc, cap, D], (w1, w3)[E_loc, D, F], w2[E_loc, F, D]
-         ->  per-expert act(x @ w1) * (x @ w3) @ w2     (the MoE exchange)
+         ->  per-expert act(x @ w1) * (x @ w3) @ w2     (ep=1: local)
 
-On one card (tp=1, ep=1) every seam is the local GEMM plus its epilogue —
-what the reference's ``_fused_ag`` / ``_rs_core`` / ``_ar_core`` do at
-axis size 1 — and the a2a seam is the local expert FFN (``_a2a_impl`` with
-an empty EP group).  The collective transports (``xla``, the ``decomposed*`` rings,
-the fused ``flux`` kernels) and their knobs (overlap mode, chunking, ring
-direction, scatter axis) exist only at tp>1; they come with that slice
-(ROADMAP 'Modules still to port', item 2), and ``TPContext`` rejects tp>1
-until then.
+``axis`` is the ``dist.RankGroup`` of the TP ranks (the reference's mesh
+axis name); ``None`` or a group of one makes every seam the local GEMM plus
+its epilogue.  At tp>1 the op must run inside ``group.spmd``, and ``mode``
+picks the transport, as in the reference:
+
+* ``xla`` — the non-overlapping baseline: a monolithic gather (copies of
+  every rank's shard, ``torch.cat``) before the GEMM, or a GEMM then a
+  monolithic reduce-scatter (every rank's partial rows summed in rank
+  order, in fp32).
+* ``decomposed`` — the ring: ``n - 1`` hops of ``group.ppermute`` (a pull
+  copy from the neighbour, ordered by its event), each landed shard
+  multiplied, and its epilogue applied, as it arrives.
+* ``flux`` — the fused kernels (``kernels.ops``): the AllGather-GEMM and
+  the GEMM-ReduceScatter, on CUDA tensors always the hand-written kernels
+  (the reference's ``_flux_available`` fallback is not carried over).
+
+``n_weights`` > 1 ag ops share ONE gather; under flux that is one kernel
+over the column-stacked weights.  A single weight's bias/activation runs
+in the flux kernel's tile epilogue.
+
+The reference's tuning fields (``comm_chunks``, ``reverse``, ``blocks``,
+``fuse_epilogue``, ``shared_gather``) are not carried: no caller of the
+port sets them, so each op runs the reference's defaults (one chunk a
+shard, the forward ring, the planned tile, the fused epilogue, the shared
+gather).  Not ported (each raises and names its ROADMAP item):
+``decomposed_bidir``, ``scatter_axis="hidden"`` and ``kind="ar"`` at
+tp>1, ``wire_dtype``, and the backward (``_fused_bwd``): the port runs
+inference only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 VALID_KINDS = ("ag", "rs", "ar", "a2a")
+VALID_MODES = ("xla", "decomposed", "flux", "decomposed_bidir")
+VALID_SCATTER_AXES = ("seq", "hidden")
 
 # model-level seam name -> its collective kind
 SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
                               "attn_ag": "ag", "attn_rs": "rs",
                               "decode_ar": "ar", "moe_a2a": "a2a"}
+
+NOT_PORTED = {
+    "decomposed_bidir": "mode='decomposed_bidir' at tp>1 is not ported "
+                        "(ROADMAP queue 1 item 2)",
+    "hidden": "scatter_axis='hidden' (the replicated layout) at tp>1 is not "
+              "ported (ROADMAP queue 1 item 2)",
+    "ar": "kind='ar' (the decode AllReduce seam) at tp>1 is not ported "
+          "(ROADMAP queue 1 item 7)",
+    "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
+                  "(ROADMAP queue 1 item 9)",
+    "backward": "the backward of a tp>1 seam (_fused_bwd) is not ported: "
+                "the port runs inference only (ROADMAP queue 1 item 2)",
+}
 
 
 def _sqrelu(v):
@@ -94,16 +130,210 @@ class Epilogue:
         return z
 
 
+def _group_size(axis) -> int:
+    return 1 if axis is None else axis.n
+
+
+# ---------------------------------------------------------------------------
+# Ring transports over the rank group
+# ---------------------------------------------------------------------------
+def _ring_perm(n: int, reverse: bool = False) -> List[Tuple[int, int]]:
+    if reverse:
+        return [(i, (i - 1) % n) for i in range(n)]
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def _seq_rows(x: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    return x.narrow(x.dim() - 2, start, length)
+
+
+def _gather_full(x: torch.Tensor, group) -> torch.Tensor:
+    """Monolithic (xla-mode) sequence gather: every rank's shard, copied
+    in rank order."""
+    return group.all_gather(x, x.dim() - 2, "ag_full")
+
+
+def _psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """Monolithic (xla-mode) reduce-scatter along dim -2: this rank's rows
+    of every rank's partial, summed in rank order in fp32."""
+    me = group.rank()
+    s_shard = x.shape[-2] // group.n
+    parts = group.exchange(x, "rs_scatter")
+    acc = None
+    for p in parts:
+        rows = _seq_rows(p, me * s_shard, s_shard).float()
+        acc = rows if acc is None else acc + rows
+    return acc.to(x.dtype)
+
+
+def gather_seq(x: torch.Tensor, axis, mode: str = "decomposed",
+               reverse: bool = False) -> torch.Tensor:
+    """Gather a sequence-sharded non-GEMM payload (boundary rows, cache
+    tails) to full length along dim -2: the ring for the ring modes, the
+    monolithic gather otherwise.  Values are identical either way."""
+    if _group_size(axis) == 1:
+        return x
+    if mode.startswith("decomposed"):
+        return _ag_ring(x, axis, reverse, lambda c: (c,))[0]
+    return _gather_full(x, axis)
+
+
+def scatter_seq_sum(x: torch.Tensor, axis, mode: str = "decomposed",
+                    reverse: bool = False) -> torch.Tensor:
+    """ReduceScatter along dim -2 of a per-rank full-sequence partial (the
+    embedding seam's combine under the sequence-sharded layout):
+    out[rows of my shard] = sum over ranks of x[those rows].  The ring
+    modes accumulate along the ring, as ``_rs_ring`` does."""
+    if _group_size(axis) == 1:
+        return x
+    if not mode.startswith("decomposed"):
+        return _psum_scatter(x, axis)
+    s_shard = x.shape[-2] // axis.n
+    return _reduce_ring(axis, reverse, "scatter_seq",
+                        lambda o: _seq_rows(x, o * s_shard, s_shard))
+
+
+def _out_buffers(x: torch.Tensor, seq_len: int,
+                 first: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Output buffers [..., seq_len, W_b], shaped and typed like the first
+    chunk's outputs (the reference sizes them by ``jax.eval_shape``)."""
+    return [c.new_empty((*x.shape[:-2], seq_len, c.shape[-1]))
+            for c in first]
+
+
+def _ag_ring(x: torch.Tensor, group, reverse: bool,
+             chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
+    """AllGather ring of shard hops along dim -2: each landed shard is
+    consumed by ``chunk_fn`` ([..., L, D] -> tuple of [..., L, W_b]) as
+    soon as it arrives.  Ring order starts at the LOCAL shard (paper
+    §4.3)."""
+    n, me = group.n, group.rank()
+    s_shard = x.shape[-2]
+    buf = x
+    ys: Optional[List[torch.Tensor]] = None
+    for step in range(n):
+        owner = (me + step) % n if reverse else (me - step) % n
+        chunks = chunk_fn(buf)
+        if ys is None:
+            ys = _out_buffers(x, s_shard * n, chunks)
+        for y, ch in zip(ys, chunks):
+            _seq_rows(y, owner * s_shard, s_shard).copy_(ch)
+        if step < n - 1:
+            buf = group.ppermute(buf, _ring_perm(n, reverse), "ag_ring")
+    return tuple(ys)
+
+
+def _reduce_ring(group, reverse: bool, what: str,
+                 partial_for: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """ReduceScatter ring: at step s each rank adds ``partial_for(owner)``
+    for the owner whose sum it holds next and forwards it; after n - 1 hops
+    each rank holds the sum for its own shard."""
+    n, me = group.n, group.rank()
+
+    def owner_at(s):
+        return (me - (n - 1 - s)) % n if reverse else (me + n - 1 - s) % n
+
+    acc = partial_for(owner_at(0))
+    for s in range(1, n):
+        acc = group.ppermute(acc, _ring_perm(n, reverse), what)
+        acc = acc + partial_for(owner_at(s))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# GEMM-ReduceScatter transports (one collective pass for all pairs)
+# ---------------------------------------------------------------------------
+def _rs_partial(ys, ws, owner: int, s_shard: int) -> torch.Tensor:
+    """sum_i ys_i[owner's seq rows] @ ws_i — the per-owner partial of the
+    multi-pair reduce-scatter (one ring carries the SUMMED partial)."""
+    acc = None
+    for y, w in zip(ys, ws):
+        p = torch.matmul(_seq_rows(y, owner * s_shard, s_shard), w)
+        acc = p if acc is None else acc + p
+    return acc
+
+
+def _rs_ring(ys, ws, group) -> torch.Tensor:
+    """GEMM-ReduceScatter ring: at step s each rank computes ONLY the
+    output chunk the ring needs next, adds the partial arriving from its
+    neighbour, and forwards (paper Fig. 3, medium-grained)."""
+    seq = ys[0].shape[-2]
+    if seq % group.n:
+        raise ValueError(f"seq {seq} not divisible by TP {group.n}")
+    s_shard = seq // group.n
+    return _reduce_ring(group, False, "rs_ring",
+                        lambda o: _rs_partial(ys, ws, o, s_shard))
+
+
+def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
+    """sum_i ReduceScatter_seq(ys_i @ ws_i) with ONE collective pass."""
+    if _group_size(axis) == 1:
+        return _rs_partial(ys, ws, 0, ys[0].shape[-2])
+    if mode == "xla":
+        return _psum_scatter(_rs_partial(ys, ws, 0, ys[0].shape[-2]), axis)
+    if mode == "flux":
+        # multi-pair RS == one RS of the concatenated operands (the
+        # contraction dim stacks): still one fused kernel
+        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+        w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
+        return _rs_flux(y, w, axis)
+    return _rs_ring(ys, ws, axis)
+
+
+# ---------------------------------------------------------------------------
+# mode="flux": the fused kernels (kernels.ops)
+# ---------------------------------------------------------------------------
+def _ag_flux(x: torch.Tensor, w: torch.Tensor, group,
+             activation: Optional[str] = None,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    from repro_torch.kernels import ops as kops
+    # the kernels gather [m_shard, k] operands along m in SHARD-MAJOR order:
+    # move the (sharded) sequence dim to the front so that shard-major is
+    # sequence order, then flatten the batch dims into m
+    n = group.n
+    lead = x.shape[:-2]
+    x2 = torch.movedim(x, -2, 0).reshape(-1, x.shape[-1])
+    y2 = kops.ag_matmul_fused(x2, w, axis_name="tp", n_dev=n,
+                              activation=activation, bias=bias)
+    yt = y2.reshape(x.shape[-2] * n, *lead, w.shape[-1])
+    return torch.movedim(yt, 0, -2)                    # [*lead, S, F/N]
+
+
+def _rs_flux(y: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    from repro_torch.kernels import ops as kops
+    n = group.n
+    lead = y.shape[:-2]
+    y2 = torch.movedim(y, -2, 0).reshape(-1, y.shape[-1])
+    o2 = kops.matmul_rs_fused(y2, w, axis_name="tp", n_dev=n)
+    ot = o2.reshape(y.shape[-2] // n, *lead, w.shape[-1])
+    return torch.movedim(ot, 0, -2)                    # [*lead, S/N, D]
+
+
+# ---------------------------------------------------------------------------
+# FusedOp: the declarative op object
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class FusedOp:
-    """One TP-seam GEMM with a fused epilogue (module docstring)."""
+    """One TP-seam GEMM with a fused epilogue (module docstring).  The
+    reference's fields, with ``epilogue`` and ``n_weights`` second and
+    third as in the port's tp=1 slices (pass the rest by keyword)."""
     kind: str
     epilogue: Epilogue = Epilogue()
     n_weights: int = 1
+    axis: Optional[object] = None          # dist.RankGroup
+    mode: str = "decomposed"
+    scatter_axis: str = "seq"
+    wire_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.kind not in VALID_KINDS:
             raise ValueError(f"invalid kind {self.kind!r}")
+        if self.mode not in VALID_MODES:
+            raise ValueError(f"invalid overlap mode {self.mode!r}")
+        if self.scatter_axis not in VALID_SCATTER_AXES:
+            raise ValueError(f"invalid scatter_axis {self.scatter_axis!r}")
+        if self.wire_dtype is not None:
+            raise NotImplementedError(NOT_PORTED["wire_dtype"])
         if self.n_weights < 1:
             raise ValueError("n_weights must be >= 1")
         if self.kind == "a2a":
@@ -117,6 +347,9 @@ class FusedOp:
                 raise ValueError(
                     'kind="a2a" needs a pure gate="pair" epilogue')
             return
+        if self.kind == "ar":
+            # "ar" IS the replicated layout (one-token decode GEMMs)
+            object.__setattr__(self, "scatter_axis", "hidden")
         if self.kind != "ag" and self.n_weights != 1:
             raise ValueError(f"kind={self.kind!r} ops take exactly one weight")
         if self.epilogue.gate == "pair":
@@ -125,6 +358,13 @@ class FusedOp:
         elif self.n_weights > 1 and not self.epilogue.is_identity:
             raise ValueError("multi-output ops (n_weights>1 without "
                              'gate="pair") require an identity epilogue')
+        if _group_size(self.axis) > 1:
+            if self.kind == "ar":
+                raise NotImplementedError(NOT_PORTED["ar"])
+            if self.scatter_axis == "hidden":
+                raise NotImplementedError(NOT_PORTED["hidden"])
+            if self.mode == "decomposed_bidir":
+                raise NotImplementedError(NOT_PORTED["decomposed_bidir"])
 
     @property
     def combines(self) -> bool:
@@ -147,10 +387,83 @@ class FusedOp:
                     f"{'missing' if flag else 'given'}")
         if self.kind == "a2a":
             return _expert_fn(epi, x, *ws)
+        if _group_size(self.axis) > 1 and torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, *ws, bias, scale, residual)):
+            raise NotImplementedError(NOT_PORTED["backward"])
+        if self.kind == "ag":
+            return _fused_ag(self, x, ws, bias, scale, residual)
+        z = _fused_z(self, x, ws)
+        return epi.apply([z], bias=bias, scale=scale, residual=residual)
+
+
+def _apply_epilogue(op: FusedOp, ys: Sequence[torch.Tensor], bias, scale,
+                    residual):
+    """Epilogue at the op level: combine to one tensor, or pass the
+    per-weight outputs through as a tuple (identity epilogue)."""
+    if op.combines:
+        return op.epilogue.apply(ys, bias=bias, scale=scale,
+                                 residual=residual)
+    return tuple(ys)
+
+
+def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
+    epi = op.epilogue
+    if _group_size(op.axis) == 1 or op.scatter_axis == "hidden":
+        # hidden layout / one rank: x is already the full activation
         ys = [torch.matmul(x, w) for w in ws]
-        if not self.combines:
-            return tuple(ys)
-        return epi.apply(ys, bias=bias, scale=scale, residual=residual)
+        return _apply_epilogue(op, ys, bias, scale, residual)
+    if op.mode == "flux":
+        return _fused_ag_flux(op, x, ws, bias, scale, residual)
+    if op.mode == "xla":
+        full = _gather_full(x, op.axis)
+        ys = [torch.matmul(full, w) for w in ws]
+        return _apply_epilogue(op, ys, bias, scale, residual)
+
+    # the ring: the epilogue fuses PER CHUNK inside the overlapped loop
+    # (residual is row-indexed by global position -> applied after
+    # assembly; everything else is chunk-local)
+    per_chunk = op.combines and not epi.is_identity
+    epi_chunk = dataclasses.replace(epi, residual=False)
+
+    def chunk_fn(xc):
+        ys = [torch.matmul(xc, w) for w in ws]
+        if per_chunk:
+            return (epi_chunk.apply(ys, bias=bias, scale=scale),)
+        return tuple(ys)
+
+    outs = _ag_ring(x, op.axis, False, chunk_fn)
+    if per_chunk:
+        out = outs[0]
+        if epi.residual:
+            out = out + residual
+        return out
+    return _apply_epilogue(op, list(outs), bias, scale, residual)
+
+
+def _fused_ag_flux(op: FusedOp, x, ws, bias, scale, residual):
+    epi = op.epilogue
+    # single-weight bias/activation fuse into the kernel's tile epilogue
+    if op.n_weights == 1 and not epi.scale and epi.gate is None:
+        y = _ag_flux(x, ws[0], op.axis, activation=epi.activation,
+                     bias=bias if epi.bias else None)
+        if epi.residual:
+            y = y + residual
+        return y
+    # shared gather: one kernel over the column-stacked weights (a packed
+    # w13 is one weight already), then split the local outputs
+    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=-1)
+    ycat = _ag_flux(x, w, op.axis)
+    ys = list(torch.split(ycat, [w_.shape[-1] for w_ in ws], dim=-1))
+    return _apply_epilogue(op, ys, bias, scale, residual)
+
+
+def _fused_z(op: FusedOp, x, ws):
+    """Pre-epilogue output of an rs/ar op (the collective's result); at one
+    rank, or in the hidden layout, the local GEMM."""
+    if op.kind == "rs" and op.scatter_axis == "seq":
+        return _rs_core((x,), ws, op.axis, op.mode)
+    return torch.matmul(x, ws[0])
 
 
 def _expert_fn(epi: Epilogue, b: torch.Tensor, w1: torch.Tensor,

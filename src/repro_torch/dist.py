@@ -1,0 +1,286 @@
+"""The rank group: n tensor-parallel ranks in one process, one thread each.
+
+The port's counterpart of the reference's ``compat.shard_map`` over forced
+host devices (``tests/conftest.py:run_subprocess_devices``).  ``RankGroup(n,
+device)`` runs one function per rank (``group.spmd(fn, per_rank_args)``):
+rank ``r`` runs on its own thread with a thread-local rank index and, on a
+CUDA device, its own stream, so the ranks' kernels run at the same time.
+All ranks share the one device, which is the FLUX "peer pointer" model
+with every peer on the same card: a peer's buffer is an address this rank
+reads directly, ordered by CUDA events, with no NCCL.
+
+What the ranks share:
+
+* ``publish(x)`` — every rank posts a tensor and an event recorded on its
+  stream after the tensor was produced; after the barrier every rank holds
+  all ranks' (tensor, event) pairs.  ``exchange`` / ``ppermute`` /
+  ``all_gather`` build on it: the reader's stream waits on the owner's
+  event before it reads, and the tensor is kept alive for the reader's
+  stream (``record_stream``).
+* ``symmetric(name, shape, dtype)`` — one buffer per rank, every rank sees
+  all of them, cached per (name, shape, dtype) like FLUX's workspace.
+* ``barrier(what)`` — bounded by ``timeout_s``: on timeout every rank is
+  aborted and the error names the waiting rank, the collective and where
+  the missing ranks were.  An exception in one rank aborts the others and
+  is raised to the caller of ``spmd``.
+
+On CPU tensors the same group runs, with no streams or events.  All ranks
+sit on one device; placing rank i on card i is not written yet (ROADMAP
+queue 1 item 2).
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+
+DEFAULT_TIMEOUT_S = 120.0
+# cyclic flag epochs: a flag written in call e holds (e % EPOCHS) + 1, so a
+# slot never needs a reset and a stale value never equals the next one
+EPOCHS = 1 << 20
+# the interpreter's thread switch interval while ranks run: the ranks take
+# turns on the GIL at every barrier, and the default 5 ms slice would make
+# each turn wait up to a slice per rank
+SWITCH_INTERVAL_S = 1e-4
+
+_LOCAL = threading.local()
+
+
+class RankGroupError(RuntimeError):
+    """A rank failed, or a barrier timed out."""
+
+
+def current_group() -> Optional["RankGroup"]:
+    """The group whose rank thread is running, or None outside ``spmd``."""
+    return getattr(_LOCAL, "group", None)
+
+
+def _walk_tensors(obj, fn):
+    if isinstance(obj, torch.Tensor):
+        fn(obj)
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            _walk_tensors(o, fn)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            _walk_tensors(o, fn)
+
+
+class RankGroup:
+    """n ranks on one device, one thread and (on CUDA) two streams each:
+    ``stream(r)`` runs the rank's work, ``comm_stream(r)`` its peer copies
+    (the AG-GEMM's pulls)."""
+
+    def __init__(self, n: int, device=None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
+        if n < 1:
+            raise ValueError(f"a rank group needs n >= 1 ranks, got {n}")
+        self.n = n
+        self.device = resolve_device(device)
+        self.timeout_s = timeout_s
+        self._barrier = threading.Barrier(n)
+        self._slots: List[List[Any]] = [[None] * n, [None] * n]
+        self._gen = [0] * n                 # per-rank exchange generation
+        self._where: List[str] = ["idle"] * n
+        self._lock = threading.Lock()
+        self._sym: Dict[Tuple, List[torch.Tensor]] = {}
+        self._epoch = [0] * n
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self._streams = [torch.cuda.Stream(self.device) for _ in range(n)]
+            self._comm = [torch.cuda.Stream(self.device) for _ in range(n)]
+
+    # ---- running the ranks -----------------------------------------------
+    def stream(self, rank: int):
+        return self._streams[rank]
+
+    def comm_stream(self, rank: int):
+        return self._comm[rank]
+
+    def rank(self) -> int:
+        if current_group() is not self:
+            raise RankGroupError("this thread is not a rank of this group")
+        return _LOCAL.rank
+
+    def spmd(self, fn: Callable, per_rank_args: Sequence[Sequence[Any]]
+             ) -> List[Any]:
+        """Run ``fn(*per_rank_args[r])`` as rank r, all ranks at once;
+        return the n results in rank order.  On CUDA each rank's stream
+        first waits for the caller's stream, and the caller's stream waits
+        for every rank's at the end.  The first failing rank's exception is
+        raised (a rank that failed first outranks ranks whose barrier it
+        broke)."""
+        if len(per_rank_args) != self.n:
+            raise ValueError(f"spmd: {len(per_rank_args)} argument sets for "
+                             f"{self.n} ranks")
+        if current_group() is not None:
+            raise RankGroupError("spmd cannot nest inside a rank")
+        results: List[Any] = [None] * self.n
+        errors: List[Optional[BaseException]] = [None] * self.n
+        start = done = None
+        if self.cuda:
+            start = torch.cuda.current_stream(self.device).record_event()
+            done = [None] * self.n
+
+        def body(r: int):
+            _LOCAL.group, _LOCAL.rank = self, r
+            try:
+                if self.cuda:
+                    torch.cuda.set_device(self.device)
+                    st = self._streams[r]
+                    st.wait_event(start)
+                    with torch.cuda.stream(st):
+                        results[r] = fn(*per_rank_args[r])
+                        done[r] = st.record_event()
+                else:
+                    results[r] = fn(*per_rank_args[r])
+            except BaseException as e:      # re-raised by the caller below
+                errors[r] = e
+                self._barrier.abort()
+            finally:
+                self._where[r] = "done"
+                _LOCAL.group = None
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True,
+                                    name=f"rank{r}") for r in range(self.n)]
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(min(switch, SWITCH_INTERVAL_S))
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(self.timeout_s * 4)
+        finally:
+            sys.setswitchinterval(switch)
+        alive = [r for r, t in enumerate(threads) if t.is_alive()]
+        if alive:
+            self._barrier.abort()
+            raise RankGroupError(f"ranks {alive} still running after "
+                                 f"{self.timeout_s * 4} s")
+        failed = [r for r in range(self.n) if errors[r] is not None]
+        if failed:
+            self._barrier.reset()
+            self._gen = [0] * self.n
+            first = next((r for r in failed
+                          if not isinstance(errors[r], _BrokenBarrier)),
+                         failed[0])
+            raise RankGroupError(f"rank {first} failed: {errors[first]!r}"
+                                 ) from errors[first]
+        if self.cuda:
+            caller = torch.cuda.current_stream(self.device)
+            for ev in done:
+                caller.wait_event(ev)
+            _walk_tensors(results, lambda t: t.record_stream(caller)
+                          if t.is_cuda else None)
+        return results
+
+    # ---- synchronisation --------------------------------------------------
+    def barrier(self, what: str) -> None:
+        """All ranks meet here; bounded by ``timeout_s``."""
+        r = self.rank()
+        self._where[r] = what
+        try:
+            self._barrier.wait(self.timeout_s)
+        except threading.BrokenBarrierError:
+            missing = {q: w for q, w in enumerate(self._where) if w != what}
+            raise _BrokenBarrier(
+                f"rank {r}: barrier of {what!r} broken or timed out after "
+                f"{self.timeout_s} s; ranks elsewhere: {missing}") from None
+        finally:
+            self._where[r] = "running"
+
+    def publish(self, x: Any, what: str
+                ) -> List[Tuple[Any, Optional[torch.cuda.Event]]]:
+        """Every rank posts ``x`` (and, on CUDA, an event recorded on its
+        current stream after everything it queued so far, the work that
+        produced ``x`` included); returns all ranks' pairs in rank order.
+        ``x`` may be None: the events alone order the ranks' streams.  The
+        slots
+        alternate between two generations, so one barrier per exchange is
+        enough: a rank can write generation g + 2 only after every rank
+        passed the barrier of g + 1, that is after it read g."""
+        r = self.rank()
+        g = self._gen[r] & 1
+        self._gen[r] += 1
+        ev = (torch.cuda.current_stream(self.device).record_event()
+              if self.cuda else None)
+        self._slots[g][r] = (x, ev)
+        self.barrier(what)
+        return list(self._slots[g])
+
+    def wait_for(self, pair, stream=None) -> torch.Tensor:
+        """A peer's published tensor, made safe to read on ``stream``
+        (default: the current one): the stream waits on the peer's event and
+        the tensor is kept alive until the stream is done with it."""
+        t, ev = pair
+        if ev is not None:
+            stream = stream or torch.cuda.current_stream(self.device)
+            stream.wait_event(ev)
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(stream)
+        return t
+
+    def stream_barrier(self, what: str) -> None:
+        """This rank's stream waits until every rank's stream has done what
+        it queued before this call (a host barrier plus events)."""
+        for pair in self.publish(None, what):
+            self.wait_for(pair)
+
+    def exchange(self, x: torch.Tensor, what: str) -> List[torch.Tensor]:
+        """All ranks' ``x`` in rank order, readable on this rank's stream."""
+        return [self.wait_for(p) for p in self.publish(x, what)]
+
+    def all_gather(self, x: torch.Tensor, dim: int, what: str
+                   ) -> torch.Tensor:
+        """Concatenate all ranks' ``x`` along ``dim``, in rank order."""
+        return torch.cat(self.exchange(x, what), dim=dim)
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                 what: str) -> torch.Tensor:
+        """Send ``x`` along ``perm`` ((src, dst) pairs, a permutation):
+        returns a copy of what this rank's source sent, pulled onto this
+        rank's stream once the source's event has fired."""
+        r = self.rank()
+        srcs = [s for s, d in perm if d == r]
+        if len(srcs) != 1:
+            raise ValueError(f"perm {perm} sends {len(srcs)} tensors to "
+                             f"rank {r}")
+        pairs = self.publish(x, what)
+        return self.wait_for(pairs[srcs[0]]).clone()
+
+    # ---- shared buffers ---------------------------------------------------
+    def symmetric(self, name: str, shape: Sequence[int], dtype: torch.dtype,
+                  zero: bool = False) -> List[torch.Tensor]:
+        """One buffer per rank for (name, shape, dtype), allocated at first
+        use and kept; every rank sees all of them.  ``zero`` fills them with
+        zeros when they are made (flag arrays)."""
+        key = (name, tuple(shape), dtype)
+        with self._lock:
+            bufs = self._sym.get(key)
+            if bufs is None:
+                make = torch.zeros if zero else torch.empty
+                bufs = [make(tuple(shape), dtype=dtype, device=self.device)
+                        for _ in range(self.n)]
+                if self.cuda:   # made on this thread's stream: wait for it
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._sym[key] = bufs
+        return bufs
+
+    def free_symmetric(self) -> None:
+        """Drop every cached buffer (call between ``spmd`` runs only)."""
+        with self._lock:
+            self._sym.clear()
+
+    def next_epoch(self) -> int:
+        """This rank's next flag value, in [1, EPOCHS]."""
+        r = self.rank()
+        self._epoch[r] += 1
+        return self._epoch[r] % EPOCHS + 1
+
+
+class _BrokenBarrier(RankGroupError):
+    """A barrier that timed out or that another rank's failure aborted."""

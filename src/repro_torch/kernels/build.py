@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  ``load(name)`` compiles it
-with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the repository
-root (listed in ``.gitignore``), keyed by a hash of the source and flags,
+Each ``csrc/<name>.cu`` has a plain C interface (the GEMM kernels share
+``csrc/gemm_tile.cuh``).  ``load(name)`` compiles it with ``nvcc`` for
+``sm_90a`` into ``build/repro_torch/`` at the repository root (listed in
+``.gitignore``), keyed by a hash of the source, the headers and the flags,
 and returns the loaded library.  The build runs only when a kernel is
 first launched: importing this module needs no ``nvcc`` and no GPU.
 """
@@ -13,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -22,6 +24,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()      # the ranks' threads build at first use
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """``fn.<attr> += 1`` under a lock: the wrappers' launch counts stay
+    exact when the ranks of a ``dist.RankGroup`` launch from their own
+    threads (a bare ``+=`` on an attribute can lose counts between
+    threads)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def nvcc_path() -> str:
@@ -36,10 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -50,7 +66,8 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
+                        ".tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -63,8 +80,9 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built at first call)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LOADED[name] = lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _LOADED[name] = lib
     return lib

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30          # the TPU kernel's mask value (not -inf)
 MIN_DENOM = 1e-30        # floor on the softmax denominator
 HEAD_DIMS = (64, 128)    # the kernel's templated head dims
@@ -118,7 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 
@@ -126,7 +128,6 @@ flash_attention.launches = 0
 
 
 def _library() -> ctypes.CDLL:
-    from repro_torch.kernels import build
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:

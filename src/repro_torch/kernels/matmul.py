@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = 16              # cp.async / float4 loads of 16 bytes
 # bf16 tiles the kernel takes (BM, BN) -> its tile code; fp32 has one tile
@@ -41,36 +43,42 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ b.float()).to(out_dtype or a.dtype)
 
 
-def _check(a, b, out_dtype):
+def _check(a, b, out_dtype, name="matmul"):
+    """The operand rules of the GEMM kernels (the fused kernels' wrappers
+    use them too)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"matmul takes A [M, K] and B [K, N], got "
+        raise ValueError(f"{name} takes A [M, K] and B [K, N], got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dtypes {a.dtype}/{b.dtype}: need both float32 or "
-                         "both bfloat16")
+        raise ValueError(f"{name}: dtypes {a.dtype}/{b.dtype}: need both "
+                         "float32 or both bfloat16")
     if out_dtype not in _DTYPE_CODES:
-        raise ValueError(f"out_dtype {out_dtype}: need float32 or bfloat16")
+        raise ValueError(f"{name}: out_dtype {out_dtype}: need float32 or "
+                         "bfloat16")
 
 
-def _check_cuda(a, b):
+def _check_cuda(a, b, name="matmul"):
+    """What the CUDA GEMM kernels take (raises otherwise)."""
     if b.device != a.device:
-        raise ValueError(f"a, b on different devices: {a.device}, {b.device}")
+        raise ValueError(f"{name}: a, b on different devices: {a.device}, "
+                         f"{b.device}")
     m, k = a.shape
     n = b.shape[1]
     if min(m, k, n) == 0:
-        raise ValueError(f"empty matmul ({m}, {k}, {n})")
+        raise ValueError(f"{name}: empty product ({m}, {k}, {n})")
     if max(m, k, n) >= 2 ** 31:
-        raise ValueError(f"dims ({m}, {k}, {n}) exceed the kernel's int32")
+        raise ValueError(f"{name}: dims ({m}, {k}, {n}) exceed the "
+                         "kernel's int32")
     vec = _ALIGN // a.element_size()
     if k % vec or n % vec:
-        raise ValueError(f"K={k} and N={n} must be multiples of {vec} for "
-                         f"{a.dtype}: the kernel loads rows in 16-byte "
-                         "chunks")
-    for name, t in (("a", a), ("b", b)):
+        raise ValueError(f"{name}: K={k} and N={n} must be multiples of "
+                         f"{vec} for {a.dtype}: the kernel loads rows in "
+                         "16-byte chunks")
+    for nm, t in (("a", a), ("b", b)):
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (row-major)")
+            raise ValueError(f"{name}: {nm} must be contiguous (row-major)")
         if t.data_ptr() % _ALIGN:
-            raise ValueError(f"{name} is not {_ALIGN}-byte aligned")
+            raise ValueError(f"{name}: {nm} is not {_ALIGN}-byte aligned")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -96,7 +104,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
-    matmul.launches += 1
+    build.count_launch(matmul)
     return out
 
 
@@ -104,7 +112,6 @@ matmul.launches = 0
 
 
 def _library() -> ctypes.CDLL:
-    from repro_torch.kernels import build
     lib = build.load("matmul")
     fn = lib.matmul_fwd
     if fn.argtypes is None:

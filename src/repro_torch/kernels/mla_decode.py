@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30          # the TPU kernel's mask value (not -inf)
 LATENT_DIMS = (512,)      # the kernel's R (kv_lora_rank)
 ROPE_DIMS = (64,)         # the kernel's Dr (qk_rope_head_dim)
@@ -121,7 +123,7 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mla_decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    mla_decode_attention.launches += 1
+    build.count_launch(mla_decode_attention)
     return out
 
 
@@ -129,7 +131,6 @@ mla_decode_attention.launches = 0
 
 
 def _library() -> ctypes.CDLL:
-    from repro_torch.kernels import build
     lib = build.load("mla_decode")
     fn = lib.mla_decode_fwd
     if fn.argtypes is None:

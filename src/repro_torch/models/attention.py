@@ -105,8 +105,10 @@ def _rope(q, k, pos, cfg: ModelConfig):
 
 def gqa_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
               with_cache: bool = False):
-    """x: [B, S, D] -> [B, S, D] (pre-norm residual block body).
-    ``with_cache=True`` also returns the prefill KV cache (bf16)."""
+    """x: [B, S, D] -> [B, S, D] (pre-norm residual block body); at tp>1
+    [B, S/TP, D] -> [B, S/TP, D] over this rank's heads, the seams
+    gathering and scattering the sequence.  ``with_cache=True`` also
+    returns the prefill KV cache (bf16; full sequence, local KV heads)."""
     tp = ctx.tp
     d = AttnDims.of(cfg, tp)
     hl, hkvl = d.h_pad // tp, d.hkv_pad // tp

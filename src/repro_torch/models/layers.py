@@ -1,6 +1,6 @@
 """Shared layers (port of ``repro.models.layers``): norm, rotary embedding,
-embedding lookup, sequence positions, and the per-slot / paged KV-cache
-utilities.
+the vocab-parallel embedding lookup, sequence positions, and the per-slot /
+paged KV-cache utilities.
 
 The cache writers update their cache IN PLACE and return it: the reference
 is functional and its server donates the cache buffers to ``jit``
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.parallel.sharding import TPContext
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -42,20 +44,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table: [V, D]; tokens: [B, S].  Out-of-table ids contribute 0 (the
-    vocab-parallel lookup at tp=1: the whole table is this rank's shard)."""
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 ctx: Optional[TPContext] = None) -> torch.Tensor:
+    """Megatron vocab-parallel embedding.  table: [V/TP, D] this rank's
+    shard; tokens: [B, S], the same on every rank.  Out-of-shard ids
+    contribute 0; at tp>1 the ranks' partials combine by a ReduceScatter
+    along the sequence (``ctx.scatter_seq``), which produces the
+    sequence-sharded activation [B, S/TP, D] directly."""
     v_loc = table.shape[0]
-    in_shard = (tokens >= 0) & (tokens < v_loc)
-    x = table[tokens.clamp(0, v_loc - 1)]
-    return x.masked_fill(~in_shard[..., None], 0)
+    local = tokens - (ctx.tp_index() * v_loc if ctx is not None else 0)
+    in_shard = (local >= 0) & (local < v_loc)
+    x = table[local.clamp(0, v_loc - 1)]
+    x = x.masked_fill(~in_shard[..., None], 0)
+    if ctx is not None and ctx.tp > 1:
+        x = ctx.scatter_seq(x)
+    return x
 
 
 def seq_positions(batch: int, s_local: int, device: torch.device,
-                  offset: int = 0) -> torch.Tensor:
-    """Absolute positions of the local sequence rows: [B, S_local].  On one
-    card the local rows ARE the global rows (the reference adds the shard
-    offset ``tp_index * s_local`` under sequence sharding, 0 at tp=1)."""
+                  offset: int = 0,
+                  ctx: Optional[TPContext] = None) -> torch.Tensor:
+    """Absolute positions of this rank's sequence rows: [B, S_local].  The
+    sequence-sharded layout adds the shard offset ``tp_index * s_local``;
+    the replicated layout's local rows ARE the global rows."""
+    if ctx is not None and ctx.seq_sharded:
+        offset = offset + ctx.tp_index() * s_local
     pos = offset + torch.arange(s_local, device=device)
     return pos.expand(batch, s_local)
 

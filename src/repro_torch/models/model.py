@@ -23,12 +23,20 @@ from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, MOE_FFN,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, ffn
 from repro_torch.models import init_utils as iu
-from repro_torch.parallel.sharding import (EP_NOT_PORTED, TP_NOT_PORTED,
+from repro_torch.parallel.sharding import (EP_NOT_PORTED, TP_KIND_NOT_PORTED,
                                            pad_vocab)
 
-# (mixer, ffn) layer kinds the port runs
+# (mixer, ffn) layer kinds the port runs; at tp>1 only TP_KINDS
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
+TP_KINDS = frozenset({(ATTN, DENSE_FFN)})
+
+# the dim each leaf is split along over the TP ranks (None: replicated) —
+# the reference's PartitionSpecs (model.py:83-118) for the kinds in
+# TP_KINDS, on the port's unstacked per-layer leaves
+_MIXER_SPECS = {ATTN: {"wqkv": 1, "wo": 0, "norm": None, "bqkv": 0}}
+_FFN_SPECS = {DENSE_FFN: {"w1": 1, "w3": 1, "w13": 1, "w2": 0,
+                          "norm": None}}
 
 
 def expanded_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -48,14 +56,18 @@ def n_periods(cfg: ModelConfig) -> int:
     return (cfg.num_layers - cfg.leading_dense_layers) // len(cfg.pattern)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is one of ``PORTED_KINDS``."""
+def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
+    """Raise unless every layer is one of ``PORTED_KINDS`` (at tp>1:
+    ``TP_KINDS``)."""
     other = set(expanded_pattern(cfg)) - PORTED_KINDS
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(other)} are not ported; the "
             f"port runs {sorted(PORTED_KINDS)} (ROADMAP 'Modules still to "
             "port', the other families)")
+    if tp > 1 and set(expanded_pattern(cfg)) - TP_KINDS:
+        raise NotImplementedError(f"{cfg.name} at tp={tp}: "
+                                  + TP_KIND_NOT_PORTED)
 
 
 def _frozen(params: Dict) -> nn.ParameterDict:
@@ -97,12 +109,16 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
     norms, zeros for the QKV bias and for every padded row/column; the MoE
     router is fp32 whatever ``dtype``.  The numbers differ from JAX's for
     the same seed; tests hand the reference's weights across with
-    ``convert.params_from_jax``."""
-    if par.tp != 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+    ``convert.params_from_jax``.
+
+    At tp>1 the same canonical weights are drawn (in the same order) and
+    packed for tp — per-rank blocks interleaved, heads / d_ff / vocab
+    zero-padded to tp multiples — so the model computes the same function
+    at every tp (the reference's TP invariance).  The result holds the
+    GLOBAL packed weights; ``shard_params`` cuts each rank's copy."""
     if par.ep != 1:
         raise NotImplementedError(EP_NOT_PORTED)
-    check_ported(cfg)
+    check_ported(cfg, par.tp)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -125,3 +141,44 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
         blocks.append(Block(mixer, f))
     return Model(embed, torch.ones(cfg.d_model, dtype=dtype, device=dev),
                  blocks)
+
+
+def param_specs(cfg: ModelConfig, params: Model) -> Dict:
+    """The dim each weight is split along over the TP ranks (None:
+    replicated), in ``params``' structure: ``{"embed": 0, "final_norm":
+    None, "layers": [{"mixer": {...}, "ffn": {...}}, ...]}`` (the
+    reference's ``param_specs``; the vocab-parallel embedding is split on
+    its rows)."""
+    check_ported(cfg, tp=2)
+    layers = []
+    for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers):
+        layers.append({"mixer": {n: _MIXER_SPECS[mk][n] for n in blk.mixer},
+                       "ffn": {n: _FFN_SPECS[fk][n] for n in blk.ffn}})
+    return {"embed": 0, "final_norm": None, "layers": layers}
+
+
+def _cut(t: torch.Tensor, dim: Optional[int], rank: int,
+         tp: int) -> torch.Tensor:
+    if dim is None:
+        return t
+    if t.shape[dim] % tp:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} is not divisible "
+                         f"by tp={tp}")
+    # a copy of its own: a view would keep the global tensor alive
+    return t.chunk(tp, dim)[rank].clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Model, rank: int, tp: int,
+                 cfg: ModelConfig) -> Model:
+    """Rank ``rank``'s copy of the global packed weights (``init_model`` at
+    this tp, or ``convert.params_from_jax`` of the reference's tp params):
+    each leaf's contiguous 1/tp block along its ``param_specs`` dim;
+    replicated leaves are shared, not copied."""
+    specs = param_specs(cfg, params)
+    blocks = [Block({n: _cut(t, sp["mixer"][n], rank, tp)
+                     for n, t in blk.mixer.items()},
+                    {n: _cut(t, sp["ffn"][n], rank, tp)
+                     for n, t in blk.ffn.items()})
+              for blk, sp in zip(params.layers, specs["layers"])]
+    return Model(_cut(params.embed, specs["embed"], rank, tp),
+                 params.final_norm, blocks)

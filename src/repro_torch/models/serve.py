@@ -1,5 +1,7 @@
 """Serving paths (port of ``repro.models.serve``): batched prefill, dense and
-paged single-token decode, and the paged chunked prefill.
+paged single-token decode, and the paged chunked prefill.  Prefill also
+runs at tp>1, one call per rank of a ``dist.RankGroup`` (``prefill_logits``);
+decode and the chunked prefill raise at tp>1 (ROADMAP queue 1 item 7).
 
 Caches are a list with one dict per layer (expanded-pattern order): GQA
 ``{"k", "v"}`` shaped [B, S_max, Hkv, Dh] by ``cache_specs`` or
@@ -33,7 +35,8 @@ from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
                                       ParallelConfig)
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models.model import Model, check_ported, expanded_pattern
-from repro_torch.parallel.sharding import TPContext
+from repro_torch.parallel.sharding import (TP_DECODE_NOT_PORTED, TPContext,
+                                           gather_ranks)
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -84,14 +87,26 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def vocab_parallel_argmax(logits: torch.Tensor,
-                          vocab_real: int) -> torch.Tensor:
-    """Greedy sampling over logits [B, V_pad] -> [B] (first maximum); the
-    padded vocab tail (columns >= ``vocab_real``) is masked with -inf."""
-    if vocab_real < logits.shape[-1]:
-        col = torch.arange(logits.shape[-1], device=logits.device)
+def vocab_parallel_argmax(logits: torch.Tensor, vocab_real: int,
+                          ctx: Optional[TPContext] = None) -> torch.Tensor:
+    """Greedy sampling over this rank's vocab shard of the logits [B,
+    V_pad/TP] -> [B] global ids (first maximum; the padded vocab tail,
+    columns >= ``vocab_real``, is masked with -inf).  At tp>1 every rank's
+    best (value, id) pair crosses by ``gather_ranks`` and the first rank
+    holding the maximum wins, so all ranks agree."""
+    v_loc = logits.shape[-1]
+    start = ctx.tp_index() * v_loc if ctx is not None else 0
+    if vocab_real < start + v_loc:
+        col = start + torch.arange(v_loc, device=logits.device)
         logits = logits.masked_fill(col >= vocab_real, float("-inf"))
-    return torch.argmax(logits, dim=-1)
+    loc_idx = torch.argmax(logits, dim=-1)
+    if ctx is None or ctx.tp == 1:
+        return loc_idx
+    loc_val = torch.gather(logits, -1, loc_idx[:, None])[:, 0]
+    vals = gather_ranks(loc_val, ctx.group)                 # [B, TP]
+    idxs = gather_ranks(loc_idx + start, ctx.group)         # [B, TP]
+    best = torch.argmax(vals, dim=-1)
+    return torch.gather(idxs, -1, best[:, None])[:, 0]
 
 
 def _mixer_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig):
@@ -115,9 +130,15 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
                    lengths: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Caches]:
     """Full-sequence prefill up to the logits of each row's last true
-    position: returns (logits [B, V_pad], caches)."""
-    check_ported(cfg)
-    x = layers.embed_lookup(params.embed, batch["tokens"])
+    position: returns (logits [B, V_pad / TP], caches).  At tp>1 it runs
+    as one rank of ``ctx.group`` (inside ``group.spmd``) on that rank's
+    ``model.shard_params`` copy, in the sequence-sharded layout: the
+    embedding's ReduceScatter produces [B, S/TP, D], every seam runs on
+    ``ctx.mode``'s transport, and ``gather_seq`` brings the last rows
+    back; the logits are this rank's vocab shard and the caches its KV
+    heads."""
+    check_ported(cfg, ctx.tp)
+    x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
     x = x.to(_compute_dtype(cfg))
     if lengths is not None:
         lengths = lengths.to(x.device)
@@ -128,10 +149,11 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
         x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lengths)
         caches.append(mc)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    # only each row's LAST true position feeds the next token
     if lengths is None:
-        h_last = h[:, -1]
+        h_last = ctx.gather_seq(h[:, -1:])[:, -1]
     else:
-        h_last = layers.take_rows(h, lengths - 1)
+        h_last = layers.take_rows(ctx.gather_seq(h), lengths - 1)
     return torch.matmul(h_last, params.embed.T), caches
 
 
@@ -141,9 +163,10 @@ def prefill_step(params: Model, batch: Dict[str, torch.Tensor],
                  ) -> Tuple[torch.Tensor, Caches]:
     """Full-sequence prefill: returns (next_token [B, 1], caches).  With
     ``ctx.use_kernels`` every GQA layer's attention is the flash kernel
-    (MLA prefill attends in plain code, as the reference does)."""
+    (MLA prefill attends in plain code, as the reference does); at tp>1
+    see ``prefill_logits``: every rank returns the same next tokens."""
     logits, caches = prefill_logits(params, batch, ctx, cfg, lengths)
-    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+    return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches
 
 
 def _mixer_decode(kind: str, p, x, cache, pos, ctx: TPContext,
@@ -169,6 +192,8 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     attention is the MLA-decode kernel.  Returns (next_token [B, 1],
     caches), the caches updated in place."""
     check_ported(cfg)
+    if ctx.tp > 1:
+        raise NotImplementedError(TP_DECODE_NOT_PORTED)
     dev = params.embed.device
     b = tokens.shape[0]
     pos = torch.as_tensor(pos, device=dev).reshape(-1).long().expand(b)
@@ -223,6 +248,8 @@ def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
     only models have none.)  Returns (next_token [1, 1] — meaningful on the
     final chunk only — and the caches, updated in place)."""
     check_ported(cfg)
+    if ctx.tp > 1:
+        raise NotImplementedError(TP_DECODE_NOT_PORTED)
     ctx = ctx.with_layout(False)
     x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
     lenv = torch.full((x.shape[0],), chunk_len, device=x.device)

@@ -1,32 +1,43 @@
 """Parallelism context + padding helpers threaded through the model code.
 
 Every TP seam routes through ``repro_torch.core.overlap`` (``ctx.op(seam)``),
-as in the reference.  The port runs one card: tp>1 (the tensor-parallel
-seams over NCCL, the fused AllGather-GEMM / GEMM-ReduceScatter kernels)
-and ep>1 (the MoE expert exchange over NCCL) raise until their slices
-land.  At ep=1 the expert-parallel group is empty, so the ``moe_a2a``
-seam is the local expert FFN.
+as in the reference.  At tp>1 the context holds the ``dist.RankGroup`` of
+the TP ranks (the reference's mesh axis) and the seams' transport
+(``mode``); model code then runs inside
+``group.spmd``, one call per rank.  Only the sequence-sharded layout runs
+at tp>1 (prefill and the forward seams); ep>1 raises until the MoE
+exchange lands.  At ep=1 the expert-parallel group is empty, so the
+``moe_a2a`` seam is the local expert FFN.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import torch
+
+from repro_torch.core import overlap
 from repro_torch.core.overlap import SEAM_KINDS, Epilogue, FusedOp
 
-TP_NOT_PORTED = ("tensor parallelism (tp>1) is not ported yet: ROADMAP "
-                 "'Modules still to port', item 2 (core/overlap.py ag/rs "
-                 "seams over NCCL) with the ag_gemm / gemm_rs kernels")
+TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
+                  "dist.RankGroup of size tp inside group.spmd: pass "
+                  "group= (ROADMAP queue 1 item 2)")
 EP_NOT_PORTED = ("expert parallelism (ep>1) is not ported yet: ROADMAP "
-                 "'Modules still to port', item 8 (the MoE a2a seam over "
-                 "NCCL, FusedOp(kind='a2a') at ep>1)")
+                 "queue 1 item 8 (the MoE a2a seam across ranks, "
+                 "FusedOp(kind='a2a') at ep>1)")
+TP_DECODE_NOT_PORTED = ("decode, chunked prefill and the paged Server at "
+                        "tp>1 are not ported yet (ROADMAP queue 1 item 7): "
+                        "tp>1 runs prefill in the sequence-sharded layout")
+TP_KIND_NOT_PORTED = ("at tp>1 only the (attn, dense_ffn) pattern is "
+                      "ported; MLA and MoE layers run at tp=1 (ROADMAP "
+                      "queue 1 item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """How the current region is parallelized.
 
-    tp          : tensor-parallel degree; only 1 runs so far, tp>1 raises
+    tp          : tensor-parallel degree; tp>1 needs ``group``
     ep          : expert-parallel degree; only 1 runs so far (an empty EP
                   group: ``moe_a2a`` is the local expert FFN), ep>1 raises
     use_kernels : route hot paths through the hand-written kernels
@@ -34,17 +45,28 @@ class TPContext:
                   attention -> MLA-decode kernel)
     seq_sharded : residual-stream layout (sequence-sharded by default; the
                   serving decode and chunked prefill switch it off)
+    group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
+    mode        : the seams' transport (``overlap.VALID_MODES``)
     """
     tp: int = 1
     ep: int = 1
     use_kernels: bool = False
     seq_sharded: bool = True
+    group: Optional[object] = None
+    mode: str = "decomposed"
 
     def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError(TP_NOT_PORTED)
+        if self.tp != 1 and (self.group is None or self.group.n != self.tp):
+            raise ValueError(TP_NEEDS_GROUP)
         if self.ep != 1:
             raise NotImplementedError(EP_NOT_PORTED)
+        if self.mode not in overlap.VALID_MODES:
+            raise ValueError(f"invalid overlap mode {self.mode!r}")
+
+    @property
+    def axis(self):
+        """The TP group seams run over (None at tp=1)."""
+        return self.group if self.tp > 1 else None
 
     @property
     def seq_factor(self) -> int:
@@ -56,19 +78,55 @@ class TPContext:
             return self
         return dataclasses.replace(self, seq_sharded=seq_sharded)
 
+    def tp_index(self) -> int:
+        """This rank's index in the TP group (0 at tp=1)."""
+        return self.group.rank() if self.tp > 1 else 0
+
     def op(self, seam: str, epilogue: Optional[Epilogue] = None,
            n_weights: int = 1) -> FusedOp:
         """The ``overlap.FusedOp`` for one model seam — the only way model
-        code reaches a seam."""
-        return FusedOp(SEAM_KINDS[seam],
-                       epilogue if epilogue is not None else Epilogue(),
-                       n_weights)
+        code reaches a seam.  The kind comes from the seam name, the
+        transport from the context, the layout from ``seq_sharded``."""
+        kind = SEAM_KINDS[seam]
+        return FusedOp(kind, axis=None if kind == "a2a" else self.axis,
+                       mode=self.mode,
+                       epilogue=epilogue if epilogue is not None
+                       else Epilogue(),
+                       n_weights=n_weights,
+                       scatter_axis="seq" if self.seq_sharded else "hidden")
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Full-sequence view of a sequence-sharded non-GEMM payload
+        (boundary rows); no-op at tp=1 or in the replicated layout."""
+        if self.tp == 1 or not self.seq_sharded:
+            return x
+        return overlap.gather_seq(x, self.group, self.mode)
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """ReduceScatter a per-rank full-sequence partial into this rank's
+        sequence shard (the embedding seam's combine) — dual of
+        ``gather_seq``, on the same transport."""
+        if self.tp == 1:
+            return x
+        if not self.seq_sharded:
+            raise NotImplementedError(TP_DECODE_NOT_PORTED)
+        return overlap.scatter_seq_sum(x, self.group, self.mode)
 
 
-def make_ctx(par) -> TPContext:
+def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """Stack every rank's copy of ``x`` along a NEW trailing dim:
+    [...] -> [..., TP] (the vocab-parallel argmax candidates)."""
+    if group is None or group.n == 1:
+        return x[..., None]
+    return torch.stack(group.exchange(x, "rank_gather"), dim=-1)
+
+
+def make_ctx(par, group=None) -> TPContext:
     """The context a ``ParallelConfig`` implies (the reference's
-    ``trainer.make_ctx``): ``use_kernels`` from ``kernel_decode``."""
-    return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode)
+    ``trainer.make_ctx``): ``use_kernels`` from ``kernel_decode``, the
+    transport from ``overlap_mode``."""
+    return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
+                     group=group, mode=par.overlap_mode)
 
 
 def ceil_mult(x: int, m: int) -> int:

@@ -34,7 +34,7 @@ from repro_torch.configs.base import (ATTN, MLA, RWKV, ModelConfig,
                                       ParallelConfig)
 from repro_torch.models import serve as S
 from repro_torch.models.model import Model, expanded_pattern
-from repro_torch.parallel.sharding import TPContext
+from repro_torch.parallel.sharding import TP_DECODE_NOT_PORTED, TPContext
 from repro_torch.runtime.kvpool import BlockTable, KVPool
 
 
@@ -99,6 +99,8 @@ def _arch_supports_reuse(cfg: ModelConfig) -> bool:
 class Server:
     def __init__(self, cfg: ModelConfig, par: ParallelConfig, params: Model,
                  sc: ServeConfig):
+        if par.tp != 1:
+            raise NotImplementedError(TP_DECODE_NOT_PORTED)
         self.cfg = cfg
         self.par = par
         self.sc = sc

@@ -105,9 +105,22 @@ def test_multi_weight_identity_returns_tuple():
 
 
 def test_tp_gt_1_raises_naming_roadmap():
+    """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 and the
+    replicated (decode) layout at tp>1 are not ported."""
+    from repro_torch.dist import RankGroup
     for tp in (2, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="ROADMAP"):
             TPContext(tp=tp)
+    group = RankGroup(4, "cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TPContext(tp=2, group=group)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TPContext(tp=4, ep=2, group=group)
+    ctx = TPContext(tp=4, group=group).with_layout(False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ctx.op("mlp_ag")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ctx.op("decode_ar")
 
 
 def test_embed_lookup():

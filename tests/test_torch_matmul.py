@@ -182,11 +182,18 @@ def test_fused_wrappers_single_device(wrapper, activation, with_bias, dtype):
 
 @pytest.mark.parametrize("wrapper", ["ag_matmul_fused", "matmul_rs_fused"])
 def test_fused_wrappers_raise_beyond_one_device(wrapper):
+    """n_dev > 1 runs only as the ranks of a RankGroup of that size
+    (tests/test_torch_tp_seams.py holds those values)."""
+    from repro_torch.dist import RankGroup, RankGroupError
     a, b = (torch.from_numpy(x) for x in _inputs(32, 16, 8, "float32"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        getattr(tops, wrapper)(a, b, axis_name="tp", n_dev=4)
+    fused = getattr(tops, wrapper)
+    with pytest.raises(ValueError, match="RankGroup of 4"):
+        fused(a, b, axis_name="tp", n_dev=4)
     with pytest.raises(ValueError, match="n_dev"):
-        getattr(tops, wrapper)(a, b, axis_name="tp")
+        fused(a, b, axis_name="tp")
+    group = RankGroup(2, "cpu")
+    with pytest.raises(RankGroupError, match="group of 2"):
+        group.spmd(lambda: fused(a, b, axis_name="tp", n_dev=4), [()] * 2)
 
 
 def test_ops_matmul_is_the_kernel_module():
@@ -310,7 +317,7 @@ def test_op_level_rank_shapes_and_bounds():
 
 def test_op_level_runs_the_plain_path_on_cpu(capsys):
     before = mm.matmul.launches
-    rows = op_level.main(device="cpu", scale=64, iters=1, warmup=0)
+    rows = op_level.main(device="cpu", scale=64, iters=1, warmup=0, tp=1)
     assert mm.matmul.launches == before
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -324,6 +331,38 @@ def test_op_level_runs_the_plain_path_on_cpu(capsys):
         assert float(us) >= 0.0 and derived == "-"
     assert len(rows) == 12
     assert rows[0]["shape"] == [8, 12288 // 64, 6144 // 64]
+
+
+def test_op_level_tp_rows_run_the_plain_path_on_cpu(capsys):
+    """--tp 4 on the CPU: every (seam, m, mode) row through FusedOp at 4
+    ranks of a RankGroup (plain versions), each beside 4 x the rank's
+    GEMM_non-split; the rows' results equal the global product."""
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import gemm_rs as RS
+    before = (AG.ag_gemm.launches, RS.gemm_rs.launches, mm.matmul.launches)
+    rows = op_level.main(device="cpu", scale=128, iters=1, warmup=0, tp=4)
+    assert (AG.ag_gemm.launches, RS.gemm_rs.launches,
+            mm.matmul.launches) == before
+    lines = capsys.readouterr().out.strip().splitlines()
+    want = []
+    for seam in ("ag", "rs"):
+        for m in op_level.M_SWEEP:
+            want += [f"oplevel_{seam}_m{m}_{mode}" for mode in op_level.MODES]
+            want.append(f"oplevel_{seam}_m{m}_nonsplit_x4")
+    assert [ln.split(",")[0] for ln in lines[1:]] == want
+    assert len(rows) == 36 and all(r["tp"] == 4 for r in rows)
+    group = op_level.RankGroup(4, "cpu")
+    for seam, (n, k) in op_level.SEAMS:
+        args = op_level.tp_inputs(seam, 64, k // 128, n // 128, 4,
+                                  torch.device("cpu"))
+        outs = op_level.run_tp(
+            group, op_level.FusedOp(seam, axis=group, mode="flux"), args)
+        a = torch.cat([x for x, _ in args], dim=0 if seam == "ag" else 1)
+        b = torch.cat([w for _, w in args], dim=1 if seam == "ag" else 0)
+        got = torch.cat(outs, dim=1 if seam == "ag" else 0)
+        want_c = a.float() @ b.float()
+        assert torch.allclose(got.float(), want_c, rtol=2 ** -6,
+                              atol=0.05 * want_c.abs().max().item())
 
 
 def test_op_level_without_a_card_raises():
