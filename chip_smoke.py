@@ -8,11 +8,14 @@ a checkout of this repository.  Phases, one JSON object per line each:
 
 1. device  — the card, its power limit, torch and CUDA versions;
 2. build   — every kernel built from ``src/repro_torch/csrc`` with nvcc, in
-             parallel;
+             parallel; the compiler's registers and spills; the SASS of
+             the bf16 flash kernel and of the bf16 GEMM tile in matmul,
+             ag_gemm and gemm_rs must hold HGMMA and UTMALDG (wgmma, TMA);
 3. kernel  — each kernel (flash attention, MLA decode) against its plain
-             PyTorch version on the card at the main paths' shapes and a
-             few edge cases, with its time, the plain version's, the
-             library call's and the bound;
+             PyTorch version on the card at the main paths' shapes (the
+             kernel lane's and the tp lane's flash shapes) and a few edge
+             cases, with its time, the plain version's, the library
+             call's and the bound;
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
              prefill through ``prefill_step`` with ``kernel_decode=True``
              (one flash-kernel launch per layer), checked against the same
@@ -353,9 +356,45 @@ def phase_build():
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[n] = [ln.split("ptxas info    : ")[-1].strip()
                     for ln in lines if "registers" in ln or "spill" in ln]
+    sass = sass_check(libs)
     emit({"phase": "build", "seconds": build_s,
           "libraries": {n: os.path.relpath(p, ROOT) for n, p in libs.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass_hgmma_utmaldg": sass})
+
+
+def sass_check(libs):
+    """The bf16 flash kernel and the bf16 GEMM tile of matmul, ag_gemm and
+    gemm_rs run on wgmma and TMA: each of their kernels' SASS
+    (``cuobjdump -sass``) holds HGMMA and UTMALDG instructions.  Returns
+    {library: {kernel: [HGMMA count, UTMALDG count]}}."""
+    from pathlib import Path
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    wanted = {"flash_attention": "flash_wgmma_kernel",
+              "matmul": "gemm_wgmma_kernel", "ag_gemm": "ag_gemm_wgmma_kernel",
+              "gemm_rs": "gemm_rs_wgmma_kernel"}
+    out = {}
+    for name, kernel in wanted.items():
+        text = subprocess.run([str(tool), "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for ln in text.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[-1].strip()
+                fn = fn if kernel in fn else None
+                if fn:
+                    counts[fn] = [0, 0]
+            elif fn:
+                counts[fn][0] += "HGMMA" in ln
+                counts[fn][1] += "UTMALDG" in ln
+        check(counts, f"{name}: no {kernel} in the library's SASS")
+        for fn, (hgmma, utmaldg) in counts.items():
+            check(hgmma > 0 and utmaldg > 0,
+                  f"{name}: {fn} has {hgmma} HGMMA and {utmaldg} UTMALDG "
+                  "instructions; the bf16 kernel must run on wgmma and TMA")
+        out[name] = {fn[-60:]: c for fn, c in counts.items()}
+    return out
 
 
 def phase_kernel(torch):
@@ -366,6 +405,7 @@ def phase_kernel(torch):
     cases = [  # name, dtype, B, Hq, Hkv, Sq, Skv, D, causal, kv_offset
         ("minicpm_prefill", torch.bfloat16, 4, 36, 36, 1024, 1024, 64, True, 0),
         ("gqa_d128", torch.bfloat16, 4, 32, 8, 1024, 1024, 128, True, 0),
+        ("tp_lane_prefill", torch.bfloat16, 4, 9, 9, 1024, 1024, 64, True, 0),
         ("kv_offset_suffix", torch.bfloat16, 4, 36, 36, 256, 1024, 64, True,
          768),
         ("noncausal_ragged", torch.bfloat16, 4, 36, 36, 777, 777, 64, False,

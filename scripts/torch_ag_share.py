@@ -9,14 +9,15 @@ shape, each rank ``[m/n, 12288]`` gathered to ``[m, 12288]`` times
 takes from ``share`` (the ranks running on the card at once,
 ``csrc/ag_gemm.cu::launch``) overridden per variant:
 
-* n 1 (no copies, no waits, full grid): the kernel alone;
+* n 1 (no copies, no waits, the full persistent grid): the kernel alone;
 * n 8, share 8: what the port runs (each rank's launch holds at most 1/8
-  of the card's block slots; waiting blocks can never hold them all);
+  of the card's CTA slots less 8; waiting CTAs can never hold them all);
 * n 8, share 16: half of that;
-* n 8, share 1: every tile a block, no bound.  Queuing every copy before
-  any kernel does not make this safe: waiting blocks can hold every slot
-  while shards are still missing, and the call traps.  Only the grid bound
-  keeps the shipped kernel from hanging.
+* n 8, share 1: no bound, every slot of the card a rank.  This traps,
+  with a block a tile as with the persistent grid: queuing every copy
+  before any kernel does not make it safe, since waiting blocks can hold
+  every slot while shards are still missing.  The grid bound is what keeps the kernel from
+  hanging.
 
 Each variant runs in a process of its own (a wait that never ends traps
 after 2 s and ends its process's CUDA context) and prints one JSON line:
@@ -49,7 +50,7 @@ class Library:              # the loaded library, with `share` overridden
     @staticmethod
     def ag_gemm_fwd(*args):
         args = list(args)
-        args[17] = share
+        args[20] = share    # csrc/ag_gemm.cu ag_gemm_fwd's `share`
         return lib.ag_gemm_fwd(*args)
 
 

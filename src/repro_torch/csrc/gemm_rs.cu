@@ -16,7 +16,9 @@
 //     reference's swizzled owner order, owner = (me + sgn (n - 1 - s)) mod
 //     n for s = 0..n-1 (gemm_rs.py:57; paper Fig. 7), so the ranks start
 //     on different owners; a small M_sh packs several owners' rows into
-//     one tile.  The tile loop is gemm_tile.cuh's.
+//     one tile.  The tile loop is gemm_tile.cuh's: bf16 wgmma_gemm (TMA +
+//     wgmma, persistent, one CTA an SM), whose A map is A_local viewed as
+//     [n, M_sh, K_sh], one row block an owner; fp32 F32Tile.
 //   * After an event barrier across the ranks (kernels/gemm_rs.py),
 //     gemm_rs_reduce: this rank sums its n slots in fixed rank order in
 //     fp32, adds the bias once, applies the activation and casts.
@@ -25,9 +27,9 @@
 // partial_dtype once each, summed in fp32), so the tests state the
 // tolerance.
 // What bounds it on the card: the ranks' GEMMs (2 M K_sh N operations a
-// rank) and, for the reduce, n M_sh N partials read once.  No TMA, wgmma
-// or persistent schedule yet.  Launches go on the caller's stream; nothing
-// is allocated or synchronised here.  Each function returns a cudaError_t.
+// rank) and, for the reduce, n M_sh N partials read once.  Launches go on
+// the caller's stream; nothing is allocated or synchronised here.  Each
+// function returns a cudaError_t.
 
 #include "gemm_tile.cuh"
 
@@ -42,9 +44,10 @@ struct RsArgs {
   int m_sh, n, k, n_dev, me, sgn;
 };
 
+// fp32: one block a tile
 template <class Tile, typename PartT>
 __global__ void __launch_bounds__(Tile::kThreads)
-gemm_rs_kernel(const RsArgs params) {
+gemm_rs_f32_kernel(const RsArgs params) {
   using T = typename Tile::T;
   const RsArgs p = params;   // a local copy: the lambdas below capture it
   extern __shared__ __align__(16) unsigned char smem[];
@@ -77,6 +80,33 @@ gemm_rs_kernel(const RsArgs params) {
       tile::store2(slot + (int64_t)(g - s * p.m_sh) * p.n + col, x, y);
     });
   }
+}
+
+// bf16: gemm_tile.cuh's loop; walk position s computes the rows of owner
+// (me + sgn (n - 1 - s)) mod n, row block `owner` of A
+template <typename PartT>
+struct RsOp {
+  void* ws[kMaxRanks];
+  int m_sh, n, n_dev, me, sgn;
+
+  __device__ int owner(int s) const {
+    return ((me + sgn * (n_dev - 1 - s)) % n_dev + n_dev) % n_dev;
+  }
+  __device__ int shard(int s) const { return owner(s); }
+  __device__ bool local(int) const { return false; }
+  __device__ void wait(int, int) const {}
+  __device__ void store(int s, int r, int col, float x, float y) const {
+    PartT* slot = static_cast<PartT*>(ws[owner(s)]) + (int64_t)me * m_sh * n;
+    tile::store2(slot + (int64_t)r * n + col, x, y);
+  }
+};
+
+template <class Cfg, typename PartT>
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap a,
+                     const __grid_constant__ CUtensorMap b,
+                     const tile::Walk w, const RsOp<PartT> op) {
+  tile::wgmma_gemm<Cfg>(&a, &a, &b, w, op);
 }
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -121,9 +151,39 @@ rs_reduce_kernel(const PartT* __restrict__ ws, const float* __restrict__ bias,
   }
 }
 
-template <class Tile, typename PartT>
-cudaError_t launch(const RsArgs& p, cudaStream_t stream) {
-  auto kern = gemm_rs_kernel<Tile, PartT>;
+template <class Cfg, typename PartT>
+cudaError_t launch_wgmma(const RsArgs& p, int m_pad, int box_rows,
+                         int group_m, cudaStream_t stream) {
+  CUtensorMap am, bm;
+  cudaError_t e;
+  if ((e = tile::a_map(&am, p.a, p.k, p.m_sh, p.n_dev, box_rows)) !=
+          cudaSuccess ||
+      (e = tile::b_map(&bm, p.b, p.k, p.n)) != cudaSuccess)
+    return e;
+  auto kern = gemm_rs_wgmma_kernel<Cfg, PartT>;
+  if ((e = tile::allow_smem(kern, Cfg::kSmem)) != cudaSuccess) return e;
+  const int tiles = tile::cdiv(p.n_dev * m_pad, Cfg::kBM) *
+                    tile::cdiv(p.n, Cfg::kBN);
+  int grid = 0;
+  if ((e = tile::persistent_grid(kern, Cfg::kThreads, Cfg::kSmem, tiles, 1,
+                                 0, &grid)) != cudaSuccess)
+    return e;
+  RsOp<PartT> op{};
+  for (int i = 0; i < kMaxRanks; ++i) op.ws[i] = p.ws[i];
+  op.m_sh = p.m_sh;
+  op.n = p.n;
+  op.n_dev = p.n_dev;
+  op.me = p.me;
+  op.sgn = p.sgn;
+  const tile::Walk w{p.m_sh, m_pad, box_rows, p.n_dev, p.n, p.k, group_m};
+  kern<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(am, bm, w, op);
+  return cudaGetLastError();
+}
+
+template <typename PartT>
+cudaError_t launch_f32(const RsArgs& p, cudaStream_t stream) {
+  using Tile = tile::F32Tile;
+  auto kern = gemm_rs_f32_kernel<Tile, PartT>;
   const cudaError_t e = tile::allow_smem(kern, Tile::kSmem);
   if (e != cudaSuccess) return e;
   const int tiles = tile::cdiv(p.n_dev * p.m_sh, Tile::kBM) *
@@ -134,11 +194,16 @@ cudaError_t launch(const RsArgs& p, cudaStream_t stream) {
 
 template <typename PartT>
 cudaError_t launch_in(int in_dtype, int tile_code, const RsArgs& p,
+                      int m_pad, int box_rows, int group_m,
                       cudaStream_t s) {
-  if (in_dtype == 0) return launch<tile::F32Tile, PartT>(p, s);
+  if (in_dtype == 0) return launch_f32<PartT>(p, s);
   if (in_dtype != 1) return cudaErrorInvalidValue;
-  if (tile_code == 0) return launch<tile::WideTile, PartT>(p, s);
-  if (tile_code == 1) return launch<tile::NarrowTile, PartT>(p, s);
+  if (tile_code == 0)
+    return launch_wgmma<tile::LargeTile, PartT>(p, m_pad, box_rows, group_m,
+                                                s);
+  if (tile_code == 1)   // small M
+    return launch_wgmma<tile::SmallTile, PartT>(p, m_pad, box_rows, group_m,
+                                                s);
   return cudaErrorInvalidValue;
 }
 
@@ -160,11 +225,14 @@ cudaError_t launch_reduce(const void* ws, const float* bias, void* out,
 
 // dtype codes: 0 float32, 1 bfloat16.  ws_ptrs: the n_dev owners'
 // workspaces (host array of device pointers).  tile_code (bf16 only): 0 =
-// 128 x 128, 1 = 64 x 64.
+// 128 x 256, 1 = 64 x 64; m_pad, box_rows, group_m (bf16
+// only): the owners' virtual rows, the A box height and the raster's group
+// of tile rows (gemm_tile.cuh).
 extern "C" int gemm_rs_fwd(const void* a, const void* b,
                            const void* const* ws_ptrs, int m_sh, int n,
                            int k, int n_dev, int me, int reverse,
                            int in_dtype, int part_dtype, int tile_code,
+                           int m_pad, int box_rows, int group_m,
                            void* stream) {
   if (n_dev < 1 || n_dev > kMaxRanks) return cudaErrorInvalidValue;
   RsArgs p{};
@@ -180,9 +248,10 @@ extern "C" int gemm_rs_fwd(const void* a, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (part_dtype == 1)
-    err = launch_in<__nv_bfloat16>(in_dtype, tile_code, p, s);
+    err = launch_in<__nv_bfloat16>(in_dtype, tile_code, p, m_pad, box_rows,
+                                   group_m, s);
   else if (part_dtype == 0)
-    err = launch_in<float>(in_dtype, tile_code, p, s);
+    err = launch_in<float>(in_dtype, tile_code, p, m_pad, box_rows, group_m, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -1,86 +1,73 @@
-// The tile loop shared by the port's GEMM kernels (matmul.cu, ag_gemm.cu,
-// gemm_rs.cu): one block computes one BM x BN output tile of A @ B with the
-// whole K sum (no split-K), accumulating in fp32 registers.
+// The tile loops shared by the port's GEMM kernels (matmul.cu, ag_gemm.cu,
+// gemm_rs.cu).  Each output tile owns its whole K sum (no split-K),
+// accumulated in fp32 registers and cast once at the store.
 //
-// A tile's rows need not be contiguous in memory: the caller gives a
-// functor `a_row(r)` that returns the address of the tile's row r (or
-// nullptr past the valid rows, which then load as zeros).  That is what
-// lets the fused kernels walk the gathered rows of several ranks' shards
-// (AG-GEMM) or scatter rows to several owners (GEMM-RS) with the plain
-// GEMM's inner loop.  `emit(rows, n, n0, store)` hands the fp32 results to
-// `store(r, col, x, y)` two columns at a time, for r < rows and col < n.
+//   * bf16: WgmmaTile and wgmma_gemm, a persistent warp-specialised loop
+//     on Hopper's tensor memory accelerator and wgmma (hopper.cuh).
+//   * fp32: F32Tile on the CUDA cores (no TF32, which would not meet the
+//     fp32 tolerance): 128 x 128 tiles, K steps of 8, 8 x 8 outputs a
+//     thread, A staged transposed, read with ld.global.cg; its A rows come
+//     through a row functor `a_row(r)` (nullptr: a zero row).
 //
-//   * Bf16Tile: tensor cores.  A and B tiles go to shared memory by
-//     cp.async (.cg: L2 only, so rows that a copy engine rewrote between
-//     launches are never read from a stale L1 line), STAGES deep, each row
-//     padded by 16 bytes so the ldmatrix reads of 8 rows hit 8 distinct
-//     bank groups; A by ldmatrix, the row-major B by ldmatrix.trans, and
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
-//   * F32Tile: the CUDA cores (no TF32): 128 x 128 tiles, K steps of 8,
-//     8 x 8 outputs a thread, A staged transposed; A read with ld.global.cg.
+// What bounds the bf16 GEMMs: at the op-level shapes (GPT-3 175B at TP 8,
+// [m, 12288] x [12288, 6144] and [m, 6144] x [6144, 12288]) the tensor
+// cores from m 512 up (~295 FLOP a byte is the H100's ridge), the bytes of
+// B at decode m.  A loop of mma.sync m16n8k16, ldmatrix and cp.async
+// reached 31 % of that bound; the tensor cores' full rate needs wgmma fed
+// by TMA.
 //
-// Ragged edges: rows past the valid ones, columns past N and a ragged K
-// tail are zero-filled on load and masked on store.  The 16-byte loads need
-// K and N to be multiples of 8 (bf16) or 4 (fp32) and 16-byte aligned
-// rows; the wrappers check both.
+// Design of wgmma_gemm:
+//   * A persistent grid, one CTA a resident slot (fewer under the
+//     AG-GEMM's grid bound), walks the output tiles t = blockIdx.x,
+//     + gridDim.x, ... in tile_coords' raster (groups of up to kGroupM
+//     tile rows, column-major inside a group: the CTAs in flight share B
+//     column panels and A row panels in L2).  A group never straddles two
+//     row blocks, so the blocks' tiles come in walk order: the AG-GEMM's
+//     local shard first (kernels/matmul.py::raster_group).
+//   * Warp specialisation: one producer warpgroup (setmaxnreg gives its
+//     registers to the consumers), of which one thread issues every TMA
+//     load into a STAGES-deep ring of (A, B) stages, each with a full and
+//     an empty mbarrier; WGM consumer warpgroups of 64 rows each run
+//     wgmma m64nBNk16 from shared memory, one k-step's group in flight
+//     while the previous stage goes back to the producer.  The ring runs
+//     on across tiles, so the producer loads the next tile while the
+//     consumers store this one.
+//   * A [rows, K] is K-major: boxes of 64 columns x box_rows rows, 128-byte
+//     swizzle.  B [K, N] is N-contiguous: boxes of 64 K-rows x 64 columns
+//     (one swizzle atom wide), read by wgmma with the transpose bit.
+//   * Rows.  The caller's A is `shards` row blocks of m_sh rows each (one
+//     for a plain GEMM; the ranks' shards for the AG-GEMM; the owners'
+//     row blocks for GEMM-RS), walked in the caller's order (Op::shard).
+//     Each block is padded to m_pad virtual rows: m_pad a multiple of BM
+//     when m_sh >= BM (a tile never straddles two blocks), else a power of
+//     two >= m_sh that divides BM (several blocks pack into one tile, one
+//     box each).  The A tensor map is 3-D [shards, m_sh, K] with box
+//     height box_rows = min(m_pad, BM): rows past m_sh zero-fill, and no
+//     box reads another block's rows.  kernels/matmul.py::walk_args picks
+//     (m_pad, box_rows) and the raster's group.
+//   * Op (the kernel's): shard(s) / local(s), the map index of walk
+//     position s and whether it is read through the second map; wait(s0,
+//     s1), run by the producer before a tile's first load (the AG-GEMM's
+//     flag wait); store(s, r, col, x, y), the epilogue of rows r < m_sh.
+//   * Ragged edges: a K tail and columns past N zero-fill in TMA; boxes
+//     wholly past the last block or past N are not loaded (the rows and
+//     columns they would feed are not stored).  K and N must be multiples
+//     of 8 and the bases 16-byte aligned (TMA's strides); the wrappers
+//     check both.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace tile {
 
-constexpr int kPad = 8;      // bf16: padding of each smem row (16 bytes)
 constexpr int kGroupM = 8;   // tile rows per raster group (L2 reuse)
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; valid == false zero-fills the destination (source
-// size 0: nothing is read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -92,13 +79,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 }
 
 // The (tile row, tile column) of linear tile `pid`: tiles are numbered in
-// groups of kGroupM tile rows, column-major inside a group, so the blocks
-// in flight share A row panels and B column panels in L2.
+// groups of `group` tile rows, column-major inside a group, so the blocks
+// in flight share A row panels and B column panels in L2
+// (kernels/matmul.py::tile_coords mirrors it).
 __device__ __forceinline__ void tile_coords(int pid, int tiles_m, int tiles_n,
-                                            int* tm, int* tn) {
-  const int per_group = kGroupM * tiles_n;
-  const int first_m = (pid / per_group) * kGroupM;
-  const int group_m = min(tiles_m - first_m, kGroupM);
+                                            int* tm, int* tn,
+                                            int group = kGroupM) {
+  const int per_group = group * tiles_n;
+  const int first_m = (pid / per_group) * group;
+  const int group_m = min(tiles_m - first_m, group);
   *tm = first_m + (pid % per_group) % group_m;
   *tn = (pid % per_group) / group_m;
 }
@@ -119,157 +108,204 @@ __device__ __forceinline__ float activate(int act, float x) {
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES>
-struct Bf16Tile {
-  using T = __nv_bfloat16;
-  static constexpr int kBM = BM, kBN = BN;
-  static constexpr int kThreads = WARPS_M * WARPS_N * 32;
-  static constexpr int WTM = BM / WARPS_M;    // warp tile rows
-  static constexpr int WTN = BN / WARPS_N;    // warp tile columns
-  static constexpr int MI = WTM / 16;         // m16 fragments a warp
-  static constexpr int NI = WTN / 8;          // n8 fragments a warp
-  static constexpr int AS = BK + kPad;
-  static constexpr int BS = BN + kPad;
-  static constexpr int A_STAGE = BM * AS;
-  static constexpr int B_STAGE = BK * BS;
-  static constexpr int A_CHUNKS = BM * BK / 8;   // 16-byte chunks of A
-  static constexpr int B_CHUNKS = BK * BN / 8;
-  static constexpr int A_PER = A_CHUNKS / kThreads;
-  static constexpr int kSmem = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(T);
-  static_assert(WTM % 16 == 0 && NI % 2 == 0, "warp tile");
-  static_assert(STAGES >= 2, "pipeline depth");
-  static_assert(A_CHUNKS % kThreads == 0 && B_CHUNKS % kThreads == 0,
-                "chunks/thread");
-
-  float acc[MI][NI][4];
-
-  __device__ __forceinline__ void load(const T* const* arow,
-                                       const T* __restrict__ b, T* as, T* bs,
-                                       int n, int k, int n0, int k0,
-                                       int tid) const {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c / (BK / 8);
-      const int col = (c % (BK / 8)) * 8;
-      const bool ok = arow[i] != nullptr && k0 + col < k;
-      cp_async16(smem_u32(as + r * AS + col), ok ? arow[i] + k0 + col : b, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < B_CHUNKS / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c / (BN / 8);
-      const int col = (c % (BN / 8)) * 8;
-      const bool ok = (k0 + r < k) && (n0 + col < n);
-      const T* src = ok ? b + (int64_t)(k0 + r) * n + n0 + col : b;
-      cp_async16(smem_u32(bs + r * BS + col), src, ok);
-    }
-  }
-
-  // acc = A_tile @ B[:, n0:n0+BN]; `a_row(r)` is the address of row r of
-  // the tile (nullptr: a zero row).  Ends with a barrier, so the shared
-  // memory is free for the next tile on return.
-  template <class ARow>
-  __device__ __forceinline__ void run(ARow a_row, const T* __restrict__ b,
-                                      int n, int k, int n0,
-                                      unsigned char* smem) {
-    T* as_all = reinterpret_cast<T*>(smem);
-    T* bs_all = as_all + STAGES * A_STAGE;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int wm = warp / WARPS_N;
-    const int wn = warp % WARPS_N;
-    const int nk = cdiv(k, BK);
-    const T* arow[A_PER];
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i)
-      arow[i] = a_row((tid + i * kThreads) / (BK / 8));
-
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    // prologue: the first STAGES - 1 K steps in flight (one group each,
-    // empty past the end, so the group count stays uniform)
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk)
-        load(arow, b, as_all + s * A_STAGE, bs_all + s * B_STAGE, n, k, n0,
-             s * BK, tid);
-      cp_async_commit();
-    }
-
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<STAGES - 2>();   // step kt has landed
-      __syncthreads();               // ... for all threads; kt - 1 is done
-      const int nt = kt + STAGES - 1;
-      if (nt < nk)                   // into the stage step kt - 1 used
-        load(arow, b, as_all + (nt % STAGES) * A_STAGE,
-             bs_all + (nt % STAGES) * B_STAGE, n, k, n0, nt * BK, tid);
-      cp_async_commit();
-
-      const T* as = as_all + (kt % STAGES) * A_STAGE;
-      const T* bs = bs_all + (kt % STAGES) * B_STAGE;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[MI][4];
-        uint32_t bf[NI][2];
-        // A: lanes 0-15 address rows 0-15 at k kk, lanes 16-31 at kk + 8
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-          ldmatrix_x4(af[i], smem_u32(as + (wm * WTM + i * 16 + (lane & 15))
-                                      * AS + kk + (lane >> 4) * 8));
-        // B: lanes 0-15 address k rows kk..kk+15 at columns j..j+7, lanes
-        // 16-31 at j+8..j+15; .trans gives each thread its column's k pairs
-#pragma unroll
-        for (int j = 0; j < NI / 2; ++j) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, smem_u32(bs + (kk + (lane & 15)) * BS
-                                        + wn * WTN + j * 16
-                                        + (lane >> 4) * 8));
-          bf[2 * j][0] = r[0];
-          bf[2 * j][1] = r[1];
-          bf[2 * j + 1][0] = r[2];
-          bf[2 * j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NI; ++j)
-            mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-
-  // accumulator (i, j): rows lane / 4 and lane / 4 + 8 of the fragment,
-  // columns 2 (lane % 4) and + 1; n % 8 == 0, so a pair is wholly in range
-  // or out of it
-  template <class Store>
-  __device__ __forceinline__ void emit(int rows, int n, int n0,
-                                       Store store) const {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp / WARPS_N;
-    const int wn = warp % WARPS_N;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = wm * WTM + i * 16 + (lane >> 2);
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int col = n0 + wn * WTN + j * 8 + (lane & 3) * 2;
-        if (col >= n) continue;
-        if (r < rows) store(r, col, acc[i][j][0], acc[i][j][1]);
-        if (r + 8 < rows) store(r + 8, col, acc[i][j][2], acc[i][j][3]);
-      }
-    }
-  }
+// ---------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------
+// WGM consumer warpgroups (BM = 64 WGM rows), BN columns, K steps of 64,
+// STAGES ring stages; PREGS / CREGS the producer's and consumers' register
+// counts after setmaxnreg (0: not used).
+template <int WGM, int BN, int STAGES, int PREGS, int CREGS>
+struct WgmmaTile {
+  static constexpr int kBM = 64 * WGM, kBN = BN, kBK = 64;
+  static constexpr int kWGM = WGM, kStages = STAGES;
+  static constexpr int kPRegs = PREGS, kCRegs = CREGS;
+  static constexpr int kThreads = 128 * (WGM + 1);
+  static constexpr int A_BYTES = kBM * kBK * 2;
+  static constexpr int B_BYTES = kBK * BN * 2;
+  static constexpr int kSmem = 1024 + STAGES * (A_BYTES + B_BYTES)
+                               + 2 * STAGES * 8;
+  static_assert(BN % 64 == 0 && BN <= 256, "wgmma n");
+  static_assert(STAGES >= 2, "ring depth");
 };
+
+// The bf16 tiles the wrappers pick between (kernels/matmul.py TILES,
+// plan_blocks), set from scripts/torch_gemm_configs.py's sweep at the
+// op-level shapes, where 128 x 128 tiles were never the fastest: 0 =
+// 128 x 256 (large m), 3 stages (4 were 2 % faster alone but slower with
+// eight ranks' GEMMs on one card: scripts/torch_kernel_ab.py); 1 = 64 x 64,
+// 6 stages (small m, bytes-bound on B; two CTAs an SM).
+using LargeTile = WgmmaTile<2, 256, 3, 40, 232>;
+using SmallTile = WgmmaTile<1, 64, 6, 0, 0>;
+
+// The rows of A (see the note at the top), the product's N and K, and the
+// raster's group of tile rows.
+struct Walk {
+  int m_sh, m_pad, box_rows, shards, n, k, group_m;
+};
+
+template <class Cfg, class Op>
+__device__ __forceinline__ void wgmma_gemm(const CUtensorMap* a_map,
+                                           const CUtensorMap* a_local,
+                                           const CUtensorMap* b_map,
+                                           const Walk& w, const Op& op) {
+  using T = __nv_bfloat16;
+  constexpr int BM = Cfg::kBM, BN = Cfg::kBN, BK = Cfg::kBK;
+  constexpr int ST = Cfg::kStages, WGM = Cfg::kWGM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* as = reinterpret_cast<T*>(smem);                 // [ST][BM][BK]
+  T* bs = as + ST * BM * BK;                          // [ST][BN/64][BK][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + ST * BK * BN);
+  uint64_t* empty = full + ST;
+  const int tiles_m = cdiv(w.shards * w.m_pad, BM);
+  const int tiles_n = cdiv(w.n, BN);
+  const int tiles = tiles_m * tiles_n;
+  const int nk = cdiv(w.k, BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::bar_init(full + s, 1);
+      hopper::bar_init(empty + s, 4 * WGM);   // lane 0 of each consumer warp
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WGM) {
+    // ---- producer ----
+    if constexpr (Cfg::kPRegs > 0) hopper::regs_dealloc<Cfg::kPRegs>();
+    if (threadIdx.x != WGM * 128) return;
+    hopper::prefetch_map(a_map);
+    hopper::prefetch_map(a_local);
+    hopper::prefetch_map(b_map);
+    const int boxes = BM / w.box_rows;
+    int stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int tm, tn;
+      tile_coords(t, tiles_m, tiles_n, &tm, &tn, w.group_m);
+      const int g0 = tm * BM, n0 = tn * BN;
+      op.wait(g0 / w.m_pad, min((g0 + BM - 1) / w.m_pad, w.shards - 1));
+      int a_boxes = 0;    // boxes of this tile inside the blocks
+      while (a_boxes < boxes &&
+             (g0 + a_boxes * w.box_rows) / w.m_pad < w.shards)
+        ++a_boxes;
+      const int b_boxes = min(BN / 64, cdiv(w.n - n0, 64));
+      const uint32_t bytes =
+          (a_boxes * w.box_rows + b_boxes * 64) * BK * 2;
+      for (int kt = 0; kt < nk; ++kt) {
+        hopper::bar_wait(empty + stage, phase ^ 1);
+        hopper::bar_expect(full + stage, bytes);
+        T* a_st = as + stage * BM * BK;
+        T* b_st = bs + stage * BK * BN;
+        for (int i = 0; i < a_boxes; ++i) {
+          const int v = g0 + i * w.box_rows;
+          const int s = v / w.m_pad;
+          hopper::tma_load_3d(a_st + i * w.box_rows * BK,
+                              op.local(s) ? a_local : a_map, full + stage,
+                              kt * BK, v - s * w.m_pad, op.shard(s));
+        }
+        for (int j = 0; j < b_boxes; ++j)
+          hopper::tma_load_2d(b_st + j * BK * 64, b_map, full + stage,
+                              n0 + 64 * j, kt * BK);
+        if (++stage == ST) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile --
+  if constexpr (Cfg::kCRegs > 0) hopper::regs_alloc<Cfg::kCRegs>();
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x / 32) & 3;
+  float acc[BN / 2];
+  int stage = 0, phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int tm, tn;
+    tile_coords(t, tiles_m, tiles_n, &tm, &tn, w.group_m);
+    const int g0 = tm * BM, n0 = tn * BN;
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      hopper::bar_wait(full + stage, phase);
+      hopper::wgmma_fence();
+      if (kt == 0) hopper::fence_regs(acc);
+      const uint64_t da = hopper::desc(
+          as + stage * BM * BK + wg * 64 * BK, 16, 1024);
+      const uint64_t db = hopper::desc(bs + stage * BK * BN, BK * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_ss<BN, 1>(acc, da + 2 * kk, db + 128 * kk,
+                                kt > 0 || kk > 0);
+      hopper::wgmma_commit();
+      if (kt > 0) {
+        hopper::wgmma_wait<1>();           // step kt - 1 is done
+        if (lane == 0) hopper::bar_arrive(empty + prev);
+      }
+      prev = stage;
+      if (++stage == ST) { stage = 0; phase ^= 1; }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::bar_arrive(empty + prev);
+
+    // accumulator (jb, h): row 16 warp + lane / 4 + 8 h of the warpgroup's
+    // 64, columns 8 jb + 2 (lane % 4) and + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = g0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
+      const int s = v / w.m_pad;
+      const int r = v - s * w.m_pad;
+      if (s >= w.shards || r >= w.m_sh) continue;
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb) {
+        const int col = n0 + 8 * jb + 2 * (lane & 3);
+        if (col < w.n)
+          op.store(s, r, col, acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// A as `shards` row blocks [shards, m_sh, k] (row-major), boxes of 64
+// columns x box_rows rows
+inline cudaError_t a_map(CUtensorMap* map, const void* base, int k, int m_sh,
+                         int shards, int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)k, (uint64_t)m_sh, (uint64_t)shards};
+  const uint64_t strides[2] = {(uint64_t)k * 2, (uint64_t)m_sh * k * 2};
+  const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+  return hopper::make_map(map, base, 3, dims, strides, box);
+}
+
+// B [k, n] (row-major), boxes of 64 K-rows x 64 columns
+inline cudaError_t b_map(CUtensorMap* map, const void* base, int k, int n) {
+  const uint64_t dims[2] = {(uint64_t)n, (uint64_t)k};
+  const uint64_t strides[1] = {(uint64_t)n * 2};
+  const uint32_t box[2] = {64, 64};
+  return hopper::make_map(map, base, 2, dims, strides, box);
+}
+
+// The persistent grid: every resident CTA slot of the card, at most one a
+// tile; when `share` ranks run on one card at once (share > 1), 1/share of
+// the slots less `reserved` (kernels/matmul.py::persistent_grid mirrors
+// it).
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kern, int threads, int smem, int tiles,
+                            int share, int reserved, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, threads, smem)) != cudaSuccess)
+    return e;
+  int slots = per_sm * sms;
+  if (share > 1) slots = (slots - reserved) / share;
+  *grid = slots < 1 ? 1 : (slots < tiles ? slots : tiles);
+  return cudaSuccess;
+}
 
 struct F32Tile {
   using T = float;
@@ -356,12 +392,6 @@ struct F32Tile {
   }
 };
 
-// The two bf16 tiles the wrappers pick between (kernels/matmul.py
-// TILES): 0 = 128 x 128 with 8 warps of 64 x 32, K steps of 32, three
-// stages; 1 = 64 x 64 with 4 warps of 32 x 32, K steps of 64, four stages
-// (for small m).
-using WideTile = Bf16Tile<128, 128, 32, 2, 4, 3>;
-using NarrowTile = Bf16Tile<64, 64, 64, 2, 2, 4>;
 
 // Set the dynamic shared memory a kernel needs above the default 48 KB.
 template <class Kernel>

@@ -80,17 +80,18 @@ def check_cuda(name: str, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: bias on {bias.device}, A on {a.device}")
 
 
-def tile_code(m: int, n: int, dtype: torch.dtype,
-              tile: Optional[Tuple[int, int]]) -> int:
-    """The bf16 output tile: ``tile`` when given (one of
-    ``matmul.TILES``), else ``matmul.plan_blocks`` over the whole launch's
-    rows; fp32 has one tile."""
+def tile_args(m: int, n: int, m_sh: int, dtype: torch.dtype,
+              tile: Optional[Tuple[int, int]]) -> Tuple[int, int, int, int]:
+    """(tile code, m_pad, box_rows, group_m) of a bf16 launch over m rows
+    in row blocks of ``m_sh`` (``matmul.walk_args``): ``tile`` when given
+    (one of ``matmul.TILES``), else ``matmul.plan_blocks`` over the whole
+    launch's rows.  fp32 has one tile and ignores all four."""
     if dtype != torch.bfloat16:
-        return 0
+        return 0, 0, 0, 0
     tile = tuple(tile) if tile is not None else _mm.plan_blocks(m, n)
     if tile not in _mm.TILES:
         raise ValueError(f"tile {tile}: the kernels take {list(_mm.TILES)}")
-    return _mm.TILES[tile]
+    return (_mm.TILES[tile], *_mm.walk_args(m_sh, tile))
 
 
 def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
@@ -118,7 +119,7 @@ def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
     n, me = group.n, group.rank()
     m_sh, k = a_shard.shape
     n_loc = b_local.shape[1]
-    code = tile_code(n * m_sh, n_loc, a_shard.dtype, tile)
+    targs = tile_args(n * m_sh, n_loc, m_sh, a_shard.dtype, tile)
     lib = _library()
     pairs = group.publish(a_shard, "ag_gemm")
     _check_same([t for t, _ in pairs], a_shard)
@@ -158,7 +159,7 @@ def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
         b_local.data_ptr(), None if bias_f is None else bias_f.data_ptr(),
         out.data_ptr(), m_sh, n_loc, k, n, me, int(reverse), epoch,
         ACT_CODES[activation], DTYPE_CODES[a_shard.dtype],
-        DTYPE_CODES[out_dtype], code, group.n, stream.cuda_stream)
+        DTYPE_CODES[out_dtype], *targs, group.n, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"ag_gemm kernel launch failed: CUDA error {err}")
     build.count_launch(ag_gemm)
@@ -182,6 +183,6 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.ag_gemm_pull.argtypes = [vp, vp, ctypes.c_size_t, vp, i, vp]
         lib.ag_gemm_pull.restype = i
-        lib.ag_gemm_fwd.argtypes = [vp] * 6 + [i] * 12 + [vp]
+        lib.ag_gemm_fwd.argtypes = [vp] * 6 + [i] * 15 + [vp]
         lib.ag_gemm_fwd.restype = i
     return lib

@@ -7,6 +7,10 @@ kernel ``csrc/flash_attention.cu`` (built at first use by
 ``flash_attention_ref`` for CPU tensors.  There is no fallback: a CUDA
 tensor the kernel does not take, or a build or launch failure, raises.
 
+The bf16 kernel runs on wgmma and TMA; fp32 inputs take a kernel on the
+CUDA cores (the reference's fp32 math).  ``block_order`` and ``kv_tiles``
+give the bf16 kernel's CTA numbering and work per query tile.
+
 ``flash_attention.launches`` counts kernel launches (never the plain path),
 so a run can show that its main path went through the kernel.
 """
@@ -14,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -24,7 +28,35 @@ NEG_INF = -1e30          # the TPU kernel's mask value (not -inf)
 MIN_DENOM = 1e-30        # floor on the softmax denominator
 HEAD_DIMS = (64, 128)    # the kernel's templated head dims
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = 16              # float4 / 4 x bf16 vector loads
+_ALIGN = 16              # TMA bases / float4 loads
+BLOCK_Q = 128            # bf16 kernel: query rows a CTA (two warpgroups)
+
+
+def block_kv(d: int) -> int:
+    """The bf16 kernel's K/V tile rows at head dim ``d``."""
+    return 128 if d == 64 else 64
+
+
+def kv_tiles(qi: int, sq: int, skv: int, d: int, causal: bool,
+             kv_offset: int) -> int:
+    """K/V tiles the bf16 kernel's query tile ``qi`` reads: all of them,
+    or under the causal mask those up to its last valid query row's
+    position."""
+    bkv = block_kv(d)
+    n_kv = -(-skv // bkv)
+    if not causal:
+        return n_kv
+    last_q = kv_offset + min((qi + 1) * BLOCK_Q, sq) - 1
+    return min(n_kv, last_q // bkv + 1)
+
+
+def block_order(sq: int, bh: int, causal: bool) -> List[Tuple[int, int]]:
+    """(query tile, b * Hq + h) of each CTA of the bf16 kernel in launch
+    order (csrc/flash_attention.cu): the query tile changes slowest, last
+    tile first when causal, so the heaviest tiles start first."""
+    n_qt = -(-sq // BLOCK_Q)
+    return [((n_qt - 1 - p // bh) if causal else p // bh, p % bh)
+            for p in range(n_qt * bh)]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -86,8 +118,9 @@ def _check_cuda(q, k, v, kv_offset):
             raise ValueError(f"{name} is not {_ALIGN}-byte aligned")
     if kv_offset < 0:
         raise ValueError(f"kv_offset={kv_offset} must be >= 0")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("B * Hq must be <= 65535 (grid.y)")
+    if q.dtype == torch.float32 and q.shape[0] * q.shape[1] > 65535:
+        raise ValueError("B * Hq must be <= 65535 (the fp32 kernel's "
+                         "grid.y)")
     if min(q.shape[2], k.shape[2]) == 0:
         raise ValueError("empty sequence")
 

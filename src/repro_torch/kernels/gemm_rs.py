@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ag_gemm import (ACT_CODES, DTYPE_CODES, check_cuda,
                                          check_operands, epilogue_ref,
-                                         tile_code)
+                                         tile_args)
 
 
 def reduce_ref(partials: Sequence[torch.Tensor], me: int,
@@ -95,7 +95,7 @@ def gemm_rs(a_local: torch.Tensor, b_local: torch.Tensor, *, group,
     check_cuda("gemm_rs", a_local, b_local, bias)
     if n > MAX_RANKS:
         raise ValueError(f"gemm_rs: {n} ranks > the kernel's {MAX_RANKS}")
-    code = tile_code(m, n_out, a_local.dtype, tile)
+    targs = tile_args(m, n_out, m_sh, a_local.dtype, tile)
     lib = _library()
     stream = torch.cuda.current_stream(a_local.device)
     # every owner's earlier reduce is done with its workspace before this
@@ -112,7 +112,7 @@ def gemm_rs(a_local: torch.Tensor, b_local: torch.Tensor, *, group,
     err = lib.gemm_rs_fwd(a_local.data_ptr(), b_local.data_ptr(), ptrs, m_sh,
                           n_out, k, n, me, int(reverse),
                           DTYPE_CODES[a_local.dtype],
-                          DTYPE_CODES[partial_dtype], code,
+                          DTYPE_CODES[partial_dtype], *targs,
                           stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm_rs kernel launch failed: CUDA error {err}")
@@ -142,8 +142,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("gemm_rs")
     if lib.gemm_rs_fwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gemm_rs_fwd.argtypes = [vp, vp, ctypes.POINTER(vp)] + [i] * 9 \
-            + [vp]
+        lib.gemm_rs_fwd.argtypes = [vp, vp, ctypes.POINTER(vp)] \
+            + [i] * 12 + [vp]
         lib.gemm_rs_fwd.restype = i
         lib.gemm_rs_reduce.argtypes = [vp, vp, vp] + [i] * 6 + [vp]
         lib.gemm_rs_reduce.restype = i

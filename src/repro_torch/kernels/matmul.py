@@ -13,26 +13,96 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = 16              # cp.async / float4 loads of 16 bytes
-# bf16 tiles the kernel takes (BM, BN) -> its tile code; fp32 has one tile
-TILES = {(128, 128): 0, (64, 64): 1}
-WIDE, NARROW = (128, 128), (64, 64)
+_ALIGN = 16              # TMA strides and bases / float4 loads: 16 bytes
+# bf16 tiles the kernel takes (BM, BN) -> its tile code
+# (csrc/gemm_tile.cuh LargeTile, SmallTile); fp32 has one tile
+LARGE, SMALL = (128, 256), (64, 64)
+TILES = {LARGE: 0, SMALL: 1}
 SMS = 132                # streaming multiprocessors of an H100 SXM
+GROUP_M = 8              # csrc/gemm_tile.cuh kGroupM
+MIN_BOX_ROWS = 8         # one 1024-byte swizzle atom of A rows
 
 
 def plan_blocks(m: int, n: int) -> Tuple[int, int]:
-    """The bf16 kernel's output tile for an [m, n] product: 128 x 128, or
-    64 x 64 when 128 x 128 tiles would not fill the card's SMs once (small
-    m, the decode rows of the op-level sweep)."""
-    wide_tiles = -(-m // WIDE[0]) * -(-n // WIDE[1])
-    return NARROW if wide_tiles < SMS else WIDE
+    """The bf16 kernel's output tile for an [m, n] product: 128 x 256 when
+    those tiles fill at least half the card's SMs (one wave of the
+    persistent grid), else 64 x 64 (small m, the decode rows of the
+    op-level sweep; two CTAs an SM).  Set from
+    scripts/torch_gemm_configs.py's sweep (PERF.md)."""
+    if -(-m // LARGE[0]) * -(-n // LARGE[1]) >= SMS // 2:
+        return LARGE
+    return SMALL
+
+
+def a_boxes(m_sh: int, bm: int) -> Tuple[int, int]:
+    """(m_pad, box_rows) of the bf16 kernels' A tensor map for row blocks
+    of ``m_sh`` rows under a tile of ``bm`` rows (csrc/gemm_tile.cuh):
+    each block is padded to m_pad virtual rows and loaded in boxes of
+    box_rows rows.  m_sh >= bm: m_pad the next multiple of bm, one box a
+    tile (no tile straddles two blocks); else a power of two >= m_sh
+    (at least 8 rows, one swizzle atom) that divides bm, one box a block,
+    several blocks a tile."""
+    if m_sh <= 0 or bm & (bm - 1):
+        raise ValueError(f"a_boxes: m_sh={m_sh}, bm={bm}")
+    if m_sh >= bm:
+        return -(-m_sh // bm) * bm, bm
+    m_pad = max(MIN_BOX_ROWS, 1 << (m_sh - 1).bit_length())
+    return m_pad, m_pad
+
+
+def raster_group(m_pad: int, bm: int) -> int:
+    """Tile rows of a raster group of the bf16 kernels: the largest
+    divisor of a row block's tiles (m_pad / bm) up to GROUP_M, so that no
+    group straddles two blocks and the blocks' tiles come in walk order;
+    GROUP_M when several blocks share a tile row."""
+    if m_pad < bm:
+        return GROUP_M
+    per_block = m_pad // bm
+    return max(g for g in range(1, GROUP_M + 1) if per_block % g == 0)
+
+
+def walk_args(m_sh: int, tile: Tuple[int, int]) -> Tuple[int, int, int]:
+    """(m_pad, box_rows, group_m) the bf16 kernels take for row blocks of
+    ``m_sh`` rows under output tile ``tile``."""
+    m_pad, box_rows = a_boxes(m_sh, tile[0])
+    return m_pad, box_rows, raster_group(m_pad, tile[0])
+
+
+def tile_coords(t: int, tiles_m: int, tiles_n: int,
+                group: int = GROUP_M) -> Tuple[int, int]:
+    """(tile row, tile column) of linear tile ``t`` in the kernels' raster
+    (csrc/gemm_tile.cuh tile_coords): groups of ``group`` tile rows,
+    column-major inside a group."""
+    per_group = group * tiles_n
+    first_m = (t // per_group) * group
+    group_m = min(tiles_m - first_m, group)
+    return first_m + (t % per_group) % group_m, (t % per_group) // group_m
+
+
+def persistent_grid(tiles: int, share: int, slots: int,
+                    reserved: int = 0) -> int:
+    """CTAs of a persistent bf16 launch (csrc/gemm_tile.cuh
+    persistent_grid): every resident slot, at most one a tile; when
+    ``share`` ranks run on one card, 1/share of the slots less
+    ``reserved``."""
+    if share > 1:
+        slots = (slots - reserved) // share
+    return max(1, min(slots, tiles))
+
+
+def block_tiles(block: int, grid: int, tiles_m: int, tiles_n: int,
+                group: int = GROUP_M) -> List[Tuple[int, int]]:
+    """The (tile row, tile column) pairs CTA ``block`` of a persistent
+    ``grid`` computes, in order: tiles block, block + grid, ..."""
+    return [tile_coords(t, tiles_m, tiles_n, group)
+            for t in range(block, tiles_m * tiles_n, grid)]
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
@@ -97,11 +167,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     _check_cuda(a, b)
     m, n = a.shape[0], b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    block = plan_blocks(m, n)
     err = _library().matmul_fwd(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, a.shape[1],
-        _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype],
-        TILES[plan_blocks(m, n)],
-        torch.cuda.current_stream(a.device).cuda_stream)
+        _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], TILES[block],
+        *walk_args(m, block), torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
     build.count_launch(matmul)
@@ -115,7 +185,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("matmul")
     fn = lib.matmul_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -76,6 +76,40 @@ def test_wrapper_rejects_mismatched_inputs():
         fa.flash_attention(q.half(), k.half(), v.half())
 
 
+# ---------------------------------------------------------------------------
+# the bf16 kernel's CTA numbering and work per query tile (host arithmetic)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sq", [1, 63, 128, 129, 1000, 1024])
+@pytest.mark.parametrize("bh", [1, 3, 144])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_order_each_tile_once_heaviest_first(sq, bh, causal):
+    order = fa.block_order(sq, bh, causal)
+    n_qt = -(-sq // fa.BLOCK_Q)
+    assert sorted(order) == [(qi, h) for qi in range(n_qt)
+                             for h in range(bh)]
+    for d in fa.HEAD_DIMS:
+        for off in (0, 300):
+            work = [fa.kv_tiles(qi, sq, sq + off, d, causal, off)
+                    for qi, _ in order]
+            assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("sq,skv,off", [(1, 1, 0), (63, 63, 0),
+                                        (65, 65, 0), (129, 129, 0),
+                                        (1000, 1000, 0), (256, 1024, 768),
+                                        (70, 300, 230), (1, 1000, 999)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kv_tiles_cover_exactly_the_attended_keys(sq, skv, off, d):
+    """Causal: a query tile reads every kv tile holding a key that one of
+    its valid rows attends, and no tile beyond; not causal: every tile."""
+    bkv = fa.block_kv(d)
+    for qi in range(-(-sq // fa.BLOCK_Q)):
+        last_row = min((qi + 1) * fa.BLOCK_Q, sq) - 1
+        last_key = min(skv - 1, off + last_row)
+        assert fa.kv_tiles(qi, sq, skv, d, True, off) == last_key // bkv + 1
+        assert fa.kv_tiles(qi, sq, skv, d, False, off) == -(-skv // bkv)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,hq,hkv,sq,skv,causal,kv_offset", [
     (torch.bfloat16, 64, 36, 36, 200, 200, True, 0),
@@ -88,6 +122,33 @@ def test_cuda_kernel_matches_plain(dtype, d, hq, hkv, sq, skv, causal,
                                    kv_offset):
     """Kernel vs plain version on the card: bf16 atol/rtol 2e-2 (bf16
     output rounding), fp32 1e-4 (summation order)."""
+    _cuda_case(dtype, d, hq, hkv, sq, skv, causal, kv_offset)
+
+
+EDGES = [1, 63, 64, 65, 127, 128, 129, 1000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", EDGES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_bf16_kernel_at_tile_edges(s, d, causal):
+    """The bf16 kernel's tile edges (query tiles of 128 rows, kv tiles of
+    128 rows at D 64 and 64 at D 128), GQA group 4, Sq = Skv."""
+    _cuda_case(torch.bfloat16, d, 8, 2, s, s, causal, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv", [(1, 1000), (63, 129), (65, 128),
+                                    (129, 1000), (64, 127)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_bf16_kernel_kv_offset(sq, skv, d):
+    """q is the Sq-row suffix of Skv keys (chunked prefill): the diagonal
+    moves by kv_offset = Skv - Sq."""
+    _cuda_case(torch.bfloat16, d, 8, 2, sq, skv, True, skv - sq)
+
+
+def _cuda_case(dtype, d, hq, hkv, sq, skv, causal, kv_offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     q, k, v = (torch.from_numpy(a).to("cuda", dtype)

@@ -145,11 +145,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("m,n,block", [
-    (64, 6144, mm.NARROW), (64, 12288, mm.NARROW), (512, 6144, mm.WIDE),
-    (8192, 12288, mm.WIDE), (777, 1032, mm.NARROW), (1537, 1544, mm.WIDE)])
+    (64, 6144, mm.SMALL), (64, 12288, mm.SMALL), (512, 6144, mm.LARGE),
+    (8192, 12288, mm.LARGE), (777, 1032, mm.SMALL), (1537, 1544, mm.LARGE),
+    (1024, 6144, mm.LARGE), (512, 12288, mm.LARGE), (640, 1544, mm.SMALL)])
 def test_plan_blocks_narrows_only_when_wide_tiles_leave_sms_idle(m, n, block):
-    """Wide tiles at 64 x 6144: 48, 64 x 12288: 96, 512 x 6144: 192, 777 x
-    1032: 63, 1537 x 1544: 169 (132 SMs)."""
+    """Tall (128 x 256) tiles at 64 x 6144: 24, 64 x 12288: 48, 512 x 6144:
+    96, 777 x 1032: 35, 1537 x 1544: 91, 640 x 1544: 35 (132 SMs): tall
+    from 66 tiles (half the SMs), else narrow."""
     assert mm.plan_blocks(m, n) == block
 
 
@@ -373,6 +375,82 @@ def test_op_level_without_a_card_raises():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernels' host arithmetic: A boxes, raster, persistent schedule
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bm", [64, 128])
+def test_a_boxes_keep_every_box_inside_one_row_block(bm):
+    for m_sh in range(1, 600):
+        m_pad, box = mm.a_boxes(m_sh, bm)
+        assert m_pad >= m_sh and m_pad % box == 0 and bm % box == 0
+        assert 8 <= box <= 256            # one swizzle atom .. TMA's limit
+        if m_sh >= bm:                    # a tile never straddles blocks
+            assert box == bm and m_pad % bm == 0 and m_pad - m_sh < bm
+        else:                             # blocks pack into a tile
+            assert m_pad == box and (m_pad < 2 * m_sh or m_pad == 8)
+        # every box starts on a valid row of its block
+        assert all(r < m_sh for r in range(0, m_pad, box))
+
+
+def _tiles(n, m_sh, tile, n_loc):
+    m_pad, _, group = mm.walk_args(m_sh, tile)
+    return -(-n * m_pad // tile[0]), -(-n_loc // tile[1]), m_pad, group
+
+
+SCHEDULES = [(n, m_sh, tile, n_loc) for n in (1, 4, 8)
+             for m_sh, tile, n_loc in ((1024, (128, 256), 6144),
+                                       (97, (64, 64), 1032),
+                                       (8, (128, 256), 768),
+                                       (64, (128, 256), 3072),
+                                       (1536, (128, 256), 640))]
+
+
+@pytest.mark.parametrize("n,m_sh,tile,n_loc", SCHEDULES)
+def test_persistent_schedule_covers_each_tile_once(n, m_sh, tile, n_loc):
+    tiles_m, tiles_n, _, group = _tiles(n, m_sh, tile, n_loc)
+    want = sorted((tm, tn) for tm in range(tiles_m) for tn in range(tiles_n))
+    for grid in range(1, 133):
+        got = [c for blk in range(grid)
+               for c in mm.block_tiles(blk, grid, tiles_m, tiles_n, group)]
+        assert sorted(got) == want
+
+
+@pytest.mark.parametrize("n,m_sh,tile,n_loc", SCHEDULES)
+def test_schedule_walks_the_local_shard_first(n, m_sh, tile, n_loc):
+    """The tiles come in walk order of the row blocks: in each tile
+    column, a tile with rows of block s precedes every tile whose rows
+    all lie in later blocks; when a tile row holds one block only, every
+    tile of block 0 (the AG-GEMM's local shard) precedes all others."""
+    tiles_m, tiles_n, m_pad, group = _tiles(n, m_sh, tile, n_loc)
+    order = [mm.tile_coords(t, tiles_m, tiles_n, group)
+             for t in range(tiles_m * tiles_n)]
+    first_block = [tm * tile[0] // m_pad for tm, _ in order]
+    for tn in range(tiles_n):
+        col = [b for b, (_, c) in zip(first_block, order) if c == tn]
+        assert col == sorted(col)
+    if m_pad >= tile[0]:
+        assert first_block == sorted(first_block)
+
+
+def test_raster_group_divides_the_block():
+    assert mm.raster_group(1024, 128) == 8      # the §5.1 shard: 8 rows
+    assert mm.raster_group(896, 128) == 7
+    assert mm.raster_group(1536, 128) == 6
+    assert mm.raster_group(64, 128) == mm.GROUP_M
+    for m_pad in range(128, 128 * 40, 128):
+        g = mm.raster_group(m_pad, 128)
+        assert 1 <= g <= mm.GROUP_M and (m_pad // 128) % g == 0
+
+
+@pytest.mark.parametrize("share,tiles,want", [
+    (1, 3072, 132), (1, 96, 96), (8, 3072, 15), (4, 3072, 31),
+    (16, 3072, 7), (8, 4, 4), (200, 3072, 1)])
+def test_persistent_grid_bounds_each_rank(share, tiles, want):
+    """One CTA a slot (132 on an H100 at one CTA an SM); ranks sharing a
+    card each take 1/share of the slots less the 8 reserved ones."""
+    assert mm.persistent_grid(tiles, share, 132, reserved=8) == want
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel against the plain version (on the card only)
 # ---------------------------------------------------------------------------
 def _needs_card():
@@ -400,11 +478,15 @@ def test_cuda_kernel_matches_plain_at_op_level_shapes(m, k, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(777, 1000, 1032), (1537, 1000, 1544)])
+@pytest.mark.parametrize("m,k,n", [(777, 1000, 1032), (1537, 1000, 1544),
+                                   (1, 40, 8), (130, 40, 264),
+                                   (8, 2056, 776), (4100, 72, 4104)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_matches_plain_on_ragged_shapes(m, k, n, dtype):
-    """The first shape takes the narrow bf16 tile, the second the wide
-    one (test_plan_blocks_narrows_only_when_wide_tiles_leave_sms_idle)."""
+    """The first shape takes the narrow bf16 tile, the second the tall
+    one (test_plan_blocks_narrows_only_when_wide_tiles_leave_sms_idle);
+    the others: K tails short of one 64-column box, N short of a 64-column
+    box, M of one row and of 8 (one box of 8 rows)."""
     _needs_card()
     a, b = _cuda_case(m, k, n, dtype)
     out = mm.matmul(a, b)

@@ -382,11 +382,17 @@ def _cuda():
         pytest.skip("needs a CUDA card: the fused kernels run only there")
 
 
-GPU_CASES = [  # ranks, dtype, rows (AG: M_sh; RS: M), K, N, tile, reverse
+GPU_CASES = [  # ranks, dtype, rows (AG: M_sh; RS: M_sh), K, N, tile, reverse
     (4, "bfloat16", 97, 1000, 1032, (64, 64), False),
-    (4, "bfloat16", 97, 1000, 1032, (128, 128), True),
+    (4, "bfloat16", 97, 1000, 1032, (128, 256), True),
     (8, "bfloat16", 8, 2048, 768, None, True),
     (4, "float32", 64, 512, 384, None, False),
+    # the bf16 tiles' edges: M_sh 8 packed into one 64-row tile and 16
+    # into a 128-row one, K tails short of one box, N short of a box, M_sh
+    # 200 over two 128-row tiles a shard
+    (4, "bfloat16", 8, 1000, 1032, (64, 64), False),
+    (4, "bfloat16", 200, 1000, 1032, (128, 256), True),
+    (8, "bfloat16", 16, 72, 520, (128, 256), False),
 ]
 
 
