@@ -9,13 +9,15 @@ a checkout of this repository.  Phases, one JSON object per line each:
 1. device  — the card, its power limit, torch and CUDA versions;
 2. build   — every kernel built from ``src/repro_torch/csrc`` with nvcc, in
              parallel; the compiler's registers and spills; the SASS of
-             the bf16 flash kernel and of the bf16 GEMM tile in matmul,
-             ag_gemm and gemm_rs must hold HGMMA and UTMALDG (wgmma, TMA);
+             the bf16 flash kernel, the MLA-decode kernel and the bf16
+             GEMM tile in matmul, ag_gemm and gemm_rs must hold HGMMA and
+             UTMALDG (wgmma, TMA);
 3. kernel  — each kernel (flash attention, MLA decode) against its plain
              PyTorch version on the card at the main paths' shapes (the
-             kernel lane's and the tp lane's flash shapes) and a few edge
-             cases, with its time, the plain version's, the library
-             call's and the bound;
+             kernel lane's and the tp lane's flash shapes, the mla lane's
+             decode) and a few edge cases, with its time, the plain
+             version's, the library call's and the bound; the MLA kernel
+             also with its split count and its combine's time;
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
              prefill through ``prefill_step`` with ``kernel_decode=True``
              (one flash-kernel launch per layer), checked against the same
@@ -27,7 +29,8 @@ a checkout of this repository.  Phases, one JSON object per line each:
 6. mla_lane — deepseek_v3_671b's first four layers at full width (three
              MLA + dense-FFN layers, one MLA + MoE layer; seeded random
              weights): batched prefill, then dense ``decode_step``s with
-             ``kernel_decode=True`` (one MLA-decode launch per layer a step)
+             ``kernel_decode=True`` (one MLA-decode launch and one combine
+             per layer a step)
              teacher-forced against the same steps with plain attention,
              and one paged step through block tables;
 7. mla_server_lane — the paged ``Server`` over the same four layers: 8
@@ -298,14 +301,16 @@ def sdpa_backend(torch, *args, **kw):
         return f"unknown ({type(e).__name__}: {e})"[:120]
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, sums=None):
     """One call of ``fn`` under torch.profiler: its wall ms (profiled),
     summed device activity ms (kernels, copies, sets on the one stream),
     the device's busy share of that same call's wall time, the number of
-    device activities, and the five largest kernels by time.  The wall
-    time spans the call inside the profiler, after a discarded pass that
-    starts the tracer; the profiler's per-op host cost stays in it, so the
-    busy share is a lower bound."""
+    device activities, the five largest kernels by time and, for each
+    {key: substring} of ``sums``, the device ms of the kernels whose name
+    holds the substring.  The wall time spans the call inside the
+    profiler, after a discarded pass that starts the tracer; the
+    profiler's per-op host cost stays in it, so the busy share is a lower
+    bound."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):
@@ -324,10 +329,38 @@ def device_profile(torch, fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     device_ms = sum(by_name.values()) / 1e3
-    return {"profiled_wall_ms": wall, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall,
-            "device_activities": len(dev),
-            "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+    out = {"profiled_wall_ms": wall, "device_ms": device_ms,
+           "device_busy_share": device_ms / wall,
+           "device_activities": len(dev),
+           "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+    for key, sub in (sums or {}).items():
+        out[key] = sum(t for n, t in by_name.items() if sub in n) / 1e3
+    return out
+
+
+def device_ms_cold(torch, fn, iters, names=None):
+    """Device ms a call of ``fn``, the L2 cache flushed before each call
+    (a 128 MB device-to-device copy, left out): the summed time of the
+    call's kernels under torch.profiler, without the host's gaps between
+    them.  With ``names`` ({key: substring}) also each named kernel's
+    share: (ms, {key: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+    src = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    dst = torch.empty_like(src)
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            dst.copy_(src)
+            fn()
+        torch.cuda.synchronize()
+    dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "Memcpy" not in e.name]
+    parts = {k: sum(t for n, t in dev if sub in n) / iters
+             for k, sub in (names or {}).items()}
+    return sum(t for _, t in dev) / iters, parts
 
 
 def phase_device(torch):
@@ -363,14 +396,16 @@ def phase_build():
 
 
 def sass_check(libs):
-    """The bf16 flash kernel and the bf16 GEMM tile of matmul, ag_gemm and
-    gemm_rs run on wgmma and TMA: each of their kernels' SASS
+    """The bf16 flash kernel, the MLA-decode kernel and the bf16 GEMM tile
+    of matmul, ag_gemm and gemm_rs run on wgmma and TMA: each of their
+    kernels' SASS
     (``cuobjdump -sass``) holds HGMMA and UTMALDG instructions.  Returns
     {library: {kernel: [HGMMA count, UTMALDG count]}}."""
     from pathlib import Path
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     wanted = {"flash_attention": "flash_wgmma_kernel",
+              "mla_decode": "mla_wgmma_kernel",
               "matmul": "gemm_wgmma_kernel", "ag_gemm": "ag_gemm_wgmma_kernel",
               "gemm_rs": "gemm_rs_wgmma_kernel"}
     out = {}
@@ -392,7 +427,7 @@ def sass_check(libs):
         for fn, (hgmma, utmaldg) in counts.items():
             check(hgmma > 0 and utmaldg > 0,
                   f"{name}: {fn} has {hgmma} HGMMA and {utmaldg} UTMALDG "
-                  "instructions; the bf16 kernel must run on wgmma and TMA")
+                  "instructions; the kernel must run on wgmma and TMA")
         out[name] = {fn[-60:]: c for fn, c in counts.items()}
     return out
 
@@ -463,22 +498,33 @@ def phase_kernel(torch):
 
 
 def phase_mla_kernel(torch):
-    """MLA-decode kernel vs its plain version; returns the lane's case."""
+    """MLA-decode kernel vs its plain version; returns the lane's case.
+    ``kernel_ms``, ``plain_ms`` and ``library_ms`` are CUDA-event times of
+    a call, L2 flushed, as PR 15 timed them.  A call of the wrapper spends
+    more on the host than on the card, so those hold host gaps; each is
+    also reported as device time (``*device_ms``: the call's kernels under
+    torch.profiler, L2 flushed), the kernel's split into its two launches
+    (``kernel_device_ms``, ``combine_device_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import mla_decode as md
     from repro_torch.models import layers
 
-    h, r, dr = 128, 512, 64                  # deepseek_v3_671b
+    r, dr = 512, 64                          # deepseek_v3_671b
     scale = (128 + 64) ** -0.5               # (qk_nope + qk_rope) ** -0.5
     gen = torch.Generator(device="cuda")
-    cases = [  # name, B, S, valid lengths, paged
-        ("mla_lane_decode", 4, 1041, [257, 513, 778, 1025], False),
-        ("long_cache", 8, 32768, [1000] + [32768] * 7, False),
-        ("ragged_valid_1", 4, 777, [1, 777, 400, 600], False),
-        ("paged_view", 4, 66 * 16, [257, 513, 778, 1025], True),
+    cases = [  # name, B, H, S, valid lengths, paged
+        ("mla_lane_decode", 4, 128, 1041, [257, 513, 778, 1025], False),
+        ("long_cache", 8, 128, 32768, [1000] + [32768] * 7, False),
+        ("ragged_valid_1", 4, 128, 777, [1, 777, 400, 600], False),
+        ("paged_view", 4, 128, 66 * 16, [257, 513, 778, 1025], True),
+        ("tp8_rank_heads", 4, 16, 1041, [257, 513, 778, 1025], False),
+        ("single_row", 4, 128, 1, [1, 0, 1, 5], False),
     ]
+    names = {"kernel_device_ms": "mla_wgmma_kernel",
+             "combine_device_ms": "mla_combine_kernel"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
-    for name, b, s, valid, paged in cases:
+    for name, b, h, s, valid, paged in cases:
         gen.manual_seed(100 + len(results))
 
         def randn(*shape):
@@ -496,8 +542,12 @@ def phase_mla_kernel(torch):
         else:
             c, kr = randn(b, s, r).bfloat16(), randn(b, s, dr).bfloat16()
         vl = torch.tensor(valid, device="cuda")
+        n_splits, split_rows = md.split_plan(b, h, s, sms)
+        combines = md.mla_decode_attention.combine_launches
         out = md.mla_decode_attention(q_eff, q_rope, c, kr, vl, scale=scale)
         torch.cuda.synchronize()
+        check(md.mla_decode_attention.combine_launches - combines
+              == int(n_splits > 1), f"{name}: combine launches")
         want = md.mla_decode_attention_ref(q_eff, q_rope, c, kr, vl, scale)
         err = (out - want).abs().max().item()
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
@@ -522,20 +572,35 @@ def phase_mla_kernel(torch):
         def kern():
             return md.mla_decode_attention(q_eff, q_rope, c, kr, vl,
                                            scale=scale)
+
+        def plain():
+            return md.mla_decode_attention_ref(q_eff, q_rope, c, kr, vl,
+                                               scale)
+
+        def lib():
+            return F.scaled_dot_product_attention(q_l, k_l, v_l, **sdpa_kw)
         kernel_ms = time_ms_cold(torch, kern, 20)
         kernel_warm_ms = time_ms(torch, kern, 20)
-        plain_ms = time_ms_cold(torch, lambda: md.mla_decode_attention_ref(
-            q_eff, q_rope, c, kr, vl, scale), 5)
-        library_ms = time_ms_cold(torch, lambda: F.scaled_dot_product_attention(
-            q_l, k_l, v_l, **sdpa_kw), 10)
+        plain_ms = time_ms_cold(torch, plain, 5)
+        library_ms = time_ms_cold(torch, lib, 10)
+        call_device_ms, parts = device_ms_cold(torch, kern, 20, names)
+        device_ms = parts["kernel_device_ms"] + parts["combine_device_ms"]
+        check(parts["kernel_device_ms"] > 0,
+              f"{name}: the profiler saw no MLA kernel on the card")
+        plain_device_ms, _ = device_ms_cold(torch, plain, 5)
+        library_device_ms, _ = device_ms_cold(torch, lib, 10)
         bound_ms, bound_by, cuda_core_ms, flops, nbytes = mla_bound(
             q_eff, q_rope, c, kr, vl)
         res = {"phase": "kernel", "kernel": "mla_decode", "case": name,
                "shape": {"B": b, "H": h, "R": r, "Dr": dr, "S": s},
                "valid_len": valid, "paged": paged, "tol": MLA_TOL,
+               "n_splits": n_splits, "split_rows": split_rows,
                "max_abs_err": err, "kernel_ms": kernel_ms,
                "kernel_warm_l2_ms": kernel_warm_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "library_ms": library_ms, "device_ms": device_ms, **parts,
+               "call_device_ms": call_device_ms,
+               "plain_device_ms": plain_device_ms,
+               "library_device_ms": library_device_ms,
                "library": "scaled_dot_product_attention",
                "library_backend": sdpa_backend(torch, q_l, k_l, v_l,
                                                **sdpa_kw),
@@ -543,7 +608,8 @@ def phase_mla_kernel(torch):
                "flops": flops, "bytes": nbytes,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "fp32_cuda_core_ms": cuda_core_ms,
-               "bound_share": bound_ms / kernel_ms}
+               "bound_share": bound_ms / kernel_ms,
+               "device_bound_share": bound_ms / device_ms}
         emit(res)
         results[name] = res
         del q_eff, q_rope, c, kr, out, want, q_l, k_l, v_l
@@ -830,6 +896,7 @@ def phase_mla_lane(torch):
 
     # the main path: counts to 0, 16 decode steps through the kernel, read
     md.mla_decode_attention.launches = 0
+    md.mla_decode_attention.combine_launches = 0
     fa.flash_attention.launches = 0
     step_samples, agree = [], 0
     for step in range(n_decode):
@@ -841,10 +908,17 @@ def phase_mla_lane(torch):
         step_samples.append((time.perf_counter() - t0) * 1e3)
         agree += int((k_tok == plain_tokens[step + 1]).sum())
     launches = md.mla_decode_attention.launches
+    combine_launches = md.mla_decode_attention.combine_launches
     check(launches == cfg.num_layers * n_decode,
           f"MLA-decode kernel launched {launches} times in {n_decode} decode "
           f"steps, expected {cfg.num_layers * n_decode} (one per layer a "
           "step)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want_combines = launches * int(
+        md.split_plan(4, cfg.num_heads, s_max, sms)[0] > 1)
+    check(combine_launches == want_combines,
+          f"MLA combine launched {combine_launches} times, expected "
+          f"{want_combines} (one per kernel launch that splits S)")
     check(fa.flash_attention.launches == 0,
           "the flash kernel ran on the MLA decode path")
     check(all(torch.equal(caches_k[0][n], caches_p[0][n]) for n in
@@ -885,7 +959,9 @@ def phase_mla_lane(torch):
         return S.decode_step(params, caches_k, plain_tokens[-1], pos, ctx_k,
                              cfg)
     step_ms, enqueue_ms = step_and_enqueue_ms(torch, one_step)
-    decode_prof = device_profile(torch, one_step)
+    decode_prof = device_profile(torch, one_step,
+                                 {"mla_kernel_ms": "mla_wgmma_kernel",
+                                  "mla_combine_ms": "mla_combine_kernel"})
     out = torch.cat(plain_tokens, dim=1)
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "decoded token out of [0, vocab)")
@@ -895,6 +971,7 @@ def phase_mla_lane(torch):
           "prefill_ms_median": prefill_ms,
           "prefill_ms_samples": prefill_samples,
           "decode_steps": n_decode, "mla_launches": launches,
+          "mla_combine_launches": combine_launches,
           "mla_launches_per_step": launches / n_decode,
           "paged_step_mla_launches": paged_launches,
           "paged_tokens_equal_dense": True,
@@ -910,7 +987,7 @@ def phase_mla_lane(torch):
           "tokens_row0": out[0].tolist()})
     del caches_k
     torch.cuda.empty_cache()
-    return params, cfg, launches
+    return params, cfg, (launches, combine_launches)
 
 
 def phase_mla_server_lane(torch, params, cfg):
@@ -1519,7 +1596,7 @@ def main():
     mla_case = phase_mla_kernel(torch)
     flash_launches, tp1_logits = phase_kernel_lane(torch)
     phase_server_lane(torch)
-    params, cfg, mla_launches = phase_mla_lane(torch)
+    params, cfg, (mla_launches, mla_combines) = phase_mla_lane(torch)
     phase_mla_server_lane(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -1544,8 +1621,10 @@ def main():
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
-         "launches": mla_launches, "max_abs_err": mla_case["max_abs_err"],
+         "launches": mla_launches, "combine_launches": mla_combines,
+         "max_abs_err": mla_case["max_abs_err"],
          "ms": mla_case["kernel_ms"], "plain_ms": mla_case["plain_ms"],
+         "device_ms": mla_case["device_ms"],
          "bound_ms": mla_case["bound_ms"], "bound_by": mla_case["bound_by"],
          "library_ms": mla_case["library_ms"]},
         {"name": "matmul", "route": "cuda",

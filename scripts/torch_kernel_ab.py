@@ -2,6 +2,7 @@
 """A/B of one compile-time setting of the port's Hopper kernels, on the card.
 
     python3 scripts/torch_kernel_ab.py [flash_stages] [large_stages]
+        [mla_splits]
 
 Each experiment rewrites one line of a copy of ``src/repro_torch/csrc``
 (a variant), builds the kernel's library from it with the kernel's own nvcc
@@ -17,7 +18,15 @@ against the plain version first:
   (``csrc/gemm_tile.cuh`` ``LargeTile``), timed as the AG-GEMM at TP 8, m
   8192 (eight ranks on the card, share 8: mean of 10 calls, and each
   rank's kernel time from one profiled call), and alone (n 1), each in a
-  process of its own (a wait that never ends traps).
+  process of its own (a wait that never ends traps);
+* ``mla_splits``: the MLA-decode kernel's number of splits over S
+  (``kernels/mla_decode.py::split_plan`` replaced for the call, no
+  rebuild) at the mla lane's shape and the long case, in turns over two
+  rounds (forward, then backward): the device time a call (its kernels
+  under ``torch.profiler``) and the call's CUDA-event time, each with the
+  L2 cache flushed before each call, by ``chip_smoke.py``'s own helpers
+  (``device_ms_cold``, ``time_ms_cold``); the wrapper's host time is not
+  in the first.
 
 One JSON object a line, with the card's name and power limit first; exits
 1 if a variant fails to build or disagrees with the plain version.
@@ -32,9 +41,11 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+import chip_smoke as smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 # experiment -> (library, file, pattern of the line, {tag: the new line})
@@ -47,7 +58,12 @@ EXPERIMENTS = {
                      r"using LargeTile = WgmmaTile<2, 256, \d+, 40, 232>;",
                      {"stages4": "using LargeTile = WgmmaTile<2, 256, 4, 40, "
                                  "232>;"}),
+    "mla_splits": ("mla_decode", "mla_decode.cu", None, {}),
 }
+MLA_CASES = [  # name, B, H, S, valid lengths (chip_smoke.py's cases)
+    ("mla_lane_decode", 4, 128, 1041, [257, 513, 778, 1025]),
+    ("long_cache", 8, 128, 32768, [1000] + [32768] * 7)]
+MLA_KERNELS = {"kernel": "mla_wgmma_kernel", "combine": "mla_combine_kernel"}
 FLASH_SHAPES = [  # B, Hq, Hkv, Sq, Skv, D, causal, kv_offset
     (4, 36, 36, 1024, 1024, 64, True, 0), (4, 9, 9, 1024, 1024, 64, True, 0),
     (4, 32, 8, 1024, 1024, 128, True, 0),
@@ -210,6 +226,65 @@ def large_stages(libs):
                     row["stderr"] = r.stderr[-400:]
                     fails += 1
                 emit(row)
+    return fails
+
+
+def mla_inputs(b, h, s, valid, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (randn(b, h, 512), randn(b, h, 64), randn(b, s, 512).bfloat16(),
+            randn(b, s, 64).bfloat16(), torch.tensor(valid, device="cuda"))
+
+
+def mla_run(md, case, plan=None):
+    """One checked call and its times under ``plan`` (n_splits,
+    split_rows), or split_plan's own."""
+    name, b, h, s, valid = case
+    qe, qr, c, kr, vl = mla_inputs(b, h, s, valid)
+    shipped_plan = md.split_plan
+    if plan is not None:
+        md.split_plan = lambda *a: plan
+    try:
+        out = md.mla_decode_attention(qe, qr, c, kr, vl, scale=0.07)
+        want = md.mla_decode_attention_ref(qe, qr, c, kr, vl, 0.07)
+        ok = bool(torch.allclose(out, want, atol=1e-4, rtol=1e-4))
+        err = (out - want).abs().max().item()
+
+        def call():
+            return md.mla_decode_attention(qe, qr, c, kr, vl, scale=0.07)
+        # the kernel's and the combine's device time, as chip_smoke.py
+        # reports them (kernel_device_ms + combine_device_ms)
+        dev = sum(smoke.device_ms_cold(torch, call, 10, MLA_KERNELS)[1]
+                  .values())
+        call_ms = smoke.time_ms_cold(torch, call, 10)
+    finally:
+        md.split_plan = shipped_plan
+    return ok, err, dev, call_ms
+
+
+def mla_splits(libs):
+    from repro_torch.kernels import mla_decode as md
+    fails = 0
+    for case in MLA_CASES:
+        name, b, h, s, _ = case
+        tiles = -(-s // md.ROW_TILE)
+        counts = ([1, 2, 3, 4, 6, 9, 11, 17, 33] if s < 4096 else
+                  [1, 2, 4, 8, 16])
+        shipped = md.split_plan(
+            b, h, s, torch.cuda.get_device_properties(0).multi_processor_count)
+        for rnd, order in enumerate((counts, counts[::-1])):
+            for n in order:
+                per = -(-tiles // n)
+                plan = (-(-tiles // per), per * md.ROW_TILE)
+                ok, err, dev, call = mla_run(md, case, plan)
+                fails += not ok
+                emit({"experiment": "mla_splits", "case": name,
+                      "round": rnd, "n_splits": plan[0],
+                      "split_rows": plan[1], "shipped": plan == shipped,
+                      "max_abs_err": err, "device_ms": dev, "call_ms": call})
     return fails
 
 

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu and the GEMM tile of gemm_tile.cuh): mbarriers, TMA
-// tensor loads and their tensor maps, wgmma and its shared-memory matrix
-// descriptors, and register reallocation between warpgroups.
+// (flash_attention.cu, mla_decode.cu and the GEMM tile of gemm_tile.cuh):
+// mbarriers, TMA tensor loads and their tensor maps, wgmma and its
+// shared-memory matrix descriptors, and register reallocation between
+// warpgroups.
 //
-// Every operand tile in shared memory is written by TMA with the 128-byte
-// swizzle: rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at
-// chunk c ^ (r % 8), an 8-row atom of 1024 bytes.  Each tile starts on a
+// Every operand tile in shared memory has the 128-byte swizzle (TMA writes
+// it so; mla_decode.cu writes its q tiles by hand in the same layout):
+// rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8), an 8-row atom of 1024 bytes.  Each tile starts on a
 // 1024-byte boundary, so the descriptors below carry base offset 0.
 //   * K-major operand (the contraction dim contiguous: Q, K, the GEMM's A):
 //     rows of one atom 128 bytes apart, atoms SBO = 1024 bytes apart; a
@@ -87,6 +89,13 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// shared memory that threads wrote with ordinary stores is then read by
+// wgmma or TMA (the async proxy): every writer fences before the barrier
+// that orders the writes before the reads
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // global data that this thread observed through a generic-proxy acquire
 // (a ready flag) is then read by TMA, the async proxy
 __device__ __forceinline__ void fence_proxy_async_global() {
@@ -127,6 +136,22 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // step: A from shared memory (K-major descriptor) or from registers (the
 // m64k16 A fragment), B from shared memory; TransB 1 reads an MN-major B.
 // scale_d 0 overwrites d.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -301,11 +326,73 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
 }
 
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TransB));
+}
+
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma n 64, 128, 256");
-  if constexpr (N == 64) wgmma_ss_n64<TransB>(d, da, db, scale_d);
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma n 32, 64, 128, 256");
+  if constexpr (N == 32) wgmma_ss_n32<TransB>(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<TransB>(d, da, db, scale_d);
   else if constexpr (N == 128) wgmma_ss_n128<TransB>(d, da, db, scale_d);
   else wgmma_ss_n256<TransB>(d, da, db, scale_d);
 }
@@ -314,12 +401,19 @@ template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "register-A wgmma: n 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "register-A wgmma: n 64, 128 or 256");
   if constexpr (N == 64) wgmma_rs_n64<TransB>(d, a, db, scale_d);
-  else wgmma_rs_n128<TransB>(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128<TransB>(d, a, db, scale_d);
+  else wgmma_rs_n256<TransB>(d, a, db, scale_d);
 }
 
 // ---- warp specialisation ----------------------------------------------
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void regs_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
@@ -333,6 +427,17 @@ __device__ __forceinline__ void regs_alloc() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): hi + lo
+// keeps about 16 bits of each fp32 mantissa (one bf16 rounding keeps 8)
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // ---- tensor maps (host) -----------------------------------------------

@@ -116,6 +116,7 @@ def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
     if a_shard.device.type != "cuda":
         raise ValueError(f"ag_gemm: unsupported device {a_shard.device}")
     check_cuda("ag_gemm", a_shard, b_local, bias)
+    build.refuse_grad("ag_gemm", "2.1", a_shard, b_local, bias)
     n, me = group.n, group.rank()
     m_sh, k = a_shard.shape
     n_loc = b_local.shape[1]

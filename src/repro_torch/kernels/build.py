@@ -6,6 +6,7 @@ Each ``csrc/<name>.cu`` has a plain C interface (the GEMM kernels share
 ``.gitignore``), keyed by a hash of the source, the headers and the flags,
 and returns the loaded library.  The build runs only when a kernel is
 first launched: importing this module needs no ``nvcc`` and no GPU.
+``count_launch`` and ``refuse_grad`` are the wrappers' shared bookkeeping.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +38,20 @@ def count_launch(fn, attr: str = "launches") -> None:
     threads)."""
     with _COUNT_LOCK:
         setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def refuse_grad(kernel: str, item: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (None is skipped) requires grad.  The kernels have no
+    backward: an output they fill through ctypes carries no ``grad_fn``, so
+    a backward pass would skip the op and raise nothing.  ``item`` is the
+    ROADMAP queue 1 item that brings the backward."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no backward (ROADMAP queue 1 "
+            f"item {item}); call it under torch.no_grad() or with inputs "
+            "that do not require grad")
 
 
 def nvcc_path() -> str:

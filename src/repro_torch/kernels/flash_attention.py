@@ -143,6 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda(q, k, v, kv_offset)
+    build.refuse_grad("flash_attention", "5", q, k, v)
     out = torch.empty_like(q)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]

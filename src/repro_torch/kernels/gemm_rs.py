@@ -93,6 +93,7 @@ def gemm_rs(a_local: torch.Tensor, b_local: torch.Tensor, *, group,
     if a_local.device.type != "cuda":
         raise ValueError(f"gemm_rs: unsupported device {a_local.device}")
     check_cuda("gemm_rs", a_local, b_local, bias)
+    build.refuse_grad("gemm_rs", "2.1", a_local, b_local, bias)
     if n > MAX_RANKS:
         raise ValueError(f"gemm_rs: {n} ranks > the kernel's {MAX_RANKS}")
     targs = tile_args(m, n_out, m_sh, a_local.dtype, tile)

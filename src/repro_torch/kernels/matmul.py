@@ -165,6 +165,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type != "cuda":
         raise ValueError(f"matmul: unsupported device {a.device}")
     _check_cuda(a, b)
+    build.refuse_grad("matmul", "2.1", a, b)
     m, n = a.shape[0], b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     block = plan_blocks(m, n)

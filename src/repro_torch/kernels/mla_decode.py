@@ -12,12 +12,20 @@ tensor the kernel does not take, or a build or launch failure, raises.
                s >= valid_len[b]
     ctx      = softmax(scores) . C                     [B, H, R] fp32
 
-``mla_decode_attention.launches`` counts kernel launches (never the plain
-path), so a run can show that its main path went through the kernel.
+The kernel splits each batch row's cache rows into ``split_plan``'s ranges
+(flash-decoding): one CTA a (range, 64 heads, row) writes a partial, and a
+second launch merges them (``split_ref`` and ``combine_ref`` are the plain
+versions of the two passes).
+
+``mla_decode_attention.launches`` counts kernel launches and
+``mla_decode_attention.combine_launches`` the combine's (never the plain
+path), so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Tuple
 
 import torch
 
@@ -26,7 +34,11 @@ from repro_torch.kernels import build
 NEG_INF = -1e30          # the TPU kernel's mask value (not -inf)
 LATENT_DIMS = (512,)      # the kernel's R (kv_lora_rank)
 ROPE_DIMS = (64,)         # the kernel's Dr (qk_rope_head_dim)
-_ALIGN = 16               # 16-byte vector loads
+_ALIGN = 16               # 16-byte vector loads and TMA
+LOG2E = 1.0 / math.log(2.0)
+ROW_TILE = 32             # csrc/mla_decode.cu kRows: cache rows a stage
+HEAD_TILE = 64            # kHeads: heads a CTA (wgmma's M)
+MIN_SPLIT_TILES = 2       # row tiles a split takes at least
 
 
 def _valid_rows(valid_len, batch: int, device: torch.device) -> torch.Tensor:
@@ -49,6 +61,70 @@ def mla_decode_attention_ref(q_eff: torch.Tensor, q_rope: torch.Tensor,
     s = s.masked_fill(pos[None, None, :] >= vl[:, None, None], NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bsr->bhr", w, c_cache.float())
+
+
+def split_plan(batch: int, heads: int, s: int, sms: int) -> Tuple[int, int]:
+    """(n_splits, split_rows): the kernel's grid over each batch row's S
+    cache rows, ranges [i * split_rows, (i + 1) * split_rows) for i <
+    n_splits, split_rows a multiple of ROW_TILE and no range empty of
+    cache rows.  From B, H, S and the card's ``sms`` only, never from the
+    valid lengths, whose values live on the card (reading them would
+    stall the host every layer): splits fill one wave of CTAs, one an SM
+    (230 KB of shared memory each), but each takes at least
+    MIN_SPLIT_TILES row tiles, since a split costs a q load and a partial
+    [H, R] fp32 written and read again by the combine."""
+    tiles = -(-s // ROW_TILE)
+    ctas = batch * -(-heads // HEAD_TILE)
+    n = max(1, min(sms // ctas, tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // n)            # row tiles a split
+    return -(-tiles // per), per * ROW_TILE
+
+
+def split_ref(q_eff: torch.Tensor, q_rope: torch.Tensor,
+              c_cache: torch.Tensor, kr_cache: torch.Tensor, valid_len,
+              scale: float, n_splits: int, split_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's split pass: per (batch row, split,
+    head) the unnormalised context ``part_o`` [B, n_splits, H, R] and
+    ``part_ml`` [B, n_splits, H, 2] = (m, l) over the split's cache rows
+    before the row's read length (all S where valid_len <= 0 or > S), with
+    m the max score in log2 units (scores times scale log2 e, -1e30 where
+    valid_len <= 0) and l the sum of 2^(score - m).  A split with no such
+    rows is empty: m = -inf, l = 0, ``part_o`` zero (the kernel leaves it
+    unwritten)."""
+    b, h, r = q_eff.shape
+    s = c_cache.shape[1]
+    vl = _valid_rows(valid_len, b, c_cache.device).long()
+    rows = torch.where((vl <= 0) | (vl > s), s, vl)
+    sc = (torch.einsum("bhr,bsr->bhs", q_eff.float(), c_cache.float())
+          + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+          ) * (scale * LOG2E)
+    sc = sc.masked_fill((vl <= 0)[:, None, None], NEG_INF)
+    pos = torch.arange(n_splits * split_rows, device=c_cache.device)
+    pad = n_splits * split_rows - s
+    sc = torch.nn.functional.pad(sc, (0, pad))
+    sc = sc.masked_fill(pos >= rows[:, None, None], -math.inf)
+    sc = sc.reshape(b, h, n_splits, split_rows)
+    m = sc.amax(-1)                                        # [B, H, n]
+    empty = m == -math.inf
+    p = torch.exp2(sc - torch.where(empty, 0.0, m)[..., None])
+    cp = torch.nn.functional.pad(c_cache.float(), (0, 0, 0, pad))
+    part_o = torch.einsum("bhns,bnsr->bnhr", p,
+                          cp.reshape(b, n_splits, split_rows, r))
+    part_ml = torch.stack([m, p.sum(-1)], -1).transpose(1, 2)
+    return part_o, part_ml.contiguous()
+
+
+def combine_ref(part_o: torch.Tensor, part_ml: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine: out = sum_i w_i O_i / max(sum_i w_i
+    l_i, 1e-30) with w_i = 2^(m_i - max_i m_i) over the splits that are not
+    empty (m_i = -inf) -> [B, H, R]."""
+    m, l = part_ml[..., 0], part_ml[..., 1]                # [B, n, H]
+    empty = m == -math.inf
+    w = torch.where(empty, 0.0, torch.exp2(m - m.amax(1, keepdim=True)))
+    o = part_o.masked_fill(empty[..., None], 0.0)
+    return ((w[..., None] * o).sum(1)
+            / (w * l).sum(1).clamp_min(1e-30)[..., None])
 
 
 def _check(q_eff, q_rope, c_cache, kr_cache):
@@ -89,7 +165,7 @@ def _check_cuda(q_eff, q_rope, c_cache, kr_cache):
     if q_rope.shape[-1] not in ROPE_DIMS:
         raise ValueError(f"rope dim {q_rope.shape[-1]} not in {ROPE_DIMS}")
     if not 0 < q_eff.shape[0] <= 65535:
-        raise ValueError("batch must be in [1, 65535] (grid.y)")
+        raise ValueError("batch must be in [1, 65535] (grid.z)")
     if c_cache.shape[1] == 0:
         raise ValueError("empty cache")
 
@@ -102,7 +178,9 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
     positions < valid_len[b]; a scalar broadcasts).  Returns the context
     over the latent, [B, H, R] fp32.  CUDA tensors launch the kernel
     (float32 queries, bfloat16 caches, contiguous, R 512, Dr 64 as in
-    DeepSeek-V3, any S); CPU tensors run ``mla_decode_attention_ref``."""
+    DeepSeek-V3, any S and H) and, with more than one split, the combine;
+    they raise under grad mode when an input requires grad (the kernel has
+    no backward).  CPU tensors run ``mla_decode_attention_ref``."""
     _check(q_eff, q_rope, c_cache, kr_cache)
     devs = {t.device.type for t in (q_eff, q_rope, c_cache, kr_cache)}
     if devs == {"cpu"}:
@@ -112,29 +190,46 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"mla_decode_attention: unsupported device "
                          f"{q_eff.device}")
     _check_cuda(q_eff, q_rope, c_cache, kr_cache)
+    build.refuse_grad("mla_decode_attention", "5", q_eff, q_rope, c_cache,
+                      kr_cache)
     b, h, r = q_eff.shape
     s, dr = c_cache.shape[1], q_rope.shape[-1]
-    vl = _valid_rows(valid_len, b, q_eff.device).to(torch.int32).contiguous()
-    out = torch.empty((b, h, r), dtype=torch.float32, device=q_eff.device)
+    dev = q_eff.device
+    vl = _valid_rows(valid_len, b, dev).to(torch.int32).contiguous()
+    n_splits, split_rows = split_plan(
+        b, h, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    part_o = part_ml = None
+    if n_splits > 1:
+        part_o = torch.empty((b, n_splits, h, r), dtype=torch.float32,
+                             device=dev)
+        part_ml = torch.empty((b, n_splits, h, 2), dtype=torch.float32,
+                              device=dev)
     err = _library().mla_decode_fwd(
         q_eff.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
-        kr_cache.data_ptr(), vl.data_ptr(), out.data_ptr(), b, h, s, r, dr,
-        float(scale), torch.cuda.current_stream(q_eff.device).cuda_stream)
+        kr_cache.data_ptr(), vl.data_ptr(), out.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), b, h, s, r, dr,
+        n_splits, split_rows, float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     build.count_launch(mla_decode_attention)
+    if n_splits > 1:
+        build.count_launch(mla_decode_attention, "combine_launches")
     return out
 
 
 mla_decode_attention.launches = 0
+mla_decode_attention.combine_launches = 0
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("mla_decode")
     fn = lib.mla_decode_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
