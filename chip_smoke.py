@@ -62,7 +62,15 @@ a checkout of this repository.  Phases, one JSON object per line each:
              last-position logits
              against the tp=1 kernel lane's and flux against xla.  The
              ranks share the card, so no ECT or overlap efficiency comes
-             from these times.
+             from these times;
+13. train_lane — full-width minicpm_2b cut to its first 8 layers, trained
+             through ``runtime.trainer`` (bf16 weights, fp32 moments, wsd,
+             batch 4 x 1024): 3 steps at tp=1, then at tp=4 in flux mode
+             on the one card, whose forward and backward seams run the
+             AG-GEMM and GEMM-RS kernels (4L + 1 of each a rank a step);
+             step 0's loss and grads against tp=1's, xla's and
+             decomposed's against flux's.  The ag_gemm and gemm_rs phases
+             also hold the kernels at the backward's operands.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -74,6 +82,7 @@ or outside a checkout (no ``src/repro_torch``), it fails the same way.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -124,7 +133,20 @@ RS_PARTIAL_ULP = 2.0 ** -8
 # layers), and flux vs xla: relative L2 of the last-position logits
 TP_LANE_RTOL = 5e-2
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
-TP_LANE = 4              # minicpm_2b prefill's ranks
+TP_LANE = 4              # minicpm_2b prefill's and training's ranks
+# the train lane: minicpm_2b at full width cut to its first 8 of 40 layers,
+# batch 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+TAPE_DEPTHS = (8, 16)   # the seam tape's backward, timed at two depths
+# step 0 at tp=4 against tp=1 (bf16 weights and activations; the seams sum
+# in another order over 8 layers): the loss within relative 1e-2, every
+# leaf's grad within relative L2 5e-2 in the canonical layout
+# (model.canonical_leaves), the tp=4 grads divided by 4: each rank seeds its
+# replicated loss with 1, as in the reference, so a tp=4 grad is 4x the tp=1
+# grad; xla and decomposed against flux with the same tolerances
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -1265,6 +1287,22 @@ def phase_fused_kernel(torch, which):
         (f"{which}_fp32", 4, f32, 64 if which == "ag" else 256, 512, 384,
          "gelu", True, False),
     ]
+    # the train lane's operands the forward never gives, at its shapes
+    # (tp=4, 4096 tokens; d_ff 1536 a rank, vocab 30720 a rank): the
+    # backward's transposed weights, and the LM head's table.T (forward AG)
+    # / table (dX of head_ag); a transposed weight is copied row-major
+    # first.  name, rows (AG: m_sh a rank; RS: M), K, N, what it is
+    train = {"ag": [("ag_train_dy_mlp_rs", 1024, 2304, 1536,
+                     "dY of mlp_rs: the dz shard x w2.T"),
+                    ("ag_train_head", 1024, 2304, 30720,
+                     "the head_ag forward: x x table.T")],
+             "rs": [("rs_train_dx_mlp_ag", 4096, 3072, 2304,
+                     "dX of mlp_ag: the w13 cotangent x w13.T"),
+                    ("rs_train_dx_head", 4096, 30720, 2304,
+                     "dX of head_ag: the logits' cotangent x table")]}[which]
+    cases += [(name, TP_LANE, bf16, rows, k, nn, None, False, False)
+              for name, rows, k, nn, _ in train]
+    operands = {c[0]: c[4] for c in train}
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     groups = {n: RankGroup(n, "cuda", timeout_s=60) for n in (4, 8)}
     gen = torch.Generator(device="cuda")
@@ -1342,6 +1380,12 @@ def phase_fused_kernel(torch, which):
                "bound_share": bound_ms / fused_ms,
                "timing": f"mean of 10 calls of all {n} ranks on one card "
                          "(CUDA events around the ranks' loop)"}
+        if name in operands:
+            src = torch.randn((nn, k), generator=gen, device="cuda").to(dtype)
+            res["operand"] = operands[name]
+            res["operand_copy_ms"] = time_ms(
+                torch, lambda: src.t().contiguous(), 10)
+            del src
         if name == f"{which}_m8192" and which == "ag":
             acts = _copy_activities(torch, g, lambda a, b: kern(a, b, **kw),
                                     args)
@@ -1581,6 +1625,263 @@ def phase_tp_lane(torch, tp1_logits):
     return counts
 
 
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def _worst_leaf(got, want):
+    """(max relative L2 over the leaves, its leaf)."""
+    rel = {n: _rel_l2(got[n], want[n]) for n in want}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def tape_backward_scaling(torch, depths=TAPE_DEPTHS, reps=3):
+    """Host ms of the seam tape's backward (``grads_from_tape`` on every
+    rank) at tp=4 in xla mode on the minicpm_2b smoke config (bf16, batch
+    2 x 256), at two depths, median of ``reps`` after one warm-up: where
+    the GEMMs are too small to hide it, the tape's own cost.  Each
+    segment is walked once, so the time and the autograd calls a rank
+    should grow linearly with depth."""
+    from repro_torch.configs.base import ParallelConfig, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dist import RankGroup
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+
+    out = {"arch": "minicpm_2b smoke config", "mode": "xla",
+           "batch": "2 x 256"}
+    for depth in depths:
+        cfg = dataclasses.replace(get_smoke_config("minicpm_2b"),
+                                  num_layers=depth)
+        par = ParallelConfig(tp=TP_LANE, overlap_mode="xla")
+        full = M.init_model(cfg, par, seed=0, dtype=torch.bfloat16,
+                            device="cuda", trainable=True)
+        ranks = [M.shard_params(full, r, TP_LANE, cfg)
+                 for r in range(TP_LANE)]
+        group = RankGroup(TP_LANE, "cuda", timeout_s=60)
+        ctx = T.make_ctx(cfg, par, group)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 batch_at(DataConfig(cfg.vocab_size, 256, 2), 0).items()}
+        ms = []
+        for _ in range(reps + 1):
+            tapes = group.spmd(lambda p: T.forward_on_tape(p, batch, ctx,
+                                                           cfg, par),
+                               [(p,) for p in ranks])
+            torch.cuda.synchronize()
+            calls = 1 + len(tapes[0][0].entries)
+            t0 = time.perf_counter()
+            group.spmd(T.grads_from_tape,
+                       [(p, t, l) for p, (t, l) in zip(ranks, tapes)])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(ms[1:])[reps // 2]
+        out[f"layers_{depth}"] = {"backward_host_ms_median": med,
+                                  "backward_host_ms": ms[1:],
+                                  "autograd_calls_a_rank": calls,
+                                  "ms_a_layer": med / depth}
+    lo, hi = (out[f"layers_{d}"] for d in depths)
+    out["time_ratio"] = (hi["backward_host_ms_median"]
+                         / lo["backward_host_ms_median"])
+    out["depth_ratio"] = depths[1] / depths[0]
+    return out
+
+
+def phase_train_lane(torch):
+    """minicpm_2b at full width, cut to its first TRAIN_LAYERS layers,
+    trained through ``runtime.trainer`` (bf16 weights from seed 0, fp32
+    moments, the wsd schedule, batch 4 x 1024 from ``data/pipeline.py``):
+    3 steps at tp=1, then at tp=4 on the one card in flux mode from the
+    same canonical weights.  The main path is the tp=4 flux run: step 0's
+    forward and backward with the counts read between them, then the 3
+    trainer steps with the counts read after.  Step 0's loss and grads at
+    tp=4 are held against tp=1's, and xla's and decomposed's (each one
+    forward and backward, no fused kernel) against flux's."""
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=TRAIN_LAYERS)
+    n_layers, tp = cfg.num_layers, TP_LANE
+    tc = T.TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=0,
+                       base_lr=3e-4, schedule=train_schedule("minicpm_2b"),
+                       log_every=TRAIN_STEPS)
+
+    def trainer(par):
+        tr = T.Trainer(cfg, par, tc, device="cuda", dtype=torch.bfloat16)
+        tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)
+        return tr
+
+    def zero_counts():
+        for fn in (AG.ag_gemm, RS.gemm_rs, fa.flash_attention, mm.matmul):
+            fn.launches = 0
+        RS.gemm_rs.reduce_launches = 0
+
+    def read_counts():
+        return {"ag_gemm": AG.ag_gemm.launches,
+                "gemm_rs": RS.gemm_rs.launches,
+                "gemm_rs_reduce": RS.gemm_rs.reduce_launches,
+                "flash_attention": fa.flash_attention.launches,
+                "matmul": mm.matmul.launches}
+
+    def step_ms(hist):
+        ms = sorted(h["seconds"] * 1e3 for h in hist)
+        return ms[len(ms) // 2], [h["seconds"] * 1e3 for h in hist]
+
+    res = {"phase": "train_lane", "arch": cfg.name,
+           "layers": f"{n_layers} of 40 (cut in depth)",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "schedule": tc.schedule, "dtype": "bfloat16 weights, "
+           "float32 moments", "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_rtol": TRAIN_GRAD_RTOL,
+           "ln_vocab": math.log(cfg.vocab_size)}
+
+    # what earlier phases left allocated (the peaks below include it)
+    res["baseline_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    # ---- tp=1: step 0's grads, then 3 trainer steps ----------------------
+    par1 = ParallelConfig(tp=1, fuse_w13=True)
+    tr1 = trainer(par1)
+    torch.cuda.reset_peak_memory_stats()
+    params1, opt1 = tr1.init_state()
+    batch0 = tr1.batch(0)
+    loss1, g1 = T.loss_and_grads(params1[0], batch0, T.make_ctx(cfg, par1),
+                                 cfg, par1)
+    loss1 = loss1.item()
+    can1 = M.canonical_leaves(g1, cfg, 1, grads=True)
+    _, _, hist1 = tr1.train(params1, opt1)
+    losses1 = [h["loss"] for h in hist1]
+    check(all(map(math.isfinite, losses1)),
+          f"tp=1 losses {losses1}")
+    res["tp1"] = {"losses": losses1, "step0_loss": loss1,
+                  "step_ms_median": step_ms(hist1)[0],
+                  "step_ms": step_ms(hist1)[1],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "weights": sum(p.numel() for p in params1[0].parameters())}
+    del params1, opt1, tr1, g1
+    torch.cuda.empty_cache()
+
+    # ---- tp=4 on the one card --------------------------------------------
+    par4 = ParallelConfig(tp=tp, fuse_w13=True, overlap_mode="flux")
+    tr4 = trainer(par4)
+    group = tr4.group
+    torch.cuda.reset_peak_memory_stats()
+    ranks, opts = tr4.init_state()
+
+    def rank_grads(mode):
+        """Step 0's forward on every rank, the counts, then its backward and
+        the replicated leaves' sum: (loss, canonical grads / tp, counts
+        after the forward, counts of the backward, {host ms of the forward
+        and of the backward, seams a rank recorded})."""
+        par = dataclasses.replace(par4, overlap_mode=mode)
+        ctx = T.make_ctx(cfg, par, group)
+
+        def bwd(p, tape, loss):
+            return T.complete_grads(T.grads_from_tape(p, tape, loss),
+                                    M.replicated_leaves(cfg, p), group)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = group.spmd(lambda p: T.forward_on_tape(p, batch0, ctx, cfg,
+                                                      par),
+                          [(p,) for p in ranks])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c_fwd = read_counts()
+        seams = len(outs[0][0].entries)
+        zero_counts()
+        grads = group.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
+        torch.cuda.synchronize()
+        host = {"forward_ms": (t1 - t0) * 1e3,
+                "backward_ms": (time.perf_counter() - t1) * 1e3,
+                "seams_a_rank": seams}
+        c_bwd = read_counts()
+        losses = [l.item() for _, l in outs]
+        check(max(losses) == min(losses), f"{mode}: ranks' losses {losses}")
+        glob = M.gather_rank_leaves(grads, cfg, ranks[0])
+        can = {n: g / tp for n, g in
+               M.canonical_leaves(glob, cfg, tp, grads=True).items()}
+        return losses[0], can, c_fwd, c_bwd, host
+
+    # the main path, part 1: step 0's forward and backward in flux mode
+    loss4, can4, c_fwd, c_bwd, host4 = rank_grads("flux")
+    per_layer = n_layers * tp
+    want_fwd = {"ag_gemm": (2 * n_layers + 1) * tp, "gemm_rs": 2 * per_layer,
+                "gemm_rs_reduce": 2 * per_layer, "flash_attention": 0,
+                "matmul": 0}
+    want_bwd = {"ag_gemm": 2 * per_layer, "gemm_rs": (2 * n_layers + 1) * tp,
+                "gemm_rs_reduce": (2 * n_layers + 1) * tp,
+                "flash_attention": 0, "matmul": 0}
+    check(c_fwd == want_fwd, f"tp={tp} flux forward launches {c_fwd}, "
+          f"expected {want_fwd}")
+    check(c_bwd == want_bwd, f"tp={tp} flux backward launches {c_bwd}, "
+          f"expected {want_bwd}")
+    rel_loss = abs(loss4 - loss1) / abs(loss1)
+    check(rel_loss <= TRAIN_LOSS_RTOL,
+          f"tp={tp} flux step-0 loss {loss4} vs tp=1 {loss1}: relative "
+          f"{rel_loss} > {TRAIN_LOSS_RTOL}")
+    rel_g, leaf = _worst_leaf(can4, can1)
+    check(rel_g <= TRAIN_GRAD_RTOL,
+          f"tp={tp} flux step-0 grad of {leaf} vs tp=1: relative L2 "
+          f"{rel_g} > {TRAIN_GRAD_RTOL}")
+    res["tp4_flux"] = {"step0_loss": loss4, "loss_rel_vs_tp1": rel_loss,
+                       "grad_rel_l2_vs_tp1_max": rel_g,
+                       "grad_worst_leaf": leaf,
+                       "launches_forward": c_fwd, "launches_backward": c_bwd,
+                       "step0_host": host4}
+    del can1
+    for mode in ("xla", "decomposed"):
+        lm, canm, cf, cb, hm = rank_grads(mode)
+        for c in (cf, cb):
+            check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+                  f"{mode} step launched the fused kernels: {c}")
+        rl = abs(lm - loss4) / abs(loss4)
+        rg, lf = _worst_leaf(canm, can4)
+        check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+              f"{mode} vs flux: loss relative {rl}, grad of {lf} relative "
+              f"L2 {rg}")
+        res[f"tp4_{mode}"] = {"step0_loss": lm, "loss_rel_vs_flux": rl,
+                              "grad_rel_l2_vs_flux_max": rg,
+                              "grad_worst_leaf": lf, "step0_host": hm,
+                              "launches": {"forward": cf, "backward": cb}}
+        del canm
+    del can4
+    torch.cuda.empty_cache()
+
+    # the main path, part 2: 3 trainer steps in flux mode
+    zero_counts()
+    _, opts, hist4 = tr4.train(ranks, opts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: TRAIN_STEPS * (want_fwd[k] + want_bwd[k]) for k in want_fwd}
+    check(counts == want, f"{TRAIN_STEPS} flux steps launched {counts}, "
+          f"expected {want}")
+    losses4 = [h["loss"] for h in hist4]
+    check(all(map(math.isfinite, losses4)),
+          f"tp={tp} losses {losses4}")
+    res["tp4_flux"].update(
+        losses=losses4, step_ms_median=step_ms(hist4)[0],
+        step_ms=step_ms(hist4)[1], trainer_launches=counts,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res["tp4_flux"]["profiled_step"] = device_profile(
+        torch, lambda: tr4.run_step(ranks, opts, batch0),
+        sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
+    res["tape_backward_scaling"] = tape_backward_scaling(torch)
+    emit(res)
+    del ranks, opts, tr4
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1606,6 +1907,7 @@ def main():
     rs_case = phase_fused_kernel(torch, "rs")
     tp_counts = phase_tp_op_level_lane(torch)
     phase_tp_lane(torch, tp1_logits)
+    train_counts = phase_train_lane(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [
@@ -1640,6 +1942,10 @@ def main():
          "source": "src/repro_torch/csrc/ag_gemm.cu",
          "replaces": "src/repro/kernels/ag_gemm.py:45",
          "launches": tp_counts["ag_gemm"],
+         "train_launches": {
+             "forward": train_counts["forward"]["ag_gemm"],
+             "backward": train_counts["backward"]["ag_gemm"],
+             "trainer_steps": train_counts["trainer_steps"]["ag_gemm"]},
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
          "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
@@ -1648,6 +1954,10 @@ def main():
          "source": "src/repro_torch/csrc/gemm_rs.cu",
          "replaces": "src/repro/kernels/gemm_rs.py:33",
          "launches": tp_counts["gemm_rs"],
+         "train_launches": {
+             "forward": train_counts["forward"]["gemm_rs"],
+             "backward": train_counts["backward"]["gemm_rs"],
+             "trainer_steps": train_counts["trainer_steps"]["gemm_rs"]},
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
          "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],

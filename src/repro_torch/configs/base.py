@@ -77,15 +77,17 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
-    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1
-    raises; data parallelism, ZeRO, pipelines, tuned profiles and wire
-    precision come with their slices).  ``kernel_decode`` turns on the
-    hand-written kernels (``TPContext.use_kernels``): the flash-attention
-    kernel of the GQA prefill and the MLA-decode kernel of every MLA
-    decode step.  ``overlap_mode`` is the TP seams' transport
+    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1, dp>1
+    and ``remat`` other than "none" raise; ZeRO, pipelines, tuned profiles
+    and wire precision come with their slices).  ``kernel_decode`` turns
+    on the hand-written kernels (``TPContext.use_kernels``): the
+    flash-attention kernel of the GQA prefill and the MLA-decode kernel of
+    every MLA decode step.  ``overlap_mode`` is the TP seams' transport
     (``core.overlap``)."""
     tp: int = 1
+    dp: int = 1
     ep: int = 1
+    remat: str = "none"
     fuse_w13: bool = False
     kernel_decode: bool = False
     overlap_mode: str = "decomposed"
@@ -97,6 +99,16 @@ def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
+
+
+def train_schedule(arch: str) -> str:
+    """The LR schedule an arch trains with: its config module's
+    ``TRAIN_SCHEDULE`` (minicpm: "wsd"), else "cosine"."""
+    import importlib
+
+    arch = arch.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return getattr(mod, "TRAIN_SCHEDULE", "cosine")
 
 
 def get_smoke_config(arch: str) -> ModelConfig:

@@ -1,4 +1,6 @@
-"""MiniCPM 2B: llama-like dense, tied embeddings.  [arXiv:2404.06395; hf]"""
+"""MiniCPM 2B: llama-like dense, tied embeddings; trained with the WSD
+schedule (``optim/schedule.py``, picked by ``launch/train.py`` for this
+arch).  [arXiv:2404.06395; hf]"""
 from repro_torch.configs.base import ModelConfig, shrink
 
 CONFIG = ModelConfig(
@@ -14,5 +16,7 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     sub_quadratic=False,
 )
+
+TRAIN_SCHEDULE = "wsd"
 
 SMOKE_CONFIG = shrink(CONFIG)

@@ -14,7 +14,13 @@ which is exact.
 At tp>1 the reference's tree (``init_model`` with ``ParallelConfig(tp)``,
 before ``shard_map`` cuts it) holds the GLOBAL weights packed for that tp;
 ``rank_params_from_jax`` converts it once and cuts each rank's copy with
-``model.shard_params``.
+``model.shard_params``.  The reference's training tree is the same tree:
+``trainable=True`` gives trainable leaves.
+
+The other way, ``to_jax_tree`` turns the port's named leaves (a ``Model``'s
+``named_parameters()``, or the trainer's grads keyed the same way) into
+the reference's tree of numpy arrays, period leaves stacked, so that tests
+compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -66,8 +72,8 @@ def _params(leaves: Dict[str, Any], dtype: torch.dtype,
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
-                    device: Optional[Union[str, torch.device]] = None
-                    ) -> Model:
+                    device: Optional[Union[str, torch.device]] = None,
+                    trainable: bool = False) -> Model:
     """The reference's parameter tree (leaves as numpy arrays) -> ``Model``
     with ``dtype`` leaves (the router stays fp32, as in the reference)."""
     check_ported(cfg)
@@ -76,16 +82,53 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     _params(layer["ffn"], dtype, dev))
               for layer in _layer_trees(tree, cfg)]
     return Model(_tensor(tree["embed"], dtype, dev),
-                 _tensor(tree["final_norm"], dtype, dev), blocks)
+                 _tensor(tree["final_norm"], dtype, dev), blocks, trainable)
 
 
 def rank_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, tp: int,
                          dtype: torch.dtype = torch.bfloat16,
-                         device: Optional[Union[str, torch.device]] = None
-                         ) -> List[Model]:
+                         device: Optional[Union[str, torch.device]] = None,
+                         trainable: bool = False) -> List[Model]:
     """The reference's global tp-packed tree -> one ``Model`` per rank."""
-    full = params_from_jax(tree, cfg, dtype=dtype, device=device)
+    full = params_from_jax(tree, cfg, dtype=dtype, device=device,
+                           trainable=trainable)
     return [shard_params(full, r, tp, cfg) for r in range(tp)]
+
+
+def to_jax_tree(named: Dict[str, torch.Tensor],
+                cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's leaves keyed as ``Model.named_parameters()`` ("embed",
+    "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]") -> the
+    reference's tree of float32 numpy arrays: ``lead`` layers as a list,
+    the periods' leaves stacked ``[reps, ...]`` per pattern position."""
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    layer_trees: Dict[int, Dict[str, Any]] = {}
+    for key, t in named.items():
+        parts = key.split(".")
+        if parts[0] != "layers":
+            continue
+        node = layer_trees.setdefault(int(parts[1]), {"mixer": {}, "ffn": {}})
+        node = node[parts[2]]
+        for p in parts[3:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np32(t)
+    lead = cfg.leading_dense_layers
+    period = len(cfg.pattern)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {n: stack([t[n] for t in trees]) for n in trees[0]}
+        return np.stack(trees)
+
+    out: Dict[str, Any] = {"embed": np32(named["embed"]),
+                           "final_norm": np32(named["final_norm"]),
+                           "lead": [layer_trees[i] for i in range(lead)]}
+    out["periods"] = [stack([layer_trees[lead + rep * period + pos]
+                             for rep in range(n_periods(cfg))])
+                      for pos in range(period)]
+    return out
 
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

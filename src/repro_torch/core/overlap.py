@@ -30,22 +30,45 @@ picks the transport, as in the reference:
 over the column-stacked weights.  A single weight's bias/activation runs
 in the flux kernel's tile epilogue.
 
+The backward of an ag/rs op at tp>1 is the reference's ``_fused_bwd``: an
+ag op re-gathers ``x`` on its own transport and runs the interchanged
+GEMM-ReduceScatter over the cotangents (under flux one GEMM-RS kernel);
+an rs op runs the interchanged AllGather-GEMM over its cotangent and the
+transposed weight (under flux one AG-GEMM kernel).  The dW contractions
+are ``torch.matmul``.  Cotangents follow the reference's
+``check_rep=False`` convention: a replicated tensor's cotangent is a
+per-rank partial.  The collectives outside a ``FusedOp`` that training
+reaches (``gather_seq``, ``scatter_seq_sum``, ``psum``; ``pmax`` is
+stop-gradient) carry the reference's transposes too.
+
+Each such collective is one *seam*: a forward and a backward that both
+exchange with the other ranks.  On a CUDA card the autograd engine runs
+every CUDA node of every rank on one device thread, where a rank's
+barrier would wait for ranks whose nodes are queued behind it; so a seam
+is never an autograd node.  Under grad at tp>1 a rank records its seams
+on a ``SeamTape``: the tape cuts the step into rank-local autograd
+segments at the seams (and, through ``cut``, on the residual stream), and
+``SeamTape.backward`` runs each segment's backward and each seam's
+exchange from the rank's own thread, last seam first (the way a pipeline
+schedule drives its stages).  A seam under grad with no tape raises.
+
 The reference's tuning fields (``comm_chunks``, ``reverse``, ``blocks``,
 ``fuse_epilogue``, ``shared_gather``) are not carried: no caller of the
 port sets them, so each op runs the reference's defaults (one chunk a
 shard, the forward ring, the planned tile, the fused epilogue, the shared
 gather).  Not ported (each raises and names its ROADMAP item):
 ``decomposed_bidir``, ``scatter_axis="hidden"`` and ``kind="ar"`` at
-tp>1, ``wire_dtype``, and the backward (``_fused_bwd``): the port runs
-inference only.
+tp>1, and ``wire_dtype``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
 
 VALID_KINDS = ("ag", "rs", "ar", "a2a")
 VALID_MODES = ("xla", "decomposed", "flux", "decomposed_bidir")
@@ -54,7 +77,8 @@ VALID_SCATTER_AXES = ("seq", "hidden")
 # model-level seam name -> its collective kind
 SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
                               "attn_ag": "ag", "attn_rs": "rs",
-                              "decode_ar": "ar", "moe_a2a": "a2a"}
+                              "head_ag": "ag", "decode_ar": "ar",
+                              "moe_a2a": "a2a"}
 
 NOT_PORTED = {
     "decomposed_bidir": "mode='decomposed_bidir' at tp>1 is not ported "
@@ -65,8 +89,6 @@ NOT_PORTED = {
           "(ROADMAP queue 1 item 7)",
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
                   "(ROADMAP queue 1 item 9)",
-    "backward": "the backward of a tp>1 seam (_fused_bwd) is not ported: "
-                "the port runs inference only (ROADMAP queue 1 item 2)",
 }
 
 
@@ -135,6 +157,146 @@ def _group_size(axis) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Seams: collectives that autograd crosses
+# ---------------------------------------------------------------------------
+ENGINE_THREAD = (
+    "a tp>1 seam ran under grad with no SeamTape recording: a seam is "
+    "not an autograd node (on a CUDA card the autograd engine runs every "
+    "rank's CUDA nodes on one device thread, where a rank cannot meet the "
+    "others).  Record the forward on a core.overlap.SeamTape and call "
+    "tape.backward(loss) from the rank (runtime.trainer does)")
+
+_TAPE = threading.local()
+
+
+def current_tape() -> Optional["SeamTape"]:
+    """The tape recording this thread's seams, or None."""
+    return getattr(_TAPE, "tape", None)
+
+
+class SeamTape:
+    """A rank's record of the seams of one forward pass, for a backward
+    driven from the rank's own thread (module docstring).
+
+        with SeamTape() as tape:
+            loss = forward_loss(...)
+        tape.backward(loss)
+
+    Inside the ``with``, a seam whose inputs require grad runs its forward
+    under ``no_grad`` and hands back fresh leaves that require grad: the
+    autograd graph stops at every seam.  ``backward`` first runs autograd
+    from the root; then, last seam first, it reads the grads its output
+    leaves gathered, runs the seam's backward (the exchange) on this
+    thread, and runs autograd from the seam's inputs with those grads.
+    Seams are recorded in the order they ran, so every consumer of a
+    seam's outputs has run its backward before the seam does.
+
+    Each segment's autograd call frees its graph as it goes, so segments
+    must not share a node: a tensor that reaches two seams' inputs (the
+    residual stream) is cut with ``cut`` between them, and every segment
+    is then walked once.  Grads of parameters accumulate in ``.grad`` as
+    with ``loss.backward()``.  Each rank of a group holds a tape of its
+    own."""
+
+    def __init__(self):
+        self.entries: List[Tuple] = []
+        self._outer: Optional[SeamTape] = None
+
+    def __enter__(self) -> "SeamTape":
+        self._outer = current_tape()
+        _TAPE.tape = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TAPE.tape = self._outer
+        return False
+
+    def record(self, seam, tensors) -> Tuple[torch.Tensor, ...]:
+        with torch.no_grad():
+            outs, saved = seam.forward(*tensors)
+        leaves = tuple(o.detach().requires_grad_() for o in outs)
+        self.entries.append((seam, tensors, leaves, saved))
+        return leaves
+
+    def backward(self, root: torch.Tensor,
+                 grad: Optional[torch.Tensor] = None) -> None:
+        """Backward from ``root`` (seeded with ``grad``, default ones, as
+        each rank seeds its replicated loss in the reference)."""
+        if grad is None:
+            grad = torch.ones_like(root)
+        torch.autograd.backward([root], [grad])
+        while self.entries:
+            # every rank runs every seam's backward, whatever its grads: the
+            # exchange needs all ranks
+            seam, tensors, leaves, saved = self.entries.pop()
+            gouts = tuple(torch.zeros_like(leaf) if leaf.grad is None
+                          else leaf.grad for leaf in leaves)
+            with torch.no_grad():
+                gins = seam.backward(saved, gouts)
+            pairs = [(t, g) for t, g in zip(tensors, gins)
+                     if t is not None and g is not None and t.requires_grad]
+            if pairs:
+                torch.autograd.backward([t for t, _ in pairs],
+                                        [g for _, g in pairs])
+
+
+def _run_seam(seam, *tensors) -> Tuple[torch.Tensor, ...]:
+    """Run ``seam`` on ``tensors`` (None allowed): its forward alone when
+    no input needs a gradient, else recorded on this thread's tape."""
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors)):
+        return seam.forward(*tensors)[0]
+    tape = current_tape()
+    if tape is None:
+        raise RuntimeError(ENGINE_THREAD)
+    return tape.record(seam, tensors)
+
+
+class _CutSeam:
+    """The identity, with no exchange: a tape boundary."""
+
+    def forward(self, x):
+        return (x,), None
+
+    def backward(self, saved, gouts):
+        return gouts
+
+
+def cut(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself, cut out of the autograd graph on this thread's tape
+    at tp>1 (its grad reaches ``x`` when the tape's backward comes to the
+    cut).  The model cuts its residual stream before each sub-block, so
+    that no autograd segment of the tape reaches back past the block
+    boundary below it (``SeamTape``)."""
+    if _group_size(axis) == 1 or current_tape() is None:
+        return x
+    return _run_seam(_CutSeam(), x)[0]
+
+
+class _TransportSeam:
+    """gather_seq / scatter_seq_sum / psum and their transposes."""
+
+    def __init__(self, group, mode: str, reverse: bool, what: str):
+        self.group, self.mode, self.reverse, self.what = (group, mode,
+                                                          reverse, what)
+
+    def _apply(self, what: str, x: torch.Tensor) -> torch.Tensor:
+        if what == "gather":
+            return _gather_seq_raw(x, self.group, self.mode, self.reverse)
+        if what == "scatter":
+            return _scatter_seq_raw(x, self.group, self.mode, self.reverse)
+        return _psum_raw(x, self.group)
+
+    def forward(self, x):
+        return (self._apply(self.what, x),), None
+
+    def backward(self, saved, gouts):
+        transpose = {"gather": "scatter", "scatter": "gather",
+                     "psum": "psum"}[self.what]
+        return (self._apply(transpose, gouts[0]),)
+
+
+# ---------------------------------------------------------------------------
 # Ring transports over the rank group
 # ---------------------------------------------------------------------------
 def _ring_perm(n: int, reverse: bool = False) -> List[Tuple[int, int]]:
@@ -166,16 +328,40 @@ def _psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def _gather_seq_raw(x: torch.Tensor, group, mode: str,
+                    reverse: bool = False) -> torch.Tensor:
+    if mode.startswith("decomposed"):
+        return _ag_ring(x, group, reverse, lambda c: (c,))[0]
+    return _gather_full(x, group)
+
+
+def _scatter_seq_raw(x: torch.Tensor, group, mode: str,
+                     reverse: bool = False) -> torch.Tensor:
+    if not mode.startswith("decomposed"):
+        return _psum_scatter(x, group)
+    s_shard = x.shape[-2] // group.n
+    return _reduce_ring(group, reverse, "scatter_seq",
+                        lambda o: _seq_rows(x, o * s_shard, s_shard))
+
+
+def _psum_raw(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x summed in rank order (n > 1: a new tensor)."""
+    acc = None
+    for p in group.exchange(x, "psum"):
+        acc = p if acc is None else acc + p
+    return acc
+
+
 def gather_seq(x: torch.Tensor, axis, mode: str = "decomposed",
                reverse: bool = False) -> torch.Tensor:
     """Gather a sequence-sharded non-GEMM payload (boundary rows, cache
     tails) to full length along dim -2: the ring for the ring modes, the
-    monolithic gather otherwise.  Values are identical either way."""
+    monolithic gather otherwise.  Values are identical either way.  Its
+    backward is the reduce-scatter of the cotangent on the same
+    transport (the transpose of the gather)."""
     if _group_size(axis) == 1:
         return x
-    if mode.startswith("decomposed"):
-        return _ag_ring(x, axis, reverse, lambda c: (c,))[0]
-    return _gather_full(x, axis)
+    return _run_seam(_TransportSeam(axis, mode, reverse, "gather"), x)[0]
 
 
 def scatter_seq_sum(x: torch.Tensor, axis, mode: str = "decomposed",
@@ -183,14 +369,53 @@ def scatter_seq_sum(x: torch.Tensor, axis, mode: str = "decomposed",
     """ReduceScatter along dim -2 of a per-rank full-sequence partial (the
     embedding seam's combine under the sequence-sharded layout):
     out[rows of my shard] = sum over ranks of x[those rows].  The ring
-    modes accumulate along the ring, as ``_rs_ring`` does."""
+    modes accumulate along the ring, as ``_rs_ring`` does.  Its backward
+    gathers the cotangent on the same transport."""
     if _group_size(axis) == 1:
         return x
-    if not mode.startswith("decomposed"):
-        return _psum_scatter(x, axis)
-    s_shard = x.shape[-2] // axis.n
-    return _reduce_ring(axis, reverse, "scatter_seq",
-                        lambda o: _seq_rows(x, o * s_shard, s_shard))
+    return _run_seam(_TransportSeam(axis, mode, reverse, "scatter"), x)[0]
+
+
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum of every rank's ``x``, in rank order (``lax.psum``).  Its
+    backward is the psum of the cotangent, the reference's transpose under
+    ``check_rep=False``: each rank's cotangent of the replicated sum is a
+    partial, and the sum of the partials reaches every rank's operand."""
+    if _group_size(axis) == 1:
+        return x
+    return _run_seam(_TransportSeam(axis, "xla", False, "psum"), x)[0]
+
+
+def ppermute(x: torch.Tensor, axis,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Send ``x`` along ``perm`` ((src, dst) pairs; ``lax.ppermute``): the
+    token-shift seam's one boundary row.  Its backward sends the cotangent
+    back along the inverse permutation."""
+    if _group_size(axis) == 1:
+        return x
+    return _run_seam(_PermuteSeam(axis, perm), x)[0]
+
+
+class _PermuteSeam:
+    def __init__(self, group, perm):
+        self.group, self.perm = group, [tuple(p) for p in perm]
+
+    def forward(self, x):
+        return (self.group.ppermute(x, self.perm, "ppermute"),), None
+
+    def backward(self, saved, gouts):
+        inverse = [(d, s) for s, d in self.perm]
+        return (self.group.ppermute(gouts[0], inverse, "ppermute"),)
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """Elementwise max over the ranks (``lax.pmax``), with no gradient: the
+    reference stops the gradient before it (the xent's stability shift)."""
+    x = x.detach()
+    if _group_size(axis) == 1:
+        return x
+    with torch.no_grad():
+        return torch.stack(axis.exchange(x, "pmax")).amax(dim=0)
 
 
 def _out_buffers(x: torch.Tensor, seq_len: int,
@@ -293,7 +518,9 @@ def _ag_flux(x: torch.Tensor, w: torch.Tensor, group,
     n = group.n
     lead = x.shape[:-2]
     x2 = torch.movedim(x, -2, 0).reshape(-1, x.shape[-1])
-    y2 = kops.ag_matmul_fused(x2, w, axis_name="tp", n_dev=n,
+    # the kernels take row-major operands: a transposed weight (the
+    # backward's w.T, the LM head's table.T) is copied
+    y2 = kops.ag_matmul_fused(x2, w.contiguous(), axis_name="tp", n_dev=n,
                               activation=activation, bias=bias)
     yt = y2.reshape(x.shape[-2] * n, *lead, w.shape[-1])
     return torch.movedim(yt, 0, -2)                    # [*lead, S, F/N]
@@ -304,7 +531,7 @@ def _rs_flux(y: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
     n = group.n
     lead = y.shape[:-2]
     y2 = torch.movedim(y, -2, 0).reshape(-1, y.shape[-1])
-    o2 = kops.matmul_rs_fused(y2, w, axis_name="tp", n_dev=n)
+    o2 = kops.matmul_rs_fused(y2, w.contiguous(), axis_name="tp", n_dev=n)
     ot = o2.reshape(y.shape[-2] // n, *lead, w.shape[-1])
     return torch.movedim(ot, 0, -2)                    # [*lead, S/N, D]
 
@@ -387,14 +614,14 @@ class FusedOp:
                     f"{'missing' if flag else 'given'}")
         if self.kind == "a2a":
             return _expert_fn(epi, x, *ws)
-        if _group_size(self.axis) > 1 and torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (x, *ws, bias, scale, residual)):
-            raise NotImplementedError(NOT_PORTED["backward"])
-        if self.kind == "ag":
-            return _fused_ag(self, x, ws, bias, scale, residual)
-        z = _fused_z(self, x, ws)
-        return epi.apply([z], bias=bias, scale=scale, residual=residual)
+        if _group_size(self.axis) == 1:
+            # one rank: local GEMMs, plain autograd
+            if self.kind == "ag":
+                return _fused_ag(self, x, ws, bias, scale, residual)
+            z = _fused_z(self, x, ws)
+            return epi.apply([z], bias=bias, scale=scale, residual=residual)
+        outs = _run_seam(_OpSeam(self), x, *ws, bias, scale, residual)
+        return outs[0] if self.combines else tuple(outs)
 
 
 def _apply_epilogue(op: FusedOp, ys: Sequence[torch.Tensor], bias, scale,
@@ -464,6 +691,101 @@ def _fused_z(op: FusedOp, x, ws):
     if op.kind == "rs" and op.scatter_axis == "seq":
         return _rs_core((x,), ws, op.axis, op.mode)
     return torch.matmul(x, ws[0])
+
+
+# ---------------------------------------------------------------------------
+# The backward of ag / rs at tp>1 (the reference's _fused_fwd / _fused_bwd)
+# ---------------------------------------------------------------------------
+def _epilogue_is_linear(epi: Epilogue) -> bool:
+    """True when the epilogue's vjp needs no value (bias, residual only)."""
+    return not (epi.activation or epi.gate or epi.scale)
+
+
+def _contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over the leading dims: a[..., K] x b[..., N] -> [K, N] (the dW
+    contraction ``einsum("...sd,...sf->df")``)."""
+    return torch.matmul(a.reshape(-1, a.shape[-1]).t(),
+                        b.reshape(-1, b.shape[-1]))
+
+
+def _epilogue_vjp(op: FusedOp, ys_fn: Callable, bias, scale, residual,
+                  gouts) -> Tuple[List[torch.Tensor], ...]:
+    """(dys, dbias, dscale, dres): the vjp of the op's epilogue at the
+    pre-epilogue outputs ``ys_fn()`` (autograd of ``Epilogue.apply``); a
+    non-combining op's outputs are its ys.  A linear epilogue (bias,
+    residual) needs no ys: its vjp is written out."""
+    epi = op.epilogue
+    if not op.combines:
+        return list(gouts), None, None, None
+    g = gouts[0]
+    if _epilogue_is_linear(epi):
+        dbias = (g.reshape(-1, g.shape[-1]).sum(0).to(bias.dtype)
+                 if epi.bias else None)
+        dres = g.to(residual.dtype) if epi.residual else None
+        return [g], dbias, None, dres
+    with torch.enable_grad():
+        ys = [y.detach().requires_grad_() for y in ys_fn()]
+        ops = {k: None if v is None else v.detach().requires_grad_()
+               for k, v in (("bias", bias), ("scale", scale),
+                            ("residual", residual))}
+        out = epi.apply(ys, **ops)
+        wrt = ys + [v for v in ops.values() if v is not None]
+        grads = list(torch.autograd.grad(out, wrt, g, allow_unused=True))
+    dys = [torch.zeros_like(y) if d is None else d
+           for y, d in zip(ys, grads[:len(ys)])]
+    rest = iter(grads[len(ys):])
+    d = {k: None if v is None else next(rest) for k, v in ops.items()}
+    return dys, d["bias"], d["scale"], d["residual"]
+
+
+class _OpSeam:
+    """A FusedOp ag/rs at tp>1 as a seam.  ag saves x and re-gathers it in
+    the backward; rs saves its pre-epilogue z when the epilogue's vjp
+    needs it."""
+
+    def __init__(self, op: FusedOp):
+        self.op, self.group = op, op.axis
+
+    def forward(self, x, *rest):
+        op = self.op
+        ws, (bias, scale, residual) = rest[:op.n_weights], rest[op.n_weights:]
+        if op.kind == "ag":
+            out = _fused_ag(op, x, ws, bias, scale, residual)
+            outs = (out,) if op.combines else tuple(out)
+            return outs, (x, ws, None, bias, scale, residual)
+        z = _fused_z(op, x, ws)
+        out = op.epilogue.apply([z], bias=bias, scale=scale,
+                                residual=residual)
+        keep = None if _epilogue_is_linear(op.epilogue) else z
+        return (out,), (x, ws, keep, bias, scale, residual)
+
+    def backward(self, saved, gouts):
+        op = self.op
+        x, ws, z, bias, scale, residual = saved
+        if op.kind == "ag":
+            # the dW contractions need the gathered x: the re-gather rides
+            # the op's own transport
+            xf = _gather_seq_raw(x, op.axis, op.mode)
+            dys, dbias, dscale, dres = _epilogue_vjp(
+                op, lambda: [torch.matmul(xf, w) for w in ws], bias, scale,
+                residual, gouts)
+            # dX: the interchanged GEMM-ReduceScatter over the sequence
+            # cotangents, ONE collective pass for all weights (flux: one
+            # GEMM-RS kernel over the column-stacked cotangents)
+            dx = _rs_core(dys, [w.t() for w in ws], op.axis, op.mode)
+            dws = [_contract(xf, dy).to(w.dtype) for w, dy in zip(ws, dys)]
+            return (dx.to(x.dtype), *dws, dbias, dscale, dres)
+        w = ws[0]
+        (dz,), dbias, dscale, dres = _epilogue_vjp(
+            op, lambda: [z], bias, scale, residual, gouts)
+        # dY: the interchanged AllGather-GEMM over the cotangent of this
+        # rank's sequence rows (flux: one AG-GEMM kernel); dW needs the
+        # gathered cotangent too (a second gather, as the reference)
+        bwd_op = FusedOp("ag", axis=op.axis, mode=op.mode)
+        dy = _fused_ag(bwd_op, dz, (w.t(),), None, None, None)
+        gf = _gather_seq_raw(dz, op.axis, op.mode)
+        dw = _contract(x, gf).to(w.dtype)
+        return (dy.to(x.dtype), dw, dbias, dscale, dres)
 
 
 def _expert_fn(epi: Epilogue, b: torch.Tensor, w1: torch.Tensor,

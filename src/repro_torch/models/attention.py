@@ -5,7 +5,9 @@ Train/prefill path (``gqa_train``): pre-norm, the ``attn_ag`` seam for the
 packed QKV projection (bias in its epilogue), RoPE, causal attention over
 local heads, the ``attn_rs`` seam for the output projection.  With
 ``ctx.use_kernels`` the attention is the hand-written flash kernel
-(``kernels.flash_attention``), otherwise the plain ``blocked_attention``.
+(``kernels.flash_attention``, forward only: under grad it raises),
+otherwise the plain ``blocked_attention``, which training runs, as the
+reference's does.
 ``mla_train`` runs the same seams around the latent projections and always
 attends in plain ``blocked_attention``, as the reference does.
 
@@ -33,6 +35,12 @@ from repro_torch.kernels.mla_decode import mla_decode_attention
 from repro_torch.models import init_utils as iu
 from repro_torch.models import layers
 from repro_torch.parallel.sharding import TPContext, pad_heads, pad_kv_heads
+
+
+FLASH_BWD_NOT_PORTED = (
+    "training through the flash-attention kernel needs its backward, which "
+    "is not written yet (ROADMAP queue 1 item 5); the reference trains "
+    "through plain attention: train with kernel_decode=False")
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -123,6 +131,9 @@ def gqa_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     q, k = _rope(q, k, pos, cfg)
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if ctx.use_kernels and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qt, kt, vt)):
+        raise NotImplementedError(FLASH_BWD_NOT_PORTED)
     if ctx.use_kernels:
         # the hand-written flash kernel (CUDA) takes contiguous [B, H, S, D]
         attn = flash_attention(qt.contiguous(), kt.contiguous(),

@@ -1,6 +1,7 @@
 """Shared layers (port of ``repro.models.layers``): norm, rotary embedding,
-the vocab-parallel embedding lookup, sequence positions, and the per-slot /
-paged KV-cache utilities.
+the vocab-parallel embedding lookup, the LM head (the ``head_ag`` seam)
+and the vocab-parallel cross-entropy, sequence positions and token
+shifts, and the per-slot / paged KV-cache utilities.
 
 The cache writers update their cache IN PLACE and return it: the reference
 is functional and its server donates the cache buffers to ``jit``
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import overlap
 from repro_torch.parallel.sharding import TPContext
 
 
@@ -59,6 +61,72 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     if ctx is not None and ctx.tp > 1:
         x = ctx.scatter_seq(x)
     return x
+
+
+def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
+                   ctx: TPContext) -> torch.Tensor:
+    """x: [B, S/TP, D] -> logits [B, S, V/TP] through the ``head_ag``
+    AllGather-GEMM seam over the tied table's transpose (the step's
+    biggest GEMM)."""
+    return ctx.op("head_ag")(x, table.t())
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        ctx: TPContext, vocab_global: int,
+                        vocab_real: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy over vocab-sharded logits [B, S, V/TP] with labels
+    [B, S] (full sequence): the Megatron vocab-parallel log-softmax (pmax
+    of the max, psum of the exp-sums and of the target logit over the TP
+    ranks).  Returns the per-token loss [B, S].  ``vocab_real`` masks the
+    padded vocab tail out of the partition function.  The max is a
+    stability shift with no gradient (stopped before the pmax, as the
+    reference); the two psums ride one exchange."""
+    v_loc = logits.shape[-1]
+    lf = logits.float()
+    start = ctx.tp_index() * v_loc
+    if vocab_real is not None and vocab_real < vocab_global:
+        col = start + torch.arange(v_loc, device=logits.device)
+        lf = lf.masked_fill(col >= vocab_real, -1e30)
+    axis = ctx.axis
+    mx = overlap.pmax(lf.detach().amax(dim=-1, keepdim=True), axis)
+    denom = torch.exp(lf - mx).sum(dim=-1)
+    local = labels.long() - start
+    in_shard = (local >= 0) & (local < v_loc)
+    tgt = torch.gather(lf, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tgt = tgt.masked_fill(~in_shard, 0.0)
+    if axis is not None:
+        denom, tgt = overlap.psum(torch.stack([denom, tgt]), axis).unbind(0)
+    return torch.log(denom) + mx[..., 0] - tgt
+
+
+def shift_tokens_right(x: torch.Tensor, ctx: TPContext) -> torch.Tensor:
+    """x_{t-1} for a (possibly sequence-sharded) [B, S_local, D] tensor
+    (zero at the start): shifts within the shard and pulls the boundary
+    row from the left neighbour (one row through ``overlap.ppermute``).
+    The replicated layout shifts locally."""
+    if ctx.tp == 1 or not ctx.seq_sharded:
+        return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    n = ctx.tp
+    prev = overlap.ppermute(x[:, -1:], ctx.axis,
+                            [(i, (i + 1) % n) for i in range(n)])
+    # rank 0's incoming row wrapped around: zeroed, but kept in the graph
+    # (every rank takes part in the exchange's backward)
+    first = torch.full((), ctx.tp_index() == 0, device=x.device)
+    prev = torch.where(first, torch.zeros_like(prev), prev)
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def shift_tokens_left(x: torch.Tensor, ctx: TPContext) -> torch.Tensor:
+    """x_{t+1} for a (possibly sequence-sharded) [B, S_local, D] tensor
+    (zero at the end); the boundary row comes from the right neighbour."""
+    if ctx.tp == 1 or not ctx.seq_sharded:
+        return torch.nn.functional.pad(x, (0, 0, 0, 1))[:, 1:]
+    n = ctx.tp
+    nxt = overlap.ppermute(x[:, :1], ctx.axis,
+                           [(i, (i - 1) % n) for i in range(n)])
+    last = torch.full((), ctx.tp_index() == n - 1, device=x.device)
+    nxt = torch.where(last, torch.zeros_like(nxt), nxt)
+    return torch.cat([x[:, 1:], nxt], dim=1)
 
 
 def seq_positions(batch: int, s_local: int, device: torch.device,

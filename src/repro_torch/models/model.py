@@ -10,6 +10,12 @@ MoE's ``shared`` expert).  (The reference stacks a period's layers
 ``convert.params_from_jax`` unstacks.)  The ported layer kinds are
 ``PORTED_KINDS``; DeepSeek-V3's multi-token-prediction head is not built:
 serving never reads it.
+
+Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
+makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
+``forward_loss`` are the training forward for the ``TRAIN_KINDS``
+pattern; at tp>1 they run as one rank of the TP group, on that rank's
+``shard_params`` copy.
 """
 from __future__ import annotations
 
@@ -20,16 +26,28 @@ from torch import nn
 
 from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, MOE_FFN,
                                       ModelConfig, ParallelConfig)
+from repro_torch.core import overlap
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ffn
+from repro_torch.models import attention, ffn, layers
 from repro_torch.models import init_utils as iu
 from repro_torch.parallel.sharding import (EP_NOT_PORTED, TP_KIND_NOT_PORTED,
-                                           pad_vocab)
+                                           TPContext, pad_vocab)
 
 # (mixer, ffn) layer kinds the port runs; at tp>1 only TP_KINDS
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
 TP_KINDS = frozenset({(ATTN, DENSE_FFN)})
+# layer kinds that train (at any tp)
+TRAIN_KINDS = frozenset({(ATTN, DENSE_FFN)})
+
+TRAIN_KIND_NOT_PORTED = ("training runs the (attn, ffn) pattern only: MLA "
+                         "and MoE layers and the multi-token-prediction "
+                         "head do not train yet (ROADMAP queue 1 item 8)")
+REMAT_NOT_PORTED = ("remat (activation recomputation) is not ported: "
+                    "ParallelConfig.remat must be 'none' (ROADMAP queue 1 "
+                    "item 5)")
+EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
+                     "(ROADMAP queue 1 item 8)")
 
 # the dim each leaf is split along over the TP ranks (None: replicated) —
 # the reference's PartitionSpecs (model.py:83-118) for the kinds in
@@ -70,9 +88,9 @@ def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
                                   + TP_KIND_NOT_PORTED)
 
 
-def _frozen(params: Dict) -> nn.ParameterDict:
+def _param_dict(params: Dict) -> nn.ParameterDict:
     return nn.ParameterDict({
-        k: _frozen(v) if isinstance(v, dict)
+        k: _param_dict(v) if isinstance(v, dict)
         else nn.Parameter(v, requires_grad=False)
         for k, v in params.items()})
 
@@ -85,25 +103,32 @@ class Block(nn.Module):
 
     def __init__(self, mixer: Dict, ffn_params: Dict):
         super().__init__()
-        self.mixer = _frozen(mixer)
-        self.ffn = _frozen(ffn_params)
+        self.mixer = _param_dict(mixer)
+        self.ffn = _param_dict(ffn_params)
 
 
 class Model(nn.Module):
-    """Serving weights: ``embed`` [V_pad, D] (tied LM head), ``final_norm``
-    [D], ``layers`` (one ``Block`` per layer)."""
+    """The weights: ``embed`` [V_pad, D] (tied LM head), ``final_norm``
+    [D], ``layers`` (one ``Block`` per layer); frozen for serving, every
+    leaf trainable with ``trainable=True``."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 blocks: List[Block]):
+                 blocks: List[Block], trainable: bool = False):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(blocks)
+        self.requires_grad_(trainable)
+
+    @property
+    def trainable(self) -> bool:
+        return self.embed.requires_grad
 
 
 def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[Union[str, torch.device]] = None) -> Model:
+               device: Optional[Union[str, torch.device]] = None,
+               trainable: bool = False) -> Model:
     """Seeded random init (``torch.Generator``) with the reference's shapes,
     packing and zero padding: normal(0, 1/sqrt(fan_in)) weights, ones for
     norms, zeros for the QKV bias and for every padded row/column; the MoE
@@ -140,7 +165,7 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
                              fuse13=par.fuse_w13)
         blocks.append(Block(mixer, f))
     return Model(embed, torch.ones(cfg.d_model, dtype=dtype, device=dev),
-                 blocks)
+                 blocks, trainable)
 
 
 def param_specs(cfg: ModelConfig, params: Model) -> Dict:
@@ -160,20 +185,23 @@ def param_specs(cfg: ModelConfig, params: Model) -> Dict:
 def _cut(t: torch.Tensor, dim: Optional[int], rank: int,
          tp: int) -> torch.Tensor:
     if dim is None:
-        return t
+        # a copy a rank: each rank's replicated leaf gets its own grad and
+        # its own update
+        return t.detach().clone()
     if t.shape[dim] % tp:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} is not divisible "
                          f"by tp={tp}")
     # a copy of its own: a view would keep the global tensor alive
-    return t.chunk(tp, dim)[rank].clone(memory_format=torch.contiguous_format)
+    return t.detach().chunk(tp, dim)[rank].clone(
+        memory_format=torch.contiguous_format)
 
 
 def shard_params(params: Model, rank: int, tp: int,
                  cfg: ModelConfig) -> Model:
     """Rank ``rank``'s copy of the global packed weights (``init_model`` at
     this tp, or ``convert.params_from_jax`` of the reference's tp params):
-    each leaf's contiguous 1/tp block along its ``param_specs`` dim;
-    replicated leaves are shared, not copied."""
+    each leaf's contiguous 1/tp block along its ``param_specs`` dim, and a
+    copy of each replicated leaf; trainable as ``params`` is."""
     specs = param_specs(cfg, params)
     blocks = [Block({n: _cut(t, sp["mixer"][n], rank, tp)
                      for n, t in blk.mixer.items()},
@@ -181,4 +209,174 @@ def shard_params(params: Model, rank: int, tp: int,
                      for n, t in blk.ffn.items()})
               for blk, sp in zip(params.layers, specs["layers"])]
     return Model(_cut(params.embed, specs["embed"], rank, tp),
-                 params.final_norm, blocks)
+                 _cut(params.final_norm, None, rank, tp), blocks,
+                 params.trainable)
+
+
+def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
+    """``{name: True}`` for each model-replicated leaf (``param_specs`` dim
+    None), keyed as ``params.named_parameters()``: the leaves whose grads
+    the trainer sums over the TP ranks and whose squared sums the grad
+    norm weighs by 1/tp."""
+    specs = param_specs(cfg, params)
+    out = {"embed": specs["embed"] is None,
+           "final_norm": specs["final_norm"] is None}
+    for i, sp in enumerate(specs["layers"]):
+        for part in ("mixer", "ffn"):
+            for n, dim in sp[part].items():
+                out[f"layers.{i}.{part}.{n}"] = dim is None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
+    """Raise unless the model trains in the port: the ``TRAIN_KINDS``
+    pattern, no MTP head, ``remat="none"``, ep=1."""
+    if par.ep != 1:
+        raise NotImplementedError(EP_NOT_PORTED)
+    if set(expanded_pattern(cfg)) - TRAIN_KINDS or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: " + TRAIN_KIND_NOT_PORTED)
+    if par.remat != "none":
+        raise NotImplementedError(REMAT_NOT_PORTED)
+
+
+def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
+             cfg: ModelConfig, par: ParallelConfig) -> torch.Tensor:
+    """x: [B, S/TP, D] -> hidden [B, S/TP, D]: each layer's pre-norm
+    attention, then its pre-norm FFN, each added to the residual stream
+    (the reference's ``backbone``; a dense model's aux loss is 0).  On a
+    seam tape the residual stream is cut before each sub-block
+    (``overlap.cut``), so the backward walks each block once."""
+    check_trainable(cfg, par)
+    for blk in params.layers:
+        x = overlap.cut(x, ctx.axis)
+        x = x + attention.gqa_train(blk.mixer, x, ctx, cfg)
+        x = overlap.cut(x, ctx.axis)
+        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+    return x
+
+
+def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
+                 ctx: TPContext, cfg: ModelConfig,
+                 par: ParallelConfig) -> torch.Tensor:
+    """Training loss: the mean cross-entropy over the labels in
+    [0, vocab).  batch: tokens [B, S] and labels [B, S], both full
+    sequence and the same on every rank; the embedding's reduce-scatter
+    produces the sequence-sharded layout, the LM head's ``head_ag`` seam
+    the vocab-sharded logits.  At tp>1 every rank returns the same loss
+    (its own replicated copy, as in the reference)."""
+    check_trainable(cfg, par)
+    if "embeds" in batch:
+        raise NotImplementedError(EMBEDS_NOT_PORTED)
+    v_pad = pad_vocab(cfg.vocab_size, ctx.tp)
+    x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
+    x = x.to(getattr(torch, cfg.compute_dtype))
+    h = backbone(params, x, ctx, cfg, par)
+    h = layers.rms_norm(h, params.final_norm, cfg.norm_eps)
+    logits = layers.lm_head_logits(h, params.embed, ctx)      # [B, S, V/TP]
+    labels = batch["labels"]
+    ce = layers.vocab_parallel_xent(logits, labels, ctx, v_pad,
+                                    cfg.vocab_size)           # [B, S]
+    mask = (labels >= 0) & (labels < cfg.vocab_size)
+    return (torch.where(mask, ce, torch.zeros_like(ce)).sum()
+            / torch.clamp(mask.sum(), min=1))
+
+
+# ---------------------------------------------------------------------------
+# Across tp degrees: the ranks' leaves, the canonical (tp=1) layout
+# ---------------------------------------------------------------------------
+def gather_rank_leaves(per_rank: List[Dict[str, torch.Tensor]],
+                       cfg: ModelConfig, params: Model
+                       ) -> Dict[str, torch.Tensor]:
+    """The ranks' leaves (weights or grads, keyed as ``named_parameters``)
+    -> the global tp-packed leaves: sharded leaves concatenated along their
+    ``param_specs`` dim, replicated ones rank 0's."""
+    rep = replicated_leaves(cfg, params)
+    specs = param_specs(cfg, params)
+    out = {}
+    for n in per_rank[0]:
+        if rep[n]:
+            out[n] = per_rank[0][n]
+            continue
+        parts = n.split(".")
+        dim = (specs[n] if len(parts) == 1 else
+               specs["layers"][int(parts[1])][parts[2]][parts[3]])
+        out[n] = torch.cat([r[n] for r in per_rank], dim=dim)
+    return out
+
+
+def _blocks(w: torch.Tensor, tp: int, widths: List[int]) -> List:
+    """Split w's columns into tp device blocks of ``widths`` each ->
+    [[block_0 of dev 0, ...], ...] regrouped per width: the inverse of
+    ``init_utils.pack_qkv`` / ``pack_pair``."""
+    step = sum(widths)
+    out = []
+    for j, wd in enumerate(widths):
+        off = sum(widths[:j])
+        out.append(torch.cat([w[..., i * step + off:i * step + off + wd]
+                              for i in range(tp)], dim=-1))
+    return out
+
+
+def _kv_canonical(k: torch.Tensor, n_kv: int, dh: int, tp: int,
+                  pad: int, grads: bool) -> torch.Tensor:
+    """[..., pad*dh] padded/replicated kv heads -> [..., n_kv*dh]; a
+    replicated head is its first replica (weights) or the sum over its
+    replicas (grads: the grad of the canonical head)."""
+    if pad == n_kv:
+        return k
+    lead = k.shape[:-1]
+    k = k.reshape(*lead, pad, dh)
+    if n_kv < tp and not grads:
+        k = k[..., torch.arange(n_kv, device=k.device) * pad // n_kv, :]
+    elif n_kv < tp:
+        idx = torch.arange(pad, device=k.device) * n_kv // pad
+        out = torch.zeros((*lead, n_kv, dh), dtype=k.dtype, device=k.device)
+        out.index_add_(len(lead), idx, k)
+        k = out
+    else:
+        k = k[..., :n_kv, :]
+    return k.reshape(*lead, n_kv * dh)
+
+
+def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
+                     tp: int, grads: bool = False) -> Dict[str, torch.Tensor]:
+    """Global tp-packed (weights or grads) of the (attn, ffn) pattern ->
+    the canonical layout that is the same at every tp: vocab, heads and
+    d_ff padding cut off, the QKV columns and w1|w3 unpacked (``w13`` ->
+    ``w1`` and ``w3``), a replicated KV head taken once (``grads``: summed
+    over its replicas).  Two tp degrees of one model compare leaf by leaf
+    in this layout."""
+    d = attention.AttnDims.of(cfg, tp)
+    dh = d.dh
+    out = {}
+    for n, t in named.items():
+        leaf = n.split(".")[-1]
+        base = n[:len(n) - len(leaf)]
+        if n == "embed":
+            out[n] = t[:cfg.vocab_size]
+        elif leaf in ("wqkv", "bqkv"):
+            q, k, v = _blocks(t, tp, [d.h_pad // tp * dh,
+                                      d.hkv_pad // tp * dh,
+                                      d.hkv_pad // tp * dh])
+            out[n] = torch.cat(
+                [q[..., :cfg.num_heads * dh],
+                 _kv_canonical(k, cfg.num_kv_heads, dh, tp, d.hkv_pad, grads),
+                 _kv_canonical(v, cfg.num_kv_heads, dh, tp, d.hkv_pad,
+                               grads)],
+                dim=-1)
+        elif leaf == "wo":
+            out[n] = t[:cfg.num_heads * dh]
+        elif leaf == "w13":
+            w1, w3 = _blocks(t, tp, [t.shape[-1] // (2 * tp)] * 2)
+            out[base + "w1"] = w1[..., :cfg.d_ff]
+            out[base + "w3"] = w3[..., :cfg.d_ff]
+        elif leaf in ("w1", "w3"):
+            out[n] = t[..., :cfg.d_ff]
+        elif leaf == "w2":
+            out[n] = t[:cfg.d_ff]
+        else:
+            out[n] = t
+    return out

@@ -1,0 +1,95 @@
+"""AdamW (port of ``repro.optim.adamw``) at dp=1.
+
+Runs as one rank of the TP group (inside ``group.spmd`` at tp>1) on that
+rank's leaves, keyed by name (``Model.named_parameters()``):
+
+  phase 1 — the gradients arrive complete: the trainer has psum'd the
+    model-replicated leaves' grads over the TP ranks.  There is no data
+    axis, so no reduce-scatter and no pod all-reduce.
+  phase 2 — global grad-norm clip: each leaf's squared sum, weighted by
+    1/tp for a model-replicated leaf (every rank holds the same grad), is
+    summed over the rank group, so every element counts once.
+  phase 3 — AdamW in fp32 (moments in ``moment_dtype``), the new value
+    cast back to the parameter's dtype and written in place (the
+    reference donates the buffers).
+
+Not ported (ROADMAP queue 1 item 10): the ZeRO-1 reduce-scatter over a
+data axis (dp>1), the pod all-reduce and its int8 compression.  A dp>1
+config raises in ``sharding.make_ctx``, and the training CLI refuses
+``--dp``, ``--pods`` and ``--grad-compress``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import overlap
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+
+
+def init_opt_state(params: Dict[str, torch.Tensor],
+                   moment_dtype: str = "float32") -> Dict:
+    """Zero moments shaped like each leaf, in ``moment_dtype``."""
+    dt = getattr(torch, moment_dtype)
+
+    def zeros():
+        return {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+                for n, p in params.items()}
+    return {"mu": zeros(), "nu": zeros(), "count": 0}
+
+
+def grad_norm(grads: Dict[str, torch.Tensor], replicated: Dict[str, bool],
+              group=None) -> torch.Tensor:
+    """The global L2 norm of the grads over the rank group: a
+    model-replicated leaf's squared sum counts 1/tp on each rank."""
+    tp = 1 if group is None else group.n
+    total = None
+    for n, g in grads.items():
+        s = torch.sum(g.float() * g.float())
+        if replicated[n] and tp > 1:
+            s = s / tp
+        total = s if total is None else total + s
+    if tp > 1:
+        total = overlap.psum(total, group)
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(params: Dict[str, torch.Tensor],
+                 grads: Dict[str, torch.Tensor], opt: Dict,
+                 cfg: AdamWConfig, lr, *, replicated: Dict[str, bool],
+                 group=None) -> Tuple[Dict, Dict]:
+    """One AdamW step on ``params`` (updated in place) with ``grads``;
+    returns (params, new optimizer state).  ``replicated[name]`` is True
+    for a model-replicated leaf (``model.param_specs`` dim None)."""
+    gnorm = grad_norm(grads, replicated, group)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
+    count = opt["count"] + 1
+    cnt = torch.tensor(float(count), dtype=torch.float32)
+    c1 = (1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** cnt).item()
+    c2 = (1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** cnt).item()
+    device = next(iter(params.values())).device
+    lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
+    mu_out, nu_out = {}, {}
+    for n, p in params.items():
+        g = grads[n].float() * clip
+        mu, nu = opt["mu"][n], opt["nu"][n]
+        mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g
+        nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g * g
+        step = (mu32 / c1) / (torch.sqrt(nu32 / c2) + cfg.eps)
+        p32 = p.float()
+        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+        mu_out[n], nu_out[n] = mu32.to(mu.dtype), nu32.to(nu.dtype)
+    return params, {"mu": mu_out, "nu": nu_out, "count": count}

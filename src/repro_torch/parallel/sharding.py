@@ -5,8 +5,8 @@ as in the reference.  At tp>1 the context holds the ``dist.RankGroup`` of
 the TP ranks (the reference's mesh axis) and the seams' transport
 (``mode``); model code then runs inside
 ``group.spmd``, one call per rank.  Only the sequence-sharded layout runs
-at tp>1 (prefill and the forward seams); ep>1 raises until the MoE
-exchange lands.  At ep=1 the expert-parallel group is empty, so the
+at tp>1 (prefill and training, the seams' backward included); ep>1 raises
+until the MoE exchange lands.  At ep=1 the expert-parallel group is empty, so the
 ``moe_a2a`` seam is the local expert FFN.
 """
 from __future__ import annotations
@@ -28,6 +28,9 @@ EP_NOT_PORTED = ("expert parallelism (ep>1) is not ported yet: ROADMAP "
 TP_DECODE_NOT_PORTED = ("decode, chunked prefill and the paged Server at "
                         "tp>1 are not ported yet (ROADMAP queue 1 item 7): "
                         "tp>1 runs prefill in the sequence-sharded layout")
+DP_NOT_PORTED = ("data parallelism (dp>1) is not ported: the port's ranks "
+                 "are the tp ranks of one dist.RankGroup (ROADMAP queue 1 "
+                 "item 10)")
 TP_KIND_NOT_PORTED = ("at tp>1 only the (attn, dense_ffn) pattern is "
                       "ported; MLA and MoE layers run at tp=1 (ROADMAP "
                       "queue 1 item 8)")
@@ -123,8 +126,10 @@ def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
 
 def make_ctx(par, group=None) -> TPContext:
     """The context a ``ParallelConfig`` implies (the reference's
-    ``trainer.make_ctx``): ``use_kernels`` from ``kernel_decode``, the
-    transport from ``overlap_mode``."""
+    ``trainer.make_ctx`` at dp=1): ``use_kernels`` from ``kernel_decode``,
+    the transport from ``overlap_mode``."""
+    if par.dp != 1:
+        raise NotImplementedError(DP_NOT_PORTED)
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
                      group=group, mode=par.overlap_mode)
 

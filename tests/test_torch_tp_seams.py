@@ -299,10 +299,18 @@ def test_fused_op_rejects_what_is_not_ported():
                      (dict(kind="ag", wire_dtype="int8"), "wire_dtype")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tov.FusedOp(axis=g, **kw)
-    op = tov.FusedOp("ag", axis=g, mode="xla")
-    w = torch.zeros((D, F // N), requires_grad=True)
-    with pytest.raises(dist.RankGroupError, match="backward"):
-        g.spmd(lambda: op(torch.zeros((B, S // N, D)), w), [()] * N)
+    # the tp>1 backward runs on a SeamTape; flux's grads equal xla's
+    def grad_w(mode):
+        op, w = tov.FusedOp("ag", axis=g, mode=mode), torch.ones((D, F // N))
+        def body(r, w_):
+            with tov.SeamTape() as tape:
+                y = op(torch.full((B, S // N, D), r + 1.0), w_).sum()
+            tape.backward(y)
+            return w_.grad
+        return g.spmd(body, [(r, w.clone().requires_grad_())
+                             for r in range(N)])
+    for a, b in zip(grad_w("flux"), grad_w("xla")):
+        assert a.abs().sum() > 0 and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
