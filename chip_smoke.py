@@ -21,7 +21,8 @@ a checkout of this repository.  Phases, one JSON object per line each:
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
              prefill through ``prefill_step`` with ``kernel_decode=True``
              (one flash-kernel launch per layer), checked against the same
-             prefill with plain attention, then dense ``decode_step``s;
+             prefill with plain attention, then 16 dense decode steps
+             (``decode_step``'s halves, their logits kept for tp_decode);
 5. server_lane — ``repro_torch.launch.serve`` answering 8 requests through
              the paged ``Server`` at full width, and the same requests
              served one at a time: a smoke check of the runtime (short
@@ -63,6 +64,20 @@ a checkout of this repository.  Phases, one JSON object per line each:
              against the tp=1 kernel lane's and flux against xla.  The
              ranks share the card, so no ECT or overlap efficiency comes
              from these times;
+   tp_decode — then 16 dense decode steps at tp=4 in flux from that
+             prefill's caches (``decode_step``'s halves, their logits
+             kept), teacher-forced on the kernel lane's tokens (the
+             replicated layout: ``ar`` seams, no fused kernel): each
+             step's logits against the kernel lane's, the first 4 steps
+             also in xla and decomposed against flux, every rank's tokens
+             equal, and the last step again through ``decode_step``
+             itself, whose tokens must equal the halves'; the step's
+             time, a profiled step, and one ``ar`` op's host time per
+             mode;
+   tp_server_lane — the paged ``Server`` at tp=4 in flux through
+             ``launch.serve`` (minicpm_2b at full width, its first 8
+             layers): 8 requests together, one at a time and again
+             (prefix reuse), first tokens against the tp=1 Server's;
 13. train_lane — full-width minicpm_2b cut to its first 8 layers, trained
              through ``runtime.trainer`` (bf16 weights, fp32 moments, wsd,
              batch 4 x 1024): 3 steps at tp=1, then at tp=4 in flux mode
@@ -132,6 +147,13 @@ RS_PARTIAL_ULP = 2.0 ** -8
 # canonical weights, reduce-scatter sums in another order over 40 bf16
 # layers), and flux vs xla: relative L2 of the last-position logits
 TP_LANE_RTOL = 5e-2
+# the kernel lane's and the tp lane's dense decode steps (the tp lane's
+# teacher-forced on the kernel lane's tokens); their logits are held to the
+# same TP_LANE_RTOL at each step
+N_DECODE = 16
+N_DECODE_OTHER_MODES = 4  # the tp lane's xla and decomposed decode steps
+# the tp server lane: minicpm_2b at full width, cut to its first 8 layers
+TP_SERVER_LAYERS = 8
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
 TP_LANE = 4              # minicpm_2b prefill's and training's ranks
 # the train lane: minicpm_2b at full width cut to its first 8 of 40 layers,
@@ -711,19 +733,23 @@ def phase_kernel_lane(torch):
     lane_logits = lk.cpu()
     del caches_p, logits_p, logits_k
 
-    # dense decode from the kernel prefill's caches: glue them into s_max
-    n_decode = 16
+    # dense decode from the kernel prefill's caches: glue them into s_max.
+    # Each step is decode_step's two halves, so that its logits are kept
+    # for the tp lane's decode (teacher-forced on these tokens)
+    n_decode = N_DECODE
     caches = _dense_caches(torch, caches_k, s + n_decode + 1)
     del caches_k
-    tok, tokens, step_samples = nxt, [nxt], []
+    tok, tokens, step_samples, step_logits = nxt, [nxt], [], []
     for step in range(n_decode):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, caches = S.decode_step(params, caches, tok, lengths + step,
-                                    ctx_k, cfg)
+        lg, caches = S.decode_logits(params, caches, tok, lengths + step,
+                                     ctx_k, cfg)
+        tok = S.vocab_parallel_argmax(lg, cfg.vocab_size)[:, None]
         torch.cuda.synchronize()
         step_samples.append((time.perf_counter() - t0) * 1e3)
         tokens.append(tok)
+        step_logits.append(lg[:, :cfg.vocab_size].float().cpu())
     decode_ms = sorted(step_samples)[n_decode // 2]
     out = torch.cat(tokens, dim=1)
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -754,7 +780,8 @@ def phase_kernel_lane(torch):
           "tokens_row0": out[0].tolist()})
     del params, caches
     torch.cuda.empty_cache()
-    return launches, lane_logits
+    decode = {"tokens": [t.cpu() for t in tokens], "logits": step_logits}
+    return launches, lane_logits, decode
 
 
 def phase_server_lane(torch):
@@ -1493,12 +1520,13 @@ def phase_tp_op_level_lane(torch):
     return counts
 
 
-def phase_tp_lane(torch, tp1_logits):
+def phase_tp_lane(torch, tp1_logits, tp1_decode):
     """minicpm_2b at full width, tp=4 on one card: seeded weights drawn
     as at tp=1, packed for tp and cut per rank; the kernel lane's batch.
     The main path — one flux prefill with the kernels — with its counts;
     then xla and decomposed; last-position logits against the tp=1 kernel
-    lane's and flux against xla."""
+    lane's and flux against xla.  Then the dense decode from the flux
+    prefill's caches (``tp_decode``)."""
     from repro_torch.configs.base import ParallelConfig, get_config
     from repro_torch.dist import RankGroup
     from repro_torch.kernels import ag_gemm as AG
@@ -1577,6 +1605,7 @@ def phase_tp_lane(torch, tp1_logits):
     check(all(torch.equal(o[0], nxt) for o in outs),
           "the ranks' next tokens differ")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_caches = [o[1] for o in outs]
     del outs
 
     lf = logits("flux")
@@ -1619,10 +1648,227 @@ def phase_tp_lane(torch, tp1_logits):
     res["prefill_profile_flux"] = device_profile(torch, lambda: step("flux"))
     res["prefill_profile_xla"] = device_profile(torch, lambda: step("xla"))
     emit(res)
-    del ranks, args
+    group.free_symmetric()
+    tp_decode(torch, group, ranks, cfg, lengths, prefill_caches, counts,
+              tp1_decode)
+    del ranks, args, prefill_caches
     group.free_symmetric()
     torch.cuda.empty_cache()
     return counts
+
+
+def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
+              prefill_counts, tp1_decode):
+    """The tp lane's dense decode at tp=4: from the flux prefill's caches,
+    N_DECODE steps in flux (``decode_step``'s halves) teacher-forced on
+    the kernel lane's tokens (each step's logits, the ranks' vocab shards
+    concatenated, against the kernel lane's at that step; every rank's
+    tokens equal), the last step again through ``decode_step`` (the same
+    tokens), then the first N_DECODE_OTHER_MODES steps in xla and
+    decomposed against flux's.  The decode runs the replicated layout: its seams are the
+    AllReduces, with no fused kernel."""
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.configs.base import ParallelConfig
+
+    t_phase = time.perf_counter()
+    tp = group.n
+    s_max = int(lengths.max()) + N_DECODE + 1
+    caches = [_dense_caches(torch, c, s_max) for c in prefill_caches]
+    args = list(zip(ranks, caches))
+    ctxs = {mode: make_ctx(ParallelConfig(tp=tp, overlap_mode=mode), group)
+            for mode in ("flux", "xla", "decomposed")}
+    tp1_tokens = [t.to("cuda") for t in tp1_decode["tokens"]]
+
+    def one(mode, step):
+        """decode_step's halves on every rank: (tokens [tp, B], logits
+        [B, V]) of the step fed the kernel lane's token of ``step``."""
+        ctx = ctxs[mode]
+
+        def body(p, c):
+            lg, _ = S.decode_logits(p, c, tp1_tokens[step], lengths + step,
+                                    ctx, cfg)
+            return S.vocab_parallel_argmax(lg, cfg.vocab_size, ctx), lg
+        outs = group.spmd(body, args)
+        return (torch.stack([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs], dim=-1)[:, :cfg.vocab_size])
+
+    res = {"phase": "tp_decode", "arch": cfg.name, "tp": tp,
+           "layers": cfg.num_layers, "batch": int(lengths.shape[0]),
+           "lengths": lengths.tolist(), "prefill_launches": prefill_counts,
+           "decode_steps": N_DECODE, "rtol": TP_LANE_RTOL}
+    flux_logits, samples, rel_tp1, agree = [], [], [], 0
+    for step in range(N_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lg = one("flux", step)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        check(bool((toks == toks[0]).all()),
+              f"tp decode step {step}: the ranks' tokens differ")
+        check(bool(torch.isfinite(lg).all()),
+              f"tp decode step {step}: non-finite logits")
+        want = tp1_decode["logits"][step].to("cuda")
+        rel_tp1.append(_rel_l2(lg, want))
+        check(rel_tp1[-1] <= TP_LANE_RTOL,
+              f"tp={tp} decode step {step} logits vs tp=1 differ by "
+              f"{rel_tp1[-1]} (relative L2) > {TP_LANE_RTOL}")
+        agree += int((toks[0] == tp1_tokens[step + 1][:, 0]).sum())
+        flux_logits.append(lg)
+    # the entry point itself, on the last step's inputs (it rewrites that
+    # position's cache rows with the same values)
+    last = N_DECODE - 1
+
+    def whole():
+        return torch.stack(group.spmd(
+            lambda p, c: S.decode_step(p, c, tp1_tokens[last],
+                                       lengths + last, ctxs["flux"], cfg)[0],
+            args))[..., 0]
+    check(torch.equal(whole(), toks), "tp decode: decode_step's tokens "
+          "differ from its halves' at the last step")
+    res["decode_step_ms_median"], _ = wall_ms(torch, whole, repeats=3)
+    res["logits_rel_l2_vs_tp1"] = rel_tp1
+    res["tokens_agree_with_tp1"] = f"{agree}/{N_DECODE * len(lengths)}"
+    warm = sorted(samples[1:])
+    res["decode_ms_per_step_median"] = warm[len(warm) // 2]
+    res["decode_ms_samples"] = samples
+    for mode in ("xla", "decomposed"):
+        rels = []
+        for step in range(N_DECODE_OTHER_MODES):
+            toks, lg = one(mode, step)
+            check(bool((toks == toks[0]).all()),
+                  f"tp decode {mode} step {step}: the ranks' tokens differ")
+            rels.append(_rel_l2(lg, flux_logits[step]))
+            check(rels[-1] <= TP_LANE_RTOL,
+                  f"tp decode step {step}: {mode} vs flux logits differ by "
+                  f"{rels[-1]} (relative L2) > {TP_LANE_RTOL}")
+        res[f"logits_rel_l2_{mode}_vs_flux"] = rels
+        med, _ = wall_ms(torch, lambda: one(mode, 0), repeats=3)
+        res[f"decode_ms_per_step_median_{mode}"] = med
+    # where one more flux step's time goes (it rewrites step 0's position)
+    res["decode_profile_flux"] = device_profile(torch, lambda: one("flux", 0))
+    res["ar_op_host_ms"] = ar_op_host_ms(torch, group, cfg,
+                                         int(lengths.shape[0]))
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+
+
+def ar_op_host_ms(torch, group, cfg, batch, calls=50):
+    """Host-clock ms of one decode ``ar`` op (the FFN's w2 seam: y [B, 1,
+    F/tp] x w [F/tp, D], bf16, all ranks), per mode: ``calls`` ops inside
+    one ``spmd`` run to completion on the card, divided by ``calls``."""
+    from repro_torch.core.overlap import FusedOp
+    from repro_torch.parallel.sharding import pad_ff
+    f_loc = pad_ff(cfg.d_ff, group.n) // group.n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    args = [(torch.randn((batch, 1, f_loc), generator=gen, device="cuda",
+                         dtype=torch.bfloat16),
+             torch.randn((f_loc, cfg.d_model), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) * f_loc ** -0.5)
+            for _ in range(group.n)]
+    out = {}
+    for mode in ("flux", "xla", "decomposed"):
+        op = FusedOp("ar", axis=group, mode=mode)
+
+        def run():
+            group.spmd(lambda y, w: [op(y, w) for _ in range(calls)], args)
+        med, _ = wall_ms(torch, run, repeats=3)
+        out[mode] = med / calls
+    return out
+
+
+def phase_tp_server_lane(torch):
+    """The paged Server at tp=4 in flux on the one card: minicpm_2b at full
+    width cut to its first TP_SERVER_LAYERS layers (each decode step is
+    host-bound at about two exchanges a layer), through
+    ``launch.serve``'s path.  8 requests served together, then one at a
+    time, then again on the same server (prefix reuse); then the tp=1
+    Server over the same layers and seed, whose first tokens the tp=4
+    server's must equal (later tokens are reported: with random weights
+    the logits are nearly flat).  Its calls run the replicated layout:
+    no kernel of this slice."""
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime.server import Request, Server
+
+    argv = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
+            "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
+            "--max-new", "16", "--max-seq", "256", "--block-size", "16",
+            "--prefill-chunk", "32"]
+    kernels = (AG.ag_gemm, RS.gemm_rs, fa.flash_attention)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = t_phase = time.perf_counter()
+    server, done = launch_serve.main(argv + ["--tp", str(TP_LANE),
+                                             "--mode", "flux"])
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    check(not any(launches.values()), f"the tp server lane launched "
+          f"{launches}: its replicated-layout calls run no kernel")
+    cfg = server.cfg
+    check(server.group.n == TP_LANE and server.ctx.mode == "flux",
+          "the tp server lane did not run tp=4 flux")
+    check(len(done) == 8, f"{len(done)} of 8 requests finished")
+    for r in done:
+        check(r.done and r.error is None, f"request {r.rid}: {r.error}")
+        check(len(r.output) == 16, f"request {r.rid}: {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"request {r.rid}: token out of [0, vocab)")
+    ttfts = sorted(r.ttft_s() for r in done)
+    tpots = sorted(r.per_token_s() for r in done)
+    n_tok = sum(len(r.output) for r in done)
+    tok_s = n_tok / (max(r.t_finish for r in done)
+                     - min(r.t_arrival for r in done))
+    concurrent = {r.rid: r.output for r in done}
+    peak = server.pool.peak_blocks_in_use
+
+    agree = 0
+    for r in sorted(done, key=lambda x: x.rid):
+        alone = Server(cfg, server.par, server.params, server.sc,
+                       group=server.group)
+        agree += int(alone.serve([Request(rid=r.rid, prompt=r.prompt)])[0]
+                     .output == concurrent[r.rid])
+    check(agree == len(done), f"concurrent vs isolated: {agree}/{len(done)}")
+    hits = server.pool.reuse_hits
+    again = server.serve([Request(rid=r.rid, prompt=r.prompt) for r in done])
+    reused = {r.rid: r.output for r in again}
+    check(reused == concurrent, "the reuse pass's tokens differ")
+    check(server.pool.reuse_hits > hits,
+          "the reuse pass reused no prompt block")
+
+    srv1, done1 = launch_serve.main(argv)
+    tp1 = {r.rid: r.output for r in done1}
+    first = sum(int(tp1[i][0] == concurrent[i][0]) for i in tp1)
+    later = sum(int(a == b) for i in tp1
+                for a, b in zip(tp1[i][1:], concurrent[i][1:]))
+    emit({"phase": "tp_server_lane", "scale": "smoke", "arch": cfg.name,
+          "tp": TP_LANE, "mode": "flux", "layers": cfg.num_layers,
+          "requests": len(done), "kernel_launches": launches,
+          "max_batch": server.sc.max_batch,
+          "block_size": server.sc.block_size,
+          "prefill_chunk": server.sc.prefill_chunk,
+          "prompt_lens": [len(r.prompt) for r in done],
+          "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+          "tpot_p50_ms": tpots[len(tpots) // 2] * 1e3,
+          "tokens_per_s": tok_s, "serve_wall_s": wall_s,
+          "pool_peak_blocks": peak,
+          "pool_blocks": server.pool.num_blocks - 1,
+          "prefill_calls": server.prefill_dispatches,
+          "decode_calls": server.decode_dispatches,
+          "concurrent_equals_isolated": f"{agree}/{len(done)}",
+          "reuse_hits": server.pool.reuse_hits - hits,
+          "first_tokens_equal_tp1": f"{first}/{len(tp1)}",
+          "later_tokens_agree_tp1": f"{later}/{15 * len(tp1)}",
+          "tp1_tpot_p50_ms": sorted(r.per_token_s() for r in done1)[
+              len(done1) // 2] * 1e3,
+          "phase_s": time.perf_counter() - t_phase})
+    check(first == len(tp1), f"first tokens vs the tp=1 Server: "
+          f"{first}/{len(tp1)}")
+    del server, srv1
+    torch.cuda.empty_cache()
 
 
 def _rel_l2(a, b):
@@ -1895,7 +2141,7 @@ def main():
     phase_build()
     flash_case = phase_kernel(torch)
     mla_case = phase_mla_kernel(torch)
-    flash_launches, tp1_logits = phase_kernel_lane(torch)
+    flash_launches, tp1_logits, tp1_decode = phase_kernel_lane(torch)
     phase_server_lane(torch)
     params, cfg, (mla_launches, mla_combines) = phase_mla_lane(torch)
     phase_mla_server_lane(torch, params, cfg)
@@ -1906,7 +2152,9 @@ def main():
     ag_case = phase_fused_kernel(torch, "ag")
     rs_case = phase_fused_kernel(torch, "rs")
     tp_counts = phase_tp_op_level_lane(torch)
-    phase_tp_lane(torch, tp1_logits)
+    phase_tp_lane(torch, tp1_logits, tp1_decode)
+    del tp1_logits, tp1_decode
+    phase_tp_server_lane(torch)
     train_counts = phase_train_lane(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -6,9 +6,15 @@ With the sequence-sharded ("seq") residual stream of Megatron-SP:
 
     ag   x[B, S/N, D] , w[D, F/N]  ->  epilogue((AllGather_S x) @ w)
     rs   y[B, S, F/N] , w[F/N, D]  ->  epilogue(ReduceScatter_S(y @ w))
-    ar   y[B, m, F]   , w[F, D]    ->  epilogue(y @ w)          (tp=1 only)
+    ar   y[B, m, F/N] , w[F/N, D]  ->  epilogue(AllReduce(y @ w))
     a2a  x[ep, E_loc, cap, D], (w1, w3)[E_loc, D, F], w2[E_loc, F, D]
          ->  per-expert act(x @ w1) * (x @ w3) @ w2     (ep=1: local)
+
+With the replicated ("hidden") residual stream, ``scatter_axis="hidden"``,
+an ag op's x is already the full activation (a local GEMM, no collective)
+and an rs op is the ``ar`` op: the row-parallel GEMM and an AllReduce of
+the partials (decode, the chunked prefill and the replicated prefill run
+this layout).
 
 ``axis`` is the ``dist.RankGroup`` of the TP ranks (the reference's mesh
 axis name); ``None`` or a group of one makes every seam the local GEMM plus
@@ -18,13 +24,20 @@ picks the transport, as in the reference:
 * ``xla`` — the non-overlapping baseline: a monolithic gather (copies of
   every rank's shard, ``torch.cat``) before the GEMM, or a GEMM then a
   monolithic reduce-scatter (every rank's partial rows summed in rank
-  order, in fp32).
+  order, in fp32); ``ar``: the GEMM, then one AllReduce.
 * ``decomposed`` — the ring: ``n - 1`` hops of ``group.ppermute`` (a pull
   copy from the neighbour, ordered by its event), each landed shard
-  multiplied, and its epilogue applied, as it arrives.
+  multiplied, and its epilogue applied, as it arrives; ``ar``: the
+  contraction dim cut into n chunks, each chunk's partial AllReduced, the
+  reduced chunks summed in chunk order.
 * ``flux`` — the fused kernels (``kernels.ops``): the AllGather-GEMM and
   the GEMM-ReduceScatter, on CUDA tensors always the hand-written kernels
-  (the reference's ``_flux_available`` fallback is not carried over).
+  (the reference's ``_flux_available`` fallback is not carried over);
+  ``ar`` has no fused kernel in the reference either: it is ``xla``'s
+  GEMM and AllReduce.
+
+An ``ar`` op's AllReduce is one exchange of the partials over the group,
+summed in rank order in fp32.
 
 ``n_weights`` > 1 ag ops share ONE gather; under flux that is one kernel
 over the column-stacked weights.  A single weight's bias/activation runs
@@ -50,15 +63,17 @@ on a ``SeamTape``: the tape cuts the step into rank-local autograd
 segments at the seams (and, through ``cut``, on the residual stream), and
 ``SeamTape.backward`` runs each segment's backward and each seam's
 exchange from the rank's own thread, last seam first (the way a pipeline
-schedule drives its stages).  A seam under grad with no tape raises.
+schedule drives its stages).  A seam under grad with no tape raises.  The
+replicated layout's ops (``scatter_axis="hidden"``, ``kind="ar"``) have
+no backward at tp>1 yet: under grad they raise.
 
 The reference's tuning fields (``comm_chunks``, ``reverse``, ``blocks``,
 ``fuse_epilogue``, ``shared_gather``) are not carried: no caller of the
 port sets them, so each op runs the reference's defaults (one chunk a
 shard, the forward ring, the planned tile, the fused epilogue, the shared
 gather).  Not ported (each raises and names its ROADMAP item):
-``decomposed_bidir``, ``scatter_axis="hidden"`` and ``kind="ar"`` at
-tp>1, and ``wire_dtype``.
+``decomposed_bidir`` at tp>1, the replicated layout's backward at tp>1,
+and ``wire_dtype``.
 """
 from __future__ import annotations
 
@@ -83,10 +98,10 @@ SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
 NOT_PORTED = {
     "decomposed_bidir": "mode='decomposed_bidir' at tp>1 is not ported "
                         "(ROADMAP queue 1 item 2)",
-    "hidden": "scatter_axis='hidden' (the replicated layout) at tp>1 is not "
-              "ported (ROADMAP queue 1 item 2)",
-    "ar": "kind='ar' (the decode AllReduce seam) at tp>1 is not ported "
-          "(ROADMAP queue 1 item 7)",
+    "hidden_bwd": "the backward of the replicated layout's seams "
+                  "(scatter_axis='hidden', kind='ar') at tp>1 is not "
+                  "ported: they run without grad (ROADMAP queue 1 item "
+                  "2.2)",
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
                   "(ROADMAP queue 1 item 9)",
 }
@@ -240,11 +255,16 @@ class SeamTape:
                                         [g for _, g in pairs])
 
 
+def _needs_grad(*tensors) -> bool:
+    """True when autograd would track an op on ``tensors`` (None allowed)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _run_seam(seam, *tensors) -> Tuple[torch.Tensor, ...]:
     """Run ``seam`` on ``tensors`` (None allowed): its forward alone when
     no input needs a gradient, else recorded on this thread's tape."""
-    if not (torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors)):
+    if not _needs_grad(*tensors):
         return seam.forward(*tensors)[0]
     tape = current_tape()
     if tape is None:
@@ -344,12 +364,15 @@ def _scatter_seq_raw(x: torch.Tensor, group, mode: str,
                         lambda o: _seq_rows(x, o * s_shard, s_shard))
 
 
-def _psum_raw(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's x summed in rank order (n > 1: a new tensor)."""
+def _psum_raw(x: torch.Tensor, group, dtype=None) -> torch.Tensor:
+    """Every rank's x summed in rank order (n > 1: a new tensor): in x's
+    dtype, or, given ``dtype``, in fp32 and cast to ``dtype``."""
     acc = None
     for p in group.exchange(x, "psum"):
+        if dtype is not None and acc is None:
+            p = p.float()
         acc = p if acc is None else acc + p
-    return acc
+    return acc if dtype is None else acc.to(dtype)
 
 
 def gather_seq(x: torch.Tensor, axis, mode: str = "decomposed",
@@ -505,6 +528,32 @@ def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
     return _rs_ring(ys, ws, axis)
 
 
+def _ar_core(y: torch.Tensor, w: torch.Tensor, axis, mode: str
+             ) -> torch.Tensor:
+    """AllReduce(y @ w): the row-parallel GEMM of the replicated layout.
+    The ring modes cut the contraction dim into n chunks (fewer when n
+    does not divide it), AllReduce each chunk's partial and sum the
+    reduced chunks in chunk order, in fp32 (the reference rounds each
+    reduced chunk to y's dtype first); ``xla`` and ``flux`` reduce the
+    one partial (a one-token GEMM is latency-bound)."""
+    if _group_size(axis) == 1:
+        return torch.matmul(y, w)
+    if not mode.startswith("decomposed"):
+        return _psum_raw(torch.matmul(y, w), axis, y.dtype)
+    k = y.shape[-1]
+    chunks = max(1, min(axis.n, k))
+    while k % chunks:
+        chunks -= 1
+    ck = k // chunks
+    out = None
+    for c in range(chunks):
+        part = _psum_raw(torch.matmul(y[..., c * ck:(c + 1) * ck],
+                                      w[c * ck:(c + 1) * ck]), axis,
+                         torch.float32)
+        out = part if out is None else out + part
+    return out.to(y.dtype)
+
+
 # ---------------------------------------------------------------------------
 # mode="flux": the fused kernels (kernels.ops)
 # ---------------------------------------------------------------------------
@@ -585,13 +634,9 @@ class FusedOp:
         elif self.n_weights > 1 and not self.epilogue.is_identity:
             raise ValueError("multi-output ops (n_weights>1 without "
                              'gate="pair") require an identity epilogue')
-        if _group_size(self.axis) > 1:
-            if self.kind == "ar":
-                raise NotImplementedError(NOT_PORTED["ar"])
-            if self.scatter_axis == "hidden":
-                raise NotImplementedError(NOT_PORTED["hidden"])
-            if self.mode == "decomposed_bidir":
-                raise NotImplementedError(NOT_PORTED["decomposed_bidir"])
+        if (_group_size(self.axis) > 1
+                and self.mode == "decomposed_bidir"):
+            raise NotImplementedError(NOT_PORTED["decomposed_bidir"])
 
     @property
     def combines(self) -> bool:
@@ -620,6 +665,9 @@ class FusedOp:
                 return _fused_ag(self, x, ws, bias, scale, residual)
             z = _fused_z(self, x, ws)
             return epi.apply([z], bias=bias, scale=scale, residual=residual)
+        if self.scatter_axis == "hidden" and _needs_grad(
+                x, *ws, bias, scale, residual):
+            raise NotImplementedError(NOT_PORTED["hidden_bwd"])
         outs = _run_seam(_OpSeam(self), x, *ws, bias, scale, residual)
         return outs[0] if self.combines else tuple(outs)
 
@@ -686,11 +734,12 @@ def _fused_ag_flux(op: FusedOp, x, ws, bias, scale, residual):
 
 
 def _fused_z(op: FusedOp, x, ws):
-    """Pre-epilogue output of an rs/ar op (the collective's result); at one
-    rank, or in the hidden layout, the local GEMM."""
+    """Pre-epilogue output of an rs/ar op (the collective's result).  An rs
+    op in the hidden layout is the row-parallel GEMM and an AllReduce
+    without the sequence scatter: the ar op."""
     if op.kind == "rs" and op.scatter_axis == "seq":
         return _rs_core((x,), ws, op.axis, op.mode)
-    return torch.matmul(x, ws[0])
+    return _ar_core(x, ws[0], op.axis, op.mode)
 
 
 # ---------------------------------------------------------------------------
@@ -739,9 +788,10 @@ def _epilogue_vjp(op: FusedOp, ys_fn: Callable, bias, scale, residual,
 
 
 class _OpSeam:
-    """A FusedOp ag/rs at tp>1 as a seam.  ag saves x and re-gathers it in
-    the backward; rs saves its pre-epilogue z when the epilogue's vjp
-    needs it."""
+    """A FusedOp ag/rs/ar at tp>1 as a seam.  ag saves x and re-gathers it
+    in the backward; rs saves its pre-epilogue z when the epilogue's vjp
+    needs it.  The backward is the sequence-sharded layout's (the
+    replicated layout's ops never reach the tape: ``FusedOp.__call__``)."""
 
     def __init__(self, op: FusedOp):
         self.op, self.group = op, op.axis

@@ -3,13 +3,19 @@ a seeded random-init model.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
       --requests 8 --max-batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
+      --tp 4 --mode flux
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
-path (use ``--smoke`` sizes there).
+path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the ranks are the
+threads of one ``dist.RankGroup`` on the one device, each with its
+``model.shard_params`` copy of the same seeded weights, so the tokens equal
+the tp=1 run's up to the sums' rounding.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config)
+from repro_torch.core.overlap import VALID_MODES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.runtime.server import Request, ServeConfig, Server
@@ -26,7 +33,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the model's first N layers (0: all)")
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--mode", default="decomposed", choices=list(VALID_MODES),
+                    help="the TP seams' transport")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8,
                     help="request i's prompt has prompt_len + i tokens")
@@ -58,9 +69,14 @@ def main(argv: Optional[List[str]] = None
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    par = ParallelConfig(tp=args.tp)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    par = ParallelConfig(tp=args.tp, overlap_mode=args.mode)
     dtype = getattr(torch, cfg.compute_dtype)
     params = M.init_model(cfg, par, seed=0, dtype=dtype, device=device)
+    if args.tp > 1:
+        params = [M.shard_params(params, r, args.tp, cfg)
+                  for r in range(args.tp)]
     sc = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                      eos_token=args.eos, max_new_tokens=args.max_new,
                      block_size=args.block_size,

@@ -42,7 +42,8 @@ NOT_PORTED = {
     "plan_profile": (lambda v: v is not None,
                      "tuned seam plans (ROADMAP queue 1 item 3)"),
     "scatter_axis": (lambda v: v == "hidden",
-                     "the replicated layout (ROADMAP queue 1 item 2)"),
+                     "training in the replicated layout (its seams' "
+                     "backward, ROADMAP queue 1 item 2.2)"),
     "autotune": (bool, "the tuner (ROADMAP queue 1 item 6)"),
     "zero3": (bool, "ZeRO-3 (ROADMAP queue 1 item 10)"),
     "grad_compress": (bool,

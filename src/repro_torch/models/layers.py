@@ -50,9 +50,10 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  ctx: Optional[TPContext] = None) -> torch.Tensor:
     """Megatron vocab-parallel embedding.  table: [V/TP, D] this rank's
     shard; tokens: [B, S], the same on every rank.  Out-of-shard ids
-    contribute 0; at tp>1 the ranks' partials combine by a ReduceScatter
-    along the sequence (``ctx.scatter_seq``), which produces the
-    sequence-sharded activation [B, S/TP, D] directly."""
+    contribute 0; at tp>1 the ranks' partials combine through
+    ``ctx.scatter_seq``: a ReduceScatter along the sequence, which produces
+    the sequence-sharded activation [B, S/TP, D] directly, or in the
+    replicated layout a psum, [B, S, D] on every rank."""
     v_loc = table.shape[0]
     local = tokens - (ctx.tp_index() * v_loc if ctx is not None else 0)
     in_shard = (local >= 0) & (local < v_loc)

@@ -1,7 +1,11 @@
 """Serving paths (port of ``repro.models.serve``): batched prefill, dense and
-paged single-token decode, and the paged chunked prefill.  Prefill also
-runs at tp>1, one call per rank of a ``dist.RankGroup`` (``prefill_logits``);
-decode and the chunked prefill raise at tp>1 (ROADMAP queue 1 item 7).
+paged single-token decode, and the paged chunked prefill.  At tp>1 each runs
+as one rank of a ``dist.RankGroup`` (one call per rank inside
+``group.spmd``) on that rank's ``model.shard_params`` copy and its own
+caches of its local KV heads, and every rank returns the same next tokens.
+Prefill runs the context's layout (sequence-sharded, or replicated under
+``ctx.with_layout(False)``); decode and the chunked prefill always run the
+replicated layout, whose row-parallel seams are AllReduces (``kind="ar"``).
 
 Caches are a list with one dict per layer (expanded-pattern order): GQA
 ``{"k", "v"}`` shaped [B, S_max, Hkv, Dh] by ``cache_specs`` or
@@ -35,8 +39,7 @@ from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
                                       ParallelConfig)
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models.model import Model, check_ported, expanded_pattern
-from repro_torch.parallel.sharding import (TP_DECODE_NOT_PORTED, TPContext,
-                                           gather_ranks)
+from repro_torch.parallel.sharding import TPContext, gather_ranks
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -132,11 +135,13 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     """Full-sequence prefill up to the logits of each row's last true
     position: returns (logits [B, V_pad / TP], caches).  At tp>1 it runs
     as one rank of ``ctx.group`` (inside ``group.spmd``) on that rank's
-    ``model.shard_params`` copy, in the sequence-sharded layout: the
-    embedding's ReduceScatter produces [B, S/TP, D], every seam runs on
-    ``ctx.mode``'s transport, and ``gather_seq`` brings the last rows
-    back; the logits are this rank's vocab shard and the caches its KV
-    heads."""
+    ``model.shard_params`` copy, in ``ctx``'s layout.  Sequence-sharded:
+    the embedding's ReduceScatter produces [B, S/TP, D], every seam runs
+    on ``ctx.mode``'s transport, and ``gather_seq`` brings the last rows
+    back.  Replicated: the embedding's psum gives every rank [B, S, D],
+    the column-parallel GEMMs are local and the row-parallel ones
+    AllReduce.  The logits are this rank's vocab shard and the caches its
+    KV heads."""
     check_ported(cfg, ctx.tp)
     x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
     x = x.to(_compute_dtype(cfg))
@@ -181,24 +186,22 @@ def _mixer_decode(kind: str, p, x, cache, pos, ctx: TPContext,
 
 
 @torch.no_grad()
-def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
-                ctx: TPContext, cfg: ModelConfig,
-                block_tables: Optional[torch.Tensor] = None,
-                active: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Caches]:
-    """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
-    positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
-    caches are paged pools.  With ``ctx.use_kernels`` every MLA layer's
-    attention is the MLA-decode kernel.  Returns (next_token [B, 1],
-    caches), the caches updated in place."""
-    check_ported(cfg)
-    if ctx.tp > 1:
-        raise NotImplementedError(TP_DECODE_NOT_PORTED)
+def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
+                  ctx: TPContext, cfg: ModelConfig,
+                  block_tables: Optional[torch.Tensor] = None,
+                  active: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Caches]:
+    """One decode step up to the logits: returns (logits [B, V_pad / TP],
+    caches), the caches updated in place (see ``decode_step``)."""
+    check_ported(cfg, ctx.tp)
     dev = params.embed.device
     b = tokens.shape[0]
     pos = torch.as_tensor(pos, device=dev).reshape(-1).long().expand(b)
+    # decode always runs the replicated layout: a one-token "sequence"
+    # cannot shard, and its row-parallel seams are kind="ar"
     ctx = ctx.with_layout(False)
-    x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
+    x = layers.embed_lookup(params.embed, tokens, ctx)
+    x = x.to(_compute_dtype(cfg))
     inactive = None
     if active is not None and block_tables is None:
         inactive = ~torch.as_tensor(active, device=dev).reshape(-1).bool()
@@ -216,8 +219,26 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
         else:
             x = x + ffn.moe_decode(blk.ffn, x, ctx, cfg, cfg.norm_eps)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = torch.matmul(h[:, -1], params.embed.T)
-    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+    # this rank's vocab shard of the logits
+    return torch.matmul(h[:, -1], params.embed.T), caches
+
+
+def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
+                ctx: TPContext, cfg: ModelConfig,
+                block_tables: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
+    positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
+    caches are paged pools.  With ``ctx.use_kernels`` every MLA layer's
+    attention is the MLA-decode kernel.  At tp>1 each rank (inside
+    ``group.spmd``) embeds through the vocab-parallel psum, attends over
+    its local heads and writes its KV heads; every rank returns the same
+    tokens.  Returns (next_token [B, 1], caches), the caches updated in
+    place."""
+    logits, caches = decode_logits(params, caches, tokens, pos, ctx, cfg,
+                                   block_tables, active)
+    return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches
 
 
 def _rows_at(cache: Dict[str, torch.Tensor], pos: torch.Tensor):
@@ -237,21 +258,19 @@ def _restore_rows(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
 
 
 @torch.no_grad()
-def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
-                       block_tables: torch.Tensor, off: int, chunk_len: int,
-                       ctx: TPContext, cfg: ModelConfig
-                       ) -> Tuple[torch.Tensor, Caches]:
-    """One fixed-shape chunk of an incremental paged prefill: tokens [1, C]
-    (right-padded past ``chunk_len``), written at logical offset ``off``
-    through ``block_tables`` [1, pages].  (The reference also takes the
-    slot, for the dense per-slot state of recurrent families; attention-
-    only models have none.)  Returns (next_token [1, 1] — meaningful on the
-    final chunk only — and the caches, updated in place)."""
-    check_ported(cfg)
-    if ctx.tp > 1:
-        raise NotImplementedError(TP_DECODE_NOT_PORTED)
+def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
+                         block_tables: torch.Tensor, off: int, chunk_len: int,
+                         ctx: TPContext, cfg: ModelConfig
+                         ) -> Tuple[torch.Tensor, Caches]:
+    """One chunk of the paged prefill up to the logits of its row
+    ``chunk_len - 1``: returns (logits [1, V_pad / TP], caches), the
+    caches updated in place (see ``prefill_chunk_step``)."""
+    check_ported(cfg, ctx.tp)
+    # the chunked prefill always runs the replicated layout: a bounded
+    # chunk has no sequence-parallel residency to win
     ctx = ctx.with_layout(False)
-    x = layers.embed_lookup(params.embed, tokens).to(_compute_dtype(cfg))
+    x = layers.embed_lookup(params.embed, tokens, ctx)
+    x = x.to(_compute_dtype(cfg))
     lenv = torch.full((x.shape[0],), chunk_len, device=x.device)
     for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
                                             params.layers)):
@@ -264,5 +283,21 @@ def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
         x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lenv)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
-    logits = torch.matmul(layers.take_rows(h, last), params.embed.T)
-    return vocab_parallel_argmax(logits, cfg.vocab_size)[:, None], caches
+    return torch.matmul(layers.take_rows(h, last), params.embed.T), caches
+
+
+def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
+                       block_tables: torch.Tensor, off: int, chunk_len: int,
+                       ctx: TPContext, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Caches]:
+    """One fixed-shape chunk of an incremental paged prefill: tokens [1, C]
+    (right-padded past ``chunk_len``), written at logical offset ``off``
+    through ``block_tables`` [1, pages].  (The reference also takes the
+    slot, for the dense per-slot state of recurrent families; attention-
+    only models have none.)  At tp>1 it runs as one rank, as
+    ``decode_step`` does.  Returns (next_token [1, 1] — meaningful on the
+    final chunk only — and the caches, updated in place)."""
+    logits, caches = prefill_chunk_logits(params, caches, tokens,
+                                          block_tables, off, chunk_len, ctx,
+                                          cfg)
+    return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches

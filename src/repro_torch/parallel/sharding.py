@@ -4,10 +4,12 @@ Every TP seam routes through ``repro_torch.core.overlap`` (``ctx.op(seam)``),
 as in the reference.  At tp>1 the context holds the ``dist.RankGroup`` of
 the TP ranks (the reference's mesh axis) and the seams' transport
 (``mode``); model code then runs inside
-``group.spmd``, one call per rank.  Only the sequence-sharded layout runs
-at tp>1 (prefill and training, the seams' backward included); ep>1 raises
-until the MoE exchange lands.  At ep=1 the expert-parallel group is empty, so the
-``moe_a2a`` seam is the local expert FFN.
+``group.spmd``, one call per rank.  At tp>1 the residual stream is either
+sequence-sharded (``seq_sharded``: prefill and training, the seams'
+backward included) or replicated (decode, the chunked prefill, and the
+prefill under ``ctx.with_layout(False)``; forward only).
+ep>1 raises until the MoE exchange lands.  At ep=1 the expert-parallel
+group is empty, so the ``moe_a2a`` seam is the local expert FFN.
 """
 from __future__ import annotations
 
@@ -25,9 +27,6 @@ TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
 EP_NOT_PORTED = ("expert parallelism (ep>1) is not ported yet: ROADMAP "
                  "queue 1 item 8 (the MoE a2a seam across ranks, "
                  "FusedOp(kind='a2a') at ep>1)")
-TP_DECODE_NOT_PORTED = ("decode, chunked prefill and the paged Server at "
-                        "tp>1 are not ported yet (ROADMAP queue 1 item 7): "
-                        "tp>1 runs prefill in the sequence-sharded layout")
 DP_NOT_PORTED = ("data parallelism (dp>1) is not ported: the port's ranks "
                  "are the tp ranks of one dist.RankGroup (ROADMAP queue 1 "
                  "item 10)")
@@ -46,8 +45,9 @@ class TPContext:
     use_kernels : route hot paths through the hand-written kernels
                   (``gqa_train``'s attention -> flash kernel; MLA decode
                   attention -> MLA-decode kernel)
-    seq_sharded : residual-stream layout (sequence-sharded by default; the
-                  serving decode and chunked prefill switch it off)
+    seq_sharded : residual-stream layout (sequence-sharded by default;
+                  False is the replicated layout, which the serving decode
+                  and chunked prefill always run)
     group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
     mode        : the seams' transport (``overlap.VALID_MODES``)
     """
@@ -108,11 +108,12 @@ class TPContext:
     def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
         """ReduceScatter a per-rank full-sequence partial into this rank's
         sequence shard (the embedding seam's combine) — dual of
-        ``gather_seq``, on the same transport."""
+        ``gather_seq``, on the same transport; in the replicated layout the
+        psum of the partials."""
         if self.tp == 1:
             return x
         if not self.seq_sharded:
-            raise NotImplementedError(TP_DECODE_NOT_PORTED)
+            return overlap.psum(x, self.group)
         return overlap.scatter_seq_sum(x, self.group, self.mode)
 
 

@@ -20,21 +20,29 @@ reuse prefixes (``_arch_supports_reuse``).
 
 The reference jits both programs with the cache donated
 (``donate_argnums``); here the model calls update ``self.caches`` in place.
+
+At tp>1 the host keeps what the reference's does: one ``KVPool``, one
+scheduler, one set of block tables and one position vector.  Each rank of
+a ``dist.RankGroup`` keeps its own ``model.shard_params`` copy and its own
+pools of its local KV heads; every model call runs all ranks through
+``group.spmd`` (the reference's ``shard_map``) and takes rank 0's tokens
+after checking that every rank returned the same ones.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import (ATTN, MLA, RWKV, ModelConfig,
                                       ParallelConfig)
+from repro_torch.dist import RankGroup
 from repro_torch.models import serve as S
-from repro_torch.models.model import Model, expanded_pattern
-from repro_torch.parallel.sharding import TP_DECODE_NOT_PORTED, TPContext
+from repro_torch.models.model import Model, check_ported, expanded_pattern
+from repro_torch.parallel.sharding import TPContext
 from repro_torch.runtime.kvpool import BlockTable, KVPool
 
 
@@ -97,24 +105,41 @@ def _arch_supports_reuse(cfg: ModelConfig) -> bool:
 
 
 class Server:
-    def __init__(self, cfg: ModelConfig, par: ParallelConfig, params: Model,
-                 sc: ServeConfig):
-        if par.tp != 1:
-            raise NotImplementedError(TP_DECODE_NOT_PORTED)
+    """The paged server.  ``params`` is the model at tp=1, or at tp>1 the
+    tp ranks' ``model.shard_params`` copies, run by ``group`` (a
+    ``dist.RankGroup`` of size tp; made on the weights' device when not
+    given)."""
+
+    def __init__(self, cfg: ModelConfig, par: ParallelConfig,
+                 params: Union[Model, Sequence[Model]], sc: ServeConfig,
+                 group: Optional[RankGroup] = None):
+        check_ported(cfg, par.tp)
         self.cfg = cfg
         self.par = par
         self.sc = sc
         self.params = params
-        self.device = params.embed.device
-        # per-replica serving: both model calls force the replicated layout
-        self.ctx = TPContext(tp=par.tp, ep=par.ep)
+        if par.tp > 1:
+            if len(params) != par.tp:
+                raise ValueError(f"tp={par.tp} needs {par.tp} ranks' params, "
+                                 f"got {len(params)}")
+            self.device = params[0].embed.device
+            self.group = (group if group is not None
+                          else RankGroup(par.tp, self.device))
+        else:
+            self.device = params.embed.device
+            self.group = None
+        # both model calls force the replicated layout themselves
+        self.ctx = TPContext(tp=par.tp, ep=par.ep, group=self.group,
+                             mode=par.overlap_mode)
         self.pages = -(-sc.max_seq // sc.block_size)   # table width
         nb = sc.num_blocks or (sc.max_batch * self.pages + 1)
         self.pool = KVPool(nb, sc.block_size)
         self.dense_equiv_blocks = sc.max_batch * self.pages
-        self.caches = S.zeros_from_specs(
-            S.paged_cache_specs(cfg, par, nb, sc.block_size, sc.max_batch),
-            self.device)
+        specs = S.paged_cache_specs(cfg, par, nb, sc.block_size,
+                                    sc.max_batch)
+        # one pool set per rank, of its local KV heads
+        self.caches = [S.zeros_from_specs(specs, self.device)
+                       for _ in range(par.tp)]
         self.positions = np.zeros((sc.max_batch,), np.int32)
         self.slots: List[Optional[Request]] = [None] * sc.max_batch
         self.ready: List[bool] = [False] * sc.max_batch  # prefill complete
@@ -122,6 +147,24 @@ class Server:
         self._reuse_ok = sc.prefix_reuse and _arch_supports_reuse(cfg)
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
+
+    def _run(self, fn: Callable, *args, **kw) -> torch.Tensor:
+        """``fn(params, caches, *args, ctx, cfg, **kw)`` (a model call that
+        returns (next_token, caches), the caches updated in place) on every
+        rank; returns the next tokens, rank 0's at tp>1, after checking that
+        every rank returned the same."""
+        if self.group is None:
+            return fn(self.params, self.caches[0], *args, self.ctx, self.cfg,
+                      **kw)[0]
+        outs = self.group.spmd(
+            lambda p, c: fn(p, c, *args, self.ctx, self.cfg, **kw)[0],
+            list(zip(self.params, self.caches)))
+        for r, o in enumerate(outs[1:], 1):
+            if not torch.equal(o, outs[0]):
+                raise RuntimeError(f"rank {r}'s next tokens "
+                                   f"{o.reshape(-1).tolist()} differ from "
+                                   f"rank 0's {outs[0].reshape(-1).tolist()}")
+        return outs[0]
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -174,9 +217,8 @@ class Server:
         toks = np.zeros((1, c), np.int64)
         toks[0, :clen] = req.prompt[job.off:job.off + clen]
         bt = job.table.as_array(self.pages)[None]
-        nxt, self.caches = S.prefill_chunk_step(
-            self.params, self.caches, self._tensor(toks), self._tensor(bt),
-            job.off, clen, self.ctx, self.cfg)
+        nxt = self._run(S.prefill_chunk_step, self._tensor(toks),
+                        self._tensor(bt), job.off, clen)
         self.prefill_dispatches += 1
         job.off += clen
         if job.off < n:
@@ -224,10 +266,10 @@ class Server:
                 active[i] = True
                 toks[i, 0] = req.output[-1]
                 bts[i] = self.tables[i].as_array(self.pages)
-        nxt, self.caches = S.decode_step(
-            self.params, self.caches, self._tensor(toks),
-            self._tensor(self.positions), self.ctx, self.cfg,
-            block_tables=self._tensor(bts), active=self._tensor(active))
+        nxt = self._run(S.decode_step, self._tensor(toks),
+                        self._tensor(self.positions),
+                        block_tables=self._tensor(bts),
+                        active=self._tensor(active))
         self.decode_dispatches += 1
         nxt = nxt.cpu().numpy()
         finished: List[Request] = []

@@ -105,9 +105,9 @@ def test_multi_weight_identity_returns_tuple():
 
 
 def test_tp_gt_1_raises_naming_roadmap():
-    """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 and the
-    replicated (decode) layout at tp>1 are not ported."""
-    from repro_torch.dist import RankGroup
+    """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 is not
+    ported, nor the backward of the replicated (decode) layout at tp>1."""
+    from repro_torch.dist import RankGroup, RankGroupError
     for tp in (2, 4):
         with pytest.raises(ValueError, match="ROADMAP"):
             TPContext(tp=tp)
@@ -117,10 +117,16 @@ def test_tp_gt_1_raises_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TPContext(tp=4, ep=2, group=group)
     ctx = TPContext(tp=4, group=group).with_layout(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctx.op("mlp_ag")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctx.op("decode_ar")
+    assert ctx.op("mlp_ag").scatter_axis == "hidden"
+    op = ctx.op("decode_ar")
+
+    def under_grad():
+        op(torch.ones((1, 1, 8)), torch.ones((8, 4), requires_grad=True))
+
+    with pytest.raises(RankGroupError) as err:
+        group.spmd(under_grad, [()] * 4)
+    assert isinstance(err.value.__cause__, NotImplementedError)
+    assert "ROADMAP" in str(err.value.__cause__)
 
 
 def test_embed_lookup():

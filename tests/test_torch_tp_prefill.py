@@ -19,8 +19,9 @@ compute and fp32 params:
   also with w1|w3 packed into one w13 (``fuse_w13``, the tp lane's
   weights on the card).
 
-Also the paths that raise at tp>1: decode, the chunked prefill, the paged
-Server, MLA layers.
+Also the paths that still raise at tp>1: MLA layers, and the replicated
+layout under grad.  (Decode, the chunked prefill and the paged Server at
+tp>1 are tests/test_torch_tp_decode.py and tests/test_torch_tp_server.py.)
 """
 import dataclasses
 
@@ -30,11 +31,11 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import ParallelConfig, get_smoke_config
-from repro_torch.dist import RankGroup
+from repro_torch.core.overlap import SeamTape
+from repro_torch.dist import RankGroup, RankGroupError
 from repro_torch.models import model as TM
 from repro_torch.models import serve as TS
 from repro_torch.parallel.sharding import TPContext, make_ctx
-from repro_torch.runtime.server import ServeConfig, Server
 
 ARCHS = ["minicpm_2b", "codeqwen15_7b"]
 MODES = ["xla", "decomposed", "flux"]
@@ -262,16 +263,32 @@ def _set_bias(p1, full, bias, cfg):
 
 
 def test_tp_paths_that_raise_name_roadmap():
+    """What still raises at tp>1: MLA layers (init and decode), and the
+    replicated layout under grad (its seams have no backward yet)."""
     cfg = _cfg("minicpm_2b")
     group = RankGroup(TP, "cpu")
     ctx = TPContext(tp=TP, group=group)
     toks = torch.zeros((1, 1), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.decode_step(None, [], toks, 0, ctx, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.prefill_chunk_step(None, [], toks, None, 0, 1, ctx, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Server(cfg, ParallelConfig(tp=TP), None, ServeConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_model(get_smoke_config("deepseek_v3_671b"),
                       ParallelConfig(tp=TP), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TS.decode_step(None, [], toks, 0, ctx,
+                       get_smoke_config("deepseek_v3_671b"))
+    full = TM.init_model(cfg, ParallelConfig(tp=TP), seed=0,
+                         dtype=torch.float32, device="cpu", trainable=True)
+    ranks = [TM.shard_params(full, r, TP, cfg) for r in range(TP)]
+    hidden = make_ctx(ParallelConfig(tp=TP), group).with_layout(False)
+    assert not hidden.seq_sharded
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+             "labels": torch.zeros((1, 8), dtype=torch.long)}
+
+    def loss(p):
+        with SeamTape():
+            return TM.forward_loss(p, batch, hidden, cfg,
+                                   ParallelConfig(tp=TP))
+
+    with pytest.raises(RankGroupError) as err:
+        group.spmd(loss, [(p,) for p in ranks])
+    assert isinstance(err.value.__cause__, NotImplementedError)
+    assert "ROADMAP queue 1 item 2.2" in str(err.value.__cause__)

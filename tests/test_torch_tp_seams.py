@@ -294,11 +294,25 @@ def test_gather_and_scatter_seq_match_reference(ref, mode, reverse):
 def test_fused_op_rejects_what_is_not_ported():
     g = dist.RankGroup(N, "cpu")
     for kw, what in ((dict(kind="ag", mode="decomposed_bidir"), "bidir"),
-                     (dict(kind="rs", scatter_axis="hidden"), "hidden"),
-                     (dict(kind="ar"), "ar"),
                      (dict(kind="ag", wire_dtype="int8"), "wire_dtype")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tov.FusedOp(axis=g, **kw)
+    # the replicated layout's ops run forward at tp>1; under grad (their
+    # backward) they raise, on a SeamTape too
+    for kw, w_shape in ((dict(kind="ag", scatter_axis="hidden"), (D, F)),
+                        (dict(kind="rs", scatter_axis="hidden"), (F, D)),
+                        (dict(kind="ar"), (F, D))):
+        op = tov.FusedOp(axis=g, **kw)
+
+        def body(r):
+            x = torch.ones((B, S, w_shape[0]))
+            with tov.SeamTape():
+                op(x, torch.ones(w_shape, requires_grad=True))
+
+        with pytest.raises(dist.RankGroupError) as err:
+            g.spmd(body, [(r,) for r in range(N)])
+        assert isinstance(err.value.__cause__, NotImplementedError), kw
+        assert "ROADMAP queue 1 item 2.2" in str(err.value.__cause__), kw
     # the tp>1 backward runs on a SeamTape; flux's grads equal xla's
     def grad_w(mode):
         op, w = tov.FusedOp("ag", axis=g, mode=mode), torch.ones((D, F // N))
