@@ -83,9 +83,24 @@ a checkout of this repository.  Phases, one JSON object per line each:
              batch 4 x 1024): 3 steps at tp=1, then at tp=4 in flux mode
              on the one card, whose forward and backward seams run the
              AG-GEMM and GEMM-RS kernels (4L + 1 of each a rank a step);
-             step 0's loss and grads against tp=1's, xla's and
-             decomposed's against flux's.  The ag_gemm and gemm_rs phases
-             also hold the kernels at the backward's operands.
+             step 0's loss and grads against tp=1's, xla's, decomposed's
+             and decomposed_bidir's against flux's; step 0 with
+             ``remat="full"`` at tp=1 and at tp=4 in flux against the same
+             step without (the recompute launching 2L more of each fused
+             kernel a rank); and the replicated ("hidden") layout's step 0
+             in flux, xla and decomposed against the seq layout's flux
+             (no fused kernel), each step's peak memory recorded.  The
+             ag_gemm and gemm_rs phases also hold the kernels at the
+             backward's operands;
+14. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
+             steps at tp=1 with ``remat="full"``: finite losses, step time
+             and peak memory;
+15. train_ckpt — minicpm_2b at full width cut to 2 layers, tp=4 flux: 4
+             steps with a checkpoint every 2 (save and restore seconds,
+             bytes on disk), a fresh trainer resuming at step 2 (its
+             weights and moments bit-equal to the checkpoint, its losses
+             against the uninterrupted run's), and a run that recovers
+             from a failure before step 3.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -161,6 +176,8 @@ TP_LANE = 4              # minicpm_2b prefill's and training's ranks
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 TAPE_DEPTHS = (8, 16)   # the seam tape's backward, timed at two depths
+CKPT_LAYERS = 2         # train_ckpt: about 0.4 B weights, 4 GB a checkpoint
+CKPT_STEPS = 4
 # step 0 at tp=4 against tp=1 (bf16 weights and activations; the seams sum
 # in another order over 8 layers): the loss within relative 1e-2, every
 # leaf's grad within relative L2 5e-2 in the canonical layout
@@ -1953,6 +1970,7 @@ def phase_train_lane(torch):
     from repro_torch.models import model as M
     from repro_torch.runtime import trainer as T
 
+    t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config("minicpm_2b"),
                               num_layers=TRAIN_LAYERS)
     n_layers, tp = cfg.num_layers, TP_LANE
@@ -1999,10 +2017,32 @@ def phase_train_lane(torch):
     torch.cuda.reset_peak_memory_stats()
     params1, opt1 = tr1.init_state()
     batch0 = tr1.batch(0)
-    loss1, g1 = T.loss_and_grads(params1[0], batch0, T.make_ctx(cfg, par1),
-                                 cfg, par1)
-    loss1 = loss1.item()
+
+    def step0_tp1(par):
+        """Step 0's (loss, grads, peak GB of the step) at tp=1."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = T.loss_and_grads(params1[0], batch0,
+                                       T.make_ctx(cfg, par), cfg, par)
+        return loss.item(), grads, torch.cuda.max_memory_allocated() / 1e9
+
+    loss1, g1, peak1 = step0_tp1(par1)
     can1 = M.canonical_leaves(g1, cfg, 1, grads=True)
+    del g1
+    # remat (every block recomputed in the backward): the same grads
+    loss1r, g1r, peak1r = step0_tp1(dataclasses.replace(par1, remat="full"))
+    rel_r, leaf_r = _worst_leaf(M.canonical_leaves(g1r, cfg, 1, grads=True),
+                                can1)
+    del g1r
+    check(abs(loss1r - loss1) <= TRAIN_LOSS_RTOL * abs(loss1)
+          and rel_r <= TRAIN_GRAD_RTOL,
+          f"tp=1 remat step 0: loss {loss1r} vs {loss1}, grad of {leaf_r} "
+          f"relative L2 {rel_r}")
+    res["remat_tp1"] = {"step0_loss": loss1r, "grad_rel_l2_max": rel_r,
+                        "grad_worst_leaf": leaf_r,
+                        "loss_equal": loss1r == loss1,
+                        "step0_peak_gb": peak1r,
+                        "step0_peak_gb_without_remat": peak1}
     _, _, hist1 = tr1.train(params1, opt1)
     losses1 = [h["loss"] for h in hist1]
     check(all(map(math.isfinite, losses1)),
@@ -2012,7 +2052,7 @@ def phase_train_lane(torch):
                   "step_ms": step_ms(hist1)[1],
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "weights": sum(p.numel() for p in params1[0].parameters())}
-    del params1, opt1, tr1, g1
+    del params1, opt1, tr1
     torch.cuda.empty_cache()
 
     # ---- tp=4 on the one card --------------------------------------------
@@ -2022,13 +2062,16 @@ def phase_train_lane(torch):
     torch.cuda.reset_peak_memory_stats()
     ranks, opts = tr4.init_state()
 
-    def rank_grads(mode):
+    def rank_grads(mode, **kw):
         """Step 0's forward on every rank, the counts, then its backward and
         the replicated leaves' sum: (loss, canonical grads / tp, counts
         after the forward, counts of the backward, {host ms of the forward
-        and of the backward, seams a rank recorded})."""
-        par = dataclasses.replace(par4, overlap_mode=mode)
+        and of the backward, seams a rank recorded, the step's peak GB});
+        ``kw`` overrides ``ParallelConfig`` fields (remat, the layout)."""
+        par = dataclasses.replace(par4, overlap_mode=mode, **kw)
         ctx = T.make_ctx(cfg, par, group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
 
         def bwd(p, tape, loss):
             return T.complete_grads(T.grads_from_tape(p, tape, loss),
@@ -2048,7 +2091,8 @@ def phase_train_lane(torch):
         torch.cuda.synchronize()
         host = {"forward_ms": (t1 - t0) * 1e3,
                 "backward_ms": (time.perf_counter() - t1) * 1e3,
-                "seams_a_rank": seams}
+                "seams_a_rank": seams,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         c_bwd = read_counts()
         losses = [l.item() for _, l in outs]
         check(max(losses) == min(losses), f"{mode}: ranks' losses {losses}")
@@ -2084,7 +2128,8 @@ def phase_train_lane(torch):
                        "launches_forward": c_fwd, "launches_backward": c_bwd,
                        "step0_host": host4}
     del can1
-    for mode in ("xla", "decomposed"):
+    # train_bidir: decomposed_bidir beside xla and decomposed
+    for mode in ("xla", "decomposed", "decomposed_bidir"):
         lm, canm, cf, cb, hm = rank_grads(mode)
         for c in (cf, cb):
             check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
@@ -2098,6 +2143,45 @@ def phase_train_lane(torch):
                               "grad_rel_l2_vs_flux_max": rg,
                               "grad_worst_leaf": lf, "step0_host": hm,
                               "launches": {"forward": cf, "backward": cb}}
+        del canm
+    # remat at tp=4 in flux: the same grads, and the backward launches the
+    # blocks' fused kernels again (2 AG-GEMM and 2 GEMM-RS a layer a rank)
+    lm, canm, cf, cb, hm = rank_grads("flux", remat="full")
+    recompute = {"ag_gemm": 2 * per_layer, "gemm_rs": 2 * per_layer,
+                 "gemm_rs_reduce": 2 * per_layer, "flash_attention": 0,
+                 "matmul": 0}
+    want_bwd_remat = {k: want_bwd[k] + recompute[k] for k in want_bwd}
+    check(cf == want_fwd and cb == want_bwd_remat,
+          f"tp={tp} flux remat launches {cf} / {cb}, expected {want_fwd} / "
+          f"{want_bwd_remat}")
+    rl = abs(lm - loss4) / abs(loss4)
+    rg, lf = _worst_leaf(canm, can4)
+    check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+          f"tp={tp} flux remat vs flux: loss relative {rl}, grad of {lf} "
+          f"relative L2 {rg}")
+    res["remat_tp4_flux"] = {"step0_loss": lm, "loss_rel_vs_flux": rl,
+                             "grad_rel_l2_vs_flux_max": rg,
+                             "grad_worst_leaf": lf, "step0_host": hm,
+                             "launches_forward": cf,
+                             "launches_backward": cb}
+    del canm
+    # train_hidden: the replicated layout (no fused kernel) against the seq
+    # layout's flux step
+    for mode in ("flux", "xla", "decomposed"):
+        lm, canm, cf, cb, hm = rank_grads(mode, scatter_axis="hidden")
+        for c in (cf, cb):
+            check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+                  f"hidden {mode} step launched the fused kernels: {c}")
+        rl = abs(lm - loss4) / abs(loss4)
+        rg, lf = _worst_leaf(canm, can4)
+        check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+              f"hidden {mode} vs the seq layout's flux: loss relative {rl}, "
+              f"grad of {lf} relative L2 {rg}")
+        res[f"tp4_hidden_{mode}"] = {
+            "step0_loss": lm, "loss_rel_vs_seq_flux": rl,
+            "grad_rel_l2_vs_seq_flux_max": rg, "grad_worst_leaf": lf,
+            "step0_host": hm, "peak_gb_seq_flux": host4["peak_gb"],
+            "launches": {"forward": cf, "backward": cb}}
         del canm
     del can4
     torch.cuda.empty_cache()
@@ -2121,11 +2205,167 @@ def phase_train_lane(torch):
         torch, lambda: tr4.run_step(ranks, opts, batch0),
         sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
     res["tape_backward_scaling"] = tape_backward_scaling(torch)
+    res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     del ranks, opts, tr4
     group.free_symmetric()
     torch.cuda.empty_cache()
-    return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts}
+    return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts,
+            "backward_remat": res["remat_tp4_flux"]["launches_backward"]}
+
+
+def phase_train_remat(torch):
+    """minicpm_2b at full width and all 40 layers, trained at tp=1 with
+    ``remat="full"`` (every block recomputed in the backward), 3 trainer
+    steps from seed 0 (bf16 weights, fp32 moments, wsd, batch 4 x 1024):
+    finite losses, the step's time and the peak memory, beside what the
+    earlier phases left allocated."""
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.runtime import trainer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm_2b")
+    tc = T.TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=0,
+                       base_lr=3e-4, schedule=train_schedule("minicpm_2b"),
+                       log_every=TRAIN_STEPS)
+    tr = T.Trainer(cfg, ParallelConfig(tp=1, fuse_w13=True, remat="full"),
+                   tc, device="cuda", dtype=torch.bfloat16)
+    tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH)
+    baseline = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = tr.init_state()
+    _, _, hist = tr.train(params, opt)
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in hist]
+    check(all(map(math.isfinite, losses)), f"40-layer remat losses {losses}")
+    ms = [h["seconds"] * 1e3 for h in hist]
+    emit({"phase": "train_remat", "arch": cfg.name,
+          "layers": cfg.num_layers, "remat": "full", "tp": 1,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "weights": sum(p.numel() for p in params[0].parameters()),
+          "losses": losses, "step_ms_median": sorted(ms)[len(ms) // 2],
+          "step_ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated()
+          / 1e9, "baseline_mem_gb": baseline,
+          "phase_s": time.perf_counter() - t_phase})
+    del params, opt, tr
+    torch.cuda.empty_cache()
+
+
+def phase_train_ckpt(torch):
+    """Checkpoints through ``runtime.trainer`` at tp=4 in flux: minicpm_2b
+    at full width cut to its first CKPT_LAYERS layers (bf16 weights, fp32
+    moments, batch 4 x 1024), 4 steps with a checkpoint every 2 into a
+    temporary directory (removed at the end).  A fresh ``Trainer``
+    restores step 2 (weights and moments equal to the checkpoint's bit for
+    bit, cut per rank and joined again) and runs steps 2-3, whose losses
+    must lie within TRAIN_LOSS_RTOL of the uninterrupted run's; then a run
+    whose ``fault_hook`` raises once before step 3 recovers from the
+    step-2 checkpoint and finishes with one failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import host_leaves
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.runtime import trainer as T
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=CKPT_LAYERS)
+    par = ParallelConfig(tp=TP_LANE, fuse_w13=True, overlap_mode="flux")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def trainer(sub):
+            tc = T.TrainConfig(total_steps=CKPT_STEPS, warmup_steps=0,
+                               base_lr=3e-4,
+                               schedule=train_schedule("minicpm_2b"),
+                               checkpoint_dir=os.path.join(d, sub),
+                               checkpoint_every=2, log_every=CKPT_STEPS)
+            tr = T.Trainer(cfg, par, tc, device="cuda", dtype=torch.bfloat16)
+            tr.data_cfg = dataclasses.replace(
+                tr.data_cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+            return tr
+
+        res = {"phase": "train_ckpt", "arch": cfg.name,
+               "layers": f"{CKPT_LAYERS} of 40 (cut in depth)",
+               "tp": TP_LANE, "mode": "flux", "steps": CKPT_STEPS,
+               "checkpoint_every": 2, "loss_rtol": TRAIN_LOSS_RTOL,
+               "disk_free_gb": shutil.disk_usage(d).free / 1e9}
+        # the uninterrupted run: checkpoints at steps 2 and 4
+        tra = trainer("a")
+        params, opt = tra.init_state()
+        res["weights"] = sum(p.numel() for r in params
+                             for p in r.parameters())
+        _, _, ha = tra.train(params, opt, resume=False)
+        la = [h["loss"] for h in ha]
+        check(all(map(math.isfinite, la)), f"losses {la}")
+        check(tra.ckpt.all_steps() == [2, 4],
+              f"checkpoints {tra.ckpt.all_steps()}")
+        res["save"] = dict(tra.ckpt.timings)
+        step2 = os.path.join(d, "a", "step_2")
+        res["bytes_on_disk"] = sum(
+            os.path.getsize(os.path.join(step2, f)) for f in os.listdir(step2))
+        del params, opt, tra
+        torch.cuda.empty_cache()
+
+        # a fresh trainer resumes at step 2
+        shutil.rmtree(os.path.join(d, "a", "step_4"))
+        trb = trainer("a")
+        params, _ = trb.init_state()
+        opt = trb.restore(params)
+        check(trb.step == 2, f"restored step {trb.step}")
+        res["restore_s"] = trb.ckpt.timings["restore_s"]
+        with np.load(os.path.join(step2, "shard_0.npz")) as saved:
+            got = host_leaves(trb.checkpoint_tree(params, opt))
+            bad = [k for k, v in got.items()
+                   if not np.array_equal(v, saved[k.replace("/", "__")])]
+            check(not bad and len(got) == len(saved.files),
+                  f"restored leaves unequal to the checkpoint's: {bad}")
+        res["restored_leaves_bit_equal"] = len(got)
+        del got
+        _, _, hb = trb.train(params, opt, resume=False)
+        lb = [h["loss"] for h in hb]
+        rel = [abs(x - y) / abs(y) for x, y in zip(lb, la[2:])]
+        check(len(lb) == 2 and max(rel) <= TRAIN_LOSS_RTOL,
+              f"resumed losses {lb} vs {la[2:]}")
+        res.update(losses=la, resumed_losses=lb, resumed_loss_rel=rel,
+                   resumed_bit_equal=lb == la[2:])
+        del params, opt, trb
+        torch.cuda.empty_cache()
+
+        # a failed step before step 3: reload step 2, run 2 and 3 again
+        trc = trainer("c")
+        armed = [True]
+
+        def fault_hook(step):
+            if step == 3 and armed[0]:
+                armed[0] = False
+                raise RuntimeError("simulated failure before step 3")
+
+        _, _, hc = trc.train(resume=False, fault_hook=fault_hook)
+        lc = [h["loss"] for h in hc]
+        check(trc.failures == 1 and trc.step == CKPT_STEPS and len(lc) == 5,
+              f"fault run: failures {trc.failures}, step {trc.step}, "
+              f"losses {lc}")
+        rel_c = [abs(x - y) / abs(y) for x, y in zip(lc[3:], la[2:])]
+        check(all(map(math.isfinite, lc)) and max(rel_c) <= TRAIN_LOSS_RTOL,
+              f"fault run losses {lc} (steps 2-3 after recovery vs the "
+              f"uninterrupted run's {la[2:]})")
+        res.update(fault_failures=trc.failures, fault_losses=lc,
+                   fault_loss_rel=rel_c,
+                   fault_straggler_events=trc.straggler_events,
+                   fault_restore_s=trc.ckpt.timings["restore_s"])
+        trc.group.free_symmetric()
+        del trc
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
 
 
 def main():
@@ -2137,26 +2377,39 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi = phase_device(torch)
-    phase_build()
-    flash_case = phase_kernel(torch)
-    mla_case = phase_mla_kernel(torch)
-    flash_launches, tp1_logits, tp1_decode = phase_kernel_lane(torch)
-    phase_server_lane(torch)
-    params, cfg, (mla_launches, mla_combines) = phase_mla_lane(torch)
-    phase_mla_server_lane(torch, params, cfg)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    flash_case = timed("kernel", phase_kernel, torch)
+    mla_case = timed("mla_kernel", phase_mla_kernel, torch)
+    flash_launches, tp1_logits, tp1_decode = timed(
+        "kernel_lane", phase_kernel_lane, torch)
+    timed("server_lane", phase_server_lane, torch)
+    params, cfg, (mla_launches, mla_combines) = timed(
+        "mla_lane", phase_mla_lane, torch)
+    timed("mla_server_lane", phase_mla_server_lane, torch, params, cfg)
     del params
     torch.cuda.empty_cache()
-    matmul_case = phase_matmul_kernel(torch)
-    matmul_launches, _ = phase_op_level_lane(torch)
-    ag_case = phase_fused_kernel(torch, "ag")
-    rs_case = phase_fused_kernel(torch, "rs")
-    tp_counts = phase_tp_op_level_lane(torch)
-    phase_tp_lane(torch, tp1_logits, tp1_decode)
+    matmul_case = timed("matmul_kernel", phase_matmul_kernel, torch)
+    matmul_launches, _ = timed("op_level_lane", phase_op_level_lane, torch)
+    ag_case = timed("ag_gemm_kernel", phase_fused_kernel, torch, "ag")
+    rs_case = timed("gemm_rs_kernel", phase_fused_kernel, torch, "rs")
+    tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
+    timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
     del tp1_logits, tp1_decode
-    phase_tp_server_lane(torch)
-    train_counts = phase_train_lane(torch)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    timed("tp_server_lane", phase_tp_server_lane, torch)
+    train_counts = timed("train_lane", phase_train_lane, torch)
+    timed("train_remat", phase_train_remat, torch)
+    timed("train_ckpt", phase_train_ckpt, torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_s": phase_s})
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -2193,6 +2446,7 @@ def main():
          "train_launches": {
              "forward": train_counts["forward"]["ag_gemm"],
              "backward": train_counts["backward"]["ag_gemm"],
+             "backward_remat": train_counts["backward_remat"]["ag_gemm"],
              "trainer_steps": train_counts["trainer_steps"]["ag_gemm"]},
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
@@ -2205,6 +2459,7 @@ def main():
          "train_launches": {
              "forward": train_counts["forward"]["gemm_rs"],
              "backward": train_counts["backward"]["gemm_rs"],
+             "backward_remat": train_counts["backward_remat"]["gemm_rs"],
              "trainer_steps": train_counts["trainer_steps"]["gemm_rs"]},
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],

@@ -77,13 +77,19 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
-    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1, dp>1
-    and ``remat`` other than "none" raise; ZeRO, pipelines, tuned profiles
-    and wire precision come with their slices).  ``kernel_decode`` turns
-    on the hand-written kernels (``TPContext.use_kernels``): the
-    flash-attention kernel of the GQA prefill and the MLA-decode kernel of
-    every MLA decode step.  ``overlap_mode`` is the TP seams' transport
-    (``core.overlap``)."""
+    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1 and
+    dp>1 raise; ZeRO, pipelines, tuned profiles and wire precision come
+    with their slices).  ``remat`` ("none" | "selective" | "full")
+    recomputes each pattern block's activations in the backward (both
+    values checkpoint every block, as the reference's do).
+    ``kernel_decode`` turns on the hand-written kernels
+    (``TPContext.use_kernels``): the flash-attention kernel of the GQA
+    prefill and the MLA-decode kernel of every MLA decode step.
+    ``overlap_mode`` is the TP seams' transport (``core.overlap``).
+    ``scatter_axis`` is the residual stream's layout between the seams:
+    "seq" (sequence-sharded, Megatron-SP), "hidden" (replicated), or
+    "auto", which is "seq" without a tuned plan profile (the reference's
+    ``plan_set_from_parallel``; profiles are not ported)."""
     tp: int = 1
     dp: int = 1
     ep: int = 1
@@ -91,6 +97,7 @@ class ParallelConfig:
     fuse_w13: bool = False
     kernel_decode: bool = False
     overlap_mode: str = "decomposed"
+    scatter_axis: str = "auto"
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -33,31 +33,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.ffn import FP32_PARAMS
 from repro_torch.models.model import (Block, Model, check_ported,
-                                      n_periods, shard_params)
+                                      layer_trees, reference_tree,
+                                      shard_params)
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(
         device=device, dtype=dtype)
-
-
-def _unstack(tree, rep: int):
-    """Layer ``rep`` of a stacked (``[reps, ...]``) nested subtree."""
-    if isinstance(tree, dict):
-        return {n: _unstack(a, rep) for n, a in tree.items()}
-    return tree[rep]
-
-
-def _layer_trees(tree: Dict[str, Any],
-                 cfg: ModelConfig) -> List[Dict[str, Any]]:
-    """The reference's per-layer subtrees in expanded-pattern order."""
-    lead = cfg.leading_dense_layers
-    period = len(cfg.pattern)
-    out = list(tree.get("lead", []))[:lead]
-    for rep in range(n_periods(cfg)):
-        for pos in range(period):
-            out.append(_unstack(tree["periods"][pos], rep))
-    return out
 
 
 def _params(leaves: Dict[str, Any], dtype: torch.dtype,
@@ -80,7 +62,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     blocks = [Block(_params(layer["mixer"], dtype, dev),
                     _params(layer["ffn"], dtype, dev))
-              for layer in _layer_trees(tree, cfg)]
+              for layer in layer_trees(tree, cfg)]
     return Model(_tensor(tree["embed"], dtype, dev),
                  _tensor(tree["final_norm"], dtype, dev), blocks, trainable)
 
@@ -99,36 +81,17 @@ def to_jax_tree(named: Dict[str, torch.Tensor],
                 cfg: ModelConfig) -> Dict[str, Any]:
     """The port's leaves keyed as ``Model.named_parameters()`` ("embed",
     "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]") -> the
-    reference's tree of float32 numpy arrays: ``lead`` layers as a list,
-    the periods' leaves stacked ``[reps, ...]`` per pattern position."""
-    def np32(t):
-        return t.detach().float().cpu().numpy()
+    reference's tree of float32 numpy arrays (``model.reference_tree``:
+    ``lead`` layers as a list, the periods' leaves stacked ``[reps, ...]``
+    per pattern position)."""
+    def np32(tree):
+        if isinstance(tree, dict):
+            return {n: np32(a) for n, a in tree.items()}
+        if isinstance(tree, list):
+            return [np32(a) for a in tree]
+        return tree.detach().float().cpu().numpy()
 
-    layer_trees: Dict[int, Dict[str, Any]] = {}
-    for key, t in named.items():
-        parts = key.split(".")
-        if parts[0] != "layers":
-            continue
-        node = layer_trees.setdefault(int(parts[1]), {"mixer": {}, "ffn": {}})
-        node = node[parts[2]]
-        for p in parts[3:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = np32(t)
-    lead = cfg.leading_dense_layers
-    period = len(cfg.pattern)
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {n: stack([t[n] for t in trees]) for n in trees[0]}
-        return np.stack(trees)
-
-    out: Dict[str, Any] = {"embed": np32(named["embed"]),
-                           "final_norm": np32(named["final_norm"]),
-                           "lead": [layer_trees[i] for i in range(lead)]}
-    out["periods"] = [stack([layer_trees[lead + rep * period + pos]
-                             for rep in range(n_periods(cfg))])
-                      for pos in range(period)]
-    return out
+    return np32(reference_tree(named, cfg))
 
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -139,4 +102,4 @@ def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     return [{n: _tensor(a, torch.bfloat16, dev)
              for n, a in layer["mixer"].items()}
-            for layer in _layer_trees(tree, cfg)]
+            for layer in layer_trees(tree, cfg)]

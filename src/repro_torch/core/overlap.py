@@ -63,17 +63,38 @@ on a ``SeamTape``: the tape cuts the step into rank-local autograd
 segments at the seams (and, through ``cut``, on the residual stream), and
 ``SeamTape.backward`` runs each segment's backward and each seam's
 exchange from the rank's own thread, last seam first (the way a pipeline
-schedule drives its stages).  A seam under grad with no tape raises.  The
-replicated layout's ops (``scatter_axis="hidden"``, ``kind="ar"``) have
-no backward at tp>1 yet: under grad they raise.
+schedule drives its stages).  A seam under grad with no tape raises.
+
+The replicated layout's backward (``scatter_axis="hidden"``, and
+``kind="ar"``) is the reference's too: an ag op's dX is the local sum of
+``dy @ w.T`` over its weights, with no collective (this rank's partial of
+the replicated cotangent); an rs or ar op first completes its cotangent
+with a psum over the group (the reference's ``cotangent_ar``), then runs
+its local GEMMs.  The reference's ``lax.psum`` sums in the operand's
+dtype; the port's sums every rank's partial in fp32, in rank order, and
+rounds once to the operand's dtype, as the forward ``ar`` does.  Under
+``flux`` the replicated layout runs no fused kernel, as in the reference.
+
+``decomposed_bidir`` is the reference's pair of counter-rotating half
+rings: each shard's top half rides the forward ring and its bottom half
+the reverse ring (``_ag_bidir``, ``_rs_bidir``); an odd shard takes the
+one-way ring, which is the reference's own rule.  The reference claims
+half the per-link traffic of one ring, which needs a link per direction;
+the ranks of one card share its memory, where each step is one exchange
+with a pull copy from each neighbour (separate links come with ROADMAP
+queue 1 item 2.5).  Its non-GEMM gathers and scatters ride the one-way
+ring, as the reference's ``gather_seq`` and ``scatter_seq_sum`` do.
+
+``remat`` checkpoints a block (``ParallelConfig.remat``): at tp=1 through
+``torch.utils.checkpoint``; at tp>1 as one tape entry whose backward
+re-runs the block, its exchanges included, on the rank's own thread.
 
 The reference's tuning fields (``comm_chunks``, ``reverse``, ``blocks``,
 ``fuse_epilogue``, ``shared_gather``) are not carried: no caller of the
 port sets them, so each op runs the reference's defaults (one chunk a
 shard, the forward ring, the planned tile, the fused epilogue, the shared
-gather).  Not ported (each raises and names its ROADMAP item):
-``decomposed_bidir`` at tp>1, the replicated layout's backward at tp>1,
-and ``wire_dtype``.
+gather).  Not ported (it raises and names its ROADMAP item):
+``wire_dtype``.
 """
 from __future__ import annotations
 
@@ -83,6 +104,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 VALID_KINDS = ("ag", "rs", "ar", "a2a")
@@ -96,12 +118,6 @@ SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
                               "moe_a2a": "a2a"}
 
 NOT_PORTED = {
-    "decomposed_bidir": "mode='decomposed_bidir' at tp>1 is not ported "
-                        "(ROADMAP queue 1 item 2)",
-    "hidden_bwd": "the backward of the replicated layout's seams "
-                  "(scatter_axis='hidden', kind='ar') at tp>1 is not "
-                  "ported: they run without grad (ROADMAP queue 1 item "
-                  "2.2)",
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
                   "(ROADMAP queue 1 item 9)",
 }
@@ -293,6 +309,47 @@ def cut(x: torch.Tensor, axis) -> torch.Tensor:
     return _run_seam(_CutSeam(), x)[0]
 
 
+class _RematSeam:
+    """A checkpointed block as ONE tape entry.  Its forward runs the block
+    under ``no_grad`` (its seams forward only) and keeps only the block's
+    input; its backward re-runs the block under grad on a nested
+    ``SeamTape``, on the rank's own thread (the recompute repeats the
+    block's exchanges, as ``jax.checkpoint`` repeats its collectives),
+    runs that tape's backward with the output's grad, and returns the
+    input's.  The block's weights gather their grads in ``.grad``."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def forward(self, x):
+        return (self.fn(x),), x
+
+    def backward(self, saved, gouts):
+        x = saved.detach().requires_grad_()
+        with torch.enable_grad(), SeamTape() as tape:
+            out = self.fn(x)
+        tape.backward(out, gouts[0])
+        return (torch.zeros_like(x) if x.grad is None else x.grad,)
+
+
+def remat(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+          axis, weights: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """``fn(x)`` with its activations recomputed in the backward (the
+    reference's ``jax.checkpoint`` of a block); ``weights`` are the
+    block's parameters.  At tp=1 ``torch.utils.checkpoint``; at tp>1 one
+    entry on this thread's tape (``_RematSeam``): the autograd engine's
+    recompute would run on the card's device thread, where the ranks'
+    seams cannot meet."""
+    if not _needs_grad(x, *weights):
+        return fn(x)
+    if _group_size(axis) == 1:
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    tape = current_tape()
+    if tape is None:
+        raise RuntimeError(ENGINE_THREAD)
+    return tape.record(_RematSeam(fn), (x,))[0]
+
+
 class _TransportSeam:
     """gather_seq / scatter_seq_sum / psum and their transposes."""
 
@@ -471,6 +528,46 @@ def _ag_ring(x: torch.Tensor, group, reverse: bool,
     return tuple(ys)
 
 
+def _bidir_hop(group, right: torch.Tensor, left: torch.Tensor, what: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the two counter-rotating rings, in one exchange:
+    ``right`` moves to the next rank and ``left`` to the previous one;
+    each rank pulls a copy from each neighbour."""
+    n, me = group.n, group.rank()
+    pairs = group.publish((right, left), what)
+    (from_prev, ev_prev), (from_next, ev_next) = (pairs[(me - 1) % n],
+                                                  pairs[(me + 1) % n])
+    return (group.wait_for((from_prev[0], ev_prev)).clone(),
+            group.wait_for((from_next[1], ev_next)).clone())
+
+
+def _ag_bidir(x: torch.Tensor, group,
+              chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
+    """Counter-rotating half rings (the reference's ``_ag_bidir``): each
+    shard's top half rides the forward ring and its bottom half the
+    reverse ring, and ``chunk_fn`` consumes each landed half as it
+    arrives.  An odd shard (or a one-row shard) takes the one-way ring:
+    the reference's own rule (its ``overlap.py:386``)."""
+    n, me = group.n, group.rank()
+    s_shard = x.shape[-2]
+    half = s_shard // 2
+    if half == 0 or s_shard % 2:
+        return _ag_ring(x, group, False, chunk_fn)
+    buf_r, buf_l = _seq_rows(x, 0, half), _seq_rows(x, half, half)
+    ys: Optional[List[torch.Tensor]] = None
+    for step in range(n):
+        owner_r, owner_l = (me - step) % n, (me + step) % n
+        cr, cl = chunk_fn(buf_r), chunk_fn(buf_l)
+        if ys is None:
+            ys = _out_buffers(x, s_shard * n, cr)
+        for y, top, bottom in zip(ys, cr, cl):
+            _seq_rows(y, owner_r * s_shard, half).copy_(top)
+            _seq_rows(y, owner_l * s_shard + half, half).copy_(bottom)
+        if step < n - 1:
+            buf_r, buf_l = _bidir_hop(group, buf_r, buf_l, "ag_bidir")
+    return tuple(ys)
+
+
 def _reduce_ring(group, reverse: bool, what: str,
                  partial_for: Callable[[int], torch.Tensor]) -> torch.Tensor:
     """ReduceScatter ring: at step s each rank adds ``partial_for(owner)``
@@ -491,12 +588,17 @@ def _reduce_ring(group, reverse: bool, what: str,
 # ---------------------------------------------------------------------------
 # GEMM-ReduceScatter transports (one collective pass for all pairs)
 # ---------------------------------------------------------------------------
-def _rs_partial(ys, ws, owner: int, s_shard: int) -> torch.Tensor:
+def _rs_partial(ys, ws, owner: int, s_shard: int,
+                length: Optional[int] = None,
+                offset: int = 0) -> torch.Tensor:
     """sum_i ys_i[owner's seq rows] @ ws_i — the per-owner partial of the
-    multi-pair reduce-scatter (one ring carries the SUMMED partial)."""
+    multi-pair reduce-scatter (one ring carries the SUMMED partial);
+    ``length`` rows from ``offset`` into the owner's shard (default: the
+    whole shard)."""
+    length = s_shard if length is None else length
     acc = None
     for y, w in zip(ys, ws):
-        p = torch.matmul(_seq_rows(y, owner * s_shard, s_shard), w)
+        p = torch.matmul(_seq_rows(y, owner * s_shard + offset, length), w)
         acc = p if acc is None else acc + p
     return acc
 
@@ -513,6 +615,33 @@ def _rs_ring(ys, ws, group) -> torch.Tensor:
                         lambda o: _rs_partial(ys, ws, o, s_shard))
 
 
+def _rs_bidir(ys, ws, group) -> torch.Tensor:
+    """Counter-rotating GEMM-ReduceScatter (the reference's ``_rs_bidir``):
+    the top halves of the owners' rows accumulate along the forward ring,
+    the bottom halves along the reverse ring, one exchange a step.  An odd
+    shard takes the one-way ring, the reference's rule (its
+    ``overlap.py:563``)."""
+    n, me = group.n, group.rank()
+    seq = ys[0].shape[-2]
+    if seq % n:
+        raise ValueError(f"seq {seq} not divisible by TP {n}")
+    s_shard = seq // n
+    if s_shard % 2:
+        return _rs_ring(ys, ws, group)
+    half = s_shard // 2
+
+    def partial(owner: int, top: bool) -> torch.Tensor:
+        return _rs_partial(ys, ws, owner, s_shard, half, 0 if top else half)
+
+    acc_r = partial((me + n - 1) % n, True)
+    acc_l = partial((me - (n - 1)) % n, False)
+    for s in range(1, n):
+        acc_r, acc_l = _bidir_hop(group, acc_r, acc_l, "rs_bidir")
+        acc_r = acc_r + partial((me + n - 1 - s) % n, True)
+        acc_l = acc_l + partial((me - (n - 1) + s) % n, False)
+    return torch.cat([acc_r, acc_l], dim=acc_r.dim() - 2)
+
+
 def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
     """sum_i ReduceScatter_seq(ys_i @ ws_i) with ONE collective pass."""
     if _group_size(axis) == 1:
@@ -525,6 +654,8 @@ def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
         y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
         w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
         return _rs_flux(y, w, axis)
+    if mode == "decomposed_bidir":
+        return _rs_bidir(ys, ws, axis)
     return _rs_ring(ys, ws, axis)
 
 
@@ -634,9 +765,6 @@ class FusedOp:
         elif self.n_weights > 1 and not self.epilogue.is_identity:
             raise ValueError("multi-output ops (n_weights>1 without "
                              'gate="pair") require an identity epilogue')
-        if (_group_size(self.axis) > 1
-                and self.mode == "decomposed_bidir"):
-            raise NotImplementedError(NOT_PORTED["decomposed_bidir"])
 
     @property
     def combines(self) -> bool:
@@ -665,9 +793,6 @@ class FusedOp:
                 return _fused_ag(self, x, ws, bias, scale, residual)
             z = _fused_z(self, x, ws)
             return epi.apply([z], bias=bias, scale=scale, residual=residual)
-        if self.scatter_axis == "hidden" and _needs_grad(
-                x, *ws, bias, scale, residual):
-            raise NotImplementedError(NOT_PORTED["hidden_bwd"])
         outs = _run_seam(_OpSeam(self), x, *ws, bias, scale, residual)
         return outs[0] if self.combines else tuple(outs)
 
@@ -707,7 +832,10 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
             return (epi_chunk.apply(ys, bias=bias, scale=scale),)
         return tuple(ys)
 
-    outs = _ag_ring(x, op.axis, False, chunk_fn)
+    if op.mode == "decomposed_bidir":
+        outs = _ag_bidir(x, op.axis, chunk_fn)
+    else:
+        outs = _ag_ring(x, op.axis, False, chunk_fn)
     if per_chunk:
         out = outs[0]
         if epi.residual:
@@ -788,10 +916,9 @@ def _epilogue_vjp(op: FusedOp, ys_fn: Callable, bias, scale, residual,
 
 
 class _OpSeam:
-    """A FusedOp ag/rs/ar at tp>1 as a seam.  ag saves x and re-gathers it
-    in the backward; rs saves its pre-epilogue z when the epilogue's vjp
-    needs it.  The backward is the sequence-sharded layout's (the
-    replicated layout's ops never reach the tape: ``FusedOp.__call__``)."""
+    """A FusedOp ag/rs/ar at tp>1 as a seam.  ag saves x (in the
+    sequence-sharded layout it re-gathers it in the backward); rs and ar
+    save their pre-epilogue z when the epilogue's vjp needs it."""
 
     def __init__(self, op: FusedOp):
         self.op, self.group = op, op.axis
@@ -812,22 +939,40 @@ class _OpSeam:
     def backward(self, saved, gouts):
         op = self.op
         x, ws, z, bias, scale, residual = saved
+        hidden = op.scatter_axis == "hidden"
         if op.kind == "ag":
             # the dW contractions need the gathered x: the re-gather rides
-            # the op's own transport
-            xf = _gather_seq_raw(x, op.axis, op.mode)
+            # the op's own transport (the replicated layout's x is full)
+            xf = x if hidden else _gather_seq_raw(x, op.axis, op.mode)
             dys, dbias, dscale, dres = _epilogue_vjp(
                 op, lambda: [torch.matmul(xf, w) for w in ws], bias, scale,
                 residual, gouts)
-            # dX: the interchanged GEMM-ReduceScatter over the sequence
-            # cotangents, ONE collective pass for all weights (flux: one
-            # GEMM-RS kernel over the column-stacked cotangents)
-            dx = _rs_core(dys, [w.t() for w in ws], op.axis, op.mode)
+            wts = [w.t() for w in ws]
+            if hidden:
+                # no collective: x's cotangent is this rank's partial of
+                # the replicated cotangent (check_rep=False), completed
+                # by the psum of the next rs / ar op down the backward
+                dx = _rs_partial(dys, wts, 0, x.shape[-2])
+            else:
+                # dX: the interchanged GEMM-ReduceScatter over the
+                # sequence cotangents, ONE collective pass for all weights
+                # (flux: one GEMM-RS kernel over the column-stacked
+                # cotangents)
+                dx = _rs_core(dys, wts, op.axis, op.mode)
             dws = [_contract(xf, dy).to(w.dtype) for w, dy in zip(ws, dys)]
             return (dx.to(x.dtype), *dws, dbias, dscale, dres)
         w = ws[0]
         (dz,), dbias, dscale, dres = _epilogue_vjp(
             op, lambda: [z], bias, scale, residual, gouts)
+        if hidden:
+            # rs in the replicated layout and ar: z is replicated, so its
+            # cotangent arrives as a per-rank partial; complete it first
+            # (the reference's cotangent_ar psum; summed in fp32 in rank
+            # order), then the local GEMMs
+            dzf = _psum_raw(dz, op.axis, dz.dtype)
+            dy = torch.matmul(dzf, w.t())
+            dw = _contract(x, dzf).to(w.dtype)
+            return (dy.to(x.dtype), dw, dbias, dscale, dres)
         # dY: the interchanged AllGather-GEMM over the cotangent of this
         # rank's sequence rows (flux: one AG-GEMM kernel); dW needs the
         # gathered cotangent too (a second gather, as the reference)

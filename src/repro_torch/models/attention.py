@@ -115,7 +115,8 @@ def gqa_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
               with_cache: bool = False):
     """x: [B, S, D] -> [B, S, D] (pre-norm residual block body); at tp>1
     [B, S/TP, D] -> [B, S/TP, D] over this rank's heads, the seams
-    gathering and scattering the sequence.  ``with_cache=True`` also
+    gathering and scattering the sequence (in the replicated layout
+    [B, S, D] -> [B, S, D], the seams a local GEMM and an AllReduce).  ``with_cache=True`` also
     returns the prefill KV cache (bf16; full sequence, local KV heads)."""
     tp = ctx.tp
     d = AttnDims.of(cfg, tp)

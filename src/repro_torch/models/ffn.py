@@ -55,8 +55,9 @@ def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, tp: int,
 
 def ffn_train(p, x: torch.Tensor, ctx: TPContext,
               eps: float = 1e-5) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] ([B, S/TP, D] at tp>1); the gate is the
-    mlp_ag seam's epilogue, over one shared gather of x."""
+    """x: [B, S, D] -> [B, S, D] ([B, S/TP, D] at tp>1 in the
+    sequence-sharded layout); the gate is the mlp_ag seam's epilogue,
+    over one shared gather of x."""
     h = layers.rms_norm(x, p["norm"], eps)
     if "w13" in p:
         y = ctx.op("mlp_ag", epilogue=overlap.Epilogue(

@@ -68,7 +68,8 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
                    ctx: TPContext) -> torch.Tensor:
     """x: [B, S/TP, D] -> logits [B, S, V/TP] through the ``head_ag``
     AllGather-GEMM seam over the tied table's transpose (the step's
-    biggest GEMM)."""
+    biggest GEMM); in the replicated layout x is [B, S, D] and the seam
+    is the local GEMM."""
     return ctx.op("head_ag")(x, table.t())
 
 

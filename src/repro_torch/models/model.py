@@ -14,12 +14,17 @@ serving never reads it.
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
 ``forward_loss`` are the training forward for the ``TRAIN_KINDS``
-pattern; at tp>1 they run as one rank of the TP group, on that rank's
-``shard_params`` copy.
+pattern, in either residual layout (``TPContext.seq_sharded``) and with
+or without ``ParallelConfig.remat``; at tp>1 they run as one rank of the
+TP group, on that rank's ``shard_params`` copy.
+
+``reference_tree`` / ``named_leaves`` map the port's named leaves to the
+reference's tree (periods stacked ``[reps, ...]``) and back, each leaf's
+dtype and device kept: the checkpointer's layout and ``convert``'s.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -43,9 +48,7 @@ TRAIN_KINDS = frozenset({(ATTN, DENSE_FFN)})
 TRAIN_KIND_NOT_PORTED = ("training runs the (attn, ffn) pattern only: MLA "
                          "and MoE layers and the multi-token-prediction "
                          "head do not train yet (ROADMAP queue 1 item 8)")
-REMAT_NOT_PORTED = ("remat (activation recomputation) is not ported: "
-                    "ParallelConfig.remat must be 'none' (ROADMAP queue 1 "
-                    "item 5)")
+REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
 
@@ -213,19 +216,23 @@ def shard_params(params: Model, rank: int, tp: int,
                  params.trainable)
 
 
+def _leaf_dims(cfg: ModelConfig, params: Model) -> Dict[str, Optional[int]]:
+    """``param_specs`` keyed as ``named_parameters()``."""
+    specs = param_specs(cfg, params)
+    out = {"embed": specs["embed"], "final_norm": specs["final_norm"]}
+    for i, sp in enumerate(specs["layers"]):
+        for part in ("mixer", "ffn"):
+            for n, dim in sp[part].items():
+                out[f"layers.{i}.{part}.{n}"] = dim
+    return out
+
+
 def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
     """``{name: True}`` for each model-replicated leaf (``param_specs`` dim
     None), keyed as ``params.named_parameters()``: the leaves whose grads
     the trainer sums over the TP ranks and whose squared sums the grad
     norm weighs by 1/tp."""
-    specs = param_specs(cfg, params)
-    out = {"embed": specs["embed"] is None,
-           "final_norm": specs["final_norm"] is None}
-    for i, sp in enumerate(specs["layers"]):
-        for part in ("mixer", "ffn"):
-            for n, dim in sp[part].items():
-                out[f"layers.{i}.{part}.{n}"] = dim is None
-    return out
+    return {n: dim is None for n, dim in _leaf_dims(cfg, params).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -233,28 +240,43 @@ def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
     """Raise unless the model trains in the port: the ``TRAIN_KINDS``
-    pattern, no MTP head, ``remat="none"``, ep=1."""
+    pattern, no MTP head, ep=1, a ``remat`` of ``REMAT_MODES``."""
     if par.ep != 1:
         raise NotImplementedError(EP_NOT_PORTED)
     if set(expanded_pattern(cfg)) - TRAIN_KINDS or cfg.mtp_depth:
         raise NotImplementedError(f"{cfg.name}: " + TRAIN_KIND_NOT_PORTED)
-    if par.remat != "none":
-        raise NotImplementedError(REMAT_NOT_PORTED)
+    if par.remat not in REMAT_MODES:
+        raise ValueError(f"invalid remat {par.remat!r}; one of "
+                         f"{REMAT_MODES}")
+
+
+def _block(blk: Block, x: torch.Tensor, ctx: TPContext,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One layer: pre-norm attention, then pre-norm FFN, each added to the
+    residual stream, which is cut on the seam tape before each sub-block
+    (``overlap.cut``), so the backward walks each segment once."""
+    x = overlap.cut(x, ctx.axis)
+    x = x + attention.gqa_train(blk.mixer, x, ctx, cfg)
+    x = overlap.cut(x, ctx.axis)
+    return x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
 
 
 def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
              cfg: ModelConfig, par: ParallelConfig) -> torch.Tensor:
-    """x: [B, S/TP, D] -> hidden [B, S/TP, D]: each layer's pre-norm
-    attention, then its pre-norm FFN, each added to the residual stream
-    (the reference's ``backbone``; a dense model's aux loss is 0).  On a
-    seam tape the residual stream is cut before each sub-block
-    (``overlap.cut``), so the backward walks each block once."""
+    """x: [B, S/TP, D] -> hidden [B, S/TP, D] (the replicated layout:
+    [B, S, D] -> [B, S, D]), one ``_block`` a layer (the reference's
+    ``backbone``; a dense model's aux loss is 0).  With ``par.remat`` other
+    than "none" every block after the leading dense layers is checkpointed
+    (``overlap.remat``), as the reference checkpoints its scanned
+    blocks."""
     check_trainable(cfg, par)
-    for blk in params.layers:
-        x = overlap.cut(x, ctx.axis)
-        x = x + attention.gqa_train(blk.mixer, x, ctx, cfg)
-        x = overlap.cut(x, ctx.axis)
-        x = x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+    for i, blk in enumerate(params.layers):
+        if par.remat == "none" or i < cfg.leading_dense_layers:
+            x = _block(blk, x, ctx, cfg)
+        else:
+            x = overlap.remat(
+                lambda v, b=blk: _block(b, v, ctx, cfg), x, ctx.axis,
+                list(blk.parameters()))
     return x
 
 
@@ -263,9 +285,10 @@ def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
                  par: ParallelConfig) -> torch.Tensor:
     """Training loss: the mean cross-entropy over the labels in
     [0, vocab).  batch: tokens [B, S] and labels [B, S], both full
-    sequence and the same on every rank; the embedding's reduce-scatter
-    produces the sequence-sharded layout, the LM head's ``head_ag`` seam
-    the vocab-sharded logits.  At tp>1 every rank returns the same loss
+    sequence and the same on every rank; the embedding's combine produces
+    the residual layout (a reduce-scatter to the sequence-sharded layout,
+    a psum to the replicated one), the LM head's ``head_ag`` seam the
+    vocab-sharded logits.  At tp>1 every rank returns the same loss
     (its own replicated copy, as in the reference)."""
     check_trainable(cfg, par)
     if "embeds" in batch:
@@ -293,18 +316,94 @@ def gather_rank_leaves(per_rank: List[Dict[str, torch.Tensor]],
     """The ranks' leaves (weights or grads, keyed as ``named_parameters``)
     -> the global tp-packed leaves: sharded leaves concatenated along their
     ``param_specs`` dim, replicated ones rank 0's."""
-    rep = replicated_leaves(cfg, params)
-    specs = param_specs(cfg, params)
-    out = {}
-    for n in per_rank[0]:
-        if rep[n]:
-            out[n] = per_rank[0][n]
-            continue
-        parts = n.split(".")
-        dim = (specs[n] if len(parts) == 1 else
-               specs["layers"][int(parts[1])][parts[2]][parts[3]])
-        out[n] = torch.cat([r[n] for r in per_rank], dim=dim)
+    dims = _leaf_dims(cfg, params)
+    return {n: per_rank[0][n] if dims[n] is None
+            else torch.cat([r[n] for r in per_rank], dim=dims[n])
+            for n in per_rank[0]}
+
+
+def cut_rank_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    params: Model, tp: int) -> List[Dict[str, torch.Tensor]]:
+    """The inverse of ``gather_rank_leaves``: the global tp-packed leaves
+    -> one dict a rank, each sharded leaf's contiguous 1/tp block along its
+    ``param_specs`` dim (a view), each replicated leaf whole."""
+    dims = _leaf_dims(cfg, params)
+    return [{n: t if dims[n] is None else t.chunk(tp, dims[n])[r]
+             for n, t in named.items()} for r in range(tp)]
+
+
+# ---------------------------------------------------------------------------
+# The reference's tree
+# ---------------------------------------------------------------------------
+def _unstack(tree, rep: int):
+    """Layer ``rep`` of a stacked (``[reps, ...]``) nested subtree."""
+    if isinstance(tree, dict):
+        return {n: _unstack(a, rep) for n, a in tree.items()}
+    return tree[rep]
+
+
+def layer_trees(tree: Dict[str, Any], cfg: ModelConfig) -> List[Dict]:
+    """The reference's per-layer subtrees (``lead``, then ``periods``
+    unstacked) in expanded-pattern order."""
+    lead = cfg.leading_dense_layers
+    period = len(cfg.pattern)
+    out = list(tree.get("lead", []))[:lead]
+    for rep in range(n_periods(cfg)):
+        for pos in range(period):
+            out.append(_unstack(tree["periods"][pos], rep))
     return out
+
+
+def _flat_names(tree: Dict, prefix: str) -> Dict[str, Any]:
+    out = {}
+    for n, a in tree.items():
+        if isinstance(a, dict):
+            out.update(_flat_names(a, f"{prefix}{n}."))
+        else:
+            out[prefix + n] = a
+    return out
+
+
+def named_leaves(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's tree -> leaves keyed as ``named_parameters()``
+    ("embed", "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]"); a
+    period's layers are views of its stacked leaves.  ``mtp`` is not
+    carried (``Model`` does not build it)."""
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    for i, layer in enumerate(layer_trees(tree, cfg)):
+        for part in ("mixer", "ffn"):
+            out.update(_flat_names(layer[part], f"layers.{i}.{part}."))
+    return out
+
+
+def reference_tree(named: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> Dict[str, Any]:
+    """Leaves keyed as ``named_parameters()`` (weights, grads or moments)
+    -> the reference's tree: ``lead`` layers as a list, the periods'
+    leaves stacked ``[reps, ...]`` per pattern position; each leaf keeps
+    its dtype and device."""
+    layers: Dict[int, Dict[str, Any]] = {}
+    for key, t in named.items():
+        parts = key.split(".")
+        if parts[0] != "layers":
+            continue
+        node = layers.setdefault(int(parts[1]), {"mixer": {}, "ffn": {}})
+        node = node[parts[2]]
+        for q in parts[3:-1]:
+            node = node.setdefault(q, {})
+        node[parts[-1]] = t
+    lead, period = cfg.leading_dense_layers, len(cfg.pattern)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {n: stack([t[n] for t in trees]) for n in trees[0]}
+        return torch.stack(trees)
+
+    return {"embed": named["embed"], "final_norm": named["final_norm"],
+            "lead": [layers[i] for i in range(lead)],
+            "periods": [stack([layers[lead + rep * period + pos]
+                               for rep in range(n_periods(cfg))])
+                        for pos in range(period)]}
 
 
 def _blocks(w: torch.Tensor, tp: int, widths: List[int]) -> List:

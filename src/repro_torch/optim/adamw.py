@@ -9,9 +9,10 @@ rank's leaves, keyed by name (``Model.named_parameters()``):
   phase 2 — global grad-norm clip: each leaf's squared sum, weighted by
     1/tp for a model-replicated leaf (every rank holds the same grad), is
     summed over the rank group, so every element counts once.
-  phase 3 — AdamW in fp32 (moments in ``moment_dtype``), the new value
-    cast back to the parameter's dtype and written in place (the
-    reference donates the buffers).
+  phase 3 — AdamW in fp32 (moments in ``moment_dtype``), the new values
+    cast back to the parameter's and the moments' dtypes and written in
+    place (the reference donates the buffers): the step never holds two
+    copies of the moments.
 
 Not ported (ROADMAP queue 1 item 10): the ZeRO-1 reduce-scatter over a
 data axis (dp>1), the pod all-reduce and its int8 compression.  A dp>1
@@ -71,8 +72,8 @@ def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt: Dict,
                  cfg: AdamWConfig, lr, *, replicated: Dict[str, bool],
                  group=None) -> Tuple[Dict, Dict]:
-    """One AdamW step on ``params`` (updated in place) with ``grads``;
-    returns (params, new optimizer state).  ``replicated[name]`` is True
+    """One AdamW step on ``params`` and the moments (both updated in
+    place) with ``grads``; returns (params, new optimizer state).  ``replicated[name]`` is True
     for a model-replicated leaf (``model.param_specs`` dim None)."""
     gnorm = grad_norm(grads, replicated, group)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
@@ -91,5 +92,7 @@ def adamw_update(params: Dict[str, torch.Tensor],
         step = (mu32 / c1) / (torch.sqrt(nu32 / c2) + cfg.eps)
         p32 = p.float()
         p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
-        mu_out[n], nu_out[n] = mu32.to(mu.dtype), nu32.to(nu.dtype)
+        mu.copy_(mu32)
+        nu.copy_(nu32)
+        mu_out[n], nu_out[n] = mu, nu
     return params, {"mu": mu_out, "nu": nu_out, "count": count}

@@ -5,9 +5,10 @@ as in the reference.  At tp>1 the context holds the ``dist.RankGroup`` of
 the TP ranks (the reference's mesh axis) and the seams' transport
 (``mode``); model code then runs inside
 ``group.spmd``, one call per rank.  At tp>1 the residual stream is either
-sequence-sharded (``seq_sharded``: prefill and training, the seams'
-backward included) or replicated (decode, the chunked prefill, and the
-prefill under ``ctx.with_layout(False)``; forward only).
+sequence-sharded (``seq_sharded``: prefill and, by default, training)
+or replicated (decode, the chunked prefill, the prefill under
+``ctx.with_layout(False)``, and training with ``scatter_axis="hidden"``);
+the seams' backward runs in both.
 ep>1 raises until the MoE exchange lands.  At ep=1 the expert-parallel
 group is empty, so the ``moe_a2a`` seam is the local expert FFN.
 """
@@ -47,7 +48,8 @@ class TPContext:
                   attention -> MLA-decode kernel)
     seq_sharded : residual-stream layout (sequence-sharded by default;
                   False is the replicated layout, which the serving decode
-                  and chunked prefill always run)
+                  and chunked prefill always run, and training runs with
+                  ``ParallelConfig.scatter_axis="hidden"``)
     group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
     mode        : the seams' transport (``overlap.VALID_MODES``)
     """
@@ -125,13 +127,28 @@ def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(group.exchange(x, "rank_gather"), dim=-1)
 
 
+SCATTER_AXES = ("auto", "seq", "hidden")
+
+
+def residual_layout(par) -> str:
+    """"seq" or "hidden": ``par.scatter_axis`` with "auto" resolved as the
+    reference's ``plan_set_from_parallel`` does without a plan profile."""
+    axis = getattr(par, "scatter_axis", "auto")
+    if axis not in SCATTER_AXES:
+        raise ValueError(f"invalid scatter_axis {axis!r}; one of "
+                         f"{SCATTER_AXES}")
+    return "hidden" if axis == "hidden" else "seq"
+
+
 def make_ctx(par, group=None) -> TPContext:
     """The context a ``ParallelConfig`` implies (the reference's
     ``trainer.make_ctx`` at dp=1): ``use_kernels`` from ``kernel_decode``,
-    the transport from ``overlap_mode``."""
+    the transport from ``overlap_mode``, the residual layout from
+    ``scatter_axis``."""
     if par.dp != 1:
         raise NotImplementedError(DP_NOT_PORTED)
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
+                     seq_sharded=residual_layout(par) == "seq",
                      group=group, mode=par.overlap_mode)
 
 

@@ -10,19 +10,28 @@ on a ``core.overlap.SeamTape`` and drives the backward from the rank's
 own thread (the autograd engine runs a card's CUDA nodes on one device
 thread, where the ranks' exchanges cannot meet).
 
-Left out: the checkpointer (``checkpoint_dir`` raises; ROADMAP queue 1
-item 5), and the fault tolerance around the step — retry and reload, the
-straggler watchdog, elastic restart (queue 1 item 10).
+Around the step, as in the reference: checkpoints every
+``checkpoint_every`` steps (``checkpoint.checkpointer``, asynchronous, in
+the reference's format: the global tp-packed tree, so a checkpoint
+crosses between the port and the reference at the same tp); resume from
+the latest one with the data stream reseeked (``batch_at`` is a function
+of the step); a failed step (``fault_hook(step)`` may raise to simulate
+one) reloads the last checkpoint, or re-inits, up to ``max_retries``
+times; a step slower than ``straggler_factor`` x the step-time EWMA is
+counted and logged.  Left out: elastic restart, which re-meshes over the
+data axis (dp>1, ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import overlap
 from repro_torch.data.pipeline import DataConfig, batch_at
@@ -36,9 +45,6 @@ from repro_torch.parallel.sharding import TPContext
 
 log = logging.getLogger("repro_torch.trainer")
 
-CKPT_NOT_PORTED = ("checkpointing (TrainConfig.checkpoint_dir) is not "
-                   "ported (ROADMAP queue 1 item 5)")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -47,7 +53,10 @@ class TrainConfig:
     base_lr: float = 3e-4
     schedule: str = "cosine"
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 50
     log_every: int = 10
+    straggler_factor: float = 3.0      # step slower than EWMA*factor -> flag
+    max_retries: int = 2
     seed: int = 0
 
 
@@ -138,25 +147,35 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig,
 
 class Trainer:
     """Runs ``total_steps`` train steps on ``batch_at``'s stream.  The
-    state is a list of one ``(Model, optimizer state)`` per rank."""
+    state is a list of one ``(Model, optimizer state)`` per rank; at tp>1
+    the trainer owns the ``RankGroup``.  ``failures`` and
+    ``straggler_events`` count what ``train`` survived and flagged."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  train_cfg: TrainConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.bfloat16):
-        if train_cfg.checkpoint_dir is not None:
-            raise NotImplementedError(CKPT_NOT_PORTED)
         self.cfg, self.par, self.tc = cfg, par, train_cfg
         self.oc = opt_cfg or adamw.AdamWConfig(lr=train_cfg.base_lr)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.step = 0
-        self.group = RankGroup(par.tp, self.device) if par.tp > 1 else None
-        self.step_fn = make_train_step(cfg, par, self.oc, train_cfg,
-                                       self.group)
+        self.failures = 0
+        self.straggler_events = 0
+        self._ewma: Optional[float] = None
+        self._make_group()
+        self.ckpt = (Checkpointer(train_cfg.checkpoint_dir)
+                     if train_cfg.checkpoint_dir else None)
         self.data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
                                    global_batch=8, seed=train_cfg.seed)
+
+    def _make_group(self) -> None:
+        """A fresh rank group (tp>1) and the step that runs on it."""
+        tp = self.par.tp
+        self.group = RankGroup(tp, self.device) if tp > 1 else None
+        self.step_fn = make_train_step(self.cfg, self.par, self.oc, self.tc,
+                                       self.group)
 
     def init_state(self) -> Tuple[List[M.Model], List[Dict]]:
         """Seeded weights (``init_model`` at this tp, cut per rank) and
@@ -178,6 +197,74 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch_at(self.data_cfg, step).items()}
 
+    # ------------------------------------------------------------ checkpoint
+    def _global(self, per_rank: List[Dict[str, torch.Tensor]],
+                params: List[M.Model]) -> Dict[str, Any]:
+        named = (per_rank[0] if len(per_rank) == 1 else
+                 M.gather_rank_leaves(per_rank, self.cfg, params[0]))
+        return M.reference_tree(named, self.cfg)
+
+    def checkpoint_tree(self, params: List[M.Model],
+                        opt: List[Dict]) -> Dict[str, Any]:
+        """The reference's checkpoint tree of the ranks' state:
+        ``{"params": the global tp-packed tree (periods stacked), "opt":
+        {"mu", "nu": the same, "count": int32 scalar}}``, each leaf in its
+        own dtype (at tp>1 the ranks' leaves joined by
+        ``gather_rank_leaves``)."""
+        return {"params": self._global(
+                    [dict(p.named_parameters()) for p in params], params),
+                "opt": {"mu": self._global([o["mu"] for o in opt], params),
+                        "nu": self._global([o["nu"] for o in opt], params),
+                        "count": np.asarray(opt[0]["count"], np.int32)}}
+
+    def _tree_like(self, params: List[M.Model]) -> Dict[str, Any]:
+        """``checkpoint_tree``'s shapes and dtypes, on the meta device."""
+        moment = getattr(torch, self.oc.moment_dtype)
+
+        def meta(p: M.Model, dtype=None):
+            return {n: torch.empty(t.shape, dtype=dtype or t.dtype,
+                                   device="meta")
+                    for n, t in p.named_parameters()}
+
+        mom = self._global([meta(p, moment) for p in params], params)
+        return {"params": self._global([meta(p) for p in params], params),
+                "opt": {"mu": mom, "nu": mom,
+                        "count": np.zeros((), np.int32)}}
+
+    def save(self, params: List[M.Model], opt: List[Dict]) -> None:
+        """Checkpoint the state after ``self.step`` steps (asynchronous)."""
+        self.ckpt.save(self.step, self.checkpoint_tree(params, opt),
+                       extra={"step": self.step})
+
+    @torch.no_grad()
+    def restore(self, params: List[M.Model],
+                step: Optional[int] = None) -> List[Dict]:
+        """Load a checkpoint (the latest by default) into ``params`` in
+        place, cut per rank with ``shard_params``'s specs; sets
+        ``self.step`` and returns the ranks' optimizer states.  The
+        checkpoint's shapes must be this tp's (padding included)."""
+        tree, self.step, _ = self.ckpt.restore(self._tree_like(params), step)
+        tp = self.par.tp
+
+        def ranks(sub):
+            return M.cut_rank_leaves(M.named_leaves(sub, self.cfg), self.cfg,
+                                     params[0], tp)
+
+        for p, leaves in zip(params, ranks(tree["params"])):
+            for n, t in p.named_parameters():
+                t.copy_(leaves[n])
+        moment = getattr(torch, self.oc.moment_dtype)
+
+        def to_dev(leaves):
+            return {n: t.to(self.device, moment, copy=True)
+                    for n, t in leaves.items()}
+
+        count = int(tree["opt"]["count"])
+        return [{"mu": to_dev(mu), "nu": to_dev(nu), "count": count}
+                for mu, nu in zip(ranks(tree["opt"]["mu"]),
+                                  ranks(tree["opt"]["nu"]))]
+
+    # ------------------------------------------------------------------ loop
     def run_step(self, params: List[M.Model], opt: List[Dict],
                  batch: Dict[str, torch.Tensor]
                  ) -> Tuple[List[Dict], Dict[str, torch.Tensor]]:
@@ -193,22 +280,71 @@ class Trainer:
         return [o for _, o, _ in outs], outs[0][2]
 
     def train(self, params: Optional[List[M.Model]] = None,
-              opt: Optional[List[Dict]] = None) -> Tuple[List[M.Model],
-                                                         List[Dict],
-                                                         List[Dict]]:
-        """Run to ``total_steps``; returns (params, opt, metrics history:
+              opt: Optional[List[Dict]] = None, resume: bool = True,
+              fault_hook: Optional[Callable[[int], None]] = None
+              ) -> Tuple[List[M.Model], List[Dict], List[Dict]]:
+        """Run to ``total_steps``, resuming from the latest checkpoint when
+        there is one and ``resume``.  ``fault_hook(step)`` may raise to
+        simulate a failure; recovery reloads the last checkpoint and
+        reseeks the data stream.  Returns (params, opt, metrics history:
         loss, lr, grad_count and the step's host seconds, a dict a
         step)."""
         if params is None:
             params, opt = self.init_state()
+        if self.ckpt and resume and self.ckpt.latest_step() is not None:
+            opt = self.restore(params)
+            log.info("resumed at step %d", self.step)
         hist = []
         while self.step < self.tc.total_steps:
             t0 = time.perf_counter()
-            opt, metrics = self.run_step(params, opt, self.batch(self.step))
-            self.step += 1
-            hist.append({k: float(v) for k, v in metrics.items()})
+            batch = self.batch(self.step)
+            try:
+                if fault_hook is not None:
+                    fault_hook(self.step)
+                opt, metrics = self.run_step(params, opt, batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+            except Exception as e:  # noqa: BLE001 — any failure recovers
+                self.failures += 1
+                if self.failures > self.tc.max_retries:
+                    raise
+                log.warning("step %d failed (%s); recovering", self.step, e)
+                params, opt = self._recover(params)
+                continue
+
             # host seconds of the step, to its loss on the host
-            hist[-1]["seconds"] = time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if self._ewma is None:
+                self._ewma = dt
+            elif dt > self.tc.straggler_factor * self._ewma:
+                self.straggler_events += 1
+                log.warning("straggler: step %d took %.3fs (ewma %.3fs)",
+                            self.step, dt, self._ewma)
+            self._ewma = 0.9 * self._ewma + 0.1 * dt
+
+            self.step += 1
+            hist.append(dict(metrics, seconds=dt))
+            if self.ckpt and self.step % self.tc.checkpoint_every == 0:
+                self.save(params, opt)
             if self.step % self.tc.log_every == 0:
                 log.info("step %d loss %.4f", self.step, hist[-1]["loss"])
+        if self.ckpt:
+            self.ckpt.wait()
         return params, opt, hist
+
+    def _recover(self, params: List[M.Model]
+                 ) -> Tuple[List[M.Model], List[Dict]]:
+        """After a failed step: at tp>1 a new rank group (a rank that
+        failed inside the step leaves the others' exchanges, and the fused
+        kernels' flag epochs, mid-way); then the last checkpoint, loaded
+        over every weight and moment, or a fresh init at step 0.  A save
+        still being written is waited for: until its rename it is not the
+        last checkpoint."""
+        if self.group is not None:
+            self.group.free_symmetric()
+            self._make_group()
+        if self.ckpt:
+            self.ckpt.wait()
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            return params, self.restore(params)
+        self.step = 0
+        return self.init_state()

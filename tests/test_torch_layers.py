@@ -106,7 +106,10 @@ def test_multi_weight_identity_returns_tuple():
 
 def test_tp_gt_1_raises_naming_roadmap():
     """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 is not
-    ported, nor the backward of the replicated (decode) layout at tp>1."""
+    ported.  The replicated (decode) layout's ``decode_ar`` seam under grad
+    needs the rank's SeamTape, like every seam; on one its backward runs
+    (the cotangent's psum, then the local GEMMs)."""
+    from repro_torch.core.overlap import SeamTape
     from repro_torch.dist import RankGroup, RankGroupError
     for tp in (2, 4):
         with pytest.raises(ValueError, match="ROADMAP"):
@@ -125,8 +128,20 @@ def test_tp_gt_1_raises_naming_roadmap():
 
     with pytest.raises(RankGroupError) as err:
         group.spmd(under_grad, [()] * 4)
-    assert isinstance(err.value.__cause__, NotImplementedError)
-    assert "ROADMAP" in str(err.value.__cause__)
+    assert "SeamTape" in str(err.value.__cause__)
+
+    def on_tape(r):
+        w = torch.ones((8, 4), requires_grad=True)
+        with SeamTape() as tape:
+            y = op(torch.full((1, 1, 8), r + 1.0), w)
+        tape.backward(y.sum())
+        return y.detach(), w.grad
+
+    for r, (y, dw) in enumerate(group.spmd(on_tape, [(r,) for r in range(4)])):
+        # y = sum over ranks of 8 (r + 1) = 80; each rank's cotangent of
+        # ones sums to 4 over the ranks, so dW = x^T 4 = 4 (r + 1)
+        assert torch.equal(y, torch.full((1, 1, 4), 80.0))
+        assert torch.equal(dw, torch.full((8, 4), 4.0 * (r + 1)))
 
 
 def test_embed_lookup():

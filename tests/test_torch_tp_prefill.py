@@ -32,10 +32,11 @@ import torch
 from repro_torch import convert
 from repro_torch.configs.base import ParallelConfig, get_smoke_config
 from repro_torch.core.overlap import SeamTape
-from repro_torch.dist import RankGroup, RankGroupError
+from repro_torch.dist import RankGroup
 from repro_torch.models import model as TM
 from repro_torch.models import serve as TS
 from repro_torch.parallel.sharding import TPContext, make_ctx
+from repro_torch.runtime.trainer import complete_grads
 
 ARCHS = ["minicpm_2b", "codeqwen15_7b"]
 MODES = ["xla", "decomposed", "flux"]
@@ -263,8 +264,8 @@ def _set_bias(p1, full, bias, cfg):
 
 
 def test_tp_paths_that_raise_name_roadmap():
-    """What still raises at tp>1: MLA layers (init and decode), and the
-    replicated layout under grad (its seams have no backward yet)."""
+    """What still raises at tp>1: MLA layers (init and decode).  The
+    replicated layout trains: its loss and grads equal the seq layout's."""
     cfg = _cfg("minicpm_2b")
     group = RankGroup(TP, "cpu")
     ctx = TPContext(tp=TP, group=group)
@@ -280,15 +281,23 @@ def test_tp_paths_that_raise_name_roadmap():
     ranks = [TM.shard_params(full, r, TP, cfg) for r in range(TP)]
     hidden = make_ctx(ParallelConfig(tp=TP), group).with_layout(False)
     assert not hidden.seq_sharded
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "labels": torch.zeros((1, 8), dtype=torch.long)}
+    batch = {"tokens": torch.arange(8).reshape(1, 8),
+             "labels": torch.arange(1, 9).reshape(1, 8)}
 
-    def loss(p):
-        with SeamTape():
-            return TM.forward_loss(p, batch, hidden, cfg,
-                                   ParallelConfig(tp=TP))
+    def loss(p, c):
+        with SeamTape() as tape:
+            out = TM.forward_loss(p, batch, c, cfg, ParallelConfig(tp=TP))
+        tape.backward(out)
+        grads = {n: t.grad for n, t in p.named_parameters()}
+        for t in p.parameters():
+            t.grad = None
+        # a replicated leaf's grad is a per-rank partial: sum the ranks'
+        return out.detach(), complete_grads(
+            grads, TM.replicated_leaves(cfg, p), group)
 
-    with pytest.raises(RankGroupError) as err:
-        group.spmd(loss, [(p,) for p in ranks])
-    assert isinstance(err.value.__cause__, NotImplementedError)
-    assert "ROADMAP queue 1 item 2.2" in str(err.value.__cause__)
+    got = group.spmd(lambda p: loss(p, hidden), [(p,) for p in ranks])
+    want = group.spmd(lambda p: loss(p, ctx), [(p,) for p in ranks])
+    for (lh, gh), (ls, gs) in zip(got, want):
+        assert torch.allclose(lh, ls, rtol=1e-5, atol=0)
+        for n in gs:
+            assert torch.allclose(gh[n], gs[n], rtol=1e-4, atol=1e-6), n

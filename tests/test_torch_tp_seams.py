@@ -293,26 +293,35 @@ def test_gather_and_scatter_seq_match_reference(ref, mode, reverse):
 
 def test_fused_op_rejects_what_is_not_ported():
     g = dist.RankGroup(N, "cpu")
-    for kw, what in ((dict(kind="ag", mode="decomposed_bidir"), "bidir"),
-                     (dict(kind="ag", wire_dtype="int8"), "wire_dtype")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tov.FusedOp(axis=g, **kw)
-    # the replicated layout's ops run forward at tp>1; under grad (their
-    # backward) they raise, on a SeamTape too
-    for kw, w_shape in ((dict(kind="ag", scatter_axis="hidden"), (D, F)),
-                        (dict(kind="rs", scatter_axis="hidden"), (F, D)),
-                        (dict(kind="ar"), (F, D))):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tov.FusedOp(axis=g, kind="ag", wire_dtype="int8")
+    # decomposed_bidir runs at tp>1: its forward equals decomposed's
+    x = torch.arange(B * S * D, dtype=torch.float32).reshape(B, S, D) / 100
+    w = torch.ones((D, F // N))
+    outs = {m: g.spmd(tov.FusedOp("ag", axis=g, mode=m),
+                      [(x[:, r * S // N:(r + 1) * S // N], w)
+                       for r in range(N)])
+            for m in ("decomposed", "decomposed_bidir")}
+    for a, b in zip(outs["decomposed"], outs["decomposed_bidir"]):
+        assert torch.equal(a, b)
+    # the replicated layout's ops run under grad on a SeamTape: w's grad
+    # is x^T (the psum of the ranks' cotangents of ones, for rs and ar)
+    for kw, w_shape, sums in ((dict(kind="ag", scatter_axis="hidden"),
+                               (D, F), 1.0),
+                              (dict(kind="rs", scatter_axis="hidden"),
+                               (F, D), float(N)),
+                              (dict(kind="ar"), (F, D), float(N))):
         op = tov.FusedOp(axis=g, **kw)
 
         def body(r):
-            x = torch.ones((B, S, w_shape[0]))
-            with tov.SeamTape():
-                op(x, torch.ones(w_shape, requires_grad=True))
+            w_ = torch.ones(w_shape, requires_grad=True)
+            with tov.SeamTape() as tape:
+                y = op(torch.ones((B, S, w_shape[0])), w_)
+            tape.backward(y.sum())
+            return w_.grad
 
-        with pytest.raises(dist.RankGroupError) as err:
-            g.spmd(body, [(r,) for r in range(N)])
-        assert isinstance(err.value.__cause__, NotImplementedError), kw
-        assert "ROADMAP queue 1 item 2.2" in str(err.value.__cause__), kw
+        for dw in g.spmd(body, [(r,) for r in range(N)]):
+            assert torch.equal(dw, torch.full(w_shape, B * S * sums)), kw
     # the tp>1 backward runs on a SeamTape; flux's grads equal xla's
     def grad_w(mode):
         op, w = tov.FusedOp("ag", axis=g, mode=mode), torch.ones((D, F // N))

@@ -355,7 +355,7 @@ def _batch(cfg, b=2, s=16):
     return {k: torch.from_numpy(v) for k, v in got.items()}
 
 
-def test_training_paths_not_ported_raise():
+def test_training_paths_not_ported_raise(tmp_path):
     cfg = _cfg()
     par = ParallelConfig()
     params = TM.init_model(cfg, par, dtype=torch.float32, device="cpu",
@@ -364,23 +364,25 @@ def test_training_paths_not_ported_raise():
     ctx = make_ctx(ParallelConfig(kernel_decode=True))
     with pytest.raises(NotImplementedError, match="item 5"):
         TM.forward_loss(params, _batch(cfg), ctx, cfg, par)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TM.forward_loss(params, _batch(cfg), make_ctx(par), cfg,
-                        ParallelConfig(remat="full"))
+    # remat is ported: the same loss
+    plain = TM.forward_loss(params, _batch(cfg), make_ctx(par), cfg, par)
+    remat = TM.forward_loss(params, _batch(cfg), make_ctx(par), cfg,
+                            ParallelConfig(remat="full"))
+    assert torch.equal(remat, plain)
     with pytest.raises(NotImplementedError, match="item 8"):
         TM.check_trainable(get_smoke_config("deepseek_v3_671b"), par)
     with pytest.raises(NotImplementedError, match="item 10"):
         TT.make_ctx(cfg, ParallelConfig(dp=2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TT.Trainer(cfg, par, TT.TrainConfig(checkpoint_dir="ckpt"),
-                   device="cpu")
+    # checkpoints are ported: the trainer opens its directory
+    tr = TT.Trainer(cfg, par, TT.TrainConfig(checkpoint_dir=str(tmp_path)),
+                    device="cpu")
+    assert tr.ckpt is not None and tr.ckpt.latest_step() is None
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dp", "2"], "item 10"), (["--ckpt-dir", "x"], "item 5"),
+    (["--dp", "2"], "item 10"),
     (["--zero3"], "item 10"), (["--grad-compress"], "item 10"),
-    (["--wire-dtype", "int8"], "item 9"), (["--scatter-axis", "hidden"],
-                                           "item 2"),
+    (["--wire-dtype", "int8"], "item 9"),
     (["--autotune"], "item 6"), (["--pods", "2"], "item 10"),
     (["--ep", "2"], "item 8"), (["--plan-profile", "p.json"], "item 3"),
     (["--max-logit-rmse", "0.1"], "item 9")])
@@ -388,6 +390,25 @@ def test_train_cli_flags_not_ported_raise(flag, item):
     from repro_torch.launch import train as LT
     with pytest.raises(NotImplementedError, match=item):
         LT.parse_args(["--arch", "minicpm_2b", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "x"],
+                                  ["--scatter-axis", "hidden"]],
+                         ids=["ckpt-dir", "scatter-axis"])
+def test_train_cli_flags_once_not_ported_run(flag, tmp_path):
+    """The two flags that raised until their modules landed: each now
+    trains (the smoke config at tp=4 on the CPU, 2 steps)."""
+    from repro_torch.launch import train as LT
+    if flag[0] == "--ckpt-dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    tr, hist = LT.main(["--arch", "minicpm_2b", "--smoke", "--steps", "2",
+                        "--tp", "4", "--mode", "flux", "--batch", "2",
+                        "--seq", "32", "--device", "cpu", *flag])
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    if flag[0] == "--scatter-axis":
+        assert tr.par.scatter_axis == "hidden"
+    else:
+        assert tr.ckpt is not None
 
 
 def test_train_cli_runs_on_cpu(capsys):

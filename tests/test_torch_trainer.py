@@ -2,12 +2,14 @@
 
 The reference's ``runtime.trainer.Trainer`` runs once for the file, in
 one subprocess with 4 forced host devices: minicpm_2b (wsd schedule) at
-tp=1 in xla and at tp=4 in decomposed, and codeqwen15_7b (cosine; QKV
-bias) at tp=4 in xla, each from fp32 weights drawn by its ``init_model``
+tp=1 in xla, at tp=4 in decomposed, and at tp=4 in xla in the replicated
+("hidden") layout, and codeqwen15_7b (cosine; QKV bias) at tp=4 in xla,
+each from fp32 weights drawn by its ``init_model``
 with fp32 moments, 3 steps of ``batch_at``'s stream (batch 4 x 64),
 warmup 1, base lr 1e-3.  The same weights cross to the port
 (``convert``), whose ``Trainer`` runs the same 3 steps on the CPU (at
-tp=4 as the 4 ranks of a ``dist.RankGroup``), and also minicpm_2b at
+tp=4 as the 4 ranks of a ``dist.RankGroup``; the hidden layout in xla and
+in flux against the reference's hidden run), and also minicpm_2b at
 tp=4 in flux, held against the reference's decomposed run: the
 reference's interpreted flux kernels do not run on its trainer's 2-D
 ("data", "model") mesh here (``dma_start`` takes one named axis in
@@ -32,12 +34,14 @@ from repro_torch.runtime import trainer as TT
 
 TP = 4
 STEPS, BATCH, SEQ, LR = 3, 4, 64, 1e-3
-# the reference's runs: (arch, tp, mode, schedule)
-RUNS = [("minicpm_2b", 1, "xla", "wsd"),
-        ("minicpm_2b", 4, "decomposed", "wsd"),
-        ("codeqwen15_7b", 4, "xla", "cosine")]
+# the reference's runs: (arch, tp, mode, schedule, scatter_axis)
+RUNS = [("minicpm_2b", 1, "xla", "wsd", "auto"),
+        ("minicpm_2b", 4, "decomposed", "wsd", "auto"),
+        ("codeqwen15_7b", 4, "xla", "cosine", "auto"),
+        ("minicpm_2b", 4, "xla", "wsd", "hidden")]
 # the port's runs: (reference run, the port's mode)
-PORT_RUNS = [(0, "xla"), (1, "decomposed"), (1, "flux"), (2, "xla")]
+PORT_RUNS = [(0, "xla"), (1, "decomposed"), (1, "flux"), (2, "xla"),
+             (3, "xla"), (3, "flux")]
 LOSS_RTOL = 1e-5
 PARAM_RTOL = 1e-5
 UPDATE_RTOL = 1e-3
@@ -63,9 +67,9 @@ def save(tree, prefix):
         out[prefix + key] = np.asarray(leaf, np.float32)
 
 
-for i, (arch, tp, mode, schedule) in enumerate(%(runs)r):
+for i, (arch, tp, mode, schedule, axis) in enumerate(%(runs)r):
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
-    par = ParallelConfig(tp=tp, dp=1, overlap_mode=mode)
+    par = ParallelConfig(tp=tp, dp=1, overlap_mode=mode, scatter_axis=axis)
     mesh = Mesh(np.array(jax.devices()[:tp]).reshape(1, tp),
                 ("data", "model"))
     tc = T.TrainConfig(total_steps=%(steps)d, warmup_steps=1,
@@ -145,12 +149,13 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("i,mode", PORT_RUNS,
                          ids=[f"{RUNS[i][0]}-tp{RUNS[i][1]}-{m}"
+                              + ("-hidden" if RUNS[i][4] == "hidden" else "")
                               for i, m in PORT_RUNS])
 def test_three_steps_match_reference_trainer(ref, i, mode):
-    arch, tp, _, schedule = RUNS[i]
+    arch, tp, _, schedule, axis = RUNS[i]
     cfg = dataclasses.replace(get_smoke_config(arch),
                               compute_dtype="float32")
-    par = ParallelConfig(tp=tp, overlap_mode=mode)
+    par = ParallelConfig(tp=tp, overlap_mode=mode, scatter_axis=axis)
     tc = TT.TrainConfig(total_steps=STEPS, warmup_steps=1, base_lr=LR,
                         schedule=schedule, log_every=100)
     tr = TT.Trainer(cfg, par, tc, device="cpu", dtype=torch.float32)
