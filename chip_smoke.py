@@ -92,10 +92,22 @@ a checkout of this repository.  Phases, one JSON object per line each:
              (no fused kernel), each step's peak memory recorded.  The
              ag_gemm and gemm_rs phases also hold the kernels at the
              backward's operands;
-14. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
+14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
+             at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
+             each Hopper tile and ring direction forced at the lane's seam
+             shapes against their plain versions; the measured sweep
+             (``tuning.autotune_model``, every candidate of every seam
+             timed, the flux rows launching the kernels, each cell's table
+             and winner, the winner against its plain version); step 0 of
+             the train lane's cut from the tuned profile and under a fixed
+             heterogeneous PlanSet against the uniform flux step, with the
+             launches their PlanSets imply; then the Trainer, ``launch.
+             train`` (full depth, 2 steps) and ``launch.serve`` (tp=4, 8
+             layers, first tokens against tp=1's) from the profile;
+15. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
              steps at tp=1 with ``remat="full"``: finite losses, step time
              and peak memory;
-15. train_ckpt — minicpm_2b at full width cut to 2 layers, tp=4 flux: 4
+16. train_ckpt — minicpm_2b at full width cut to 2 layers, tp=4 flux: 4
              steps with a checkpoint every 2 (save and restore seconds,
              bytes on disk), a fresh trainer resuming at step 2 (its
              weights and moments bit-equal to the checkpoint, its losses
@@ -186,6 +198,24 @@ CKPT_STEPS = 4
 # grad; xla and decomposed against flux with the same tolerances
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 5e-2
+# the tune lane: minicpm_2b at full width, tp=4 on the one card, the train
+# lane's 4 x 1024 tokens a seam and 8 decode rows; each candidate of the
+# measured sweep is timed over TUNE_ITERS calls after TUNE_WARMUP (CUDA
+# events around every rank's calls, launch.op_level.time_tp)
+TUNE_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+TUNE_DECODE_BATCH = 8
+TUNE_ITERS, TUNE_WARMUP = 2, 1
+# a seam's winning op against its plain version (fp32 products of the same
+# bf16 inputs, the epilogue in fp32): relative L2 of the bf16 output, whose
+# elements carry the GEMM's bf16 rounding and up to three of the
+# epilogue's (2^-9 each); ring sums add n - 1 bf16 roundings of partials
+TUNE_WINNER_RTOL = 1e-2
+# the tp server lane's requests (minicpm_2b, its first TP_SERVER_LAYERS
+# layers); the tune lane serves them again from the tuned profile
+TP_SERVER_ARGV = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
+                  "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
+                  "--max-new", "16", "--max-seq", "256", "--block-size", "16",
+                  "--prefill-chunk", "32"]
 
 
 class SmokeFailure(RuntimeError):
@@ -1811,10 +1841,7 @@ def phase_tp_server_lane(torch):
     from repro_torch.launch import serve as launch_serve
     from repro_torch.runtime.server import Request, Server
 
-    argv = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
-            "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
-            "--max-new", "16", "--max-seq", "256", "--block-size", "16",
-            "--prefill-chunk", "32"]
+    argv = TP_SERVER_ARGV
     kernels = (AG.ag_gemm, RS.gemm_rs, fa.flash_attention)
     for fn in kernels:
         fn.launches = 0
@@ -1886,6 +1913,7 @@ def phase_tp_server_lane(torch):
           f"{first}/{len(tp1)}")
     del server, srv1
     torch.cuda.empty_cache()
+    return tp1
 
 
 def _rel_l2(a, b):
@@ -1898,6 +1926,71 @@ def _worst_leaf(got, want):
     rel = {n: _rel_l2(got[n], want[n]) for n in want}
     worst = max(rel, key=rel.get)
     return rel[worst], worst
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    for fn in (AG.ag_gemm, RS.gemm_rs, fa.flash_attention, mm.matmul):
+        fn.launches = 0
+    RS.gemm_rs.reduce_launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    return {"ag_gemm": AG.ag_gemm.launches,
+            "gemm_rs": RS.gemm_rs.launches,
+            "gemm_rs_reduce": RS.gemm_rs.reduce_launches,
+            "flash_attention": fa.flash_attention.launches,
+            "matmul": mm.matmul.launches}
+
+
+def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
+    """Step 0's forward on every rank of ``group``, the counts, then its
+    backward and the replicated leaves' sum: (loss, canonical grads / tp,
+    counts after the forward, counts of the backward, {host ms of the
+    forward and of the backward, seams a rank recorded, the step's peak
+    GB}); ``plans`` overrides the ``PlanSet`` ``par`` implies."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+    tp = par.tp
+    ctx = T.make_ctx(cfg, par, group, plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def bwd(p, tape, loss):
+        return T.complete_grads(T.grads_from_tape(p, tape, loss),
+                                M.replicated_leaves(cfg, p), group)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = group.spmd(lambda p: T.forward_on_tape(p, batch, ctx, cfg, par),
+                      [(p,) for p in ranks])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c_fwd = read_counts()
+    seams = len(outs[0][0].entries)
+    zero_counts()
+    grads = group.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
+    torch.cuda.synchronize()
+    host = {"forward_ms": (t1 - t0) * 1e3,
+            "backward_ms": (time.perf_counter() - t1) * 1e3,
+            "seams_a_rank": seams,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    c_bwd = read_counts()
+    losses = [l.item() for _, l in outs]
+    check(max(losses) == min(losses),
+          f"{par.overlap_mode}: ranks' losses {losses}")
+    glob = M.gather_rank_leaves(grads, cfg, ranks[0])
+    can = {n: g / tp for n, g in
+           M.canonical_leaves(glob, cfg, tp, grads=True).items()}
+    return losses[0], can, c_fwd, c_bwd, host
 
 
 def tape_backward_scaling(torch, depths=TAPE_DEPTHS, reps=3):
@@ -1963,10 +2056,6 @@ def phase_train_lane(torch):
     forward and backward, no fused kernel) against flux's."""
     from repro_torch.configs.base import (ParallelConfig, get_config,
                                           train_schedule)
-    from repro_torch.kernels import ag_gemm as AG
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm_rs as RS
-    from repro_torch.kernels import matmul as mm
     from repro_torch.models import model as M
     from repro_torch.runtime import trainer as T
 
@@ -1983,18 +2072,6 @@ def phase_train_lane(torch):
         tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH)
         return tr
-
-    def zero_counts():
-        for fn in (AG.ag_gemm, RS.gemm_rs, fa.flash_attention, mm.matmul):
-            fn.launches = 0
-        RS.gemm_rs.reduce_launches = 0
-
-    def read_counts():
-        return {"ag_gemm": AG.ag_gemm.launches,
-                "gemm_rs": RS.gemm_rs.launches,
-                "gemm_rs_reduce": RS.gemm_rs.reduce_launches,
-                "flash_attention": fa.flash_attention.launches,
-                "matmul": mm.matmul.launches}
 
     def step_ms(hist):
         ms = sorted(h["seconds"] * 1e3 for h in hist)
@@ -2063,43 +2140,10 @@ def phase_train_lane(torch):
     ranks, opts = tr4.init_state()
 
     def rank_grads(mode, **kw):
-        """Step 0's forward on every rank, the counts, then its backward and
-        the replicated leaves' sum: (loss, canonical grads / tp, counts
-        after the forward, counts of the backward, {host ms of the forward
-        and of the backward, seams a rank recorded, the step's peak GB});
-        ``kw`` overrides ``ParallelConfig`` fields (remat, the layout)."""
+        """``tp_step0`` in ``mode``; ``kw`` overrides ``ParallelConfig``
+        fields (remat, the layout)."""
         par = dataclasses.replace(par4, overlap_mode=mode, **kw)
-        ctx = T.make_ctx(cfg, par, group)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-        def bwd(p, tape, loss):
-            return T.complete_grads(T.grads_from_tape(p, tape, loss),
-                                    M.replicated_leaves(cfg, p), group)
-
-        zero_counts()
-        t0 = time.perf_counter()
-        outs = group.spmd(lambda p: T.forward_on_tape(p, batch0, ctx, cfg,
-                                                      par),
-                          [(p,) for p in ranks])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        c_fwd = read_counts()
-        seams = len(outs[0][0].entries)
-        zero_counts()
-        grads = group.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
-        torch.cuda.synchronize()
-        host = {"forward_ms": (t1 - t0) * 1e3,
-                "backward_ms": (time.perf_counter() - t1) * 1e3,
-                "seams_a_rank": seams,
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        c_bwd = read_counts()
-        losses = [l.item() for _, l in outs]
-        check(max(losses) == min(losses), f"{mode}: ranks' losses {losses}")
-        glob = M.gather_rank_leaves(grads, cfg, ranks[0])
-        can = {n: g / tp for n, g in
-               M.canonical_leaves(glob, cfg, tp, grads=True).items()}
-        return losses[0], can, c_fwd, c_bwd, host
+        return tp_step0(torch, cfg, par, group, ranks, batch0)
 
     # the main path, part 1: step 0's forward and backward in flux mode
     loss4, can4, c_fwd, c_bwd, host4 = rank_grads("flux")
@@ -2212,6 +2256,366 @@ def phase_train_lane(torch):
     torch.cuda.empty_cache()
     return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts,
             "backward_remat": res["remat_tp4_flux"]["launches_backward"]}
+
+
+def plan_launches(plans, cfg, tp, mlp_weights):
+    """The fused kernels one train step launches at ``tp``, read off a
+    ``PlanSet``: ({"ag_gemm", "gemm_rs", "gemm_rs_reduce"} of the forward,
+    the same of the backward), every rank's.  A flux seam in the
+    sequence-sharded layout launches, a rank: an ag seam one AG-GEMM
+    forward (one a weight when its gather is not shared) and one GEMM-RS
+    backward (its dX over all weights); an rs seam one GEMM-RS forward and
+    one AG-GEMM backward.  Each layer resolves at its reference layer id
+    (``model.layer_slot``); the replicated layout launches none."""
+    from repro_torch.models import model as M
+    fwd = {"ag_gemm": 0, "gemm_rs": 0}
+    bwd = {"ag_gemm": 0, "gemm_rs": 0}
+    if plans.residual_layout() == "seq":
+        def add(seam, layer, n_weights=1):
+            p = plans.resolve(seam, layer)
+            if p.mode != "flux":
+                return
+            if seam.endswith("_ag"):
+                fwd["ag_gemm"] += 1 if p.shared_gather else n_weights
+                bwd["gemm_rs"] += 1
+            else:
+                fwd["gemm_rs"] += 1
+                bwd["ag_gemm"] += 1
+        for j in range(cfg.num_layers):
+            slot = M.layer_slot(cfg, j)
+            add("attn_ag", slot)
+            add("attn_rs", slot)
+            add("mlp_ag", slot, mlp_weights)
+            add("mlp_rs", slot)
+        add("head_ag", None)
+    out = []
+    for c in (fwd, bwd):
+        c = {k: v * tp for k, v in c.items()}
+        c.update(gemm_rs_reduce=c["gemm_rs"], flash_attention=0, matmul=0)
+        out.append(c)
+    return tuple(out)
+
+
+def _seam_plain(torch, kind, layout, epi, args):
+    """Every rank's plain output of a seam's op from all ranks' inputs
+    (``tuning.autotune.bench_inputs``): fp32 products of the bf16 inputs,
+    the epilogue in fp32."""
+    n = len(args)
+    if kind == "ag":
+        full = (None if layout == "hidden"
+                else torch.cat([a[0] for a in args], dim=-2).float())
+        return [epi.apply([(a[0].float() if full is None else full)
+                           @ w.float() for w in a[1:]]) for a in args]
+    total = sum(a[0].float() @ a[1].float() for a in args)
+    if kind == "rs" and layout == "seq":
+        sh = total.shape[-2] // n
+        return [total[..., r * sh:(r + 1) * sh, :] for r in range(n)]
+    return [total] * n
+
+
+def phase_tune_lane(torch, tp1_tokens):
+    """The seam plans and the tuner on the card (minicpm_2b at full width,
+    tp=4, 4 ranks of a RankGroup on the one card):
+
+    1. the AG-GEMM and GEMM-RS kernels with each Hopper tile forced and
+       each ring direction at the lane's seam shapes (4 x 1024 tokens:
+       mlp_ag's packed w1|w3, mlp_rs, attn_ag@qkv, attn_rs, head_ag)
+       against their plain versions (``fused_check``);
+    2. the measured sweep: ``tuning.autotune_model`` with ``measure=True``
+       on the group (every candidate of every seam cell timed, its flux
+       rows launching the kernels), each cell's table, winner and the
+       layout sweep emitted, the kernels' launches equal to the flux rows'
+       calls, each cell's winning op against its plain version;
+    3. the main path: step 0 of the train lane's 8-layer cut at tp=4 from
+       the sweep's profile (``ParallelConfig.plan_profile``) against the
+       uniform-flux step 0, the train lane's tolerances, its launches
+       those the profile's PlanSet implies (``plan_launches``);
+    4. step 0 under a fixed heterogeneous PlanSet (every knob, a per-layer
+       override) against the same, launches from its PlanSet;
+    5. the entry points from the profile: the Trainer 2 steps at the
+       8-layer cut; ``launch.train`` at full depth, 2 steps, its launches
+       from the PlanSet; ``launch.serve`` at tp=4 over the tp server
+       lane's 8 layers, first tokens equal to its tp=1 run's.
+    The tuned and the uniform step's host ms are printed side by side: a
+    finding, not a gate (both are host-bound on one card)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.core import ect
+    from repro_torch.dist import RankGroup
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import trainer as T
+    from repro_torch.tuning import autotune as AT
+    from repro_torch.tuning import (PlanRegistry, PlanSet, SeamPlan,
+                                    plan_set_from_parallel, seam_of)
+
+    t_phase = time.perf_counter()
+    tp = TP_LANE
+    cfg_full = get_config("minicpm_2b")
+    res = {"phase": "tune_lane", "arch": cfg_full.name, "tp": tp,
+           "tokens": TUNE_TOKENS, "decode_batch": TUNE_DECODE_BATCH,
+           "iters": TUNE_ITERS, "warmup": TUNE_WARMUP,
+           "hardware_priced": dataclasses.asdict(ect.H100_SXM)}
+    group = RankGroup(tp, "cuda", timeout_s=120)
+    bf16 = torch.bfloat16
+
+    # ---- 1. forced tiles --------------------------------------------------
+    t0 = time.perf_counter()
+    shapes = AT.model_seam_shapes(cfg_full, ParallelConfig(tp=tp,
+                                                           fuse_w13=True),
+                                  TUNE_TOKENS, TUNE_DECODE_BATCH)
+    gen = torch.Generator(device="cuda")
+    forced = {}
+    for cell in ("mlp_ag", "mlp_rs", "attn_ag@qkv", "attn_rs", "head_ag"):
+        kind, m, n, k = shapes[cell]
+        gen.manual_seed(700 + len(forced))
+        if kind == "ag":
+            args = _rank_inputs(torch, gen, ((m // tp, k), (k, n // tp)), tp,
+                                bf16)
+            wants = [AG.ag_gemm_ref([a for a, _ in args], b) for _, b in args]
+            max_partial = 0.0
+        else:
+            args = _rank_inputs(torch, gen, ((m, k // tp), (k // tp, n)), tp,
+                                bf16)
+            parts = [(a.float() @ b.float()).to(bf16) for a, b in args]
+            max_partial = max(p.abs().max().item() for p in parts)
+            wants = [RS.reduce_ref(parts, r, None, None, bf16)
+                     for r in range(tp)]
+            del parts
+        kern = AG.ag_gemm if kind == "ag" else RS.gemm_rs
+        for tile in mm.TILES:
+            for rev in (False, True):
+                outs = group.spmd(
+                    lambda a, b: kern(a, b, group=group, reverse=rev,
+                                      tile=tile), args)
+                torch.cuda.synchronize()
+                errs = []
+                for r, (out, want) in enumerate(zip(outs, wants)):
+                    ok, err, atol, rtol = fused_check(
+                        torch, out, want, k, tp if kind == "rs" else 1,
+                        max_partial)
+                    check(ok, f"forced tile {tile} reverse={rev} at {cell} "
+                          f"rank {r}: max_abs_err {err} beyond atol {atol} "
+                          f"+ rtol {rtol} * |C|")
+                    errs.append(err)
+                forced[f"{cell}/{tile[0]}x{tile[1]}"
+                       f"{'/reverse' if rev else ''}"] = max(errs)
+                del outs
+        del args, wants
+    res["forced_tiles"] = {"shapes": {c: shapes[c] for c in
+                                      ("mlp_ag", "mlp_rs", "attn_ag@qkv",
+                                       "attn_rs", "head_ag")},
+                           "max_abs_err": forced,
+                           "seconds": time.perf_counter() - t0}
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+
+    # ---- 2. the measured sweep --------------------------------------------
+    par_u = ParallelConfig(tp=tp, overlap_mode="flux")
+    tdir = tempfile.mkdtemp(prefix="tune_lane_")
+    path = os.path.join(tdir, "minicpm_2b_tp4.json")
+    reg = PlanRegistry.open(path, n_dev=tp, backend="cuda")
+    results = []
+    zero_counts()
+    t0 = time.perf_counter()
+    plans_t = AT.autotune_model(
+        cfg_full, par_u, hw=ect.H100_SXM, group=group,
+        tokens_per_dp=TUNE_TOKENS, decode_batch=TUNE_DECODE_BATCH,
+        measure=True, registry=reg, save_path=path, iters=TUNE_ITERS,
+        warmup=TUNE_WARMUP, results=results)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = read_counts()
+    calls = (TUNE_WARMUP + TUNE_ITERS) * tp
+    want = {"ag_gemm": 0, "gemm_rs": 0, "gemm_rs_reduce": 0,
+            "flash_attention": 0, "matmul": 0}
+    for r in results:
+        check(r.source == "measured", f"{r.seam}: tuned {r.source}")
+        nw = AT.seam_op_shape(cfg_full, par_u, seam_of(r.seam)).get(
+            "n_weights", 1)
+        for row in r.table:
+            check(row["measured_s"] > 0, f"{r.seam}: an untimed row {row}")
+            if row["mode"] != "flux":
+                continue
+            if r.kind == "ag":
+                want["ag_gemm"] += calls * (1 if row["shared_gather"]
+                                            else nw)
+            else:
+                want["gemm_rs"] += calls
+                want["gemm_rs_reduce"] += calls
+    check(sweep_counts == want, f"the sweep launched {sweep_counts}, its "
+          f"flux rows call for {want}")
+    layout = AT.sweep_model_layout(cfg_full, par_u, hw=ect.H100_SXM,
+                                   tokens_per_dp=TUNE_TOKENS)
+    res["sweep"] = {"seconds": sweep_s, "launches": sweep_counts,
+                    "cells": len(results),
+                    "rows": sum(len(r.table) for r in results),
+                    "layout": layout, "profile_seams": sorted(plans_t.seams)}
+    # every cell's table and winner; the winner against its plain version
+    for r in results:
+        kind, seam = r.kind, seam_of(r.seam)
+        shape = AT.seam_op_shape(cfg_full, par_u, seam)
+        nw = shape.get("n_weights", 1) if kind == "ag" else 1
+        p = r.plan
+        cand = AT.Candidate(p.mode, p.comm_chunks, p.reverse, p.blocks,
+                            p.shared_gather, p.fuse_epilogue, p.scatter_axis)
+        op = AT.bench_op(kind, cand, group, nw, shape.get("epilogue", False))
+        args = AT.bench_inputs(kind, r.m, r.n, r.k, group, nw,
+                               p.scatter_axis)
+        outs = group.spmd(lambda *a: op(*a), args)
+        torch.cuda.synchronize()
+        plains = _seam_plain(torch, kind, p.scatter_axis, op.epilogue, args)
+        rel = max(_rel_l2(o, w) for o, w in zip(outs, plains))
+        check(rel <= TUNE_WINNER_RTOL, f"{r.seam}: the winner {p.mode} vs "
+              f"plain: relative L2 {rel} > {TUNE_WINNER_RTOL}")
+        del args, outs, plains
+        emit({"phase": "tune_cell", "seam": r.seam, "kind": kind,
+              "mkn": [r.m, r.n, r.k], "pruned": r.pruned,
+              "rows_fields": ["mode", "comm_chunks", "reverse", "blocks",
+                              "shared_gather", "fuse_epilogue",
+                              "measured_ms", "predicted_ms"],
+              "rows": [[x["mode"], x["comm_chunks"], x["reverse"],
+                        x["blocks"], x["shared_gather"], x["fuse_epilogue"],
+                        x["measured_s"] * 1e3, x["predicted_s"] * 1e3]
+                       for x in r.table],
+              "winner": {"mode": p.mode, "comm_chunks": p.comm_chunks,
+                         "reverse": p.reverse, "blocks": p.blocks,
+                         "shared_gather": p.shared_gather,
+                         "fuse_epilogue": p.fuse_epilogue,
+                         "measured_ms": p.measured_s * 1e3,
+                         "predicted_ms": p.predicted_s * 1e3},
+              "winner_rel_l2_vs_plain": rel})
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+
+    # ---- 3. the tuned step, against the uniform flux step ----------------
+    cfg = dataclasses.replace(cfg_full, num_layers=TRAIN_LAYERS)
+    tc = T.TrainConfig(total_steps=2, warmup_steps=0, base_lr=3e-4,
+                       schedule=train_schedule("minicpm_2b"), log_every=2)
+    tr = T.Trainer(cfg, par_u, tc, device="cuda", dtype=bf16)
+    tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH)
+    ranks, opts = tr.init_state()
+    batch0 = tr.batch(0)
+    mlp_w = AT.seam_op_shape(cfg, par_u, "mlp_ag")["n_weights"]
+    # the uniform flux step twice: the first (the reference values) also
+    # warms the trainer's group, so that the host times below compare
+    # warm steps
+    loss_u, can_u, _, _, host_cold = tp_step0(torch, cfg, par_u, tr.group,
+                                              ranks, batch0)
+    par_t = dataclasses.replace(par_u, plan_profile=path)
+    plans_loaded = plan_set_from_parallel(par_t, "cuda")
+    check(plans_loaded.seams, f"the profile {path} did not load")
+    het = PlanSet(
+        default=SeamPlan(mode="flux"),
+        seams={"mlp_ag": SeamPlan(mode="flux",
+                                  blocks=mm.tile_blocks(mm.SMALL),
+                                  reverse=True, shared_gather=False),
+               "mlp_rs": SeamPlan(mode="flux",
+                                  blocks=mm.tile_blocks(mm.LARGE)),
+               "attn_ag": SeamPlan(mode="decomposed", comm_chunks=16,
+                                   reverse=True),
+               "attn_rs": SeamPlan(mode="decomposed_bidir", comm_chunks=8),
+               "head_ag": SeamPlan(mode="xla")},
+        layers={0: {"attn_ag": SeamPlan(mode="flux")}})
+    for name, par, plans in (("uniform_flux", par_u, None),
+                             ("tuned", par_t, None),
+                             ("heterogeneous", par_u, het)):
+        lm, canm, cf, cb, hm = tp_step0(torch, cfg, par, tr.group, ranks,
+                                        batch0, plans)
+        want_f, want_b = plan_launches(
+            plans or plan_set_from_parallel(par, "cuda"), cfg, tp, mlp_w)
+        check(cf == want_f and cb == want_b, f"{name} step 0 launched "
+              f"{cf} / {cb}, its PlanSet implies {want_f} / {want_b}")
+        rl = abs(lm - loss_u) / abs(loss_u)
+        rg, lf = _worst_leaf(canm, can_u)
+        check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+              f"{name} vs uniform flux step 0: loss relative {rl}, grad of "
+              f"{lf} relative L2 {rg}")
+        res[f"{name}_step0"] = {"step0_loss": lm, "loss_rel_vs_flux": rl,
+                                "grad_rel_l2_vs_flux_max": rg,
+                                "grad_worst_leaf": lf, "step0_host": hm,
+                                "launches_forward": cf,
+                                "launches_backward": cb}
+        del canm
+    del can_u
+    res["host_ms_tuned_vs_uniform"] = {
+        k: res[f"{k}_step0"]["step0_host"]["forward_ms"]
+        + res[f"{k}_step0"]["step0_host"]["backward_ms"]
+        for k in ("uniform_flux", "tuned", "heterogeneous")}
+    res["host_ms_tuned_vs_uniform"]["uniform_flux_cold"] = (
+        host_cold["forward_ms"] + host_cold["backward_ms"])
+    res["tuned_plans"] = {s: p.to_json() for s, p in
+                          plans_loaded.seams.items()}
+
+    # ---- 5. the entry points from the profile -----------------------------
+    tr_t = T.Trainer(cfg, par_t, tc, device="cuda", dtype=bf16)
+    tr_t.data_cfg = tr.data_cfg
+    _, _, hist = tr_t.train(ranks, opts)
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"the Trainer from the profile: losses {losses}")
+    res["trainer_from_profile"] = {"losses": losses}
+    del ranks, opts, tr, tr_t
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    tr_cli, hist = launch_train.main(["--arch", "minicpm_2b", "--tp",
+                                      str(tp), "--mode", "flux",
+                                      "--plan-profile", path, "--steps", "2"])
+    torch.cuda.synchronize()
+    cli_counts = read_counts()
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"launch.train from the profile: losses {losses}")
+    want_f, want_b = plan_launches(
+        plan_set_from_parallel(tr_cli.par, "cuda"), tr_cli.cfg, tp,
+        AT.seam_op_shape(tr_cli.cfg, tr_cli.par, "mlp_ag")["n_weights"])
+    want = {k: 2 * (want_f[k] + want_b[k]) for k in want_f}
+    check(cli_counts == want and tr_cli.failures == 0,
+          f"launch.train's 2 steps launched {cli_counts}, the profile's "
+          f"PlanSet implies {want} (failures {tr_cli.failures})")
+    res["train_cli_from_profile"] = {
+        "layers": tr_cli.cfg.num_layers,
+        "batch": tr_cli.data_cfg.global_batch,
+        "seq": tr_cli.data_cfg.seq_len, "losses": losses,
+        "launches": cli_counts, "seconds": time.perf_counter() - t0}
+    tr_cli.group.free_symmetric()
+    del tr_cli, hist
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    srv, done = launch_serve.main(TP_SERVER_ARGV + [
+        "--tp", str(tp), "--mode", "flux", "--plan-profile", path])
+    check(srv.ctx.plans.seams, "launch.serve did not load the profile")
+    got = {r.rid: r.output for r in done}
+    first = sum(int(got[i][0] == tp1_tokens[i][0]) for i in tp1_tokens)
+    check(first == len(tp1_tokens), f"launch.serve from the profile: first "
+          f"tokens vs tp=1 {first}/{len(tp1_tokens)}")
+    res["serve_cli_from_profile"] = {
+        "layers": srv.cfg.num_layers, "requests": len(done),
+        "first_tokens_equal_tp1": f"{first}/{len(tp1_tokens)}",
+        "seconds": time.perf_counter() - t0}
+    del srv, done
+    torch.cuda.empty_cache()
+    shutil.rmtree(tdir)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return {"sweep": sweep_counts,
+            "tuned_step": {"forward": res["tuned_step0"]["launches_forward"],
+                           "backward":
+                               res["tuned_step0"]["launches_backward"]},
+            "heterogeneous_step": {
+                "forward": res["heterogeneous_step0"]["launches_forward"],
+                "backward": res["heterogeneous_step0"]["launches_backward"]}}
 
 
 def phase_train_remat(torch):
@@ -2404,8 +2808,9 @@ def main():
     tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
     timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
     del tp1_logits, tp1_decode
-    timed("tp_server_lane", phase_tp_server_lane, torch)
+    tp1_tokens = timed("tp_server_lane", phase_tp_server_lane, torch)
     train_counts = timed("train_lane", phase_train_lane, torch)
+    tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     timed("train_remat", phase_train_remat, torch)
     timed("train_ckpt", phase_train_ckpt, torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -2448,6 +2853,14 @@ def main():
              "backward": train_counts["backward"]["ag_gemm"],
              "backward_remat": train_counts["backward_remat"]["ag_gemm"],
              "trainer_steps": train_counts["trainer_steps"]["ag_gemm"]},
+         "tune_launches": {
+             "sweep": tune_counts["sweep"]["ag_gemm"],
+             "tuned_step": {
+                 d: tune_counts["tuned_step"][d]["ag_gemm"]
+                 for d in ("forward", "backward")},
+             "heterogeneous_step": {
+                 d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
+                 for d in ("forward", "backward")}},
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
          "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
@@ -2461,6 +2874,14 @@ def main():
              "backward": train_counts["backward"]["gemm_rs"],
              "backward_remat": train_counts["backward_remat"]["gemm_rs"],
              "trainer_steps": train_counts["trainer_steps"]["gemm_rs"]},
+         "tune_launches": {
+             "sweep": tune_counts["sweep"]["gemm_rs"],
+             "tuned_step": {
+                 d: tune_counts["tuned_step"][d]["gemm_rs"]
+                 for d in ("forward", "backward")},
+             "heterogeneous_step": {
+                 d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
+                 for d in ("forward", "backward")}},
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
          "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],

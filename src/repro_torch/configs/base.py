@@ -78,18 +78,23 @@ class ModelConfig:
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
     reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1 and
-    dp>1 raise; ZeRO, pipelines, tuned profiles and wire precision come
-    with their slices).  ``remat`` ("none" | "selective" | "full")
+    dp>1 raise; ZeRO, pipelines and wire precision come with their
+    slices).  ``remat`` ("none" | "selective" | "full")
     recomputes each pattern block's activations in the backward (both
     values checkpoint every block, as the reference's do).
     ``kernel_decode`` turns on the hand-written kernels
     (``TPContext.use_kernels``): the flash-attention kernel of the GQA
     prefill and the MLA-decode kernel of every MLA decode step.
     ``overlap_mode`` is the TP seams' transport (``core.overlap``).
-    ``scatter_axis`` is the residual stream's layout between the seams:
-    "seq" (sequence-sharded, Megatron-SP), "hidden" (replicated), or
-    "auto", which is "seq" without a tuned plan profile (the reference's
-    ``plan_set_from_parallel``; profiles are not ported)."""
+    ``comm_chunks`` is the ring seams' sub-chunking (0: auto, one chunk
+    a shard; the decomposed ``ar`` cuts its contraction into
+    ``comm_chunks or tp`` chunks).  ``plan_profile`` names a tuned
+    per-seam profile (``tuning.cache``; a stale or missing file is
+    ignored), whose plans overlay the uniform ``overlap_mode``
+    (``tuning.plans.plan_set_from_parallel``).  ``scatter_axis`` is the
+    residual stream's layout between the seams: "seq" (sequence-sharded,
+    Megatron-SP), "hidden" (replicated), or "auto": the profile's layout,
+    else "seq"."""
     tp: int = 1
     dp: int = 1
     ep: int = 1
@@ -97,6 +102,8 @@ class ParallelConfig:
     fuse_w13: bool = False
     kernel_decode: bool = False
     overlap_mode: str = "decomposed"
+    comm_chunks: int = 0
+    plan_profile: Optional[str] = None
     scatter_axis: str = "auto"
 
 

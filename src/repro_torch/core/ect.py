@@ -36,6 +36,15 @@ class Hardware:
     link_bw: float
 
 
+# One NVIDIA H100 SXM (data sheet, dense rates at the full 700 W): bf16
+# tensor-core peak, HBM3 bandwidth, and NVLink 4's 900 GB/s split per
+# direction.  The port's tp ranks share one card and cross no NVLink
+# (ROADMAP queue 1 item 2.5), so the analytic price (ranks on cards of
+# their own, joined by this link) and a measured sweep (ranks sharing one
+# card) answer different questions.
+H100_SXM = Hardware(peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9)
+
+
 @dataclasses.dataclass
 class ECTResult:
     name: str

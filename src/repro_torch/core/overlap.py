@@ -28,8 +28,8 @@ picks the transport, as in the reference:
 * ``decomposed`` — the ring: ``n - 1`` hops of ``group.ppermute`` (a pull
   copy from the neighbour, ordered by its event), each landed shard
   multiplied, and its epilogue applied, as it arrives; ``ar``: the
-  contraction dim cut into n chunks, each chunk's partial AllReduced, the
-  reduced chunks summed in chunk order.
+  contraction dim cut into ``comm_chunks or n`` chunks, each chunk's
+  partial AllReduced, the reduced chunks summed in chunk order.
 * ``flux`` — the fused kernels (``kernels.ops``): the AllGather-GEMM and
   the GEMM-ReduceScatter, on CUDA tensors always the hand-written kernels
   (the reference's ``_flux_available`` fallback is not carried over);
@@ -89,18 +89,38 @@ ring, as the reference's ``gather_seq`` and ``scatter_seq_sum`` do.
 ``torch.utils.checkpoint``; at tp>1 as one tape entry whose backward
 re-runs the block, its exchanges included, on the rank's own thread.
 
-The reference's tuning fields (``comm_chunks``, ``reverse``, ``blocks``,
-``fuse_epilogue``, ``shared_gather``) are not carried: no caller of the
-port sets them, so each op runs the reference's defaults (one chunk a
-shard, the forward ring, the planned tile, the fused epilogue, the shared
-gather).  Not ported (it raises and names its ROADMAP item):
-``wire_dtype``.
+The reference's tuning knobs ride every transport, forward and backward
+(``FusedOp.from_plan`` binds a ``tuning.plans.SeamPlan``):
+
+* ``comm_chunks`` — the AllGather ring cuts each shard into
+  ``_sub_chunks(s_shard, n, comm_chunks)`` pieces, each landed, consumed
+  and forwarded on its own (one exchange a piece a hop); the decomposed
+  ``ar`` cuts its contraction into ``comm_chunks or n`` chunks.  As in
+  the reference, the reduce-scatter rings and the counter-rotating half
+  rings take the knob without using it (an odd shard's one-way ring
+  does).
+* ``reverse`` — the one-way rings' direction (``decomposed``, the
+  re-gathers and the reduce-scatters of the backward) and the fused
+  kernels' ring order under ``flux``; ``decomposed_bidir`` rides both.
+* ``blocks`` — ``(bm, bk, bn)``: under ``flux`` on CUDA tensors the
+  kernels' output tile ``(bm, bn)``, one of ``kernels.matmul.TILES``
+  (anything else raises at the launch); the backward's interchanged
+  kernels plan their own, as the reference's do.  The plain versions on
+  CPU tensors take no tile: there it is carried and unused.
+* ``fuse_epilogue`` — False applies an ``ag`` op's epilogue after the
+  assembly instead of per chunk (or in the kernel's tile epilogue).
+* ``shared_gather`` — False runs one ring (under ``flux`` one kernel) per
+  weight of a multi-weight ``ag`` op instead of one over all of them.
+
+The knobs change scheduling, never values, beyond the order of sums the
+reference changes too.  Not ported (it raises and names its ROADMAP
+item): ``wire_dtype``.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,12 +130,6 @@ import torch.utils.checkpoint
 VALID_KINDS = ("ag", "rs", "ar", "a2a")
 VALID_MODES = ("xla", "decomposed", "flux", "decomposed_bidir")
 VALID_SCATTER_AXES = ("seq", "hidden")
-
-# model-level seam name -> its collective kind
-SEAM_KINDS: Dict[str, str] = {"mlp_ag": "ag", "mlp_rs": "rs",
-                              "attn_ag": "ag", "attn_rs": "rs",
-                              "head_ag": "ag", "decode_ar": "ar",
-                              "moe_a2a": "a2a"}
 
 NOT_PORTED = {
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
@@ -408,7 +422,7 @@ def _psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
 def _gather_seq_raw(x: torch.Tensor, group, mode: str,
                     reverse: bool = False) -> torch.Tensor:
     if mode.startswith("decomposed"):
-        return _ag_ring(x, group, reverse, lambda c: (c,))[0]
+        return _ag_ring(x, group, 0, reverse, lambda c: (c,))[0]
     return _gather_full(x, group)
 
 
@@ -506,25 +520,41 @@ def _out_buffers(x: torch.Tensor, seq_len: int,
             for c in first]
 
 
-def _ag_ring(x: torch.Tensor, group, reverse: bool,
+def _sub_chunks(s_shard: int, n: int, comm_chunks: int) -> int:
+    """Pieces a shard is cut into on the ring: ``comm_chunks / n`` (at
+    least 1; 0 is one piece), at most the shard's rows, lowered until it
+    divides them (the reference's rule)."""
+    sub = max(1, comm_chunks // n) if comm_chunks else 1
+    sub = min(sub, s_shard)
+    while s_shard % sub:
+        sub -= 1
+    return sub
+
+
+def _ag_ring(x: torch.Tensor, group, comm_chunks: int, reverse: bool,
              chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
-    """AllGather ring of shard hops along dim -2: each landed shard is
-    consumed by ``chunk_fn`` ([..., L, D] -> tuple of [..., L, W_b]) as
-    soon as it arrives.  Ring order starts at the LOCAL shard (paper
-    §4.3)."""
+    """Chunked AllGather ring of shard hops along dim -2: each shard
+    travels as ``_sub_chunks`` pieces, and each landed piece is consumed
+    by ``chunk_fn`` ([..., L, D] -> tuple of [..., L, W_b]) as soon as it
+    arrives.  Ring order starts at the LOCAL shard (paper §4.3)."""
     n, me = group.n, group.rank()
     s_shard = x.shape[-2]
-    buf = x
+    sub = _sub_chunks(s_shard, n, comm_chunks)
+    sub_len = s_shard // sub
+    bufs = [_seq_rows(x, j * sub_len, sub_len) for j in range(sub)]
     ys: Optional[List[torch.Tensor]] = None
     for step in range(n):
         owner = (me + step) % n if reverse else (me - step) % n
-        chunks = chunk_fn(buf)
-        if ys is None:
-            ys = _out_buffers(x, s_shard * n, chunks)
-        for y, ch in zip(ys, chunks):
-            _seq_rows(y, owner * s_shard, s_shard).copy_(ch)
+        for j, buf in enumerate(bufs):
+            chunks = chunk_fn(buf)
+            if ys is None:
+                ys = _out_buffers(x, s_shard * n, chunks)
+            for y, ch in zip(ys, chunks):
+                _seq_rows(y, owner * s_shard + j * sub_len,
+                          sub_len).copy_(ch)
         if step < n - 1:
-            buf = group.ppermute(buf, _ring_perm(n, reverse), "ag_ring")
+            bufs = [group.ppermute(b, _ring_perm(n, reverse), "ag_ring")
+                    for b in bufs]
     return tuple(ys)
 
 
@@ -541,18 +571,20 @@ def _bidir_hop(group, right: torch.Tensor, left: torch.Tensor, what: str
             group.wait_for((from_next[1], ev_next)).clone())
 
 
-def _ag_bidir(x: torch.Tensor, group,
+def _ag_bidir(x: torch.Tensor, group, comm_chunks: int,
               chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
     """Counter-rotating half rings (the reference's ``_ag_bidir``): each
     shard's top half rides the forward ring and its bottom half the
     reverse ring, and ``chunk_fn`` consumes each landed half as it
-    arrives.  An odd shard (or a one-row shard) takes the one-way ring:
-    the reference's own rule (its ``overlap.py:386``)."""
+    arrives.  An odd shard (or a one-row shard) takes the one-way
+    forward ring, sub-chunked by ``comm_chunks``: the reference's own
+    rule (its ``overlap.py:386``); the half rings themselves are not
+    sub-chunked there either."""
     n, me = group.n, group.rank()
     s_shard = x.shape[-2]
     half = s_shard // 2
     if half == 0 or s_shard % 2:
-        return _ag_ring(x, group, False, chunk_fn)
+        return _ag_ring(x, group, comm_chunks, False, chunk_fn)
     buf_r, buf_l = _seq_rows(x, 0, half), _seq_rows(x, half, half)
     ys: Optional[List[torch.Tensor]] = None
     for step in range(n):
@@ -603,7 +635,7 @@ def _rs_partial(ys, ws, owner: int, s_shard: int,
     return acc
 
 
-def _rs_ring(ys, ws, group) -> torch.Tensor:
+def _rs_ring(ys, ws, group, reverse: bool = False) -> torch.Tensor:
     """GEMM-ReduceScatter ring: at step s each rank computes ONLY the
     output chunk the ring needs next, adds the partial arriving from its
     neighbour, and forwards (paper Fig. 3, medium-grained)."""
@@ -611,7 +643,7 @@ def _rs_ring(ys, ws, group) -> torch.Tensor:
     if seq % group.n:
         raise ValueError(f"seq {seq} not divisible by TP {group.n}")
     s_shard = seq // group.n
-    return _reduce_ring(group, False, "rs_ring",
+    return _reduce_ring(group, reverse, "rs_ring",
                         lambda o: _rs_partial(ys, ws, o, s_shard))
 
 
@@ -642,7 +674,8 @@ def _rs_bidir(ys, ws, group) -> torch.Tensor:
     return torch.cat([acc_r, acc_l], dim=acc_r.dim() - 2)
 
 
-def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
+def _rs_core(ys, ws, axis, mode: str, reverse: bool = False,
+             blocks=None) -> torch.Tensor:
     """sum_i ReduceScatter_seq(ys_i @ ws_i) with ONE collective pass."""
     if _group_size(axis) == 1:
         return _rs_partial(ys, ws, 0, ys[0].shape[-2])
@@ -653,26 +686,27 @@ def _rs_core(ys, ws, axis, mode: str) -> torch.Tensor:
         # contraction dim stacks): still one fused kernel
         y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
         w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
-        return _rs_flux(y, w, axis)
+        return _rs_flux(y, w, axis, reverse, blocks)
     if mode == "decomposed_bidir":
         return _rs_bidir(ys, ws, axis)
-    return _rs_ring(ys, ws, axis)
+    return _rs_ring(ys, ws, axis, reverse)
 
 
-def _ar_core(y: torch.Tensor, w: torch.Tensor, axis, mode: str
-             ) -> torch.Tensor:
+def _ar_core(y: torch.Tensor, w: torch.Tensor, axis, mode: str,
+             comm_chunks: int = 0) -> torch.Tensor:
     """AllReduce(y @ w): the row-parallel GEMM of the replicated layout.
-    The ring modes cut the contraction dim into n chunks (fewer when n
-    does not divide it), AllReduce each chunk's partial and sum the
-    reduced chunks in chunk order, in fp32 (the reference rounds each
-    reduced chunk to y's dtype first); ``xla`` and ``flux`` reduce the
-    one partial (a one-token GEMM is latency-bound)."""
+    The ring modes cut the contraction dim into ``comm_chunks or n``
+    chunks (fewer when that does not divide it), AllReduce each chunk's
+    partial in fp32 and sum the reduced chunks in chunk order, in fp32
+    (the reference rounds each reduced chunk to y's dtype first); ``xla``
+    and ``flux`` reduce the one partial (a one-token GEMM is
+    latency-bound)."""
     if _group_size(axis) == 1:
         return torch.matmul(y, w)
     if not mode.startswith("decomposed"):
         return _psum_raw(torch.matmul(y, w), axis, y.dtype)
     k = y.shape[-1]
-    chunks = max(1, min(axis.n, k))
+    chunks = max(1, min(comm_chunks or axis.n, k))
     while k % chunks:
         chunks -= 1
     ck = k // chunks
@@ -688,8 +722,8 @@ def _ar_core(y: torch.Tensor, w: torch.Tensor, axis, mode: str
 # ---------------------------------------------------------------------------
 # mode="flux": the fused kernels (kernels.ops)
 # ---------------------------------------------------------------------------
-def _ag_flux(x: torch.Tensor, w: torch.Tensor, group,
-             activation: Optional[str] = None,
+def _ag_flux(x: torch.Tensor, w: torch.Tensor, group, reverse: bool = False,
+             blocks=None, activation: Optional[str] = None,
              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     from repro_torch.kernels import ops as kops
     # the kernels gather [m_shard, k] operands along m in SHARD-MAJOR order:
@@ -701,17 +735,20 @@ def _ag_flux(x: torch.Tensor, w: torch.Tensor, group,
     # the kernels take row-major operands: a transposed weight (the
     # backward's w.T, the LM head's table.T) is copied
     y2 = kops.ag_matmul_fused(x2, w.contiguous(), axis_name="tp", n_dev=n,
-                              activation=activation, bias=bias)
+                              reverse=reverse, activation=activation,
+                              bias=bias, blocks=blocks)
     yt = y2.reshape(x.shape[-2] * n, *lead, w.shape[-1])
     return torch.movedim(yt, 0, -2)                    # [*lead, S, F/N]
 
 
-def _rs_flux(y: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+def _rs_flux(y: torch.Tensor, w: torch.Tensor, group, reverse: bool = False,
+             blocks=None) -> torch.Tensor:
     from repro_torch.kernels import ops as kops
     n = group.n
     lead = y.shape[:-2]
     y2 = torch.movedim(y, -2, 0).reshape(-1, y.shape[-1])
-    o2 = kops.matmul_rs_fused(y2, w.contiguous(), axis_name="tp", n_dev=n)
+    o2 = kops.matmul_rs_fused(y2, w.contiguous(), axis_name="tp", n_dev=n,
+                              reverse=reverse, blocks=blocks)
     ot = o2.reshape(y.shape[-2] // n, *lead, w.shape[-1])
     return torch.movedim(ot, 0, -2)                    # [*lead, S/N, D]
 
@@ -723,7 +760,8 @@ def _rs_flux(y: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
 class FusedOp:
     """One TP-seam GEMM with a fused epilogue (module docstring).  The
     reference's fields, with ``epilogue`` and ``n_weights`` second and
-    third as in the port's tp=1 slices (pass the rest by keyword)."""
+    third as in the port's tp=1 slices (pass the rest by keyword); the
+    tuning knobs as the module docstring says."""
     kind: str
     epilogue: Epilogue = Epilogue()
     n_weights: int = 1
@@ -731,6 +769,11 @@ class FusedOp:
     mode: str = "decomposed"
     scatter_axis: str = "seq"
     wire_dtype: Optional[str] = None
+    comm_chunks: int = 0
+    reverse: bool = False
+    blocks: Optional[Tuple[int, int, int]] = None
+    fuse_epilogue: bool = True
+    shared_gather: bool = True
 
     def __post_init__(self):
         if self.kind not in VALID_KINDS:
@@ -743,6 +786,13 @@ class FusedOp:
             raise NotImplementedError(NOT_PORTED["wire_dtype"])
         if self.n_weights < 1:
             raise ValueError("n_weights must be >= 1")
+        if self.comm_chunks < 0:
+            raise ValueError(f"comm_chunks must be >= 0, got "
+                             f"{self.comm_chunks}")
+        if self.blocks is not None:
+            if len(self.blocks) != 3:
+                raise ValueError(f"blocks {self.blocks}: (bm, bk, bn)")
+            object.__setattr__(self, "blocks", tuple(self.blocks))
         if self.kind == "a2a":
             # the op owns the whole expert computation: the (w1, w3, w2)
             # triple and the pure pair-gate epilogue
@@ -765,6 +815,25 @@ class FusedOp:
         elif self.n_weights > 1 and not self.epilogue.is_identity:
             raise ValueError("multi-output ops (n_weights>1 without "
                              'gate="pair") require an identity epilogue')
+
+    @staticmethod
+    def from_plan(kind: str, plan, axis=None,
+                  epilogue: Optional[Epilogue] = None, n_weights: int = 1,
+                  scatter_axis: Optional[str] = None) -> "FusedOp":
+        """Bind a tuning ``SeamPlan`` (anything with its fields) to a seam
+        op; ``scatter_axis=None`` takes the plan's layout knob."""
+        blocks = getattr(plan, "blocks", None)
+        return FusedOp(
+            kind, epilogue=epilogue if epilogue is not None else Epilogue(),
+            n_weights=n_weights, axis=axis, mode=plan.mode,
+            scatter_axis=(scatter_axis if scatter_axis is not None
+                          else getattr(plan, "scatter_axis", "seq")),
+            wire_dtype=getattr(plan, "wire_dtype", None),
+            comm_chunks=plan.comm_chunks,
+            reverse=getattr(plan, "reverse", False),
+            blocks=tuple(blocks) if blocks else None,
+            fuse_epilogue=getattr(plan, "fuse_epilogue", True),
+            shared_gather=getattr(plan, "shared_gather", True))
 
     @property
     def combines(self) -> bool:
@@ -823,7 +892,8 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
     # the ring: the epilogue fuses PER CHUNK inside the overlapped loop
     # (residual is row-indexed by global position -> applied after
     # assembly; everything else is chunk-local)
-    per_chunk = op.combines and not epi.is_identity
+    per_chunk = (op.fuse_epilogue and op.combines and not epi.is_identity
+                 and (op.shared_gather or op.n_weights == 1))
     epi_chunk = dataclasses.replace(epi, residual=False)
 
     def chunk_fn(xc):
@@ -832,10 +902,16 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
             return (epi_chunk.apply(ys, bias=bias, scale=scale),)
         return tuple(ys)
 
-    if op.mode == "decomposed_bidir":
-        outs = _ag_bidir(x, op.axis, chunk_fn)
+    def run(fn):
+        if op.mode == "decomposed_bidir":
+            return _ag_bidir(x, op.axis, op.comm_chunks, fn)
+        return _ag_ring(x, op.axis, op.comm_chunks, op.reverse, fn)
+
+    if op.shared_gather or op.n_weights == 1:
+        outs = run(chunk_fn)          # ONE ring pass for all weights
     else:
-        outs = _ag_ring(x, op.axis, False, chunk_fn)
+        outs = tuple(run(lambda xc, w=w: (torch.matmul(xc, w),))[0]
+                     for w in ws)     # one ring per weight
     if per_chunk:
         out = outs[0]
         if epi.residual:
@@ -847,17 +923,22 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
 def _fused_ag_flux(op: FusedOp, x, ws, bias, scale, residual):
     epi = op.epilogue
     # single-weight bias/activation fuse into the kernel's tile epilogue
-    if op.n_weights == 1 and not epi.scale and epi.gate is None:
-        y = _ag_flux(x, ws[0], op.axis, activation=epi.activation,
+    if (op.n_weights == 1 and op.fuse_epilogue and not epi.scale
+            and epi.gate is None):
+        y = _ag_flux(x, ws[0], op.axis, op.reverse, op.blocks,
+                     activation=epi.activation,
                      bias=bias if epi.bias else None)
         if epi.residual:
             y = y + residual
         return y
-    # shared gather: one kernel over the column-stacked weights (a packed
-    # w13 is one weight already), then split the local outputs
-    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=-1)
-    ycat = _ag_flux(x, w, op.axis)
-    ys = list(torch.split(ycat, [w_.shape[-1] for w_ in ws], dim=-1))
+    if op.n_weights == 1 or op.shared_gather:
+        # shared gather: one kernel over the column-stacked weights (a
+        # packed w13 is one weight already), then split the local outputs
+        w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=-1)
+        ycat = _ag_flux(x, w, op.axis, op.reverse, op.blocks)
+        ys = list(torch.split(ycat, [w_.shape[-1] for w_ in ws], dim=-1))
+    else:
+        ys = [_ag_flux(x, w, op.axis, op.reverse, op.blocks) for w in ws]
     return _apply_epilogue(op, ys, bias, scale, residual)
 
 
@@ -866,8 +947,8 @@ def _fused_z(op: FusedOp, x, ws):
     op in the hidden layout is the row-parallel GEMM and an AllReduce
     without the sequence scatter: the ar op."""
     if op.kind == "rs" and op.scatter_axis == "seq":
-        return _rs_core((x,), ws, op.axis, op.mode)
-    return _ar_core(x, ws[0], op.axis, op.mode)
+        return _rs_core((x,), ws, op.axis, op.mode, op.reverse, op.blocks)
+    return _ar_core(x, ws[0], op.axis, op.mode, op.comm_chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -943,7 +1024,8 @@ class _OpSeam:
         if op.kind == "ag":
             # the dW contractions need the gathered x: the re-gather rides
             # the op's own transport (the replicated layout's x is full)
-            xf = x if hidden else _gather_seq_raw(x, op.axis, op.mode)
+            xf = x if hidden else _gather_seq_raw(x, op.axis, op.mode,
+                                                  op.reverse)
             dys, dbias, dscale, dres = _epilogue_vjp(
                 op, lambda: [torch.matmul(xf, w) for w in ws], bias, scale,
                 residual, gouts)
@@ -957,8 +1039,9 @@ class _OpSeam:
                 # dX: the interchanged GEMM-ReduceScatter over the
                 # sequence cotangents, ONE collective pass for all weights
                 # (flux: one GEMM-RS kernel over the column-stacked
-                # cotangents)
-                dx = _rs_core(dys, wts, op.axis, op.mode)
+                # cotangents, whatever shared_gather), on the op's ring
+                # direction; the transposed op plans its own tile
+                dx = _rs_core(dys, wts, op.axis, op.mode, op.reverse)
             dws = [_contract(xf, dy).to(w.dtype) for w, dy in zip(ws, dys)]
             return (dx.to(x.dtype), *dws, dbias, dscale, dres)
         w = ws[0]
@@ -974,11 +1057,13 @@ class _OpSeam:
             dw = _contract(x, dzf).to(w.dtype)
             return (dy.to(x.dtype), dw, dbias, dscale, dres)
         # dY: the interchanged AllGather-GEMM over the cotangent of this
-        # rank's sequence rows (flux: one AG-GEMM kernel); dW needs the
-        # gathered cotangent too (a second gather, as the reference)
-        bwd_op = FusedOp("ag", axis=op.axis, mode=op.mode)
+        # rank's sequence rows (flux: one AG-GEMM kernel) with the op's
+        # knobs, its own tile; dW needs the gathered cotangent too (a
+        # second gather, as the reference)
+        bwd_op = dataclasses.replace(op, kind="ag", epilogue=Epilogue(),
+                                     blocks=None)
         dy = _fused_ag(bwd_op, dz, (w.t(),), None, None, None)
-        gf = _gather_seq_raw(dz, op.axis, op.mode)
+        gf = _gather_seq_raw(dz, op.axis, op.mode, op.reverse)
         dw = _contract(x, gf).to(w.dtype)
         return (dy.to(x.dtype), dw, dbias, dscale, dres)
 

@@ -25,6 +25,7 @@ _ALIGN = 16              # TMA strides and bases / float4 loads: 16 bytes
 # (csrc/gemm_tile.cuh LargeTile, SmallTile); fp32 has one tile
 LARGE, SMALL = (128, 256), (64, 64)
 TILES = {LARGE: 0, SMALL: 1}
+BK = 64                  # the bf16 tile loop's K step (gemm_tile.cuh kBK)
 SMS = 132                # streaming multiprocessors of an H100 SXM
 GROUP_M = 8              # csrc/gemm_tile.cuh kGroupM
 MIN_BOX_ROWS = 8         # one 1024-byte swizzle atom of A rows
@@ -39,6 +40,12 @@ def plan_blocks(m: int, n: int) -> Tuple[int, int]:
     if -(-m // LARGE[0]) * -(-n // LARGE[1]) >= SMS // 2:
         return LARGE
     return SMALL
+
+
+def tile_blocks(tile: Tuple[int, int]) -> Tuple[int, int, int]:
+    """The ``blocks`` triple (bm, bk, bn) of a bf16 tile (bm, bn): what a
+    ``FusedOp`` or a tuned ``SeamPlan`` carries (bk is the K step)."""
+    return (tile[0], BK, tile[1])
 
 
 def a_boxes(m_sh: int, bm: int) -> Tuple[int, int]:

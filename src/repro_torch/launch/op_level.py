@@ -53,8 +53,6 @@ M_SWEEP = [64, 512, 1024, 2048, 4096, 8192]
 N_TP = 8                      # the paper's single-node TP degree
 MODES = ("xla", "decomposed", "flux")
 SEAMS = (("ag", (49152, 12288)), ("rs", (12288, 49152)))   # (n, k)
-H100_SXM_BF16_FLOPS = 989e12  # dense, NVIDIA data sheet
-H100_SXM_HBM_BW = 3.35e12
 CPU_SCALE = 16                # dims cut for a CPU run (as the reference's)
 
 
@@ -71,8 +69,8 @@ def gemm_bound_s(m: int, k: int, n: int, dtype_bytes: int = 2
     """Least time of an [m, k] x [k, n] GEMM on an H100 SXM: the larger of
     2 m n k operations over the bf16 peak and the bytes (A, B read once, C
     written once) over HBM bandwidth, with what sets it."""
-    t_ops = 2.0 * m * n * k / H100_SXM_BF16_FLOPS
-    t_bytes = dtype_bytes * (m * k + k * n + m * n) / H100_SXM_HBM_BW
+    t_ops = 2.0 * m * n * k / ect.H100_SXM.peak_flops
+    t_bytes = dtype_bytes * (m * k + k * n + m * n) / ect.H100_SXM.hbm_bw
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -111,11 +109,12 @@ def tp_inputs(seam: str, m: int, k: int, n: int, tp: int,
 def run_tp(group: RankGroup, op: FusedOp,
            args: Sequence[Tuple[torch.Tensor, ...]], reps: int = 1
            ) -> List[torch.Tensor]:
-    """``reps`` calls of ``op`` on every rank; the last outputs."""
-    def body(x, w):
+    """``reps`` calls of ``op`` on every rank (each rank's args: x and
+    the op's weights); the last outputs."""
+    def body(*a):
         out = None
         for _ in range(reps):
-            out = op(x, w)
+            out = op(*a)
         return out
     return group.spmd(body, args)
 
@@ -146,10 +145,10 @@ def tp_bound_s(m: int, k: int, n: int) -> Tuple[float, str]:
     ranks' GEMM operations (2 m k n, split over the ranks) over the bf16
     peak and the bytes it must move (every rank's inputs read once, every
     output written once, bf16) over HBM bandwidth."""
-    t_ops = 2.0 * m * k * n / H100_SXM_BF16_FLOPS
+    t_ops = 2.0 * m * k * n / ect.H100_SXM.peak_flops
     # either seam: the ranks' inputs add up to m x k and k x n, their
     # outputs to m x n (AG: tp x [m, n/tp]; RS: tp x [m/tp, n])
-    t_bytes = 2.0 * (m * k + k * n + m * n) / H100_SXM_HBM_BW
+    t_bytes = 2.0 * (m * k + k * n + m * n) / ect.H100_SXM.hbm_bw
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 

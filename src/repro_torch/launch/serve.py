@@ -5,12 +5,18 @@ a seeded random-init model.
       --requests 8 --max-batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
       --tp 4 --mode flux
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
+      --tp 4 --mode flux --autotune     # tune (decode at --max-batch), serve
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the ranks are the
 threads of one ``dist.RankGroup`` on the one device, each with its
 ``model.shard_params`` copy of the same seeded weights, so the tokens equal
-the tp=1 run's up to the sums' rounding.
+the tp=1 run's up to the sums' rounding.  ``--plan-profile`` serves from a
+tuned per-seam profile; ``--autotune`` (tp > 1) tunes first, with the
+decode seam at ``--max-batch`` rows, and writes the profile as the train
+CLI's does.  ``--wire-dtype`` and ``--max-logit-rmse`` are accepted and
+raise (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config)
 from repro_torch.core.overlap import VALID_MODES
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import autotune
 from repro_torch.models import model as M
 from repro_torch.runtime.server import Request, ServeConfig, Server
 
@@ -53,7 +60,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="chunked-prefill rows per call")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
-    return ap.parse_args(argv)
+    ap.add_argument("--plan-profile", default=None,
+                    help="tuned per-seam profile JSON (repro_torch.tuning)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the seam plans first (decode_ar at "
+                         "--max-batch rows); needs --tp > 1")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["int8", "fp8_e4m3", "int4"])
+    ap.add_argument("--max-logit-rmse", type=float, default=None)
+    args = ap.parse_args(argv)
+    for flag in ("wire_dtype", "max_logit_rmse"):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')}: wire precision and its error "
+                "budget are not ported (ROADMAP queue 1 item 9)")
+    return args
 
 
 def make_requests(vocab: int, n: int, prompt_len: int,
@@ -71,7 +92,11 @@ def main(argv: Optional[List[str]] = None
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    par = ParallelConfig(tp=args.tp, overlap_mode=args.mode)
+    par = ParallelConfig(tp=args.tp, overlap_mode=args.mode,
+                         plan_profile=args.plan_profile)
+    if args.autotune:
+        # the reference tunes serving at its default 2048 tokens a seam
+        par = autotune(args, cfg, par, 2048, decode_batch=args.max_batch)
     dtype = getattr(torch, cfg.compute_dtype)
     params = M.init_model(cfg, par, seed=0, dtype=dtype, device=device)
     if args.tp > 1:

@@ -7,6 +7,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
       --smoke --steps 6 --tp 4 --scatter-axis hidden --ckpt-dir ckpt \
       --device cpu                   # resumes from ckpt/ when it holds one
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+      --tp 4 --mode flux --autotune --steps 2     # tune, then train
 
 Runs on the CUDA card by default (bf16 weights); ``--device cpu`` runs the
 plain PyTorch path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the
@@ -15,15 +17,23 @@ schedule is per arch, as in the reference (``configs.base.train_schedule``:
 ``wsd`` for minicpm).  ``--scatter-axis`` picks the residual layout
 (``auto`` is ``seq``); ``--ckpt-dir`` checkpoints there (every 50 steps,
 in the reference's format) and resumes from its latest checkpoint, as the
-reference's does.  The
-reference's flags for what the port does not carry are accepted and raise
-when set, each naming its ROADMAP item.
+reference's does.  ``--plan-profile`` trains from a tuned per-seam
+profile (``tuning.cache``; ignored when stale for this tp and device) and
+``--comm-chunks`` sets the rings' sub-chunking of the seams it does not
+cover.  ``--autotune`` at ``--tp`` > 1 first tunes every seam on a
+``RankGroup`` of the run's tp on its device (a measured sweep on the
+card, the ``core.ect`` roofline for an H100 on the CPU) at the run's
+``--batch`` x ``--seq`` tokens, writes the profile (``--plan-profile``,
+default ``experiments/plans_torch/<arch>_tp<tp>.json``) and trains from
+it.  The reference's flags for what the port does not carry are accepted
+and raise when set, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 from typing import List, Optional, Tuple
 
 import torch
@@ -39,15 +49,10 @@ NOT_PORTED = {
     "dp": (lambda v: v != 1, "data parallelism (ROADMAP queue 1 item 10)"),
     "pods": (lambda v: v != 1, "pods (ROADMAP queue 1 item 10)"),
     "ep": (lambda v: v > 1, "expert parallelism (ROADMAP queue 1 item 8)"),
-    "comm_chunks": (lambda v: v != 0,
-                    "ring sub-chunking (ROADMAP queue 1 item 3)"),
     "wire_dtype": (lambda v: v is not None,
                    "wire precision (ROADMAP queue 1 item 9)"),
     "max_logit_rmse": (lambda v: v is not None,
                        "the wire error budget (ROADMAP queue 1 item 9)"),
-    "plan_profile": (lambda v: v is not None,
-                     "tuned seam plans (ROADMAP queue 1 item 3)"),
-    "autotune": (bool, "the tuner (ROADMAP queue 1 item 6)"),
     "zero3": (bool, "ZeRO-3 (ROADMAP queue 1 item 10)"),
     "grad_compress": (bool,
                       "gradient compression (ROADMAP queue 1 item 10)"),
@@ -76,16 +81,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "auto = seq")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory; resumes from its latest")
+    ap.add_argument("--comm-chunks", type=int, default=0,
+                    help="ring sub-chunking (0 = auto)")
+    ap.add_argument("--plan-profile", default=None,
+                    help="tuned per-seam profile JSON (repro_torch.tuning)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune every seam before training and save the "
+                         "profile (measured on the card, the roofline on "
+                         "the CPU); needs --tp > 1")
     # the reference's flags the port does not carry (raise when set)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--ep", type=int, default=0)
-    ap.add_argument("--comm-chunks", type=int, default=0)
     ap.add_argument("--wire-dtype", default=None,
                     choices=["int8", "fp8_e4m3", "int4"])
     ap.add_argument("--max-logit-rmse", type=float, default=None)
-    ap.add_argument("--plan-profile", default=None)
-    ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--zero3", action="store_true")
     ap.add_argument("--grad-compress", action="store_true")
     args = ap.parse_args(argv)
@@ -96,12 +106,46 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
+def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
+             tokens: int, decode_batch: Optional[int] = None
+             ) -> ParallelConfig:
+    """``--autotune``: tune every seam of ``cfg`` on a ``RankGroup`` of
+    ``par.tp`` ranks on the run's device (``tuning.autotune_model``:
+    measured on the card, analytic on the CPU, priced for an H100), save
+    the profile, and return ``par`` reading it.  At tp=1 there is no seam
+    to tune: it says so and returns ``par``."""
+    if par.tp <= 1:
+        print("--autotune skipped: tp=1 has no TP seams to tune; pass "
+              "--tp > 1")
+        return par
+    from repro_torch.core import ect
+    from repro_torch.device import resolve_device
+    from repro_torch.dist import RankGroup
+    from repro_torch.tuning import (PlanRegistry, autotune_model,
+                                    default_plans_dir)
+    device = resolve_device(args.device)
+    path = par.plan_profile or os.path.join(
+        default_plans_dir(), f"{args.arch}_tp{par.tp}.json")
+    reg = PlanRegistry.open(path, n_dev=par.tp, backend=device.type)
+    group = RankGroup(par.tp, device)
+    autotune_model(cfg, par, hw=ect.H100_SXM, group=group,
+                   tokens_per_dp=tokens, decode_batch=decode_batch,
+                   registry=reg, save_path=path)
+    group.free_symmetric()
+    print(f"autotuned seam plans -> {path}")
+    return dataclasses.replace(par, plan_profile=path)
+
+
 def main(argv: Optional[List[str]] = None) -> Tuple[T.Trainer, List[dict]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     par = ParallelConfig(tp=args.tp, overlap_mode=args.mode, fuse_w13=True,
-                         scatter_axis=args.scatter_axis)
+                         scatter_axis=args.scatter_axis,
+                         comm_chunks=args.comm_chunks,
+                         plan_profile=args.plan_profile)
+    if args.autotune:
+        par = autotune(args, cfg, par, args.batch * args.seq)
     schedule = args.schedule or train_schedule(args.arch)
     tc = T.TrainConfig(total_steps=args.steps,
                        warmup_steps=args.steps // 10, base_lr=args.lr,

@@ -60,7 +60,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     x = table[local.clamp(0, v_loc - 1)]
     x = x.masked_fill(~in_shard[..., None], 0)
     if ctx is not None and ctx.tp > 1:
-        x = ctx.scatter_seq(x)
+        x = ctx.scatter_seq(x, "head_ag")
     return x
 
 

@@ -77,6 +77,16 @@ def n_periods(cfg: ModelConfig) -> int:
     return (cfg.num_layers - cfg.leading_dense_layers) // len(cfg.pattern)
 
 
+def layer_slot(cfg: ModelConfig, j: int) -> int:
+    """The reference's layer id of the port's layer ``j`` (the key of a
+    ``PlanSet``'s per-layer overrides): a leading layer's own index; a
+    layer of the repeated pattern ``leading_dense_layers + position``, the
+    same for every repetition (the reference scans the periods, so all
+    repetitions of a pattern position share one trace and one plan)."""
+    lead = cfg.leading_dense_layers
+    return j if j < lead else lead + (j - lead) % len(cfg.pattern)
+
+
 def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
     """Raise unless every layer is one of ``PORTED_KINDS`` (at tp>1:
     ``TP_KINDS``)."""
@@ -271,11 +281,13 @@ def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
     blocks."""
     check_trainable(cfg, par)
     for i, blk in enumerate(params.layers):
+        # per-layer plan overrides resolve here
+        lctx = ctx.with_layer(layer_slot(cfg, i))
         if par.remat == "none" or i < cfg.leading_dense_layers:
-            x = _block(blk, x, ctx, cfg)
+            x = _block(blk, x, lctx, cfg)
         else:
             x = overlap.remat(
-                lambda v, b=blk: _block(b, v, ctx, cfg), x, ctx.axis,
+                lambda v, b=blk, c=lctx: _block(b, v, c, cfg), x, ctx.axis,
                 list(blk.parameters()))
     return x
 

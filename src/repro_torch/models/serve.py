@@ -38,7 +38,8 @@ import torch
 from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
                                       ParallelConfig)
 from repro_torch.models import attention, ffn, layers
-from repro_torch.models.model import Model, check_ported, expanded_pattern
+from repro_torch.models.model import (Model, check_ported, expanded_pattern,
+                                      layer_slot)
 from repro_torch.parallel.sharding import TPContext, gather_ranks
 
 Caches = List[Dict[str, torch.Tensor]]
@@ -137,7 +138,7 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     as one rank of ``ctx.group`` (inside ``group.spmd``) on that rank's
     ``model.shard_params`` copy, in ``ctx``'s layout.  Sequence-sharded:
     the embedding's ReduceScatter produces [B, S/TP, D], every seam runs
-    on ``ctx.mode``'s transport, and ``gather_seq`` brings the last rows
+    on each seam's plan transport, and ``gather_seq`` brings the last rows
     back.  Replicated: the embedding's psum gives every rank [B, S, D],
     the column-parallel GEMMs are local and the row-parallel ones
     AllReduce.  The logits are this rank's vocab shard and the caches its
@@ -148,17 +149,19 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     if lengths is not None:
         lengths = lengths.to(x.device)
     caches: Caches = []
-    for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers):
-        dy, mc = _mixer_prefill(mk, blk.mixer, x, ctx, cfg)
+    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
+                                            params.layers)):
+        lctx = ctx.with_layer(layer_slot(cfg, i))
+        dy, mc = _mixer_prefill(mk, blk.mixer, x, lctx, cfg)
         x = x + dy
-        x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lengths)
+        x = x + _ffn_full(fk, blk.ffn, x, lctx, cfg, lengths)
         caches.append(mc)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # only each row's LAST true position feeds the next token
     if lengths is None:
-        h_last = ctx.gather_seq(h[:, -1:])[:, -1]
+        h_last = ctx.gather_seq(h[:, -1:], "head_ag")[:, -1]
     else:
-        h_last = layers.take_rows(ctx.gather_seq(h), lengths - 1)
+        h_last = layers.take_rows(ctx.gather_seq(h, "head_ag"), lengths - 1)
     return torch.matmul(h_last, params.embed.T), caches
 
 
@@ -208,16 +211,17 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
                                             params.layers)):
         lc = caches[i]
+        lctx = ctx.with_layer(layer_slot(cfg, i))
         saved = _rows_at(lc, pos) if inactive is not None else None
-        dy, _ = _mixer_decode(mk, blk.mixer, x, lc, pos, ctx, cfg,
+        dy, _ = _mixer_decode(mk, blk.mixer, x, lc, pos, lctx, cfg,
                               block_tables)
         if saved is not None:
             _restore_rows(lc, pos, saved, inactive)
         x = x + dy
         if fk == DENSE_FFN:
-            x = x + ffn.ffn_decode(blk.ffn, x, ctx, cfg.norm_eps)
+            x = x + ffn.ffn_decode(blk.ffn, x, lctx, cfg.norm_eps)
         else:
-            x = x + ffn.moe_decode(blk.ffn, x, ctx, cfg, cfg.norm_eps)
+            x = x + ffn.moe_decode(blk.ffn, x, lctx, cfg, cfg.norm_eps)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # this rank's vocab shard of the logits
     return torch.matmul(h[:, -1], params.embed.T), caches
@@ -274,13 +278,14 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
     lenv = torch.full((x.shape[0],), chunk_len, device=x.device)
     for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
                                             params.layers)):
+        lctx = ctx.with_layer(layer_slot(cfg, i))
         chunk = (attention.gqa_prefill_chunk if mk == ATTN
                  else attention.mla_prefill_chunk)
         dy, _ = chunk(blk.mixer, x, caches[i], block_tables, off, chunk_len,
-                      ctx, cfg)
+                      lctx, cfg)
         x = x + dy
         # MoE: rows past chunk_len are padding, kept out of expert capacity
-        x = x + _ffn_full(fk, blk.ffn, x, ctx, cfg, lenv)
+        x = x + _ffn_full(fk, blk.ffn, x, lctx, cfg, lenv)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
     return torch.matmul(layers.take_rows(h, last), params.embed.T), caches

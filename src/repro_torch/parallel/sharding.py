@@ -2,8 +2,9 @@
 
 Every TP seam routes through ``repro_torch.core.overlap`` (``ctx.op(seam)``),
 as in the reference.  At tp>1 the context holds the ``dist.RankGroup`` of
-the TP ranks (the reference's mesh axis) and the seams' transport
-(``mode``); model code then runs inside
+the TP ranks (the reference's mesh axis) and the seams' plans: a
+``tuning.plans.PlanSet`` resolved per seam and per layer
+(``ctx.plan(seam)``); model code then runs inside
 ``group.spmd``, one call per rank.  At tp>1 the residual stream is either
 sequence-sharded (``seq_sharded``: prefill and, by default, training)
 or replicated (decode, the chunked prefill, the prefill under
@@ -20,7 +21,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import overlap
-from repro_torch.core.overlap import SEAM_KINDS, Epilogue, FusedOp
+from repro_torch.core.overlap import Epilogue, FusedOp
+from repro_torch.tuning.plans import (SEAM_KINDS, PlanSet, SeamPlan,
+                                      plan_set_from_parallel)
 
 TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
                   "dist.RankGroup of size tp inside group.spmd: pass "
@@ -51,7 +54,13 @@ class TPContext:
                   and chunked prefill always run, and training runs with
                   ``ParallelConfig.scatter_axis="hidden"``)
     group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
-    mode        : the seams' transport (``overlap.VALID_MODES``)
+    mode        : the transport of seams without a plan
+                  (``overlap.VALID_MODES``)
+    comm_chunks : the ring sub-chunking of seams without a plan
+    plans       : the per-layer-seam ``PlanSet``; when set, every seam
+                  resolves its knobs through ``self.plan(seam)``
+    layer       : the current layer slot (``models.model.layer_slot``),
+                  threaded by the model for per-layer overrides
     """
     tp: int = 1
     ep: int = 1
@@ -59,6 +68,9 @@ class TPContext:
     seq_sharded: bool = True
     group: Optional[object] = None
     mode: str = "decomposed"
+    comm_chunks: int = 0
+    plans: Optional[PlanSet] = None
+    layer: Optional[int] = None
 
     def __post_init__(self):
         if self.tp != 1 and (self.group is None or self.group.n != self.tp):
@@ -83,6 +95,18 @@ class TPContext:
             return self
         return dataclasses.replace(self, seq_sharded=seq_sharded)
 
+    def with_layer(self, layer: Optional[int]) -> "TPContext":
+        if layer == self.layer:
+            return self
+        return dataclasses.replace(self, layer=layer)
+
+    def plan(self, seam: str) -> SeamPlan:
+        """The plan of one model seam at this layer; without a PlanSet,
+        the context's mode and comm_chunks."""
+        if self.plans is not None:
+            return self.plans.resolve(seam, self.layer)
+        return SeamPlan(mode=self.mode, comm_chunks=self.comm_chunks)
+
     def tp_index(self) -> int:
         """This rank's index in the TP group (0 at tp=1)."""
         return self.group.rank() if self.tp > 1 else 0
@@ -90,33 +114,40 @@ class TPContext:
     def op(self, seam: str, epilogue: Optional[Epilogue] = None,
            n_weights: int = 1) -> FusedOp:
         """The ``overlap.FusedOp`` for one model seam — the only way model
-        code reaches a seam.  The kind comes from the seam name, the
-        transport from the context, the layout from ``seq_sharded``."""
+        code reaches a seam.  The kind comes from the seam name, the knobs
+        from ``self.plan(seam)``, the layout from ``seq_sharded``."""
         kind = SEAM_KINDS[seam]
-        return FusedOp(kind, axis=None if kind == "a2a" else self.axis,
-                       mode=self.mode,
-                       epilogue=epilogue if epilogue is not None
-                       else Epilogue(),
-                       n_weights=n_weights,
-                       scatter_axis="seq" if self.seq_sharded else "hidden")
+        scatter_axis = None
+        if kind in ("ag", "rs"):
+            scatter_axis = "seq" if self.seq_sharded else "hidden"
+        return self.plan(seam).op(
+            kind, None if kind == "a2a" else self.axis,
+            epilogue=epilogue if epilogue is not None else Epilogue(),
+            n_weights=n_weights, scatter_axis=scatter_axis)
 
-    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_seq(self, x: torch.Tensor,
+                   seam: str = "attn_ag") -> torch.Tensor:
         """Full-sequence view of a sequence-sharded non-GEMM payload
-        (boundary rows); no-op at tp=1 or in the replicated layout."""
+        (boundary rows), on ``seam``'s plan transport and direction;
+        no-op at tp=1 or in the replicated layout."""
         if self.tp == 1 or not self.seq_sharded:
             return x
-        return overlap.gather_seq(x, self.group, self.mode)
+        plan = self.plan(seam)
+        return overlap.gather_seq(x, self.group, plan.mode, plan.reverse)
 
-    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+    def scatter_seq(self, x: torch.Tensor,
+                    seam: str = "head_ag") -> torch.Tensor:
         """ReduceScatter a per-rank full-sequence partial into this rank's
         sequence shard (the embedding seam's combine) — dual of
-        ``gather_seq``, on the same transport; in the replicated layout the
-        psum of the partials."""
+        ``gather_seq``, on ``seam``'s plan transport; in the replicated
+        layout the psum of the partials."""
         if self.tp == 1:
             return x
         if not self.seq_sharded:
             return overlap.psum(x, self.group)
-        return overlap.scatter_seq_sum(x, self.group, self.mode)
+        plan = self.plan(seam)
+        return overlap.scatter_seq_sum(x, self.group, plan.mode,
+                                       plan.reverse)
 
 
 def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
@@ -130,26 +161,33 @@ def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
 SCATTER_AXES = ("auto", "seq", "hidden")
 
 
-def residual_layout(par) -> str:
-    """"seq" or "hidden": ``par.scatter_axis`` with "auto" resolved as the
-    reference's ``plan_set_from_parallel`` does without a plan profile."""
+def _backend(group) -> Optional[str]:
+    """The device type whose tuned profiles a group loads (None: the
+    registry's default)."""
+    return None if group is None else group.device.type
+
+
+def make_ctx(par, group=None, plans: Optional[PlanSet] = None
+             ) -> TPContext:
+    """The context a ``ParallelConfig`` implies (the reference's
+    ``trainer.make_ctx`` at dp=1): ``use_kernels`` from ``kernel_decode``,
+    the seams' plans from ``plan_set_from_parallel(par)`` (the uniform
+    ``overlap_mode`` overlaid with ``par.plan_profile``, loaded for the
+    group's device, the layout stamped by ``par.scatter_axis`` unless
+    "auto") unless ``plans`` is given, and the residual layout from the
+    plans (``PlanSet.residual_layout``)."""
+    if par.dp != 1:
+        raise NotImplementedError(DP_NOT_PORTED)
     axis = getattr(par, "scatter_axis", "auto")
     if axis not in SCATTER_AXES:
         raise ValueError(f"invalid scatter_axis {axis!r}; one of "
                          f"{SCATTER_AXES}")
-    return "hidden" if axis == "hidden" else "seq"
-
-
-def make_ctx(par, group=None) -> TPContext:
-    """The context a ``ParallelConfig`` implies (the reference's
-    ``trainer.make_ctx`` at dp=1): ``use_kernels`` from ``kernel_decode``,
-    the transport from ``overlap_mode``, the residual layout from
-    ``scatter_axis``."""
-    if par.dp != 1:
-        raise NotImplementedError(DP_NOT_PORTED)
+    if plans is None:
+        plans = plan_set_from_parallel(par, _backend(group))
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
-                     seq_sharded=residual_layout(par) == "seq",
-                     group=group, mode=par.overlap_mode)
+                     seq_sharded=plans.residual_layout() == "seq",
+                     group=group, mode=par.overlap_mode,
+                     comm_chunks=par.comm_chunks, plans=plans)
 
 
 def ceil_mult(x: int, m: int) -> int:

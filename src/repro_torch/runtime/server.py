@@ -44,6 +44,7 @@ from repro_torch.models import serve as S
 from repro_torch.models.model import Model, check_ported, expanded_pattern
 from repro_torch.parallel.sharding import TPContext
 from repro_torch.runtime.kvpool import BlockTable, KVPool
+from repro_torch.tuning.plans import plan_set_from_parallel
 
 
 @dataclasses.dataclass
@@ -128,9 +129,15 @@ class Server:
         else:
             self.device = params.embed.device
             self.group = None
-        # both model calls force the replicated layout themselves
+        # both model calls force the replicated layout themselves; the
+        # seams' plans are the uniform overlap_mode overlaid with
+        # par.plan_profile when it is fresh for this device (the
+        # reference's plan_set_from_parallel)
         self.ctx = TPContext(tp=par.tp, ep=par.ep, group=self.group,
-                             mode=par.overlap_mode)
+                             mode=par.overlap_mode,
+                             comm_chunks=par.comm_chunks,
+                             plans=plan_set_from_parallel(
+                                 par, self.device.type))
         self.pages = -(-sc.max_seq // sc.block_size)   # table width
         nb = sc.num_blocks or (sc.max_batch * self.pages + 1)
         self.pool = KVPool(nb, sc.block_size)

@@ -61,11 +61,13 @@ class TrainConfig:
 
 
 def make_ctx(cfg: ModelConfig, par: ParallelConfig,
-             group: Optional[RankGroup] = None) -> TPContext:
+             group: Optional[RankGroup] = None, plans=None) -> TPContext:
     """The reference's ``trainer.make_ctx`` at dp=1: the TP context over
-    ``group`` (None at tp=1) on ``par.overlap_mode``'s transport."""
+    ``group`` (None at tp=1) with ``plans`` (a ``tuning.plans.PlanSet``;
+    default ``plan_set_from_parallel(par)``: the uniform
+    ``par.overlap_mode`` overlaid with ``par.plan_profile``)."""
     M.check_trainable(cfg, par)
-    return sharding.make_ctx(par, group)
+    return sharding.make_ctx(par, group, plans)
 
 
 def forward_on_tape(params: M.Model, batch: Dict[str, torch.Tensor],

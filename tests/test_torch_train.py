@@ -383,8 +383,8 @@ def test_training_paths_not_ported_raise(tmp_path):
     (["--dp", "2"], "item 10"),
     (["--zero3"], "item 10"), (["--grad-compress"], "item 10"),
     (["--wire-dtype", "int8"], "item 9"),
-    (["--autotune"], "item 6"), (["--pods", "2"], "item 10"),
-    (["--ep", "2"], "item 8"), (["--plan-profile", "p.json"], "item 3"),
+    (["--pods", "2"], "item 10"),
+    (["--ep", "2"], "item 8"),
     (["--max-logit-rmse", "0.1"], "item 9")])
 def test_train_cli_flags_not_ported_raise(flag, item):
     from repro_torch.launch import train as LT
@@ -393,22 +393,29 @@ def test_train_cli_flags_not_ported_raise(flag, item):
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "x"],
-                                  ["--scatter-axis", "hidden"]],
-                         ids=["ckpt-dir", "scatter-axis"])
+                                  ["--scatter-axis", "hidden"],
+                                  ["--autotune", "--plan-profile", "p.json"],
+                                  ["--plan-profile", "p.json"]],
+                         ids=["ckpt-dir", "scatter-axis", "autotune",
+                              "plan-profile"])
 def test_train_cli_flags_once_not_ported_run(flag, tmp_path):
-    """The two flags that raised until their modules landed: each now
-    trains (the smoke config at tp=4 on the CPU, 2 steps)."""
+    """The flags that raised until their modules landed: each now trains
+    (the smoke config at tp=4 on the CPU, 2 steps).  ``--autotune`` writes
+    the profile it then trains from; a missing ``--plan-profile`` file
+    loads as no profile (the uniform mode)."""
     from repro_torch.launch import train as LT
-    if flag[0] == "--ckpt-dir":
-        flag = [flag[0], str(tmp_path / flag[1])]
+    flag = [str(tmp_path / f) if f in ("x", "p.json") else f for f in flag]
     tr, hist = LT.main(["--arch", "minicpm_2b", "--smoke", "--steps", "2",
                         "--tp", "4", "--mode", "flux", "--batch", "2",
                         "--seq", "32", "--device", "cpu", *flag])
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     if flag[0] == "--scatter-axis":
         assert tr.par.scatter_axis == "hidden"
-    else:
+    elif flag[0] == "--ckpt-dir":
         assert tr.ckpt is not None
+    else:
+        assert tr.par.plan_profile == flag[-1]
+        assert (tmp_path / "p.json").exists() == (flag[0] == "--autotune")
 
 
 def test_train_cli_runs_on_cpu(capsys):
