@@ -14,8 +14,8 @@ a checkout of this repository.  Phases, one JSON object per line each:
              UTMALDG (wgmma, TMA);
 3. kernel  — each kernel (flash attention, MLA decode) against its plain
              PyTorch version on the card at the main paths' shapes (the
-             kernel lane's and the tp lane's flash shapes, the mla lane's
-             decode) and a few edge cases, with its time, the plain
+             kernel lane's, the tp lane's and the paper lane's flash
+             shapes, the mla lane's decode) and a few edge cases, with its time, the plain
              version's, the library call's and the bound; the MLA kernel
              also with its split count and its combine's time;
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
@@ -77,7 +77,8 @@ a checkout of this repository.  Phases, one JSON object per line each:
    tp_server_lane — the paged ``Server`` at tp=4 in flux through
              ``launch.serve`` (minicpm_2b at full width, its first 8
              layers): 8 requests together, one at a time and again
-             (prefix reuse), first tokens against the tp=1 Server's;
+             (prefix reuse), first tokens against the tp=1 Server's
+             and their logits within TP_LANE_RTOL of tp=1's;
 13. train_lane — full-width minicpm_2b cut to its first 8 layers, trained
              through ``runtime.trainer`` (bf16 weights, fp32 moments, wsd,
              batch 4 x 1024): 3 steps at tp=1, then at tp=4 in flux mode
@@ -112,7 +113,39 @@ a checkout of this repository.  Phases, one JSON object per line each:
              bytes on disk), a fresh trainer resuming at step 2 (its
              weights and moments bit-equal to the checkpoint, its losses
              against the uninterrupted run's), and a run that recovers
-             from a failure before step 3.
+             from a failure before step 3;
+17. paper lane — the paper's §5 models at full width, cut in depth only,
+             at tp=8 on the one card (8 ranks, seeded bf16 weights drawn
+             as at tp=1, w1|w3 packed, cut per rank), 8 x 2048 tokens with
+             the last rows shorter:
+   paper_gpt3_prefill — GPT-3 175B, 4 of 96 layers: a tp=1 prefill and
+             8 decode steps first (then freed); the flux prefill with the
+             kernels (64 AG-GEMM, 64 GEMM-RS, 32 flash launches: what its
+             PlanSet implies), its logits against tp=1's and xla's, then
+             xla and decomposed (no fused kernel), each mode's ms, profiled
+             flux and xla prefills;
+   paper_gpt3_decode — 8 decode steps at tp=8 from the flux prefill's
+             caches (``tp_decode``: ``ar`` seams, no fused kernel) against
+             the tp=1 decode;
+   paper_gpt3_tune — the measured sweep at tp=8 (8 x 2048 tokens a seam,
+             8 decode rows), the flux prefill from its profile against the
+             uniform one with the launches its PlanSet implies, then the
+             sweep again with 8 timed calls a candidate (the near-ties),
+             one ``paper_tune_cell`` line a cell;
+   paper_gpt3_train — GPT-3 175B, 1 layer, batch 2 x 2048: step 0 at tp=1
+             and at tp=8 in flux (loss, canonical grads / 8, the launches
+             its PlanSet implies) and xla, then 3 trainer steps;
+   paper_llama2_prefill — Llama-2 70B, 8 of 80 layers: as GPT-3's prefill
+             (the flash kernel over 8 query heads and 1 KV head a rank);
+   paper_llama2_train — Llama-2 70B, 2 layers: step 0 as GPT-3's;
+   paper_llama2_serve — ``launch.serve --arch llama2_70b --layers 2 --tp 8
+             --mode flux``: the tp server lane's requests and gates, in
+             bf16; its first-token logits within TP_LANE_RTOL of tp=1's,
+             and a first token may differ from tp=1's only where tp=1's
+             top-2 margin is at most twice the logits' largest difference
+             (``serve_lane``'s near-tie rule).
+   The kernel phase holds the flash kernel at the lane's two per-rank
+   shapes.
 
 Host-clock times are medians of warm repeats; each profiled pass reports
 the device's busy share of its own wall time.
@@ -216,6 +249,32 @@ TP_SERVER_ARGV = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
                   "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
                   "--max-new", "16", "--max-seq", "256", "--block-size", "16",
                   "--prefill-chunk", "32"]
+
+# the paper lane: the paper's §5 models at full width, cut in depth only,
+# tp=8 on the one card (8 ranks of a RankGroup), seeded random bf16
+# weights; prefill at the model-level prefill phase's 8 x 2048 tokens,
+# the last rows shorter
+PAPER_TP = 8
+PAPER_BATCH, PAPER_SEQ = 8, 2048
+PAPER_LENGTHS = [2048] * 6 + [1536, 1111]
+GPT3_PREFILL_LAYERS = 4     # of 96: 20.6 GB of weights, 3.2 GB of KV caches
+GPT3_TRAIN_LAYERS = 1
+LLAMA_PREFILL_LAYERS = 8    # of 80: 14.2 GB of weights
+LLAMA_TRAIN_LAYERS = 2
+LLAMA_SERVE_LAYERS = 2
+PAPER_DECODE = 8
+PAPER_DECODE_OTHER_MODES = 2
+# train step: 2 x 2048 (at 8 x 2048 one GPT-3 layer's fp32 moments and
+# attention scores would not fit beside its weights and grads)
+PAPER_TRAIN_BATCH = 2
+PAPER_TRAIN_STEPS = 3
+PAPER_REPEATS = 3
+PAPER_TUNE_DECODE_BATCH = 8
+# the near-ties (ROADMAP queue 1 item 6.3): the same sweep again with more
+# timed calls a candidate
+PAPER_TUNE_ITERS_LONG = 8
+PAPER_SERVER_ARGV = (["--arch", "llama2_70b", "--layers",
+                      str(LLAMA_SERVE_LAYERS)] + TP_SERVER_ARGV[4:])
 
 
 class SmokeFailure(RuntimeError):
@@ -394,14 +453,16 @@ def sdpa_backend(torch, *args, **kw):
 
 def device_profile(torch, fn, sums=None):
     """One call of ``fn`` under torch.profiler: its wall ms (profiled),
-    summed device activity ms (kernels, copies, sets on the one stream),
-    the device's busy share of that same call's wall time, the number of
-    device activities, the five largest kernels by time and, for each
-    {key: substring} of ``sums``, the device ms of the kernels whose name
-    holds the substring.  The wall time spans the call inside the
-    profiler, after a discarded pass that starts the tracer; the
-    profiler's per-op host cost stays in it, so the busy share is a lower
-    bound."""
+    summed device activity ms (kernels, copies, sets; ``device_ms``), the
+    ms in which at least one activity ran (the union of their spans,
+    ``device_busy_ms``: the ranks' streams run activities at once, which
+    the sum counts again for each), the device's busy share (that union
+    over the same call's wall time), the number of device activities, the
+    five largest kernels by summed time and, for each {key: substring} of
+    ``sums``, the summed device ms of the kernels whose name holds the
+    substring.  The wall time spans the call inside the profiler, after a
+    discarded pass that starts the tracer; the profiler's per-op host cost
+    stays in it, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):
@@ -420,8 +481,17 @@ def device_profile(torch, fn, sums=None):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     device_ms = sum(by_name.values()) / 1e3
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
     out = {"profiled_wall_ms": wall, "device_ms": device_ms,
-           "device_busy_share": device_ms / wall,
+           "device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / 1e3 / wall,
            "device_activities": len(dev),
            "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
     for key, sub in (sums or {}).items():
@@ -532,6 +602,12 @@ def phase_kernel(torch):
         ("minicpm_prefill", torch.bfloat16, 4, 36, 36, 1024, 1024, 64, True, 0),
         ("gqa_d128", torch.bfloat16, 4, 32, 8, 1024, 1024, 128, True, 0),
         ("tp_lane_prefill", torch.bfloat16, 4, 9, 9, 1024, 1024, 64, True, 0),
+        # the paper lane's per-rank shapes at tp=8: GPT-3 175B (MHA) and
+        # Llama-2 70B (8 query heads over 1 KV head)
+        ("gpt3_tp8_prefill", torch.bfloat16, 8, 12, 12, 2048, 2048, 128,
+         True, 0),
+        ("llama2_tp8_prefill", torch.bfloat16, 8, 8, 1, 2048, 2048, 128, True,
+         0),
         ("kv_offset_suffix", torch.bfloat16, 4, 36, 36, 256, 1024, 64, True,
          768),
         ("noncausal_ragged", torch.bfloat16, 4, 36, 36, 777, 777, 64, False,
@@ -1705,14 +1781,15 @@ def phase_tp_lane(torch, tp1_logits, tp1_decode):
 
 
 def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
-              prefill_counts, tp1_decode):
-    """The tp lane's dense decode at tp=4: from the flux prefill's caches,
-    N_DECODE steps in flux (``decode_step``'s halves) teacher-forced on
-    the kernel lane's tokens (each step's logits, the ranks' vocab shards
-    concatenated, against the kernel lane's at that step; every rank's
-    tokens equal), the last step again through ``decode_step`` (the same
-    tokens), then the first N_DECODE_OTHER_MODES steps in xla and
-    decomposed against flux's.  The decode runs the replicated layout: its seams are the
+              prefill_counts, tp1_decode, n_decode=N_DECODE,
+              n_other=N_DECODE_OTHER_MODES, phase="tp_decode"):
+    """A tp lane's dense decode: from the flux prefill's caches, n_decode
+    steps in flux (``decode_step``'s halves) teacher-forced on the tp=1
+    decode's tokens (each step's logits, the ranks' vocab shards
+    concatenated, against tp=1's at that step; every rank's tokens
+    equal), the last step again through ``decode_step`` (the same
+    tokens), then the first n_other steps in xla and decomposed against
+    flux's.  The decode runs the replicated layout: its seams are the
     AllReduces, with no fused kernel."""
     from repro_torch.models import serve as S
     from repro_torch.parallel.sharding import make_ctx
@@ -1720,7 +1797,7 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
 
     t_phase = time.perf_counter()
     tp = group.n
-    s_max = int(lengths.max()) + N_DECODE + 1
+    s_max = int(lengths.max()) + n_decode + 1
     caches = [_dense_caches(torch, c, s_max) for c in prefill_caches]
     args = list(zip(ranks, caches))
     ctxs = {mode: make_ctx(ParallelConfig(tp=tp, overlap_mode=mode), group)
@@ -1740,12 +1817,12 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
         return (torch.stack([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs], dim=-1)[:, :cfg.vocab_size])
 
-    res = {"phase": "tp_decode", "arch": cfg.name, "tp": tp,
+    res = {"phase": phase, "arch": cfg.name, "tp": tp,
            "layers": cfg.num_layers, "batch": int(lengths.shape[0]),
            "lengths": lengths.tolist(), "prefill_launches": prefill_counts,
-           "decode_steps": N_DECODE, "rtol": TP_LANE_RTOL}
+           "decode_steps": n_decode, "rtol": TP_LANE_RTOL}
     flux_logits, samples, rel_tp1, agree = [], [], [], 0
-    for step in range(N_DECODE):
+    for step in range(n_decode):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, lg = one("flux", step)
@@ -1764,7 +1841,7 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
         flux_logits.append(lg)
     # the entry point itself, on the last step's inputs (it rewrites that
     # position's cache rows with the same values)
-    last = N_DECODE - 1
+    last = n_decode - 1
 
     def whole():
         return torch.stack(group.spmd(
@@ -1775,13 +1852,13 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
           "differ from its halves' at the last step")
     res["decode_step_ms_median"], _ = wall_ms(torch, whole, repeats=3)
     res["logits_rel_l2_vs_tp1"] = rel_tp1
-    res["tokens_agree_with_tp1"] = f"{agree}/{N_DECODE * len(lengths)}"
+    res["tokens_agree_with_tp1"] = f"{agree}/{n_decode * len(lengths)}"
     warm = sorted(samples[1:])
     res["decode_ms_per_step_median"] = warm[len(warm) // 2]
     res["decode_ms_samples"] = samples
     for mode in ("xla", "decomposed"):
         rels = []
-        for step in range(N_DECODE_OTHER_MODES):
+        for step in range(n_other):
             toks, lg = one(mode, step)
             check(bool((toks == toks[0]).all()),
                   f"tp decode {mode} step {step}: the ranks' tokens differ")
@@ -1829,32 +1906,43 @@ def phase_tp_server_lane(torch):
     """The paged Server at tp=4 in flux on the one card: minicpm_2b at full
     width cut to its first TP_SERVER_LAYERS layers (each decode step is
     host-bound at about two exchanges a layer), through
-    ``launch.serve``'s path.  8 requests served together, then one at a
-    time, then again on the same server (prefix reuse); then the tp=1
-    Server over the same layers and seed, whose first tokens the tp=4
-    server's must equal (later tokens are reported: with random weights
-    the logits are nearly flat).  Its calls run the replicated layout:
-    no kernel of this slice."""
+    ``launch.serve``'s path (``serve_lane``)."""
+    return serve_lane(torch, "tp_server_lane", TP_SERVER_ARGV, TP_LANE)
+
+
+def serve_lane(torch, phase, argv, tp, ties_ok=False):
+    """``launch.serve`` at ``tp`` in flux with ``argv``: 8 requests served
+    together, then one at a time, then again on the same server (prefix
+    reuse); then the tp=1 Server over the same layers and seed.  Each
+    request's first-token logits are taken again from both servers'
+    chunked prefill (``first_logits``): the tp server's must lie within
+    ``TP_LANE_RTOL`` of tp=1's, and each server's first tokens must be
+    their argmax.  The first tokens must equal tp=1's; with ``ties_ok`` a
+    request may differ where tp=1's top-2 margin is at most twice the
+    largest logit difference between the two servers there (a near-tied
+    argmax that the measured bf16 error can overturn).  Later tokens are
+    reported: with random weights the logits are nearly flat.  Its calls
+    run the replicated layout: no kernel launches.  Returns the tp=1
+    server's tokens by request id."""
     from repro_torch.kernels import ag_gemm as AG
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm_rs as RS
     from repro_torch.launch import serve as launch_serve
     from repro_torch.runtime.server import Request, Server
 
-    argv = TP_SERVER_ARGV
     kernels = (AG.ag_gemm, RS.gemm_rs, fa.flash_attention)
     for fn in kernels:
         fn.launches = 0
     t0 = t_phase = time.perf_counter()
-    server, done = launch_serve.main(argv + ["--tp", str(TP_LANE),
+    server, done = launch_serve.main(argv + ["--tp", str(tp),
                                              "--mode", "flux"])
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
-    check(not any(launches.values()), f"the tp server lane launched "
-          f"{launches}: its replicated-layout calls run no kernel")
+    check(not any(launches.values()), f"{phase} launched {launches}: its "
+          "replicated-layout calls run no kernel")
     cfg = server.cfg
-    check(server.group.n == TP_LANE and server.ctx.mode == "flux",
-          "the tp server lane did not run tp=4 flux")
+    check(server.group.n == tp and server.ctx.mode == "flux",
+          f"{phase} did not run tp={tp} flux")
     check(len(done) == 8, f"{len(done)} of 8 requests finished")
     for r in done:
         check(r.done and r.error is None, f"request {r.rid}: {r.error}")
@@ -1888,8 +1976,34 @@ def phase_tp_server_lane(torch):
     first = sum(int(tp1[i][0] == concurrent[i][0]) for i in tp1)
     later = sum(int(a == b) for i in tp1
                 for a, b in zip(tp1[i][1:], concurrent[i][1:]))
-    emit({"phase": "tp_server_lane", "scale": "smoke", "arch": cfg.name,
-          "tp": TP_LANE, "mode": "flux", "layers": cfg.num_layers,
+
+    prompts = {r.rid: r.prompt for r in done}
+    got = first_logits(torch, server, prompts)
+    want = first_logits(torch, srv1, prompts)
+    logits = {"rel_l2_vs_tp1": {}, "max_abs_diff": {}, "tp1_top2_margin": {},
+              "tp1_rms": {}}
+    flips = {}
+    for i in sorted(prompts):
+        g, w = got[i], want[i]
+        check(int(g.argmax()) == concurrent[i][0]
+              and int(w.argmax()) == tp1[i][0],
+              f"request {i}: a server's first token is not the argmax of "
+              "its first-token logits")
+        top2 = torch.topk(w, 2).values
+        diff = (g - w).abs().max().item()
+        margin = (top2[0] - top2[1]).item()
+        logits["rel_l2_vs_tp1"][i] = _rel_l2(g, w)
+        logits["max_abs_diff"][i] = diff
+        logits["tp1_top2_margin"][i] = margin
+        logits["tp1_rms"][i] = w.pow(2).mean().sqrt().item()
+        if concurrent[i][0] != tp1[i][0]:
+            flips[i] = {"tp1": tp1[i][0], "tp": concurrent[i][0],
+                        "margin": margin, "max_abs_diff": diff,
+                        "tp1_logit_of_tp_token": w[concurrent[i][0]].item(),
+                        "tp_logit_of_tp1_token": g[tp1[i][0]].item()}
+    emit({"phase": phase, "scale": "smoke", "arch": cfg.name,
+          "tp": tp, "mode": "flux", "layers": cfg.num_layers,
+          "dtype": cfg.compute_dtype,
           "requests": len(done), "kernel_launches": launches,
           "max_batch": server.sc.max_batch,
           "block_size": server.sc.block_size,
@@ -1906,14 +2020,65 @@ def phase_tp_server_lane(torch):
           "reuse_hits": server.pool.reuse_hits - hits,
           "first_tokens_equal_tp1": f"{first}/{len(tp1)}",
           "later_tokens_agree_tp1": f"{later}/{15 * len(tp1)}",
+          "first_logits": logits, "rtol": TP_LANE_RTOL,
+          "first_token_flips": flips,
           "tp1_tpot_p50_ms": sorted(r.per_token_s() for r in done1)[
               len(done1) // 2] * 1e3,
           "phase_s": time.perf_counter() - t_phase})
-    check(first == len(tp1), f"first tokens vs the tp=1 Server: "
-          f"{first}/{len(tp1)}")
+    worst = max(logits["rel_l2_vs_tp1"].values())
+    check(worst <= TP_LANE_RTOL, f"{phase}: first-token logits {worst:.4g} "
+          f"rel. L2 from tp=1 (rtol {TP_LANE_RTOL})")
+    if ties_ok:
+        wide = [i for i, f in flips.items()
+                if f["margin"] > 2 * f["max_abs_diff"]]
+        check(not wide, f"{phase}: first tokens differ from tp=1's at "
+              f"requests {wide}, where tp=1's top-2 margin exceeds twice "
+              "the logits' largest difference")
+    else:
+        check(first == len(tp1), f"first tokens vs the tp=1 Server: "
+              f"{first}/{len(tp1)}")
     del server, srv1
     torch.cuda.empty_cache()
     return tp1
+
+
+def first_logits(torch, server, prompts):
+    """{rid: the float logits [vocab] of each prompt's first generated
+    token}, from a fresh Server on ``server``'s params, group and serve
+    config, through the chunked prefill that ``Server.prefill_chunk``
+    runs (``prefill_chunk_logits``: its argmax is the first token); at
+    tp>1 the ranks' vocab shards side by side."""
+    import numpy as np
+    from repro_torch.models import serve as S
+    from repro_torch.runtime.server import Request, Server
+
+    srv = Server(server.cfg, server.par, server.params, server.sc,
+                 group=server.group)
+    c = srv.sc.prefill_chunk
+    out = {}
+    for rid, prompt in prompts.items():
+        job = srv.begin_admission(Request(rid=rid, prompt=prompt))
+        check(job is not None, f"no slot for request {rid}")
+        bt = srv._tensor(job.table.as_array(srv.pages)[None])
+        n = len(prompt)
+        while job.off < n:
+            clen = min(c, n - job.off)
+            toks = np.zeros((1, c), np.int64)
+            toks[0, :clen] = prompt[job.off:job.off + clen]
+            toks = srv._tensor(toks)
+
+            def chunk(p, cache, off=job.off, clen=clen, toks=toks):
+                return S.prefill_chunk_logits(p, cache, toks, bt, off, clen,
+                                              srv.ctx, srv.cfg)[0]
+            if srv.group is None:
+                logits = chunk(srv.params, srv.caches[0])
+            else:
+                logits = torch.cat(srv.group.spmd(
+                    chunk, list(zip(srv.params, srv.caches))), -1)
+            job.off += clen
+        out[rid] = logits[0, :srv.cfg.vocab_size].float()
+    del srv
+    return out
 
 
 def _rel_l2(a, b):
@@ -2258,6 +2423,21 @@ def phase_train_lane(torch):
             "backward_remat": res["remat_tp4_flux"]["launches_backward"]}
 
 
+def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
+    """The kernels one prefill launches at ``tp``, read off a ``PlanSet``:
+    a rank's flux seam in the sequence-sharded layout launches one AG-GEMM
+    (an ag seam: one a weight when its gather is not shared) or one
+    GEMM-RS and its reduce (an rs seam); the head gathers its rows plainly
+    and launches none; with ``use_kernels`` every layer's attention is one
+    flash launch a rank.  Every rank's, summed."""
+    fwd, _ = plan_launches(plans, cfg, tp, mlp_weights)
+    if plans.residual_layout() == "seq" and plans.resolve(
+            "head_ag", None).mode == "flux":
+        fwd["ag_gemm"] -= tp          # the train step's head_ag seam
+    fwd["flash_attention"] = cfg.num_layers * tp if use_kernels else 0
+    return fwd
+
+
 def plan_launches(plans, cfg, tp, mlp_weights):
     """The fused kernels one train step launches at ``tp``, read off a
     ``PlanSet``: ({"ag_gemm", "gemm_rs", "gemm_rs_reduce"} of the forward,
@@ -2294,6 +2474,31 @@ def plan_launches(plans, cfg, tp, mlp_weights):
         c.update(gemm_rs_reduce=c["gemm_rs"], flash_attention=0, matmul=0)
         out.append(c)
     return tuple(out)
+
+
+def sweep_launches(results, cfg, par, calls):
+    """The fused kernels a measured sweep launches: ``calls`` of each flux
+    row's op, every rank's (an ag row one AG-GEMM, or one a weight when
+    its gather is not shared; an rs row one GEMM-RS and its reduce), each
+    row checked to be measured."""
+    from repro_torch.tuning import autotune as AT
+    from repro_torch.tuning import seam_of
+    want = {"ag_gemm": 0, "gemm_rs": 0, "gemm_rs_reduce": 0,
+            "flash_attention": 0, "matmul": 0}
+    for r in results:
+        check(r.source == "measured", f"{r.seam}: tuned {r.source}")
+        nw = AT.seam_op_shape(cfg, par, seam_of(r.seam)).get("n_weights", 1)
+        for row in r.table:
+            check(row["measured_s"] > 0, f"{r.seam}: an untimed row {row}")
+            if row["mode"] != "flux":
+                continue
+            if r.kind == "ag":
+                want["ag_gemm"] += calls * (1 if row["shared_gather"]
+                                            else nw)
+            else:
+                want["gemm_rs"] += calls
+                want["gemm_rs_reduce"] += calls
+    return want
 
 
 def _seam_plain(torch, kind, layout, epi, args):
@@ -2432,23 +2637,8 @@ def phase_tune_lane(torch, tp1_tokens):
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     sweep_counts = read_counts()
-    calls = (TUNE_WARMUP + TUNE_ITERS) * tp
-    want = {"ag_gemm": 0, "gemm_rs": 0, "gemm_rs_reduce": 0,
-            "flash_attention": 0, "matmul": 0}
-    for r in results:
-        check(r.source == "measured", f"{r.seam}: tuned {r.source}")
-        nw = AT.seam_op_shape(cfg_full, par_u, seam_of(r.seam)).get(
-            "n_weights", 1)
-        for row in r.table:
-            check(row["measured_s"] > 0, f"{r.seam}: an untimed row {row}")
-            if row["mode"] != "flux":
-                continue
-            if r.kind == "ag":
-                want["ag_gemm"] += calls * (1 if row["shared_gather"]
-                                            else nw)
-            else:
-                want["gemm_rs"] += calls
-                want["gemm_rs_reduce"] += calls
+    want = sweep_launches(results, cfg_full, par_u,
+                          (TUNE_WARMUP + TUNE_ITERS) * tp)
     check(sweep_counts == want, f"the sweep launched {sweep_counts}, its "
           f"flux rows call for {want}")
     layout = AT.sweep_model_layout(cfg_full, par_u, hw=ect.H100_SXM,
@@ -2772,6 +2962,534 @@ def phase_train_ckpt(torch):
     emit(res)
 
 
+def _paper_batch(torch, cfg):
+    """The paper lane's prefill batch: PAPER_BATCH x PAPER_SEQ seeded
+    tokens, right-padded past PAPER_LENGTHS."""
+    lengths = torch.tensor(PAPER_LENGTHS, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (PAPER_BATCH, PAPER_SEQ),
+                         generator=gen, device="cuda")
+    toks = toks.masked_fill(torch.arange(PAPER_SEQ, device="cuda")[None]
+                            >= lengths[:, None], 0)
+    return {"tokens": toks}, lengths
+
+
+def _paper_tp1(torch, cfg, batch, lengths, n_decode):
+    """The tp=1 run the tp=8 lane is held against: the same canonical
+    weights (seed 0, bf16) at tp=1 with the flash kernel, the prefill's
+    last-position logits kept on the host, then ``n_decode`` greedy dense
+    decode steps from its caches, each step's tokens and logits kept (the
+    tp=8 decode is teacher-forced on them).  Everything is freed after."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+
+    par = ParallelConfig(kernel_decode=True)
+    ctx = make_ctx(par)
+    params = M.init_model(cfg, par, seed=0, dtype=torch.bfloat16,
+                          device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = S.prefill_logits(params, batch, ctx, cfg, lengths)
+    torch.cuda.synchronize()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+           "logits": logits[:, :cfg.vocab_size].float().cpu()}
+    check(bool(torch.isfinite(out["logits"]).all()),
+          f"{cfg.name} tp=1: non-finite logits")
+    if n_decode:
+        tok = S.vocab_parallel_argmax(logits, cfg.vocab_size)[:, None]
+        caches = _dense_caches(torch, caches,
+                               int(lengths.max()) + n_decode + 1)
+        tokens, step_logits = [tok], []
+        for step in range(n_decode):
+            lg, caches = S.decode_logits(params, caches, tok, lengths + step,
+                                         ctx, cfg)
+            tok = S.vocab_parallel_argmax(lg, cfg.vocab_size)[:, None]
+            tokens.append(tok)
+            step_logits.append(lg[:, :cfg.vocab_size].float().cpu())
+        out["decode"] = {"tokens": [t.cpu() for t in tokens],
+                         "logits": step_logits}
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _paper_tp8_prefill(torch, cfg, phase, tp1, batch, lengths):
+    """One paper model at PAPER_TP ranks on the one card: seeded weights
+    drawn as at tp=1 (w1|w3 packed), cut per rank, the global copy freed.
+    The main path: counts to 0, one flux prefill with the kernels, counts
+    read and held to what its PlanSet implies; the ranks' next tokens
+    equal; flux's last-position logits against tp=1's and xla's; xla and
+    decomposed launch no fused kernel; each mode's prefill ms; a profiled
+    flux and xla prefill.  Returns (group, ranks, the flux prefill's caches, its
+    counts, its logits)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.dist import RankGroup
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+
+    tp = PAPER_TP
+    group = RankGroup(tp, "cuda")
+    baseline = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = M.init_model(cfg, ParallelConfig(tp=tp, fuse_w13=True), seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ctxs = {mode: make_ctx(ParallelConfig(tp=tp, kernel_decode=True,
+                                          fuse_w13=True, overlap_mode=mode),
+                           group)
+            for mode in ("flux", "xla", "decomposed")}
+    args = [(p,) for p in ranks]
+
+    def step(mode):
+        return group.spmd(lambda p: S.prefill_step(p, batch, ctxs[mode], cfg,
+                                                   lengths), args)
+
+    def logits(mode):
+        outs = group.spmd(lambda p: S.prefill_logits(
+            p, batch, ctxs[mode], cfg, lengths)[0], args)
+        return torch.cat(outs, dim=-1)[:, :cfg.vocab_size].float()
+
+    # the main path: counts to 0, one flux prefill, counts read
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    outs = step("flux")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = prefill_launches(ctxs["flux"].plans, cfg, tp, 1, True)
+    check(counts == want, f"{phase}: flux prefill launched {counts}, its "
+          f"PlanSet implies {want}")
+    nxt = outs[0][0]
+    check(all(torch.equal(o[0], nxt) for o in outs),
+          f"{phase}: the ranks' next tokens differ")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    caches = [o[1] for o in outs]
+    del outs
+    lf = logits("flux")
+    check(bool(torch.isfinite(lf).all()), f"{phase}: non-finite logits")
+    lt1 = tp1["logits"].to("cuda")
+    rel_tp1 = _rel_l2(lf, lt1)
+    check(rel_tp1 <= TP_LANE_RTOL,
+          f"{phase}: tp={tp} flux logits vs tp=1 differ by {rel_tp1} "
+          f"(relative L2) > {TP_LANE_RTOL}")
+    res = {"phase": phase, "arch": cfg.name, "tp": tp,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads_a_rank": cfg.num_heads // tp,
+           "kv_heads_a_rank": max(cfg.num_kv_heads // tp, 1),
+           "head_dim": cfg.resolved_head_dim, "batch": PAPER_BATCH,
+           "lengths": lengths.tolist(), "init_s": init_s,
+           "weights_gb_all_ranks": sum(
+               p.numel() * p.element_size() for r in ranks
+               for p in r.parameters()) / 1e9,
+           "baseline_mem_gb": baseline, "init_peak_gb": init_peak_gb,
+           "flux_launches": counts, "flux_launches_planset": want,
+           "next_tokens": nxt[:, 0].tolist(),
+           "next_tokens_tp1": lt1.argmax(-1).tolist(),
+           "logits_rel_l2_flux_vs_tp1": rel_tp1,
+           "tp1_prefill_ms": tp1["prefill_ms"],
+           "prefill_peak_mem_gb": peak_gb, "rtol": TP_LANE_RTOL}
+    for mode in ("xla", "decomposed"):
+        zero_counts()
+        lm = logits(mode)
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+              f"{phase}: {mode} prefill launched the fused kernels: {c}")
+        rel = _rel_l2(lf, lm)
+        if mode == "xla":
+            check(rel <= TP_LANE_RTOL,
+                  f"{phase}: flux vs xla logits differ by {rel} (relative "
+                  f"L2) > {TP_LANE_RTOL}")
+        res[f"logits_rel_l2_flux_vs_{mode}"] = rel
+        res[f"{mode}_launches"] = c
+        del lm
+    for mode in ("flux", "xla", "decomposed"):
+        med, samples = wall_ms(torch, lambda: step(mode),
+                               repeats=PAPER_REPEATS)
+        res[f"prefill_ms_median_{mode}"] = med
+        res[f"prefill_ms_samples_{mode}"] = samples
+    sums = {"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs",
+            "flash_ms": "flash"}
+    for mode in ("flux", "xla"):
+        res[f"prefill_profile_{mode}"] = device_profile(
+            torch, lambda: step(mode), sums=sums)
+    emit(res)
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return group, ranks, caches, counts, lf
+
+
+def phase_paper_gpt3(torch):
+    """GPT-3 175B at full width, its first GPT3_PREFILL_LAYERS layers, at
+    tp=8 on the one card: the tp=1 prefill and decode first (then freed),
+    the tp=8 prefill per mode (``_paper_tp8_prefill``), PAPER_DECODE
+    decode steps from the flux prefill's caches against tp=1's
+    (``tp_decode``: the ``ar`` seams, no fused kernel), then the measured
+    sweep and the prefill from its profile (``paper_tune``)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("gpt3_175b"),
+                              num_layers=GPT3_PREFILL_LAYERS)
+    batch, lengths = _paper_batch(torch, cfg)
+    tp1 = _paper_tp1(torch, cfg, batch, lengths, PAPER_DECODE)
+    group, ranks, caches, counts, lf = _paper_tp8_prefill(
+        torch, cfg, "paper_gpt3_prefill", tp1, batch, lengths)
+    zero_counts()
+    tp_decode(torch, group, ranks, cfg, lengths, caches, counts,
+              tp1["decode"], n_decode=PAPER_DECODE,
+              n_other=PAPER_DECODE_OTHER_MODES, phase="paper_gpt3_decode")
+    dec = read_counts()
+    check(dec["ag_gemm"] == dec["gemm_rs"] == dec["flash_attention"] == 0,
+          f"the paper lane's decode launched {dec}: the replicated layout "
+          "runs no fused kernel")
+    del caches, tp1
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    tune = paper_tune(torch, cfg, group, ranks, batch, lengths, lf)
+    del ranks
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return {"prefill": counts, "decode": dec, **tune}
+
+
+def paper_tune(torch, cfg, group, ranks, batch, lengths, lf_uniform):
+    """The tuner at the paper's width: ``tuning.autotune_model`` measured
+    on the group (tp=8, the lane's 8 x 2048 tokens a seam and
+    PAPER_TUNE_DECODE_BATCH decode rows, w1|w3 packed as the ranks hold
+    them), its launches equal to its flux rows' calls; the flux prefill
+    with the kernels from its profile against the uniform flux prefill's
+    logits, with the launches its PlanSet implies; then the same sweep
+    with PAPER_TUNE_ITERS_LONG timed calls a candidate instead of
+    TUNE_ITERS (the near-ties, a measurement: the tuner's defaults stay),
+    each cell's winners side by side."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import ect
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.tuning import PlanRegistry
+    from repro_torch.tuning import autotune as AT
+
+    tp = PAPER_TP
+    par_u = ParallelConfig(tp=tp, overlap_mode="flux", fuse_w13=True,
+                           kernel_decode=True)
+    tokens = PAPER_BATCH * PAPER_SEQ
+    tdir = tempfile.mkdtemp(prefix="paper_tune_")
+    path = os.path.join(tdir, "gpt3_175b_tp8.json")
+    res = {"phase": "paper_gpt3_tune", "arch": cfg.name, "tp": tp,
+           "layers": cfg.num_layers, "tokens": tokens,
+           "decode_batch": PAPER_TUNE_DECODE_BATCH,
+           "hardware_priced": dataclasses.asdict(ect.H100_SXM)}
+
+    def sweep(iters, registry, save_path):
+        results = []
+        zero_counts()
+        t0 = time.perf_counter()
+        AT.autotune_model(cfg, par_u, hw=ect.H100_SXM, group=group,
+                          tokens_per_dp=tokens,
+                          decode_batch=PAPER_TUNE_DECODE_BATCH,
+                          measure=True, registry=registry,
+                          save_path=save_path, iters=iters,
+                          warmup=TUNE_WARMUP, results=results)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        want = sweep_launches(results, cfg, par_u,
+                              (TUNE_WARMUP + iters) * tp)
+        check(counts == want, f"the paper sweep (iters {iters}) launched "
+              f"{counts}, its flux rows call for {want}")
+        group.free_symmetric()
+        torch.cuda.empty_cache()
+        return results, secs, counts
+
+    try:
+        reg = PlanRegistry.open(path, n_dev=tp, backend="cuda")
+        results, secs, sweep_counts = sweep(TUNE_ITERS, reg, path)
+        res["sweep"] = {"iters": TUNE_ITERS, "warmup": TUNE_WARMUP,
+                        "seconds": secs, "launches": sweep_counts,
+                        "cells": len(results),
+                        "rows": sum(len(r.table) for r in results)}
+
+        # the prefill from the profile, against the uniform flux prefill
+        ctx_t = make_ctx(dataclasses.replace(par_u, plan_profile=path),
+                         group)
+        check(ctx_t.plans.seams, f"the profile {path} did not load")
+        args = [(p,) for p in ranks]
+
+        def tuned_prefill():
+            return group.spmd(lambda p: S.prefill_logits(
+                p, batch, ctx_t, cfg, lengths)[0], args)
+
+        zero_counts()
+        outs = tuned_prefill()
+        torch.cuda.synchronize()
+        c_t = read_counts()
+        want = prefill_launches(ctx_t.plans, cfg, tp, 1, True)
+        check(c_t == want, f"the tuned prefill launched {c_t}, its PlanSet "
+              f"implies {want}")
+        lt = torch.cat(outs, dim=-1)[:, :cfg.vocab_size].float()
+        del outs
+        rel = _rel_l2(lt, lf_uniform)
+        check(rel <= TP_LANE_RTOL, f"the tuned prefill's logits vs uniform "
+              f"flux: relative L2 {rel} > {TP_LANE_RTOL}")
+        med, samples = wall_ms(torch, tuned_prefill, repeats=PAPER_REPEATS)
+        res["tuned_prefill"] = {"launches": c_t, "launches_planset": want,
+                                "logits_rel_l2_vs_uniform_flux": rel,
+                                "prefill_ms_median": med,
+                                "prefill_ms_samples": samples,
+                                "plans": {s: p.to_json() for s, p in
+                                          ctx_t.plans.seams.items()}}
+        group.free_symmetric()
+        torch.cuda.empty_cache()
+
+        # the near-ties: every cell again with more timed calls
+        long_results, long_s, long_counts = sweep(PAPER_TUNE_ITERS_LONG,
+                                                  None, None)
+        res["sweep_long"] = {"iters": PAPER_TUNE_ITERS_LONG,
+                             "warmup": TUNE_WARMUP, "seconds": long_s,
+                             "launches": long_counts}
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+
+    def key(row):
+        return (row["mode"], row["comm_chunks"], row["reverse"],
+                str(row["blocks"]), row["shared_gather"],
+                row["fuse_epilogue"])
+
+    def plan_key(p):
+        return (p.mode, p.comm_chunks, p.reverse, str(p.blocks),
+                p.shared_gather, p.fuse_epilogue)
+
+    changed = []
+    long_by = {r.seam: r for r in long_results}
+    for r in results:
+        lr = long_by[r.seam]
+        long_ms = {key(x): x["measured_s"] * 1e3 for x in lr.table}
+        best = sorted(r.table, key=lambda x: x["measured_s"])
+        lead = ((best[1]["measured_s"] - best[0]["measured_s"]) * 1e3
+                if len(best) > 1 else None)
+        same = plan_key(r.plan) == plan_key(lr.plan)
+        if not same:
+            changed.append(r.seam)
+        emit({"phase": "paper_tune_cell", "seam": r.seam, "kind": r.kind,
+              "mkn": [r.m, r.n, r.k], "pruned": r.pruned,
+              "rows_fields": ["mode", "comm_chunks", "reverse", "blocks",
+                              "shared_gather", "fuse_epilogue",
+                              f"measured_ms_iters{TUNE_ITERS}",
+                              f"measured_ms_iters{PAPER_TUNE_ITERS_LONG}",
+                              "predicted_ms"],
+              "rows": [[x["mode"], x["comm_chunks"], x["reverse"],
+                        x["blocks"], x["shared_gather"], x["fuse_epilogue"],
+                        x["measured_s"] * 1e3, long_ms.get(key(x)),
+                        x["predicted_s"] * 1e3] for x in r.table],
+              "winner": dict(zip(("mode", "comm_chunks", "reverse",
+                                  "blocks", "shared_gather",
+                                  "fuse_epilogue"), plan_key(r.plan)),
+                             measured_ms=r.plan.measured_s * 1e3,
+                             predicted_ms=r.plan.predicted_s * 1e3),
+              "lead_over_next_ms": lead,
+              f"winner_iters{PAPER_TUNE_ITERS_LONG}": dict(
+                  zip(("mode", "comm_chunks", "reverse", "blocks",
+                       "shared_gather", "fuse_epilogue"),
+                      plan_key(lr.plan)),
+                  measured_ms=lr.plan.measured_s * 1e3),
+              "winner_unchanged": same})
+    res["winners_changed_with_more_iters"] = changed
+    emit(res)
+    return {"tune_sweep": sweep_counts, "tuned_prefill": c_t}
+
+
+def phase_paper_train(torch, arch, layers, steps):
+    """One paper model at full width cut to ``layers`` layers, trained at
+    tp=8 in flux on the one card (bf16 weights, fp32 moments, batch
+    PAPER_TRAIN_BATCH x PAPER_SEQ from ``data/pipeline.py``): step 0 at
+    tp=1 (then freed), step 0 at tp=8 in flux with its forward and
+    backward launches held to its PlanSet's, its loss and canonical grads
+    (divided by 8) against tp=1's, xla's step 0 against flux's (no fused
+    kernel); then ``steps`` trainer steps (finite losses, their launches,
+    ms, peak memory and one profiled step)."""
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+    from repro_torch.tuning import plan_set_from_parallel
+
+    t_phase = time.perf_counter()
+    tp = PAPER_TP
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    tc = T.TrainConfig(total_steps=max(steps, 1), warmup_steps=0,
+                       base_lr=3e-4, schedule=train_schedule(arch),
+                       log_every=max(steps, 1))
+
+    def trainer(par):
+        tr = T.Trainer(cfg, par, tc, device="cuda", dtype=torch.bfloat16)
+        tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=PAPER_SEQ,
+                                          global_batch=PAPER_TRAIN_BATCH)
+        return tr
+
+    res = {"phase": f"paper_{arch.split('_')[0]}_train", "arch": cfg.name,
+           "layers": layers, "tp": tp, "batch": PAPER_TRAIN_BATCH,
+           "seq": PAPER_SEQ, "dtype": "bfloat16 weights, float32 moments",
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    par1 = ParallelConfig(tp=1, fuse_w13=True)
+    batch0 = trainer(par1).batch(0)
+    params1 = M.init_model(cfg, par1, seed=tc.seed, dtype=torch.bfloat16,
+                           device="cuda", trainable=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss1, g1 = T.loss_and_grads(params1, batch0, T.make_ctx(cfg, par1), cfg,
+                                 par1)
+    loss1 = loss1.item()
+    res["tp1"] = {"step0_loss": loss1,
+                  "step0_ms": (time.perf_counter() - t0) * 1e3,
+                  "step0_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "weights": sum(p.numel() for p in params1.parameters())}
+    can1 = M.canonical_leaves(g1, cfg, 1, grads=True)
+    del params1, g1
+    torch.cuda.empty_cache()
+
+    par8 = ParallelConfig(tp=tp, fuse_w13=True, overlap_mode="flux")
+    tr8 = trainer(par8)
+    group = tr8.group
+    # the weights first, the moments after the step-0 comparisons: the
+    # gathered grads and tp=1's would not fit beside them
+    full = M.init_model(cfg, par8, seed=tc.seed, dtype=torch.bfloat16,
+                        device="cuda", trainable=True)
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.empty_cache()
+    loss8, can8, c_fwd, c_bwd, host8 = tp_step0(torch, cfg, par8, group,
+                                                ranks, batch0)
+    want_f, want_b = plan_launches(plan_set_from_parallel(par8, "cuda"), cfg,
+                                   tp, 1)
+    check(c_fwd == want_f and c_bwd == want_b,
+          f"{arch} tp={tp} flux step 0 launched {c_fwd} / {c_bwd}, its "
+          f"PlanSet implies {want_f} / {want_b}")
+    rel_loss = abs(loss8 - loss1) / abs(loss1)
+    rel_g, leaf = _worst_leaf(can8, can1)
+    check(rel_loss <= TRAIN_LOSS_RTOL and rel_g <= TRAIN_GRAD_RTOL,
+          f"{arch} tp={tp} flux step 0 vs tp=1: loss relative {rel_loss}, "
+          f"grad of {leaf} relative L2 {rel_g}")
+    res["flux"] = {"step0_loss": loss8, "loss_rel_vs_tp1": rel_loss,
+                   "grad_rel_l2_vs_tp1_max": rel_g, "grad_worst_leaf": leaf,
+                   "launches_forward": c_fwd, "launches_backward": c_bwd,
+                   "step0_host": host8}
+    del can1
+    lx, canx, cf, cb, hx = tp_step0(
+        torch, cfg, dataclasses.replace(par8, overlap_mode="xla"), group,
+        ranks, batch0)
+    check(cf["ag_gemm"] == cf["gemm_rs"] == cb["ag_gemm"] == cb["gemm_rs"]
+          == 0, f"{arch} xla step launched the fused kernels: {cf} / {cb}")
+    rl = abs(lx - loss8) / abs(loss8)
+    rg, lfx = _worst_leaf(canx, can8)
+    check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+          f"{arch} xla vs flux step 0: loss relative {rl}, grad of {lfx} "
+          f"relative L2 {rg}")
+    res["xla"] = {"step0_loss": lx, "loss_rel_vs_flux": rl,
+                  "grad_rel_l2_vs_flux_max": rg, "grad_worst_leaf": lfx,
+                  "step0_host": hx}
+    del canx, can8
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    counts = None
+    if steps:
+        opts = [tr8.init_opt(p) for p in ranks]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        _, opts, hist = tr8.train(ranks, opts)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: steps * (want_f[k] + want_b[k]) for k in want_f}
+        check(counts == want, f"{arch}: {steps} flux trainer steps launched "
+              f"{counts}, expected {want}")
+        losses = [h["loss"] for h in hist]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"{arch} tp={tp} losses {losses}")
+        ms = [h["seconds"] * 1e3 for h in hist]
+        res["trainer"] = {
+            "steps": steps, "losses": losses, "step_ms": ms,
+            "step_ms_median": sorted(ms)[len(ms) // 2],
+            "launches": counts,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profiled_step": device_profile(
+                torch, lambda: tr8.run_step(ranks, opts, batch0),
+                sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})}
+        del opts
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    del ranks, tr8
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts}
+
+
+def phase_paper_llama2(torch):
+    """Llama-2 70B at full width, its first LLAMA_PREFILL_LAYERS layers, at
+    tp=8 on the one card: the tp=1 prefill (then freed), then the tp=8
+    prefill per mode (``_paper_tp8_prefill``): the flash kernel over 8
+    query heads and 1 KV head a rank, head_dim 128."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("llama2_70b"),
+                              num_layers=LLAMA_PREFILL_LAYERS)
+    batch, lengths = _paper_batch(torch, cfg)
+    tp1 = _paper_tp1(torch, cfg, batch, lengths, 0)
+    group, ranks, caches, counts, _ = _paper_tp8_prefill(
+        torch, cfg, "paper_llama2_prefill", tp1, batch, lengths)
+    del ranks, caches, tp1
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def paper_launches(paper, kernel):
+    """The paper lane's launches of ``kernel`` (a wrapper's name), by
+    path."""
+    def get(c):
+        return None if c is None else c[kernel]
+    g3, g3t, l2t = paper["gpt3"], paper["gpt3_train"], paper["llama2_train"]
+    return {"gpt3_prefill": get(g3["prefill"]),
+            "gpt3_decode": get(g3["decode"]),
+            "gpt3_train_forward": get(g3t["forward"]),
+            "gpt3_train_backward": get(g3t["backward"]),
+            "gpt3_trainer_steps": get(g3t["trainer_steps"]),
+            "gpt3_tuned_prefill": get(g3["tuned_prefill"]),
+            "gpt3_tune_sweep": get(g3["tune_sweep"]),
+            "llama2_prefill": get(paper["llama2"]),
+            "llama2_train_forward": get(l2t["forward"]),
+            "llama2_train_backward": get(l2t["backward"])}
+
+
+def paper_lane(torch, timed):
+    """The paper lane's phases, each timed: GPT-3 175B's prefill, decode
+    and tuner, its training, Llama-2 70B's prefill, its training and its
+    server, at tp=8 on the one card.  Returns their launch counts."""
+    return {
+        "gpt3": timed("paper_gpt3", phase_paper_gpt3, torch),
+        "gpt3_train": timed("paper_gpt3_train", phase_paper_train, torch,
+                            "gpt3_175b", GPT3_TRAIN_LAYERS,
+                            PAPER_TRAIN_STEPS),
+        "llama2": timed("paper_llama2", phase_paper_llama2, torch),
+        "llama2_train": timed("paper_llama2_train", phase_paper_train,
+                              torch, "llama2_70b", LLAMA_TRAIN_LAYERS, 0),
+        "llama2_serve": timed("paper_llama2_serve", serve_lane, torch,
+                              "paper_llama2_serve", PAPER_SERVER_ARGV,
+                              PAPER_TP, True)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2813,6 +3531,7 @@ def main():
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     timed("train_remat", phase_train_remat, torch)
     timed("train_ckpt", phase_train_ckpt, torch)
+    paper = paper_lane(torch, timed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_s": phase_s})
     print(smi, flush=True)
@@ -2825,7 +3544,8 @@ def main():
          "ms": flash_case["kernel_ms"], "plain_ms": flash_case["plain_ms"],
          "bound_ms": flash_case["bound_ms"],
          "bound_by": flash_case["bound_by"],
-         "library_ms": flash_case["library_ms"]},
+         "library_ms": flash_case["library_ms"],
+         "paper_launches": paper_launches(paper, "flash_attention")},
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
@@ -2861,6 +3581,7 @@ def main():
              "heterogeneous_step": {
                  d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
                  for d in ("forward", "backward")}},
+         "paper_launches": paper_launches(paper, "ag_gemm"),
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
          "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
@@ -2882,6 +3603,7 @@ def main():
              "heterogeneous_step": {
                  d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
                  for d in ("forward", "backward")}},
+         "paper_launches": paper_launches(paper, "gemm_rs"),
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
          "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],

@@ -1,7 +1,8 @@
 """Model / parallelism configs (copy of ``repro.configs.base`` without jax).
 
 Every architecture the port runs gets a module ``repro_torch/configs/<id>.py``
-exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``.  Field names and
+exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``; ``ARCH_IDS`` and
+``PAPER_ARCH_IDS`` list them.  Field names and
 defaults match the reference so a config means the same model on both
 sides; the port runs the (ATTN, DENSE_FFN), (MLA, DENSE_FFN) and
 (MLA, MOE_FFN) layer kinds so far (``models.model.check_ported`` rejects
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 # Layer-pattern vocabulary (same strings as the reference).
 ATTN = "attn"          # softmax attention (GQA)
@@ -73,6 +74,15 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ParallelConfig:
@@ -105,6 +115,21 @@ class ParallelConfig:
     comm_chunks: int = 0
     plan_profile: Optional[str] = None
     scatter_axis: str = "auto"
+
+
+# The archs the port has a config module for (the reference's ``ARCH_IDS``
+# lists more: its other families are not ported yet, ROADMAP queue 1 item 8)
+ARCH_IDS: List[str] = [
+    "deepseek_v3_671b",
+    "codeqwen15_7b",
+    "phi4_mini_38b",
+    "qwen15_110b",
+    "minicpm_2b",
+]
+
+# the paper's own evaluation models (§5): GPT-3 175B, whose GEMMs give the
+# op-level shapes, and Llama-2 70B (the reference lists only gpt3_175b here)
+PAPER_ARCH_IDS: List[str] = ["gpt3_175b", "llama2_70b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -93,6 +93,8 @@ def _normal_stack(gen: torch.Generator, shape, std: float, dtype: torch.dtype,
     draw never holds more than one expert (11 GB of fp32 per full-width
     DeepSeek-V3 expert stack otherwise)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                   # shapes only (count_params_analytic)
+        return out
     for e in range(shape[0]):
         out[e] = torch.randn(shape[1:], generator=gen, device=device) * std
     return out

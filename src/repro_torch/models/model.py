@@ -154,31 +154,87 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
     zero-padded to tp multiples — so the model computes the same function
     at every tp (the reference's TP invariance).  The result holds the
     GLOBAL packed weights; ``shard_params`` cuts each rank's copy."""
-    if par.ep != 1:
-        raise NotImplementedError(EP_NOT_PORTED)
-    check_ported(cfg, par.tp)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    embed, final_norm, layers_ = _init_leaves(cfg, par, gen, dtype, dev)
+    return Model(embed, final_norm, [Block(m, f) for m, f in layers_],
+                 trainable)
+
+
+def _init_mixer(kind: str, gen: torch.Generator, cfg: ModelConfig, tp: int,
+                dtype: torch.dtype, dev: torch.device) -> Dict:
+    if kind == MLA:
+        return attention.init_mla(gen, cfg, tp, dtype, dev)
+    return attention.init_gqa(gen, cfg, tp, dtype, dev)
+
+
+def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
+                 gen: torch.Generator, dtype: torch.dtype,
+                 dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor,
+                                             List[Tuple[Dict, Dict]]]:
+    """``init_model``'s leaves: (embed, final_norm, [(mixer, ffn)] a
+    layer); on the meta device, their shapes alone."""
+    if par.ep != 1:
+        raise NotImplementedError(EP_NOT_PORTED)
+    check_ported(cfg, par.tp)
     v_pad = pad_vocab(cfg.vocab_size, par.tp)
     embed = iu.zero_pad_rows(
         torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
         * cfg.d_model ** -0.5, v_pad).to(dtype)
-    blocks = []
+    out = []
     for mixer_kind, ffn_kind in expanded_pattern(cfg):
-        if mixer_kind == MLA:
-            mixer = attention.init_mla(gen, cfg, par.tp, dtype, dev)
-        else:
-            mixer = attention.init_gqa(gen, cfg, par.tp, dtype, dev)
+        mixer = _init_mixer(mixer_kind, gen, cfg, par.tp, dtype, dev)
         if ffn_kind == MOE_FFN:
             f = ffn.init_moe(gen, cfg, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
         else:
             f = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
-        blocks.append(Block(mixer, f))
-    return Model(embed, torch.ones(cfg.d_model, dtype=dtype, device=dev),
-                 blocks, trainable)
+        out.append((mixer, f))
+    return embed, torch.ones(cfg.d_model, dtype=dtype, device=dev), out
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
+                          par: Optional[ParallelConfig] = None) -> int:
+    """Exact parameter count from the shapes ``init_model`` builds, built
+    on the meta device (nothing is allocated), padding included (the
+    reference's ``count_params_analytic``; ``par`` defaults to tp=1).
+    ``active_only`` scales routed-expert weights by top_k / num_experts
+    (MODEL_FLOPS = 6 * N_active * D for MoE).  A packed ``w13`` counts as
+    its ``w1`` and ``w3``.  The count is the model's, not the port's
+    coverage: DeepSeek-V3's multi-token-prediction head (a layer of the
+    pattern's last mixer kind, a dense FFN and a [2D, D] projection), which
+    ``Model`` does not build yet, is counted from its shapes, as the
+    reference counts it."""
+    par = par or ParallelConfig(tp=1)
+    meta = torch.device("meta")
+    gen = torch.Generator()
+    dtype = torch.bfloat16
+    embed, final_norm, layers_ = _init_leaves(cfg, par, gen, dtype, meta)
+    total = embed.numel() + final_norm.numel()
+    blocks = [(m, f, kind == MOE_FFN)
+              for (m, f), (_, kind) in zip(layers_, expanded_pattern(cfg))]
+    if cfg.mtp_depth:
+        kind = cfg.pattern[-1][0]
+        blocks.append((
+            dict(_init_mixer(kind, gen, cfg, par.tp, dtype, meta),
+                 proj=torch.empty((2 * cfg.d_model, cfg.d_model),
+                                  device=meta)),
+            ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, meta,
+                         fuse13=par.fuse_w13), False))
+    for mixer, f, moe in blocks:
+        total += sum(t.numel() for t in mixer.values())
+        for name, t in f.items():
+            if isinstance(t, dict):            # the MoE's shared expert
+                total += sum(v.numel() for v in t.values())
+                continue
+            n = t.numel()
+            # routed experts carry an expert dim
+            if active_only and moe and name in ("w1", "w2", "w3"):
+                n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+            total += n
+    return total
 
 
 def param_specs(cfg: ModelConfig, params: Model) -> Dict:

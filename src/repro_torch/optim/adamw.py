@@ -85,14 +85,25 @@ def adamw_update(params: Dict[str, torch.Tensor],
     lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
     mu_out, nu_out = {}, {}
     for n, p in params.items():
-        g = grads[n].float() * clip
+        # the reference's fp32 arithmetic op for op, the fp32 moments
+        # updated in place and each full-size temporary freed once read:
+        # at tp>1 every rank runs its update at once on the one card
         mu, nu = opt["mu"][n], opt["nu"][n]
-        mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g
-        nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g * g
-        step = (mu32 / c1) / (torch.sqrt(nu32 / c2) + cfg.eps)
+        g = grads[n].to(torch.float32, copy=True).mul_(clip)
+        mu32 = mu if mu.dtype == torch.float32 else mu.float()
+        mu32.mul_(cfg.b1).add_(torch.mul(g, 1 - cfg.b1))
+        nu32 = nu if nu.dtype == torch.float32 else nu.float()
+        nu32.mul_(cfg.b2).add_(torch.mul(g, 1 - cfg.b2).mul_(g))
+        del g
+        step = torch.div(mu32, c1)
+        step.div_(torch.div(nu32, c2).sqrt_().add_(cfg.eps))
         p32 = p.float()
-        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
-        mu.copy_(mu32)
-        nu.copy_(nu32)
+        step.add_(torch.mul(p32, cfg.weight_decay)).mul_(lr)
+        p.copy_(p32.sub_(step))
+        del step, p32
+        if mu32 is not mu:
+            mu.copy_(mu32)
+        if nu32 is not nu:
+            nu.copy_(nu32)
         mu_out[n], nu_out[n] = mu, nu
     return params, {"mu": mu_out, "nu": nu_out, "count": count}
