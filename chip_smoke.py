@@ -15,7 +15,8 @@ a checkout of this repository.  Phases, one JSON object per line each:
 3. kernel  — each kernel (flash attention, MLA decode) against its plain
              PyTorch version on the card at the main paths' shapes (the
              kernel lane's, the tp lane's and the paper lane's flash
-             shapes, the mla lane's decode) and a few edge cases, with its time, the plain
+             shapes, the mla lane's decode at 128 heads and at the mla
+             tp lane's 32 heads a rank) and a few edge cases, with its time, the plain
              version's, the library call's and the bound; the MLA kernel
              also with its split count and its combine's time;
 4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
@@ -37,6 +38,23 @@ a checkout of this repository.  Phases, one JSON object per line each:
 7. mla_server_lane — the paged ``Server`` over the same four layers: 8
              requests served together, one at a time, and again on the
              same server (prefix reuse); a smoke check, no kernel runs;
+   The mla lane also keeps, before its model is freed, the tp=1
+   references of the mla tp lane: the drop-free prefill's logits (every
+   MoE assignment kept) and 16 greedy kernel decode steps' logits;
+   mla_tp_lane — the same four layers at tp=4 (4 ranks on the one card,
+             the same canonical weights, w1|w3 packed, 64 experts a
+             rank): prefill at the config's capacity factor in flux (48
+             AG-GEMM and 32 GEMM-RS launches: what its PlanSet implies;
+             the MoE exchange across the ranks), xla and decomposed, each
+             rank's dropped assignments; the flux prefill drop-free
+             against tp=1's; then 16 decode steps from its caches through
+             the MLA-decode kernel at 32 heads a rank, teacher-forced on
+             tp=1's tokens (logits each step against tp=1's, 256 kernel
+             launches), one paged step; the a2a op alone, host and
+             device time;
+   mla_tp_server_lane — ``launch.serve --arch deepseek_v3_671b --layers 4
+             --tp 4 --mode flux``: the tp server lane's requests and gates
+             (``serve_lane``, the near-tie rule), TPOT beside tp=1's;
 8. matmul_kernel — the GEMM kernel against its plain version at the
              op-level shapes (GPT-3 175B at TP 8, bf16), a ragged shape and
              fp32, with its time, the plain version's, cuBLAS's
@@ -212,6 +230,18 @@ TP_LANE_RTOL = 5e-2
 # same TP_LANE_RTOL at each step
 N_DECODE = 16
 N_DECODE_OTHER_MODES = 4  # the tp lane's xla and decomposed decode steps
+# the mla tp lane: deepseek_v3_671b's first four layers at tp=4, and its
+# tp=1 references taken in the mla lane; drop-free, no MoE assignment is
+# evicted at either tp (the reference's own TP-invariance test raises the
+# factor to 16 for this: eviction order depends on the layout)
+MLA_TP = 4
+MLA_TP_LENGTHS = [256, 512, 777, 1024]     # the prefill's prompts
+MLA_DROP_FREE_CF = 16.0
+MLA_TP_SERVER_ARGV = (["--arch", "deepseek_v3_671b", "--layers", "4"]
+                      + ["--requests", "8", "--max-batch", "8",
+                         "--prompt-len", "40", "--max-new", "16",
+                         "--max-seq", "256", "--block-size", "16",
+                         "--prefill-chunk", "32"])
 # the tp server lane: minicpm_2b at full width, cut to its first 8 layers
 TP_SERVER_LAYERS = 8
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
@@ -685,6 +715,7 @@ def phase_mla_kernel(torch):
         ("ragged_valid_1", 4, 128, 777, [1, 777, 400, 600], False),
         ("paged_view", 4, 128, 66 * 16, [257, 513, 778, 1025], True),
         ("tp8_rank_heads", 4, 16, 1041, [257, 513, 778, 1025], False),
+        ("mla_tp4_decode", 4, 32, 1041, [257, 513, 778, 1025], False),
         ("single_row", 4, 128, 1, [1, 0, 1, 5], False),
     ]
     names = {"kernel_device_ms": "mla_wgmma_kernel",
@@ -781,7 +812,7 @@ def phase_mla_kernel(torch):
         results[name] = res
         del q_eff, q_rope, c, kr, out, want, q_l, k_l, v_l
     torch.cuda.empty_cache()
-    return results["mla_lane_decode"]
+    return results["mla_lane_decode"], results["mla_tp4_decode"]
 
 
 def phase_kernel_lane(torch):
@@ -1137,6 +1168,7 @@ def phase_mla_lane(torch):
     out = torch.cat(plain_tokens, dim=1)
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "decoded token out of [0, vocab)")
+    tp1 = mla_tp1_reference(torch, params, cfg, batch, lengths)
     emit({"phase": "mla_lane", "arch": cfg.name, "layers": cfg.num_layers,
           "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
           "batch": 4, "lengths": lengths.tolist(), "s_max": s_max,
@@ -1156,10 +1188,54 @@ def phase_mla_lane(torch):
           "decode_host_enqueue_ms_median": enqueue_ms,
           "decode_profile": decode_prof,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "tokens_row0": out[0].tolist()})
+          "tokens_row0": out[0].tolist(),
+          "tp1_reference_drop_free_cf": MLA_DROP_FREE_CF,
+          "tp1_reference_tokens_row0": torch.cat(tp1["tokens"],
+                                                 dim=1)[0].tolist()})
     del caches_k
     torch.cuda.empty_cache()
-    return params, cfg, (launches, combine_launches)
+    return params, cfg, (launches, combine_launches), tp1
+
+
+def drop_free(cfg):
+    """``cfg`` with the MoE capacity factor at which no assignment drops."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MLA_DROP_FREE_CF))
+
+
+def mla_tp1_reference(torch, params, cfg, batch, lengths, n_decode=N_DECODE):
+    """The mla tp lane's tp=1 references, on the mla lane's model before it
+    is freed, drop-free: the prefill's last-position logits and n_decode
+    greedy decode steps through the MLA-decode kernel (each step's logits,
+    and the tokens, on which the tp lane is teacher-forced), on the host.
+    No MoE assignment may drop."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import ffn
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+
+    cfg_df = drop_free(cfg)
+    ctx = make_ctx(ParallelConfig(kernel_decode=True))
+    ffn.dropped.clear()
+    logits, caches = S.prefill_logits(params, batch, ctx, cfg_df, lengths)
+    check(ffn.drop_totals() == [0], f"the tp=1 drop-free prefill dropped "
+          f"{ffn.drop_totals()} MoE assignments")
+    caches = _dense_caches(torch, caches, int(lengths.max()) + n_decode + 1)
+    tok = S.vocab_parallel_argmax(logits, cfg.vocab_size)[:, None]
+    out = {"prefill_logits": logits[:, :cfg.vocab_size].float().cpu(),
+           "tokens": [tok.cpu()], "decode_logits": []}
+    del logits
+    for step in range(n_decode):
+        lg, caches = S.decode_logits(params, caches, tok, lengths + step, ctx,
+                                     cfg_df)
+        tok = S.vocab_parallel_argmax(lg, cfg.vocab_size)[:, None]
+        out["decode_logits"].append(lg[:, :cfg.vocab_size].float().cpu())
+        out["tokens"].append(tok.cpu())
+    check(ffn.drop_totals() == [0], f"the tp=1 decode dropped "
+          f"{ffn.drop_totals()} MoE assignments")
+    del caches
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_mla_server_lane(torch, params, cfg):
@@ -1226,6 +1302,315 @@ def phase_mla_server_lane(torch, params, cfg):
           "reused_tokens": server.pool.reused_tokens,
           "second_pass_equals_first": True,
           "concurrent_equals_isolated": f"{agree}/{len(reqs)}"})
+
+
+def mla_prefill_launches(plans, cfg, tp, mlp_weights=1):
+    """The fused kernels one MLA prefill launches at ``tp``, read off a
+    ``PlanSet``: a rank's flux seam in the sequence-sharded layout, each
+    layer, launches two AG-GEMMs on attn_ag (the q and kv up-projections,
+    distinct inputs), one GEMM-RS and its reduce on attn_rs, one AG-GEMM
+    on mlp_ag (the dense FFN's or the shared expert's; one a weight when
+    the gather is not shared) and one GEMM-RS on mlp_rs; the moe_a2a seam
+    and the head launch none.  Every rank's, summed."""
+    from repro_torch.models import model as M
+    c = {"ag_gemm": 0, "gemm_rs": 0}
+    if plans.residual_layout() == "seq":
+        for j in range(cfg.num_layers):
+            slot = M.layer_slot(cfg, j)
+            for seam in ("attn_ag", "attn_rs", "mlp_ag", "mlp_rs"):
+                p = plans.resolve(seam, slot)
+                if p.mode != "flux":
+                    continue
+                if seam == "attn_ag":
+                    c["ag_gemm"] += 2
+                elif seam == "mlp_ag":
+                    c["ag_gemm"] += 1 if p.shared_gather else mlp_weights
+                else:
+                    c["gemm_rs"] += 1
+    c = {k: v * tp for k, v in c.items()}
+    c.update(gemm_rs_reduce=c["gemm_rs"], flash_attention=0, matmul=0)
+    return c
+
+
+def a2a_op_ms(torch, group, ranks, cap, calls=10):
+    """The MoE layer's ``moe_a2a`` op alone at the lane's shape (x [tp,
+    E/tp, cap, D] bf16 a rank, the rank's 64 experts), ``xla`` (two
+    barrier exchanges) and ``flux`` (the shift ring): host ms a call
+    (``calls`` calls inside one ``spmd``), and one profiled call's device
+    ms and busy share."""
+    from repro_torch.core.overlap import Epilogue, FusedOp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    tp = group.n
+    args = []
+    for rank in ranks:
+        f = rank.layers[-1].ffn
+        x = torch.randn((tp, f["w1"].shape[0], cap, f["w1"].shape[1]),
+                        generator=gen, device="cuda").bfloat16()
+        args.append((x, f["w1"], f["w3"], f["w2"]))
+    out = {"shape_a_rank": list(args[0][0].shape)}
+    for mode in ("xla", "flux"):
+        op = FusedOp("a2a", Epilogue(activation="silu", gate="pair"), 3,
+                     axis=group, mode=mode)
+
+        def run(n=calls):
+            group.spmd(lambda x, *ws: [op(x, *ws) for _ in range(n)], args)
+        med, _ = wall_ms(torch, run, repeats=3)
+        prof = device_profile(torch, lambda: run(1))
+        out[mode] = {"host_ms": med / calls,
+                     "device_ms": prof["device_ms"],
+                     "device_busy_share": prof["device_busy_share"],
+                     "profiled_wall_ms": prof["profiled_wall_ms"]}
+    del args
+    return out
+
+
+def phase_mla_tp_lane(torch, tp1):
+    """deepseek_v3_671b's first four layers at full width, tp=4 on the one
+    card (the module docstring's mla_tp_lane): the same canonical weights
+    as the mla lane's, packed for tp=4 (w1|w3 packed) and cut per rank, the
+    mla lane's batch.  Returns the main paths' launches: the flux
+    prefill's fused kernels and the decode's MLA-decode kernel."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.dist import RankGroup
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx, pad_heads
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek_v3_671b"), num_layers=4)
+    cfg_df = drop_free(cfg)
+    tp = MLA_TP
+    group = RankGroup(tp, "cuda", timeout_s=120)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = M.init_model(cfg, ParallelConfig(tp=tp, fuse_w13=True), seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    lengths = torch.tensor(MLA_TP_LENGTHS, device="cuda")
+    s = int(lengths.max())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)                    # the mla lane's tokens
+    toks = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
+                         device="cuda")
+    toks = toks.masked_fill(torch.arange(s, device="cuda")[None]
+                            >= lengths[:, None], 0)
+    batch = {"tokens": toks}
+    ctxs = {mode: make_ctx(ParallelConfig(tp=tp, kernel_decode=True,
+                                          overlap_mode=mode), group)
+            for mode in ("flux", "xla", "decomposed")}
+    args = [(p,) for p in ranks]
+    vocab = cfg.vocab_size
+
+    def prefill(mode, c=cfg, fn=S.prefill_logits):
+        ctx = ctxs[mode]
+        return group.spmd(lambda p: fn(p, batch, ctx, c, lengths), args)
+
+    def logits_of(outs):
+        return torch.cat([o[0] for o in outs], dim=-1)[:, :vocab].float()
+
+    def counts_now():
+        c = read_counts()
+        c["mla_decode"] = md.mla_decode_attention.launches
+        return c
+
+    def zero_all():
+        zero_counts()
+        md.mla_decode_attention.launches = 0
+        md.mla_decode_attention.combine_launches = 0
+
+    # the main path: counts to 0, one flux prefill_step, counts read
+    zero_all()
+    outs = prefill("flux", fn=S.prefill_step)
+    torch.cuda.synchronize()
+    counts = counts_now()
+    want = mla_prefill_launches(ctxs["flux"].plans, cfg, tp)
+    want["mla_decode"] = 0
+    check(counts == want, f"mla tp flux prefill launches {counts}, its "
+          f"PlanSet implies {want}")
+    nxt = outs[0][0]
+    check(all(torch.equal(o[0], nxt) for o in outs),
+          "mla tp prefill: the ranks' next tokens differ")
+    del outs
+    res = {"phase": "mla_tp_lane", "arch": cfg.name, "tp": tp,
+           "layers": cfg.num_layers, "init_s": init_s,
+           "init_peak_gb": init_peak_gb,
+           "weights_gb_all_ranks": sum(
+               p.numel() * p.element_size() for r in ranks
+               for p in r.parameters()) / 1e9,
+           "experts_a_rank": ranks[0].layers[-1].ffn["w1"].shape[0],
+           "batch": 4, "lengths": lengths.tolist(),
+           "capacity_factor": cfg.moe.capacity_factor,
+           "flux_launches": counts, "flux_launches_planset": want,
+           "next_tokens": nxt[:, 0].tolist(), "rtol": TP_LANE_RTOL}
+    logits, drops = {}, {}
+    for mode in ("flux", "xla", "decomposed"):
+        zero_all()
+        ffn.dropped.clear()
+        logits[mode] = logits_of(prefill(mode))
+        torch.cuda.synchronize()
+        drops[mode] = ffn.drop_totals(tp)
+        c = counts_now()
+        if mode != "flux":
+            check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+                  f"{mode} prefill launched the fused kernels: {c}")
+        check(bool(torch.isfinite(logits[mode]).all()),
+              f"non-finite mla tp {mode} logits")
+    res["dropped_assignments_per_rank"] = drops
+    for a, b in (("flux", "xla"), ("flux", "decomposed"),
+                 ("xla", "decomposed")):
+        rel = _rel_l2(logits[a], logits[b])
+        res[f"logits_rel_l2_{a}_vs_{b}"] = rel
+        check(rel <= TP_LANE_RTOL, f"mla tp prefill {a} vs {b} logits "
+              f"differ by {rel} (relative L2) > {TP_LANE_RTOL}")
+    for mode in ("flux", "xla", "decomposed"):
+        med, samples = wall_ms(torch, lambda: prefill(mode), repeats=3)
+        res[f"prefill_ms_median_{mode}"] = med
+        res[f"prefill_ms_samples_{mode}"] = samples
+    res["prefill_profile_flux"] = device_profile(torch,
+                                                 lambda: prefill("flux"))
+    del logits
+
+    # drop-free: the flux prefill against tp=1's; its caches feed decode
+    ffn.dropped.clear()
+    outs = prefill("flux", c=cfg_df)
+    lf = logits_of(outs)
+    d = ffn.drop_totals(tp)
+    check(d == [0] * tp, f"the drop-free tp prefill dropped {d} "
+          "assignments")
+    rel_tp1 = _rel_l2(lf, tp1["prefill_logits"].to("cuda"))
+    res["drop_free"] = {"capacity_factor": MLA_DROP_FREE_CF,
+                        "dropped_assignments_per_rank": d,
+                        "logits_rel_l2_vs_tp1": rel_tp1,
+                        "next_tokens": lf.argmax(-1).tolist(),
+                        "next_tokens_tp1": tp1["tokens"][0][:, 0].tolist()}
+    check(rel_tp1 <= TP_LANE_RTOL, f"mla tp drop-free prefill logits vs "
+          f"tp=1 differ by {rel_tp1} (relative L2) > {TP_LANE_RTOL}")
+    s_max = s + N_DECODE + 1
+    caches = [_dense_caches(torch, o[1], s_max) for o in outs]
+    del outs, lf
+    res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["a2a_op"] = a2a_op_ms(torch, group, ranks,
+                              ffn._capacity(4 * s // tp, cfg.moe))
+
+    # the decode: N_DECODE dense steps through the MLA-decode kernel at
+    # H / tp heads a rank, teacher-forced on tp=1's tokens
+    ctx = ctxs["flux"]
+    tokens = [t.to("cuda") for t in tp1["tokens"]]
+
+    def one(step, cs, tables=None):
+        def body(p, c):
+            lg, _ = S.decode_logits(p, c, tokens[step], lengths + step, ctx,
+                                    cfg_df, block_tables=tables)
+            return S.vocab_parallel_argmax(lg, vocab, ctx), lg
+        outs = group.spmd(body, list(zip(ranks, cs)))
+        return (torch.stack([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs], dim=-1)[:, :vocab].float())
+
+    zero_all()
+    samples, rels, agree, flips = [], [], 0, {}
+    for step in range(N_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks_r, lg = one(step, caches)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        check(bool((toks_r == toks_r[0]).all()),
+              f"mla tp decode step {step}: the ranks' tokens differ")
+        want_lg = tp1["decode_logits"][step].to("cuda")
+        rels.append(_rel_l2(lg, want_lg))
+        check(rels[-1] <= TP_LANE_RTOL, f"mla tp decode step {step} logits "
+              f"vs tp=1 differ by {rels[-1]} (relative L2) > {TP_LANE_RTOL}")
+        for b, (got, ref) in enumerate(zip(toks_r[0].tolist(),
+                                           tokens[step + 1][:, 0].tolist())):
+            if got == ref:
+                agree += 1
+                continue
+            top2 = torch.topk(want_lg[b], 2).values
+            flips[f"{step}/{b}"] = {
+                "tp1": ref, "tp": got, "margin": (top2[0] - top2[1]).item(),
+                "max_abs_diff": (lg[b] - want_lg[b]).abs().max().item()}
+    c = counts_now()
+    launches = c["mla_decode"]
+    combines = md.mla_decode_attention.combine_launches
+    check(launches == cfg.num_layers * tp * N_DECODE,
+          f"mla tp decode launched the MLA-decode kernel {launches} times, "
+          f"expected {cfg.num_layers * tp * N_DECODE} (a layer a rank a step)")
+    hl = pad_heads(cfg.num_heads, tp) // tp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_splits = md.split_plan(4, hl, s_max, sms)[0]
+    check(combines == launches * int(n_splits > 1),
+          f"MLA combine launched {combines} times, expected "
+          f"{launches * int(n_splits > 1)}")
+    check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+          f"the replicated-layout decode launched fused kernels: {c}")
+    wide = [k for k, f in flips.items() if f["margin"] > 2 * f["max_abs_diff"]]
+    check(not wide, f"mla tp decode tokens differ from tp=1's at {wide}, "
+          "where tp=1's top-2 margin exceeds twice the logits' largest "
+          "difference")
+    warm = sorted(samples[1:])
+    res.update({"decode_steps": N_DECODE, "mla_launches": launches,
+                "mla_combine_launches": combines,
+                "mla_heads_a_rank": hl, "mla_splits": n_splits,
+                "decode_logits_rel_l2_vs_tp1": rels,
+                "decode_tokens_agree_tp1": f"{agree}/{4 * N_DECODE}",
+                "decode_token_flips": flips,
+                "decode_ms_per_step_median": warm[len(warm) // 2],
+                "decode_ms_samples": samples})
+
+    # one paged step through block tables against the same dense step
+    pos_step = N_DECODE
+    pools, bts = [], []
+    for cs in caches:
+        gp = torch.Generator(device="cuda")
+        gp.manual_seed(3)                   # one block table for every rank
+        pl, bt = _paged_caches(torch, cs, gp, 16)
+        pools.append(pl)
+        bts.append(bt)
+    check(all(torch.equal(bt, bts[0]) for bt in bts), "block tables differ")
+    md.mla_decode_attention.launches = 0
+    paged_tok, _ = one(pos_step, pools, bts[0])
+    paged_launches = md.mla_decode_attention.launches
+    check(paged_launches == cfg.num_layers * tp,
+          f"paged step launched the MLA-decode kernel {paged_launches} "
+          f"times, expected {cfg.num_layers * tp}")
+    dense_tok, _ = one(pos_step, [[{n: t.clone() for n, t in layer.items()}
+                                   for layer in cs] for cs in caches])
+    check(torch.equal(paged_tok, dense_tok), f"mla tp paged next tokens "
+          f"{paged_tok[0].tolist()} != dense {dense_tok[0].tolist()}")
+    del pools
+    res["paged_step_mla_launches"] = paged_launches
+    res["paged_tokens_equal_dense"] = True
+    res["decode_profile_flux"] = device_profile(
+        torch, lambda: one(0, caches),
+        {"mla_kernel_ms": "mla_wgmma_kernel",
+         "mla_combine_ms": "mla_combine_kernel"})
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    del ranks, args, caches
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    return {"prefill": counts, "decode_mla": launches,
+            "decode_combines": combines}
+
+
+def phase_mla_tp_server_lane(torch):
+    """The paged Server at tp=4 in flux on the one card over
+    deepseek_v3_671b's first four layers at full width, through
+    ``launch.serve``'s path (``serve_lane``, the near-tie rule for first
+    tokens: bf16 logits of random weights are nearly flat)."""
+    return serve_lane(torch, "mla_tp_server_lane", MLA_TP_SERVER_ARGV,
+                      MLA_TP, ties_ok=True)
 
 
 def phase_matmul_kernel(torch):
@@ -1401,10 +1786,48 @@ def _copy_activities(torch, group, fn, args):
     return {n: c for n, c in names.items()}
 
 
+def mla_tp_seam_cases(which):
+    """(name, rows, K, N) of one rank's AG-GEMM (``which="ag"``: rows its
+    sequence shard) or GEMM-RS (rows M, K its shard) operands at the flux
+    seams of the mla tp lane's prefill: deepseek_v3_671b at tp=MLA_TP over
+    len(MLA_TP_LENGTHS) prompts padded to the longest, the shapes from
+    ``autotune.model_seam_shapes`` (attn_ag's q and kv up-projections,
+    attn_rs's w_o, the packed w13 and w2 of the dense FFN, which the
+    shared expert's share)."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.parallel.sharding import pad_ff
+    from repro_torch.tuning.autotune import model_seam_shapes
+
+    cfg = get_config("deepseek_v3_671b")
+    mc = cfg.moe
+    check(pad_ff(mc.shared_ffn * mc.num_shared_experts, MLA_TP)
+          == pad_ff(cfg.d_ff, MLA_TP),
+          "deepseek_v3_671b's shared expert is not the dense FFN's width")
+    tokens = len(MLA_TP_LENGTHS) * max(MLA_TP_LENGTHS)
+    shapes = model_seam_shapes(cfg, ParallelConfig(tp=MLA_TP, fuse_w13=True),
+                               tokens)
+    cases = []
+    for cell, (kind, m, n, k) in shapes.items():
+        if kind != which or cell == "head_ag":   # the head runs no kernel
+            continue
+        name = f"{which}_mla_tp_{cell.split('@')[-1]}"
+        cases.append((name, m // MLA_TP, k, n // MLA_TP) if which == "ag"
+                     else (name, m, k // MLA_TP, n))
+    return cases
+
+
+def mla_seam_cases(cases):
+    """The kernels line's digest of ``phase_fused_kernel``'s mla tp lane
+    cases."""
+    return {name: {k: r[k] for k in (
+        "rank_rows", "K", "N", "max_abs_err", "fused_ms", "plain_ms",
+        "bound_ms", "bound_by", "xla_ms")} for name, r in cases.items()}
+
+
 def phase_fused_kernel(torch, which):
     """The AG-GEMM (``which="ag"``) or GEMM-RS kernel against its plain
     version, n ranks of a RankGroup on the one card; returns the §5.1
-    m 8192 case.  Each case: every rank's error, the fused n-rank time,
+    m 8192 case and the mla tp lane's cases by name.  Each case: every rank's error, the fused n-rank time,
     the xla mode's (gather + torch.matmul, or torch.matmul + the slots'
     sum), n x the GEMM kernel at one rank's shape, the plain version's
     and the bound."""
@@ -1452,6 +1875,10 @@ def phase_fused_kernel(torch, which):
                      "dX of head_ag: the logits' cotangent x table")]}[which]
     cases += [(name, TP_LANE, bf16, rows, k, nn, None, False, False)
               for name, rows, k, nn, _ in train]
+    # the mla tp lane's seams, at the shapes its flux prefill gives them
+    mla_cases = mla_tp_seam_cases(which)
+    cases += [(name, MLA_TP, bf16, rows, k, nn, None, False, False)
+              for name, rows, k, nn in mla_cases]
     operands = {c[0]: c[4] for c in train}
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     groups = {n: RankGroup(n, "cuda", timeout_s=60) for n in (4, 8)}
@@ -1549,7 +1976,8 @@ def phase_fused_kernel(torch, which):
             grp.free_symmetric()
         torch.cuda.empty_cache()
     emit({"phase": results[f"{which}_m8192"]["phase"], "ptxas": ptxas})
-    return results[f"{which}_m8192"]
+    return (results[f"{which}_m8192"],
+            {c[0]: results[c[0]] for c in mla_cases})
 
 
 def phase_tp_op_level_lane(torch):
@@ -3510,19 +3938,24 @@ def main():
     smi = timed("device", phase_device, torch)
     timed("build", phase_build)
     flash_case = timed("kernel", phase_kernel, torch)
-    mla_case = timed("mla_kernel", phase_mla_kernel, torch)
+    mla_case, mla_tp_case = timed("mla_kernel", phase_mla_kernel, torch)
     flash_launches, tp1_logits, tp1_decode = timed(
         "kernel_lane", phase_kernel_lane, torch)
     timed("server_lane", phase_server_lane, torch)
-    params, cfg, (mla_launches, mla_combines) = timed(
+    params, cfg, (mla_launches, mla_combines), mla_tp1 = timed(
         "mla_lane", phase_mla_lane, torch)
     timed("mla_server_lane", phase_mla_server_lane, torch, params, cfg)
     del params
     torch.cuda.empty_cache()
+    mla_tp = timed("mla_tp_lane", phase_mla_tp_lane, torch, mla_tp1)
+    del mla_tp1
+    timed("mla_tp_server_lane", phase_mla_tp_server_lane, torch)
     matmul_case = timed("matmul_kernel", phase_matmul_kernel, torch)
     matmul_launches, _ = timed("op_level_lane", phase_op_level_lane, torch)
-    ag_case = timed("ag_gemm_kernel", phase_fused_kernel, torch, "ag")
-    rs_case = timed("gemm_rs_kernel", phase_fused_kernel, torch, "rs")
+    ag_case, ag_mla = timed("ag_gemm_kernel", phase_fused_kernel, torch,
+                            "ag")
+    rs_case, rs_mla = timed("gemm_rs_kernel", phase_fused_kernel, torch,
+                            "rs")
     tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
     timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
     del tp1_logits, tp1_decode
@@ -3550,11 +3983,16 @@ def main():
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
          "launches": mla_launches, "combine_launches": mla_combines,
+         "mla_tp_launches": {"decode": mla_tp["decode_mla"],
+                             "combine": mla_tp["decode_combines"]},
          "max_abs_err": mla_case["max_abs_err"],
          "ms": mla_case["kernel_ms"], "plain_ms": mla_case["plain_ms"],
          "device_ms": mla_case["device_ms"],
          "bound_ms": mla_case["bound_ms"], "bound_by": mla_case["bound_by"],
-         "library_ms": mla_case["library_ms"]},
+         "library_ms": mla_case["library_ms"],
+         "tp4_rank_case": {k: mla_tp_case[k] for k in (
+             "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:19",
@@ -3582,6 +4020,8 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
                  for d in ("forward", "backward")}},
          "paper_launches": paper_launches(paper, "ag_gemm"),
+         "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
+         "mla_tp_cases": mla_seam_cases(ag_mla),
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
          "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
@@ -3604,6 +4044,8 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
                  for d in ("forward", "backward")}},
          "paper_launches": paper_launches(paper, "gemm_rs"),
+         "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
+         "mla_tp_cases": mla_seam_cases(rs_mla),
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
          "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],

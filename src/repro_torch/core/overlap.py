@@ -8,7 +8,9 @@ With the sequence-sharded ("seq") residual stream of Megatron-SP:
     rs   y[B, S, F/N] , w[F/N, D]  ->  epilogue(ReduceScatter_S(y @ w))
     ar   y[B, m, F/N] , w[F/N, D]  ->  epilogue(AllReduce(y @ w))
     a2a  x[ep, E_loc, cap, D], (w1, w3)[E_loc, D, F], w2[E_loc, F, D]
-         ->  per-expert act(x @ w1) * (x @ w3) @ w2     (ep=1: local)
+         ->  dispatch x[j] to EP rank j, per-expert
+             act(b @ w1) * (b @ w3) @ w2 on what arrived, combine back
+             (ep=1: the local expert FFN)
 
 With the replicated ("hidden") residual stream, ``scatter_axis="hidden"``,
 an ag op's x is already the full activation (a local GEMM, no collective)
@@ -115,6 +117,22 @@ The reference's tuning knobs ride every transport, forward and backward
 The knobs change scheduling, never values, beyond the order of sums the
 reference changes too.  Not ported (it raises and names its ROADMAP
 item): ``wire_dtype``.
+
+``kind="a2a"`` is the MoE expert-parallel exchange (the reference's
+``_a2a_impl``), forward only: under grad at n>1 it raises (its backward,
+``_a2a_bwd``, is ROADMAP queue 1 item 8.3).  Dim 0 of x indexes the
+destination EP rank; the op returns the same layout, ``out[j]`` holding
+this rank's tokens as EP rank j's experts processed them.  ``xla`` runs
+the two barrier exchanges (``a2a_exchange``: one ``RankGroup`` exchange
+each) around the batched expert GEMMs; every other mode the shift ring
+(``_a2a_ring``): for each shift, the block bound for the partner that
+far ahead travels as ``_sub_chunks(cap, n, comm_chunks)`` pieces, each
+piece one pull copy out, the expert GEMMs on it, one copy back;
+``reverse`` flips the ring's direction.  Both return the assembled
+received buffer too (``_a2a_impl``), the residual the backward will
+need.  The expert GEMMs are ``torch`` batched matmuls, as the
+reference's ``_expert_fn`` is ``jnp.einsum``: no fused kernel, whatever
+the mode.
 """
 from __future__ import annotations
 
@@ -134,6 +152,9 @@ VALID_SCATTER_AXES = ("seq", "hidden")
 NOT_PORTED = {
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
                   "(ROADMAP queue 1 item 9)",
+    "a2a_backward": "the MoE a2a exchange across ranks runs forward only: "
+                    "its backward (training through MoE) is ROADMAP queue 1 "
+                    "item 8.3",
 }
 
 
@@ -855,7 +876,11 @@ class FusedOp:
                     f"epilogue.{name}={flag} but {name} operand "
                     f"{'missing' if flag else 'given'}")
         if self.kind == "a2a":
-            return _expert_fn(epi, x, *ws)
+            if _group_size(self.axis) == 1:
+                return _expert_fn(epi, x, *ws)
+            if _needs_grad(x, *ws):
+                raise NotImplementedError(NOT_PORTED["a2a_backward"])
+            return _a2a_impl(self, x, ws)[0]
         if _group_size(self.axis) == 1:
             # one rank: local GEMMs, plain autograd
             if self.kind == "ag":
@@ -1077,3 +1102,62 @@ def _expert_fn(epi: Epilogue, b: torch.Tensor, w1: torch.Tensor,
     a3 = torch.einsum("...ecd,edf->...ecf", b, w3)
     h = epi.apply([a1, a3])
     return torch.einsum("...ecf,efd->...ecd", h, w2)
+
+
+# ---------------------------------------------------------------------------
+# kind="a2a": the MoE expert-parallel exchange (dispatch + combine)
+# ---------------------------------------------------------------------------
+def a2a_exchange(buf: torch.Tensor, group) -> torch.Tensor:
+    """Barrier all-to-all of ``buf[EP, ...]`` over the group: block j of
+    the result is what rank j addressed to this rank (its ``buf[me]``).
+    An involution, so the same call serves dispatch and combine."""
+    me = group.rank()
+    return torch.stack([p[me] for p in group.exchange(buf, "a2a")])
+
+
+def _a2a_ring(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """The over-decomposed exchange (the reference's ``_a2a_ring`` over one
+    axis): at shift sh this rank sends its block for rank me + sh and
+    receives rank me - sh's block for its own experts, one piece at a
+    time; each landed piece goes through the local experts and hops back
+    on the inverse permutation.  Returns (out, buf): ``out[dst]`` this
+    rank's block as rank dst's experts processed it, ``buf[src]`` the
+    block rank src sent here, identical to the barrier path's."""
+    group = op.axis
+    n, me = group.n, group.rank()
+    e_loc, cap, dm = x.shape[1:]
+    sub = _sub_chunks(cap, n, op.comm_chunks)
+    sub_len = cap // sub
+    out = torch.zeros_like(x)
+    buf = torch.zeros_like(x)
+    for s in range(n):
+        sh = (n - s) % n if op.reverse else s
+        dst, src = (me + sh) % n, (me - sh) % n
+        fwd = [(i, (i + sh) % n) for i in range(n)]
+        inv = [(i, (i - sh) % n) for i in range(n)]
+        for j in range(sub):
+            rows = slice(j * sub_len, (j + 1) * sub_len)
+            chunk = x[dst:dst + 1, :, rows]
+            if sh:
+                chunk = group.ppermute(chunk, fwd, "a2a_ring")
+            # arrived: rank src's tokens for this rank's experts
+            buf[src:src + 1, :, rows] = chunk
+            y = _expert_fn(op.epilogue, chunk, *ws)
+            if sh:
+                y = group.ppermute(y, inv, "a2a_ring")
+            # back: this rank's tokens, processed by rank dst's experts
+            out[dst:dst + 1, :, rows] = y
+    return out, buf
+
+
+def _a2a_impl(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """(out, received buffer) of the EP exchange at n > 1: ``xla`` runs the
+    two barrier exchanges around the batched expert GEMMs, every other
+    mode the shift ring."""
+    if op.mode == "xla":
+        buf = a2a_exchange(x, op.axis)
+        y = _expert_fn(op.epilogue, buf, *ws)
+        return a2a_exchange(y, op.axis).to(x.dtype), buf
+    return _a2a_ring(op, x, ws)

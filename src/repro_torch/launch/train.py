@@ -48,7 +48,8 @@ from repro_torch.runtime import trainer as T
 NOT_PORTED = {
     "dp": (lambda v: v != 1, "data parallelism (ROADMAP queue 1 item 10)"),
     "pods": (lambda v: v != 1, "pods (ROADMAP queue 1 item 10)"),
-    "ep": (lambda v: v > 1, "expert parallelism (ROADMAP queue 1 item 8)"),
+    "ep": (lambda v: v > 1, "a dedicated expert-parallel axis (ROADMAP "
+                            "queue 1 item 10, after MoE training, item 8.3)"),
     "wire_dtype": (lambda v: v is not None,
                    "wire precision (ROADMAP queue 1 item 9)"),
     "max_logit_rmse": (lambda v: v is not None,

@@ -299,8 +299,9 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def _mla_latents(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
-    """Pre-norm and the latent down-projections at positions pos [B, L]:
-    (q_lat [B, L, Rq], kv_lat [B, L, R], k_rope [B, L, Dr] rotated)."""
+    """Pre-norm and the latent down-projections (replicated weights, on
+    this rank's rows) at positions pos [B, L]: (q_lat [B, L, Rq], kv_lat
+    [B, L, R], k_rope [B, L, Dr] rotated)."""
     m = cfg.mla
     h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
     q_lat = layers.rms_norm(torch.matmul(h, p["w_dq"]), p["q_norm"],
@@ -315,22 +316,30 @@ def _mla_latents(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
 
 def mla_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
               with_cache: bool = False):
-    """x: [B, S, D] -> [B, S, D].  ``with_cache=True`` also returns the
-    prefill latent cache {"c": [B, S, R], "kr": [B, S, Dr]} (bf16)."""
+    """x: [B, S, D] -> [B, S, D] ([B, S/TP, D] sequence-sharded: each rank
+    projects its rows' latents, rotates its rope key at their global
+    positions, and gathers the rope key along the ``attn_ag`` seam's
+    transport; the head up-projections are AllGather-GEMMs over this
+    rank's H/TP heads).  ``with_cache=True`` also returns the prefill
+    latent cache {"c": [B, S, R], "kr": [B, S, Dr]} (bf16), whole on
+    every rank."""
     m = cfg.mla
     hl = pad_heads(cfg.num_heads, ctx.tp) // ctx.tp
     b, s_loc, _ = x.shape
     s = s_loc * ctx.seq_factor
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
-    pos = layers.seq_positions(b, s_loc, x.device)
-    q_lat, kv_lat, k_rope = _mla_latents(p, x, pos, cfg)
+    pos_loc = layers.seq_positions(b, s_loc, x.device, ctx=ctx)
+    q_lat, kv_lat, k_rope_loc = _mla_latents(p, x, pos_loc, cfg)
     # head up-projections: the AllGather-GEMM seams (distinct input latents,
     # so no gather sharing between them)
     ag_op = ctx.op("attn_ag")
     q = ag_op(q_lat, p["w_uq"]).reshape(b, s, hl, dn + dr)
     kv = ag_op(kv_lat, p["w_ukv"]).reshape(b, s, hl, dn + dv)
     k_nope, v = torch.split(kv, [dn, dv], dim=-1)
+    # the shared rope key is a non-GEMM payload of the seam
+    k_rope = ctx.gather_seq(k_rope_loc, "attn_ag")
+    pos = layers.seq_positions(b, s, x.device)
     q_nope, q_rope = torch.split(q, [dn, dr], dim=-1)
     q = torch.cat([q_nope, layers.apply_rope(q_rope, pos, cfg.rope_theta)],
                   dim=-1)
@@ -341,7 +350,8 @@ def mla_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     attn = attn.transpose(1, 2).reshape(b, s, hl * dv)
     out = ctx.op("attn_rs")(attn, p["w_o"])
     if with_cache:
-        return out, {"c": kv_lat.to(torch.bfloat16),
+        c = ctx.gather_seq(kv_lat, "attn_ag")
+        return out, {"c": c.to(torch.bfloat16),
                      "kr": k_rope.to(torch.bfloat16)}
     return out
 

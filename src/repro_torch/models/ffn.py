@@ -1,5 +1,5 @@
 """FFN blocks (port of ``repro.models.ffn``): dense SwiGLU and the routed
-MoE at ep=1.
+MoE, its experts split over the TP ranks.
 
 ``ffn_train`` runs the two TP seams: ``mlp_ag`` with the SwiGLU gate as its
 epilogue (``gate="pair"`` over separate w1/w3, or ``gate="split"`` over the
@@ -7,17 +7,31 @@ packed per-device ``w13``) and ``mlp_rs`` for w2.  ``ffn_decode`` is the
 one-token path with the ``decode_ar`` seam.
 
 ``moe_train`` routes in fp32 (softmax, top-k, renormalised gates), buckets
-the (token, k) assignments by expert with a capacity, and hands the
-``[ep, E_loc, cap, D]`` dispatch buffer to ONE ``ctx.op("moe_a2a")`` seam,
-which at ep=1 is the local batched expert SwiGLU; ``moe_decode`` uses the
-statistical decode capacity.  A shared expert, when configured, is a dense
-FFN on the same pre-norm.  The reference's ``segment_sum`` combine is a sum
-over each token's k contiguous assignments here (deterministic on the
-card, where an atomic ``index_add_`` would not be).
+the (token, k) assignments by expert with a capacity, and runs the experts
+in one of two ways, as the reference does.  Under the sequence-sharded
+layout (and at tp=1) each rank routes its own shard with a per-shard
+capacity and hands the ``[ep, E_loc, cap, D]`` dispatch buffer to ONE
+``ctx.op("moe_a2a")`` seam: the exchange to the experts' ranks, the
+batched expert SwiGLU, the exchange back.  Under the replicated layout
+(the chunked prefill, the replicated prefill) every rank holds every token:
+each buckets them in one global order, runs its local experts only, and a
+psum over the group combines the ranks' contributions.  ``moe_decode``
+does the same with the statistical decode capacity.  The EP group is the
+TP group (``ctx.axis``): rank r holds experts ``[r * E_loc,
+(r + 1) * E_loc)``.  Which tokens a saturated expert evicts depends on the
+layout (per shard under "seq", one global order otherwise); drop-free, the
+layouts agree.  A shared expert, when configured, is a dense FFN on the
+same pre-norm.  The reference's ``segment_sum`` combine is a sum over each
+token's k contiguous assignments here (deterministic on the card, where
+an atomic ``index_add_`` would not be).
+
+``dropped`` counts the assignments capacity evicted, keyed by the rank
+whose experts lost them, for the lanes that must show none: zero it with
+``dropped.clear()``, read it with ``drop_totals``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,7 +95,7 @@ def ffn_decode(p, x: torch.Tensor, ctx: TPContext,
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts (ep=1)
+# Mixture of Experts
 # ---------------------------------------------------------------------------
 # leaves the reference keeps in fp32 whatever the model's dtype
 FP32_PARAMS = ("router",)
@@ -103,9 +117,10 @@ def _normal_stack(gen: torch.Generator, shape, std: float, dtype: torch.dtype,
 def init_moe(gen: torch.Generator, cfg: ModelConfig, tp: int,
              dtype: torch.dtype, device: torch.device,
              fuse13: bool = False) -> Dict:
-    """The reference's GLOBAL expert stacks (ep=1: every expert is local):
-    router [D, E] fp32, w1/w3 [E, D, F], w2 [E, F, D], the pre-norm, and
-    the shared expert as a dense FFN without its own norm."""
+    """The reference's GLOBAL expert stacks (``model.shard_params`` cuts
+    each rank's experts on dim 0): router [D, E] fp32, w1/w3 [E, D, F], w2
+    [E, F, D], the pre-norm, and the shared expert as a dense FFN without
+    its own norm."""
     mc = cfg.moe
     dm = cfg.d_model
     e, f = mc.num_experts, mc.expert_ffn
@@ -121,6 +136,19 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, tp: int,
         del shared["norm"]      # the shared path uses the MoE pre-norm
         p["shared"] = shared
     return p
+
+
+# (token, k) assignments that expert capacity evicted since the last
+# ``dropped.clear()``, keyed by TP rank (device tensors until read): under
+# the sequence-sharded layout a rank counts its shard's drops, elsewhere
+# the drops of the assignments to its own experts, so the ranks' totals
+# add up to the layer's.
+dropped: Dict[int, torch.Tensor] = {}
+
+
+def drop_totals(n_ranks: int = 1) -> List[int]:
+    """Each rank's ``dropped`` total (0 for a rank that counted none)."""
+    return [int(dropped.get(r, 0)) for r in range(n_ranks)]
 
 
 def _capacity(tokens: int, mc: MoEConfig) -> int:
@@ -151,6 +179,13 @@ def _bucket(flat_e: torch.Tensor, e: int, cap: int,
     return pos.clamp(0, cap - 1), keep
 
 
+def _count_drops(ctx: TPContext, keep: torch.Tensor,
+                 counted: Optional[torch.Tensor]) -> None:
+    lost = ~keep if counted is None else counted.bool() & ~keep
+    r = ctx.tp_index()
+    dropped[r] = dropped.get(r, 0) + lost.sum()
+
+
 def _dispatch(ht: torch.Tensor, flat_e, slot, keep, e: int, cap: int,
               top_k: int) -> torch.Tensor:
     """[E, cap, D] buffer holding each kept assignment's token row."""
@@ -171,38 +206,76 @@ def _combine(out: torch.Tensor, flat_e, slot, keep, gate: torch.Tensor
     return (vals * gate.reshape(-1)[:, None]).reshape(t, k, -1).sum(1)
 
 
+def _local(ctx: TPContext, flat_e: torch.Tensor, e_loc: int):
+    """(this rank's expert index of each assignment, clamped; is it one of
+    this rank's experts)."""
+    local = flat_e - ctx.tp_index() * e_loc
+    is_local = (local >= 0) & (local < e_loc)
+    return local.clamp(0, e_loc - 1), is_local
+
+
+def _local_experts(p, ht: torch.Tensor, local_e, slot, keep, gate,
+                   e_loc: int, cap: int, top_k: int,
+                   ctx: TPContext) -> torch.Tensor:
+    """This rank's experts on its kept assignments of a token set every
+    rank holds, then the psum of the ranks' contributions over the EP
+    group: [t, D] fp32."""
+    disp = _dispatch(ht, local_e, slot, keep, e_loc, cap, top_k)
+    out = overlap._expert_fn(_SWIGLU, disp, p["w1"], p["w3"], p["w2"])
+    y = _combine(out, local_e, slot, keep, gate)
+    return overlap.psum(y, ctx.axis)
+
+
+_SWIGLU = overlap.Epilogue(activation="silu", gate="pair")
+
+
 def _shared(p) -> Dict:
     return {"norm": p["norm"], **p["shared"]}
+
+
+def _expert_split(e: int, ctx: TPContext) -> int:
+    if e % ctx.tp:
+        raise ValueError(f"{e} experts do not split over {ctx.tp} ranks")
+    return e // ctx.tp
 
 
 def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
               eps: float = 1e-5, lengths: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> ([B, S, D], aux_loss).
+    """x: [B, S, D] ([B, S/TP, D] sequence-sharded) -> (same shape,
+    aux_loss).
 
-    Router -> capacity-bucketed dispatch -> ONE ``moe_a2a`` seam (at ep=1
-    the batched per-expert SwiGLU) -> gate-weighted combine.  ``lengths``
-    ([B], optional): true prompt lengths of a right-padded batch; pad
-    tokens take no expert capacity, are not dispatched or combined, and do
-    not count in the load-balance aux loss."""
+    Router -> capacity-bucketed dispatch -> ONE ``moe_a2a`` seam (the
+    exchange to the experts' ranks, the batched per-expert SwiGLU, the
+    exchange back) -> gate-weighted combine; under the replicated layout
+    at tp>1, the local experts and a psum instead (module docstring).
+    ``lengths`` ([B], optional): true prompt lengths of a right-padded
+    batch; pad tokens (at their global positions) take no expert
+    capacity, are not dispatched or combined, and do not count in the
+    load-balance aux loss, whose sums cover every rank's tokens."""
     mc = cfg.moe
     b, s_loc, dm = x.shape
     t = b * s_loc
     e = mc.num_experts
+    e_loc = _expert_split(e, ctx)
     h = layers.rms_norm(x, p["norm"], eps)
     ht = h.reshape(t, dm)
     probs, gate, eidx = _route(p, ht, mc)
 
     valid_t = None
     if lengths is not None:
-        valid_t = (layers.seq_positions(b, s_loc, x.device)
+        valid_t = (layers.seq_positions(b, s_loc, x.device, ctx=ctx)
                    < lengths.to(x.device)[:, None]).reshape(t)
-    # Switch-style load-balance loss over the valid tokens
+    # Switch-style load-balance loss over the valid tokens of every rank
+    # (me, ce and the count summed over the group, in one exchange)
     vmask = (torch.ones(t, device=x.device) if valid_t is None
              else valid_t.float())
-    me = (probs * vmask[:, None]).sum(0)
-    ce = (F.one_hot(eidx[:, 0], e).float() * vmask[:, None]).sum(0)
-    cnt = torch.clamp(vmask.sum(), min=1.0)
+    sums = torch.cat([(probs * vmask[:, None]).sum(0),
+                      (F.one_hot(eidx[:, 0], e).float()
+                       * vmask[:, None]).sum(0), vmask.sum()[None]])
+    sums = overlap.psum(sums, ctx.axis)
+    me, ce = sums[:e], sums[e:2 * e]
+    cnt = torch.clamp(sums[-1], min=1.0)
     aux = e * torch.sum((me / cnt) * (ce / cnt))
 
     cap = _capacity(t, mc)
@@ -210,12 +283,20 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     counted = (None if valid_t is None
                else valid_t.repeat_interleave(mc.top_k))
     slot, keep = _bucket(flat_e, e, cap, counted)
-    disp = _dispatch(ht, flat_e, slot, keep, e, cap, mc.top_k)
-    # dim 0 of the [ep, E_loc, cap, D] buffer is the destination EP rank
-    ret = ctx.op("moe_a2a", epilogue=overlap.Epilogue(
-        activation="silu", gate="pair"), n_weights=3)(
-        disp.reshape(1, e, cap, dm), p["w1"], p["w3"], p["w2"])
-    y = _combine(ret.reshape(e, cap, dm), flat_e, slot, keep, gate)
+    if ctx.tp > 1 and not ctx.seq_sharded:
+        local_e, is_local = _local(ctx, flat_e, e_loc)
+        _count_drops(ctx, keep, is_local if counted is None
+                     else is_local & counted)
+        y = _local_experts(p, ht, local_e, slot, keep & is_local, gate,
+                           e_loc, cap, mc.top_k, ctx)
+    else:
+        _count_drops(ctx, keep, counted)
+        disp = _dispatch(ht, flat_e, slot, keep, e, cap, mc.top_k)
+        # dim 0 of the [ep, E_loc, cap, D] buffer is the destination EP
+        # rank (experts are blocked: global id = ep rank * E_loc + local)
+        ret = ctx.op("moe_a2a", epilogue=_SWIGLU, n_weights=3)(
+            disp.reshape(ctx.tp, e_loc, cap, dm), p["w1"], p["w3"], p["w2"])
+        y = _combine(ret.reshape(e, cap, dm), flat_e, slot, keep, gate)
     y = y.reshape(b, s_loc, dm).to(x.dtype)
     if "shared" in p:
         y = y + ffn_train(_shared(p), x, ctx, eps)
@@ -224,23 +305,23 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
 
 def moe_decode(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
                eps: float = 1e-5) -> torch.Tensor:
-    """x: [B, 1, D] -> [B, 1, D].  Every expert is local (ep=1); the
-    statistical decode capacity ``min(t*k, max(32, 8*t*k/E))`` sizes the
-    buckets near the mean per-expert load; overflow drops."""
+    """x: [B, 1, D] -> [B, 1, D], replicated over the ranks.  Each rank
+    buckets the assignments to its own experts with the statistical
+    decode capacity ``min(t*k, max(32, 8*t*k/E))`` (overflow drops), runs
+    them, and a psum over the EP group combines the ranks' outputs."""
     mc = cfg.moe
     b, dm = x.shape[0], x.shape[-1]
     e, k = mc.num_experts, mc.top_k
+    e_loc = _expert_split(e, ctx)
     h = layers.rms_norm(x, p["norm"], eps)
     ht = h.reshape(b, dm)
     _, gate, eidx = _route(p, ht, mc)
     cap = int(min(b * k, max(32, (b * k * 8) // e)))
-    flat_e = eidx.reshape(-1)
-    slot, keep = _bucket(flat_e, e, cap)
-    disp = _dispatch(ht, flat_e, slot, keep, e, cap, k)
-    a1 = torch.einsum("ecd,edf->ecf", disp, p["w1"])
-    a3 = torch.einsum("ecd,edf->ecf", disp, p["w3"])
-    out = torch.einsum("ecf,efd->ecd", F.silu(a1) * a3, p["w2"])
-    y = _combine(out, flat_e, slot, keep, gate).reshape(b, 1, dm).to(x.dtype)
+    local_e, is_local = _local(ctx, eidx.reshape(-1), e_loc)
+    slot, keep = _bucket(local_e, e_loc, cap, is_local)
+    _count_drops(ctx, keep, is_local)
+    y = _local_experts(p, ht, local_e, slot, keep, gate, e_loc, cap, k, ctx)
+    y = y.reshape(b, 1, dm).to(x.dtype)
     if "shared" in p:
         y = y + ffn_decode(_shared(p), x, ctx, eps)
     return y

@@ -35,29 +35,38 @@ from repro_torch.core import overlap
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models import init_utils as iu
-from repro_torch.parallel.sharding import (EP_NOT_PORTED, TP_KIND_NOT_PORTED,
-                                           TPContext, pad_vocab)
+from repro_torch.parallel.sharding import (EP_NOT_PORTED, TPContext,
+                                           pad_vocab)
 
-# (mixer, ffn) layer kinds the port runs; at tp>1 only TP_KINDS
+# (mixer, ffn) layer kinds the port runs, at any tp
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
-TP_KINDS = frozenset({(ATTN, DENSE_FFN)})
 # layer kinds that train (at any tp)
 TRAIN_KINDS = frozenset({(ATTN, DENSE_FFN)})
 
 TRAIN_KIND_NOT_PORTED = ("training runs the (attn, ffn) pattern only: MLA "
-                         "and MoE layers and the multi-token-prediction "
-                         "head do not train yet (ROADMAP queue 1 item 8)")
+                         "and MoE layers (the a2a exchange's backward) and "
+                         "the multi-token-prediction head do not train yet "
+                         "(ROADMAP queue 1 item 8.3)")
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
 
 # the dim each leaf is split along over the TP ranks (None: replicated) —
-# the reference's PartitionSpecs (model.py:83-118) for the kinds in
-# TP_KINDS, on the port's unstacked per-layer leaves
-_MIXER_SPECS = {ATTN: {"wqkv": 1, "wo": 0, "norm": None, "bqkv": 0}}
-_FFN_SPECS = {DENSE_FFN: {"w1": 1, "w3": 1, "w13": 1, "w2": 0,
-                          "norm": None}}
+# the reference's PartitionSpecs (model.py:83-125), on the port's
+# unstacked per-layer leaves.  MLA: the head up-projections column-cut,
+# the output row-cut, the latent down-projections and norms replicated.
+# MoE: the routed experts cut on their expert dim over the EP group (the
+# TP ranks), the router and norm replicated, the shared expert cut as a
+# dense FFN.
+_MIXER_SPECS = {
+    ATTN: {"wqkv": 1, "wo": 0, "norm": None, "bqkv": 0},
+    MLA: {"w_dq": None, "w_uq": 1, "w_dkv": None, "w_ukv": 1, "w_o": 0,
+          "q_norm": None, "kv_norm": None, "norm": None}}
+_DENSE_SPECS = {"w1": 1, "w3": 1, "w13": 1, "w2": 0, "norm": None}
+_FFN_SPECS = {DENSE_FFN: _DENSE_SPECS,
+              MOE_FFN: {"router": None, "w1": 0, "w3": 0, "w2": 0,
+                        "norm": None, "shared": _DENSE_SPECS}}
 
 
 def expanded_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -87,18 +96,14 @@ def layer_slot(cfg: ModelConfig, j: int) -> int:
     return j if j < lead else lead + (j - lead) % len(cfg.pattern)
 
 
-def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
-    """Raise unless every layer is one of ``PORTED_KINDS`` (at tp>1:
-    ``TP_KINDS``)."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless every layer is one of ``PORTED_KINDS``."""
     other = set(expanded_pattern(cfg)) - PORTED_KINDS
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(other)} are not ported; the "
             f"port runs {sorted(PORTED_KINDS)} (ROADMAP 'Modules still to "
             "port', the other families)")
-    if tp > 1 and set(expanded_pattern(cfg)) - TP_KINDS:
-        raise NotImplementedError(f"{cfg.name} at tp={tp}: "
-                                  + TP_KIND_NOT_PORTED)
 
 
 def _param_dict(params: Dict) -> nn.ParameterDict:
@@ -177,7 +182,7 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
     layer); on the meta device, their shapes alone."""
     if par.ep != 1:
         raise NotImplementedError(EP_NOT_PORTED)
-    check_ported(cfg, par.tp)
+    check_ported(cfg)
     v_pad = pad_vocab(cfg.vocab_size, par.tp)
     embed = iu.zero_pad_rows(
         torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
@@ -243,11 +248,14 @@ def param_specs(cfg: ModelConfig, params: Model) -> Dict:
     None, "layers": [{"mixer": {...}, "ffn": {...}}, ...]}`` (the
     reference's ``param_specs``; the vocab-parallel embedding is split on
     its rows)."""
-    check_ported(cfg, tp=2)
-    layers = []
-    for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers):
-        layers.append({"mixer": {n: _MIXER_SPECS[mk][n] for n in blk.mixer},
-                       "ffn": {n: _FFN_SPECS[fk][n] for n in blk.ffn}})
+    check_ported(cfg)
+
+    def pick(table, leaves):
+        return {n: pick(table[n], v) if isinstance(v, nn.ParameterDict)
+                else table[n] for n, v in leaves.items()}
+    layers = [{"mixer": pick(_MIXER_SPECS[mk], blk.mixer),
+               "ffn": pick(_FFN_SPECS[fk], blk.ffn)}
+              for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers)]
     return {"embed": 0, "final_norm": None, "layers": layers}
 
 
@@ -272,10 +280,11 @@ def shard_params(params: Model, rank: int, tp: int,
     each leaf's contiguous 1/tp block along its ``param_specs`` dim, and a
     copy of each replicated leaf; trainable as ``params`` is."""
     specs = param_specs(cfg, params)
-    blocks = [Block({n: _cut(t, sp["mixer"][n], rank, tp)
-                     for n, t in blk.mixer.items()},
-                    {n: _cut(t, sp["ffn"][n], rank, tp)
-                     for n, t in blk.ffn.items()})
+
+    def cut(leaves, spec):
+        return {n: cut(t, spec[n]) if isinstance(t, nn.ParameterDict)
+                else _cut(t, spec[n], rank, tp) for n, t in leaves.items()}
+    blocks = [Block(cut(blk.mixer, sp["mixer"]), cut(blk.ffn, sp["ffn"]))
               for blk, sp in zip(params.layers, specs["layers"])]
     return Model(_cut(params.embed, specs["embed"], rank, tp),
                  _cut(params.final_norm, None, rank, tp), blocks,
@@ -288,8 +297,7 @@ def _leaf_dims(cfg: ModelConfig, params: Model) -> Dict[str, Optional[int]]:
     out = {"embed": specs["embed"], "final_norm": specs["final_norm"]}
     for i, sp in enumerate(specs["layers"]):
         for part in ("mixer", "ffn"):
-            for n, dim in sp[part].items():
-                out[f"layers.{i}.{part}.{n}"] = dim
+            out.update(_flat_names(sp[part], f"layers.{i}.{part}."))
     return out
 
 
@@ -510,18 +518,30 @@ def _kv_canonical(k: torch.Tensor, n_kv: int, dh: int, tp: int,
 
 def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
                      tp: int, grads: bool = False) -> Dict[str, torch.Tensor]:
-    """Global tp-packed (weights or grads) of the (attn, ffn) pattern ->
-    the canonical layout that is the same at every tp: vocab, heads and
-    d_ff padding cut off, the QKV columns and w1|w3 unpacked (``w13`` ->
-    ``w1`` and ``w3``), a replicated KV head taken once (``grads``: summed
-    over its replicas).  Two tp degrees of one model compare leaf by leaf
-    in this layout."""
+    """Global tp-packed (weights or grads) -> the canonical layout that is
+    the same at every tp: vocab, heads and d_ff padding cut off, the QKV
+    columns and w1|w3 unpacked (``w13`` -> ``w1`` and ``w3``), a replicated
+    KV head taken once (``grads``: summed over its replicas); MLA's padded
+    heads cut off; routed experts as they are (their width is not padded),
+    the shared expert cut to its width.  Two tp degrees of one model
+    compare leaf by leaf in this layout."""
     d = attention.AttnDims.of(cfg, tp)
     dh = d.dh
+    kinds = expanded_pattern(cfg)
     out = {}
     for n, t in named.items():
         leaf = n.split(".")[-1]
         base = n[:len(n) - len(leaf)]
+        if n.startswith("layers."):
+            ffn_kind = kinds[int(n.split(".")[1])][1]
+            if ".ffn.shared." in n:
+                mc = cfg.moe
+                width = mc.shared_ffn * mc.num_shared_experts
+            elif ".ffn." in n and ffn_kind == MOE_FFN:
+                out[n] = t
+                continue
+            else:
+                width = cfg.d_ff
         if n == "embed":
             out[n] = t[:cfg.vocab_size]
         elif leaf in ("wqkv", "bqkv"):
@@ -536,14 +556,20 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
                 dim=-1)
         elif leaf == "wo":
             out[n] = t[:cfg.num_heads * dh]
+        elif leaf in ("w_uq", "w_ukv", "w_o"):
+            m = cfg.mla
+            per_head = {"w_uq": m.qk_nope_head_dim + m.qk_rope_head_dim,
+                        "w_ukv": m.qk_nope_head_dim + m.v_head_dim,
+                        "w_o": m.v_head_dim}[leaf] * cfg.num_heads
+            out[n] = t[:per_head] if leaf == "w_o" else t[..., :per_head]
         elif leaf == "w13":
             w1, w3 = _blocks(t, tp, [t.shape[-1] // (2 * tp)] * 2)
-            out[base + "w1"] = w1[..., :cfg.d_ff]
-            out[base + "w3"] = w3[..., :cfg.d_ff]
+            out[base + "w1"] = w1[..., :width]
+            out[base + "w3"] = w3[..., :width]
         elif leaf in ("w1", "w3"):
-            out[n] = t[..., :cfg.d_ff]
+            out[n] = t[..., :width]
         elif leaf == "w2":
-            out[n] = t[:cfg.d_ff]
+            out[n] = t[:width]
         else:
             out[n] = t
     return out

@@ -143,7 +143,7 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     the column-parallel GEMMs are local and the row-parallel ones
     AllReduce.  The logits are this rank's vocab shard and the caches its
     KV heads."""
-    check_ported(cfg, ctx.tp)
+    check_ported(cfg)
     x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
     x = x.to(_compute_dtype(cfg))
     if lengths is not None:
@@ -196,7 +196,7 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
                   ) -> Tuple[torch.Tensor, Caches]:
     """One decode step up to the logits: returns (logits [B, V_pad / TP],
     caches), the caches updated in place (see ``decode_step``)."""
-    check_ported(cfg, ctx.tp)
+    check_ported(cfg)
     dev = params.embed.device
     b = tokens.shape[0]
     pos = torch.as_tensor(pos, device=dev).reshape(-1).long().expand(b)
@@ -269,7 +269,7 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
     """One chunk of the paged prefill up to the logits of its row
     ``chunk_len - 1``: returns (logits [1, V_pad / TP], caches), the
     caches updated in place (see ``prefill_chunk_step``)."""
-    check_ported(cfg, ctx.tp)
+    check_ported(cfg)
     # the chunked prefill always runs the replicated layout: a bounded
     # chunk has no sequence-parallel residency to win
     ctx = ctx.with_layout(False)

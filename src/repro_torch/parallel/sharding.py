@@ -10,8 +10,14 @@ sequence-sharded (``seq_sharded``: prefill and, by default, training)
 or replicated (decode, the chunked prefill, the prefill under
 ``ctx.with_layout(False)``, and training with ``scatter_axis="hidden"``);
 the seams' backward runs in both.
-ep>1 raises until the MoE exchange lands.  At ep=1 the expert-parallel
-group is empty, so the ``moe_a2a`` seam is the local expert FFN.
+
+Expert parallelism runs over the TP ranks, as the reference's does when
+no dedicated EP axis is given (``ctx.ep_axes or (ctx.axis,)``): the EP
+group is the TP group (``axis``), a rank's EP index is its TP index,
+and rank r holds experts ``[r * E / tp, (r + 1) * E / tp)``.  The
+``moe_a2a`` seam's op runs over that group; at tp=1 it is the local
+expert FFN.  A dedicated ``ep`` axis (``ParallelConfig.ep > 1``, which
+also carries batch) raises.
 """
 from __future__ import annotations
 
@@ -28,15 +34,12 @@ from repro_torch.tuning.plans import (SEAM_KINDS, PlanSet, SeamPlan,
 TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
                   "dist.RankGroup of size tp inside group.spmd: pass "
                   "group= (ROADMAP queue 1 item 2)")
-EP_NOT_PORTED = ("expert parallelism (ep>1) is not ported yet: ROADMAP "
-                 "queue 1 item 8 (the MoE a2a seam across ranks, "
-                 "FusedOp(kind='a2a') at ep>1)")
+EP_NOT_PORTED = ("a dedicated expert-parallel axis (ep>1, which also "
+                 "carries batch) is not ported: MoE runs expert parallelism "
+                 "over the tp ranks (ROADMAP queue 1 item 10)")
 DP_NOT_PORTED = ("data parallelism (dp>1) is not ported: the port's ranks "
                  "are the tp ranks of one dist.RankGroup (ROADMAP queue 1 "
                  "item 10)")
-TP_KIND_NOT_PORTED = ("at tp>1 only the (attn, dense_ffn) pattern is "
-                      "ported; MLA and MoE layers run at tp=1 (ROADMAP "
-                      "queue 1 item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +47,8 @@ class TPContext:
     """How the current region is parallelized.
 
     tp          : tensor-parallel degree; tp>1 needs ``group``
-    ep          : expert-parallel degree; only 1 runs so far (an empty EP
-                  group: ``moe_a2a`` is the local expert FFN), ep>1 raises
+    ep          : the degree of a dedicated expert-parallel axis; only 1
+                  (experts over the TP ranks: ``axis``), ep>1 raises
     use_kernels : route hot paths through the hand-written kernels
                   (``gqa_train``'s attention -> flash kernel; MLA decode
                   attention -> MLA-decode kernel)
@@ -121,7 +124,7 @@ class TPContext:
         if kind in ("ag", "rs"):
             scatter_axis = "seq" if self.seq_sharded else "hidden"
         return self.plan(seam).op(
-            kind, None if kind == "a2a" else self.axis,
+            kind, self.axis,
             epilogue=epilogue if epilogue is not None else Epilogue(),
             n_weights=n_weights, scatter_axis=scatter_axis)
 

@@ -114,7 +114,7 @@ class Server:
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  params: Union[Model, Sequence[Model]], sc: ServeConfig,
                  group: Optional[RankGroup] = None):
-        check_ported(cfg, par.tp)
+        check_ported(cfg)
         self.cfg = cfg
         self.par = par
         self.sc = sc

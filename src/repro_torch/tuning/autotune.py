@@ -31,7 +31,8 @@ best on one shared card, and an analytic one the best for ranks on cards
 of their own (``ect.H100_SXM``'s comment).
 
 Not ported: the ``wire_dtype`` sweep and its error budget (ROADMAP queue 1
-item 9), and the measured ``a2a`` sweep (item 8: ep>1).
+item 9), and the measured ``a2a`` sweep (item 8.3, with the exchange's
+backward).
 """
 from __future__ import annotations
 
@@ -53,8 +54,9 @@ _KIND_MODES: Dict[str, Tuple[str, ...]] = {
     "a2a": ("xla", "decomposed"),
 }
 
-A2A_NOT_PORTED = ("measured tuning of the moe_a2a seam needs the expert "
-                  "exchange at ep>1 (ROADMAP queue 1 item 8)")
+A2A_NOT_PORTED = ("measured tuning of the moe_a2a seam is not ported: the "
+                  "a2a exchange runs forward only and the sweep waits for "
+                  "its backward (ROADMAP queue 1 item 8.3)")
 _ALIGN_BYTES = 16        # the kernels load K and N rows in 16-byte chunks
 
 
@@ -486,13 +488,13 @@ def autotune_model(cfg, par, *, hw: ect.Hardware, group=None,
     and every cell stays under its qualified key.  ``registry`` (a
     ``cache.PlanRegistry``) answers the cells it holds and records the
     rest; ``save_path`` persists it.  ``results`` collects each tuned
-    cell's ``TuneResult`` (its table).  A measured sweep of a model whose
-    layers do not run at tp>1 (MLA, MoE) raises, as running it does."""
+    cell's ``TuneResult`` (its table).  A measured sweep of an MoE model
+    raises before it times anything: its ``moe_a2a`` cell cannot be
+    measured yet."""
     if par.tp <= 1:
         return PlanSet.uniform(par.overlap_mode, par.comm_chunks)
-    if _measured(measure, group, par.tp):
-        from repro_torch.models.model import check_ported
-        check_ported(cfg, par.tp)
+    if _measured(measure, group, par.tp) and cfg.moe is not None:
+        raise NotImplementedError(A2A_NOT_PORTED)
     scatter_axis = "seq"
     if sweep_scatter_axis:
         scatter_axis = sweep_model_layout(

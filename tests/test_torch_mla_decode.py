@@ -234,6 +234,7 @@ def _sms():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,r,dr,s,valid", [
     (4, 128, 512, 64, 1041, [257, 513, 778, 1025]),   # the lane's shape
+    (4, 32, 512, 64, 1041, [257, 513, 778, 1025]),    # a tp=4 rank's heads
     (2, 16, 512, 64, 300, [1, 300]),
     (3, 20, 512, 64, 777, [0, 5, 900]),    # heads % 8, empty and past-S rows
     (1, 8, 512, 64, 33, [33]),

@@ -264,18 +264,19 @@ def _set_bias(p1, full, bias, cfg):
 
 
 def test_tp_paths_that_raise_name_roadmap():
-    """What still raises at tp>1: MLA layers (init and decode).  The
-    replicated layout trains: its loss and grads equal the seq layout's."""
+    """What still raises at tp>1: training MLA and MoE layers (item 8.3;
+    they serve at tp>1, ``tests/test_torch_tp_mla_moe.py``) and a
+    dedicated expert-parallel axis (item 10).  The replicated layout
+    trains: its loss and grads equal the seq layout's."""
     cfg = _cfg("minicpm_2b")
     group = RankGroup(TP, "cpu")
     ctx = TPContext(tp=TP, group=group)
-    toks = torch.zeros((1, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         TM.init_model(get_smoke_config("deepseek_v3_671b"),
-                      ParallelConfig(tp=TP), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.decode_step(None, [], toks, 0, ctx,
-                       get_smoke_config("deepseek_v3_671b"))
+                      ParallelConfig(tp=TP, ep=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8.3"):
+        TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
+                           ParallelConfig(tp=TP))
     full = TM.init_model(cfg, ParallelConfig(tp=TP), seed=0,
                          dtype=torch.float32, device="cpu", trainable=True)
     ranks = [TM.shard_params(full, r, TP, cfg) for r in range(TP)]
