@@ -111,6 +111,22 @@ a checkout of this repository.  Phases, one JSON object per line each:
              (no fused kernel), each step's peak memory recorded.  The
              ag_gemm and gemm_rs phases also hold the kernels at the
              backward's operands;
+   mla_train_lane — deepseek_v3_671b at full width cut to the mla lanes'
+             four layers and to 16 of its 256 routed experts (4 a rank),
+             its MTP head kept, batch 2 x 1024: step 0 drop-free at tp=1,
+             then at tp=4 in flux (the fused launches its PlanSet implies,
+             forward and backward: MLA's two up-projections, the dense and
+             shared experts' seams, both heads) against tp=1 (the routed
+             experts' grads, which move with the router's near ties,
+             against xla's and against tp=1 on identical inputs; every
+             token routed elsewhere a near tie), xla against flux; 3
+             ``Trainer`` steps at tp=4 in flux at the config's capacity
+             factor (losses, step ms, each rank's drops, peak memory, a
+             profiled step); the ``moe_a2a`` op alone, forward and
+             backward, ``xla`` against the ring; the measured sweep of
+             its ``moe_a2a`` cell beside the analytic winner.  The
+             ag_gemm and gemm_rs phases hold the kernels at this lane's
+             backward operands (``mla_train_seam_cases``);
 14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
              at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
              each Hopper tile and ring direction forced at the lane's seam
@@ -242,6 +258,17 @@ MLA_TP_SERVER_ARGV = (["--arch", "deepseek_v3_671b", "--layers", "4"]
                          "--prompt-len", "40", "--max-new", "16",
                          "--max-seq", "256", "--block-size", "16",
                          "--prefill-chunk", "32"])
+# the mla train lane: deepseek_v3_671b at full width, cut to the mla lanes'
+# four layers (3 MLA + dense FFN, 1 MLA + MoE; the MTP head kept) and to
+# 16 of its 256 routed experts (4 a rank at tp=4, top-8 kept): one MoE
+# layer at 256 experts is 11.3 B parameters, 135 GB with bf16 weights and
+# grads and fp32 moments, which no card holds; at 32 the 3 trainer steps
+# at tp=4 ran the card out of memory (60 GB allocated, 18 GB of the
+# allocator's free blocks too fragmented to hold a leaf's temporaries).
+# Batch 2 x 1024 from data/pipeline.py (512 tokens a rank's shard)
+MLA_TRAIN_LAYERS = 4
+MLA_TRAIN_EXPERTS = 16
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_STEPS = 2, 1024, 3
 # the tp server lane: minicpm_2b at full width, cut to its first 8 layers
 TP_SERVER_LAYERS = 8
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
@@ -1816,8 +1843,34 @@ def mla_tp_seam_cases(which):
     return cases
 
 
+def mla_train_seam_cases(which):
+    """(name, rows, K, N) of one rank's AG-GEMM (``which="ag"``) or
+    GEMM-RS (``which="rs"``) operands at the backward launches of the mla
+    train lane's flux seams: deepseek_v3_671b at tp=MLA_TP over
+    MLA_TRAIN_BATCH x MLA_TRAIN_SEQ tokens.  An ag seam's dX is a GEMM-RS
+    over its cotangent and the transposed weight (rows the M tokens, K the
+    rank's columns: ``attn_ag``'s ``w_uq`` and ``w_ukv``, the packed w13
+    of the dense FFN and the shared expert, the vocab shard of
+    ``head_ag``), an rs seam's dY an AG-GEMM over the cotangent's shard
+    (rows M / tp, N the rank's rows of ``w_o`` or ``w2``)."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.tuning.autotune import model_seam_shapes
+
+    shapes = model_seam_shapes(get_config("deepseek_v3_671b"),
+                               ParallelConfig(tp=MLA_TP, fuse_w13=True),
+                               MLA_TRAIN_BATCH * MLA_TRAIN_SEQ)
+    cases = []
+    for cell, (kind, m, n, k) in shapes.items():
+        if kind not in ("ag", "rs") or kind == which:
+            continue        # the backward runs the other kernel
+        name = f"{which}_mla_train_{cell.split('@')[-1]}"
+        cases.append((name, m, n // MLA_TP, k) if which == "rs"
+                     else (name, m // MLA_TP, n, k // MLA_TP))
+    return cases
+
+
 def mla_seam_cases(cases):
-    """The kernels line's digest of ``phase_fused_kernel``'s mla tp lane
+    """The kernels line's digest of ``phase_fused_kernel``'s mla lane
     cases."""
     return {name: {k: r[k] for k in (
         "rank_rows", "K", "N", "max_abs_err", "fused_ms", "plain_ms",
@@ -1827,7 +1880,8 @@ def mla_seam_cases(cases):
 def phase_fused_kernel(torch, which):
     """The AG-GEMM (``which="ag"``) or GEMM-RS kernel against its plain
     version, n ranks of a RankGroup on the one card; returns the §5.1
-    m 8192 case and the mla tp lane's cases by name.  Each case: every rank's error, the fused n-rank time,
+    m 8192 case, the mla tp lane's cases and the mla train lane's
+    backward cases by name.  Each case: every rank's error, the fused n-rank time,
     the xla mode's (gather + torch.matmul, or torch.matmul + the slots'
     sum), n x the GEMM kernel at one rank's shape, the plain version's
     and the bound."""
@@ -1879,6 +1933,10 @@ def phase_fused_kernel(torch, which):
     mla_cases = mla_tp_seam_cases(which)
     cases += [(name, MLA_TP, bf16, rows, k, nn, None, False, False)
               for name, rows, k, nn in mla_cases]
+    # the mla train lane's backward launches, at its shapes
+    train_mla = mla_train_seam_cases(which)
+    cases += [(name, MLA_TP, bf16, rows, k, nn, None, False, False)
+              for name, rows, k, nn in train_mla]
     operands = {c[0]: c[4] for c in train}
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     groups = {n: RankGroup(n, "cuda", timeout_s=60) for n in (4, 8)}
@@ -1977,7 +2035,8 @@ def phase_fused_kernel(torch, which):
         torch.cuda.empty_cache()
     emit({"phase": results[f"{which}_m8192"]["phase"], "ptxas": ptxas})
     return (results[f"{which}_m8192"],
-            {c[0]: results[c[0]] for c in mla_cases})
+            {c[0]: results[c[0]] for c in mla_cases},
+            {c[0]: results[c[0]] for c in train_mla})
 
 
 def phase_tp_op_level_lane(torch):
@@ -2851,6 +2910,464 @@ def phase_train_lane(torch):
             "backward_remat": res["remat_tp4_flux"]["launches_backward"]}
 
 
+def mla_train_cfg():
+    """deepseek_v3_671b at full width cut as the mla train lane cuts it
+    (MLA_TRAIN_LAYERS layers, MLA_TRAIN_EXPERTS routed experts)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("deepseek_v3_671b")
+    return dataclasses.replace(
+        cfg, num_layers=MLA_TRAIN_LAYERS,
+        moe=dataclasses.replace(cfg.moe, num_experts=MLA_TRAIN_EXPERTS))
+
+
+class capture_routes:
+    """Records the MoE router's decisions while it is active: each call of
+    ``models.ffn._route`` appends (TP rank or -1 at tp=1, probs [t, E]
+    fp32, the top-k experts [t, k]) to ``calls``, on the host."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self.calls, self._route = [], ffn._route
+
+        def route(p, ht, mc, axis=None):
+            probs, gate, eidx = self._route(p, ht, mc, axis)
+            self.calls.append((-1 if axis is None else axis.rank(),
+                               probs.detach().float().cpu(),
+                               eidx.detach().cpu()))
+            return probs, gate, eidx
+        ffn._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+        ffn._route = self._route
+        return False
+
+
+def routing_vs_tp1(torch, one, ranks_calls, batch, seq):
+    """The MoE layer's routing at tp (each rank routes its sequence shard)
+    against tp=1's on the same tokens: the tokens sent to another set of
+    experts and, for each, whether it is a near tie.  A token's top-k set
+    can change only if the k-th and (k+1)-th of tp=1's probabilities
+    (their margin m) move toward each other by m, each by at most d, the
+    token's largest probability difference: so every changed token must
+    have m <= 2 d.  Also the probabilities' relative L2 difference."""
+    tp = len(ranks_calls)
+    p1, e1 = one[1], one[2]
+
+    def whole(i):
+        return torch.cat([c[i].reshape(batch, seq // tp, -1)
+                          for c in sorted(ranks_calls, key=lambda c: c[0])],
+                         dim=1).reshape(batch * seq, -1)
+    p4, e4 = whole(1), whole(2)
+    k = e1.shape[-1]
+    changed = (e1.sort(-1).values != e4.sort(-1).values).any(-1)
+    top = p1.sort(-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]
+    diff = (p4 - p1).abs().amax(-1)
+    wide = changed & (margin > 2 * diff)
+    return {"tokens": batch * seq,
+            "tokens_routed_elsewhere": int(changed.sum()),
+            "changed_not_near_tie": int(wide.sum()),
+            "changed_margin_max": float(margin[changed].max())
+            if changed.any() else 0.0,
+            "probs_rel_l2": _rel_l2(p4, p1),
+            "margin_median": float(margin.median())}
+
+
+def moe_layer_grads(torch, cfg, group, ranks, seed=9):
+    """The MoE layer's backward at full width on identical inputs: the
+    lane's MoE layer (without its shared expert, drop-free) at tp=1 over
+    the ranks' experts joined, and at tp=group.n in flux on the same
+    seeded input and output cotangent (x [batch, seq, D] bf16, each rank
+    its sequence shard): relative L2 against tp=1's of each rank's
+    experts' grads, of the router's and the norm's summed over the ranks
+    (each rank's is its shard's share), and of the input's; and the tokens
+    routed elsewhere."""
+    from repro_torch.core.overlap import SeamTape
+    from repro_torch.models import ffn
+    from repro_torch.parallel.sharding import TPContext
+    tp = group.n
+    names = ("router", "norm", "w1", "w3", "w2")
+    per_rank = [{n: r.layers[-1].ffn[n].detach() for n in names}
+                for r in ranks]
+    whole = {n: (torch.cat([p[n] for p in per_rank])
+                 if n in ("w1", "w3", "w2") else per_rank[0][n])
+             for n in names}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    probe = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    s_loc = MLA_TRAIN_SEQ // tp
+
+    def grads(p, xs, pr, ctx):
+        leaves = {n: t.clone().requires_grad_() for n, t in p.items()}
+        xs = xs.clone().requires_grad_()
+        with SeamTape() as tape:
+            y, _ = ffn.moe_train(leaves, xs, ctx, cfg, cfg.norm_eps)
+            loss = (y.float() * pr.float()).sum()
+        tape.backward(loss)
+        return xs.grad, {n: leaves[n].grad for n in names}
+
+    with capture_routes() as rt:
+        g1x, g1 = grads(whole, x, probe, TPContext())
+        ctx = TPContext(tp=tp, group=group, mode="flux")
+        outs = group.spmd(
+            lambda p, r: grads(p, x[:, r * s_loc:(r + 1) * s_loc],
+                               probe[:, r * s_loc:(r + 1) * s_loc], ctx),
+            [(p, r) for r, p in enumerate(per_rank)])
+    g4x = torch.cat([o[0] for o in outs], dim=1)
+    e_loc = whole["w1"].shape[0] // tp
+    rel = {n: max(_rel_l2(o[1][n], g1[n][r * e_loc:(r + 1) * e_loc])
+                  for r, o in enumerate(outs)) for n in ("w1", "w3", "w2")}
+    for n in ("router", "norm"):
+        rel[n] = _rel_l2(sum(o[1][n].float() for o in outs), g1[n])
+    rel["x"] = _rel_l2(g4x, g1x)
+    return {"input": "seeded x and output cotangent, bf16",
+            "grad_rel_l2_vs_tp1": rel,
+            "routing": routing_vs_tp1(torch, rt.calls[0], rt.calls[1:],
+                                      MLA_TRAIN_BATCH, MLA_TRAIN_SEQ)}
+
+
+def a2a_fwd_bwd_ms(torch, group, ranks, cap, calls=5):
+    """The MoE layer's ``moe_a2a`` op alone, forward and backward, at the
+    lane's buffer (x [tp, E/tp, cap, D] bf16 a rank, the rank's experts as
+    leaves that take grads), ``xla`` (barrier exchanges) and ``flux`` (the
+    shift ring): host ms a call each way (``calls`` calls inside one
+    ``spmd``; each backward's forward recorded beforehand) and the summed
+    device ms of one profiled call, forward alone and forward with
+    backward (the backward's device ms their difference)."""
+    from repro_torch.core.overlap import Epilogue, FusedOp, SeamTape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    tp = group.n
+    args = []
+    for rank in ranks:
+        f = rank.layers[-1].ffn
+        ws = [f[k].detach().requires_grad_() for k in ("w1", "w3", "w2")]
+        shape = (tp, ws[0].shape[0], cap, ws[0].shape[1])
+        args.append((torch.randn(shape, generator=gen,
+                                 device="cuda").bfloat16(), ws,
+                     torch.randn(shape, generator=gen,
+                                 device="cuda").bfloat16()))
+    out = {"shape_a_rank": list(args[0][0].shape), "calls": calls}
+    for mode in ("xla", "flux"):
+        op = FusedOp("a2a", Epilogue(activation="silu", gate="pair"), 3,
+                     axis=group, mode=mode)
+
+        def forward(x, ws, g):
+            with torch.no_grad():
+                return op(x, *ws)
+
+        def record(x, ws, g):
+            with torch.enable_grad(), SeamTape() as tape:
+                y = op(x, *ws)
+            return tape, y
+
+        def backward(tape, y, g, ws):
+            tape.backward(y, g)
+            for w in ws:
+                w.grad = None
+
+        def both(x, ws, g):
+            backward(*record(x, ws, g), g, ws)
+
+        fwd_ms, _ = wall_ms(torch, lambda: group.spmd(
+            lambda *a: [forward(*a) for _ in range(calls)], args), repeats=3)
+        bwd = []
+        for _ in range(3):
+            tapes = group.spmd(
+                lambda *a: [record(*a) for _ in range(calls)], args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group.spmd(lambda ts, x, ws, g: [backward(t, y, g, ws)
+                                             for t, y in ts],
+                       [(t,) + a for t, a in zip(tapes, args)])
+            torch.cuda.synchronize()
+            bwd.append((time.perf_counter() - t0) * 1e3)
+            del tapes
+        prof_f = device_profile(torch, lambda: group.spmd(forward, args))
+        prof_b = device_profile(torch, lambda: group.spmd(both, args))
+        out[mode] = {"forward_host_ms": fwd_ms / calls,
+                     "backward_host_ms": sorted(bwd)[1] / calls,
+                     "forward_device_ms": prof_f["device_ms"],
+                     "forward_backward_device_ms": prof_b["device_ms"],
+                     "backward_device_ms": (prof_b["device_ms"]
+                                            - prof_f["device_ms"]),
+                     "forward_busy_share": prof_f["device_busy_share"],
+                     "forward_backward_busy_share":
+                         prof_b["device_busy_share"]}
+    del args
+    return out
+
+
+def phase_mla_train_lane(torch):
+    """deepseek_v3_671b trained through MLA, MoE and its MTP head at full
+    width, cut to MLA_TRAIN_LAYERS layers and MLA_TRAIN_EXPERTS routed
+    experts (``reduced``), bf16 weights from seed 0, fp32 moments, batch
+    MLA_TRAIN_BATCH x MLA_TRAIN_SEQ: step 0 drop-free at tp=1 (its
+    canonical grads kept on the host), then at tp=4 on the one card in
+    flux (the main path: its fused launches, forward and backward, equal
+    to what its PlanSet implies; its loss and every canonical grad / 4
+    against tp=1's but the routed experts', whose tokens move between
+    experts at the router's near ties; every token routed elsewhere a
+    near tie, ``routing_vs_tp1``) and in xla against flux, every leaf; 3
+    ``Trainer`` steps at tp=4 in flux at the config's capacity factor
+    (losses, step ms, each rank's dropped assignments, peak memory, a
+    profiled step); the routed experts' grads against tp=1 on identical
+    inputs (``moe_layer_grads``); the ``moe_a2a`` op alone forward and
+    backward; the measured sweep of the lane's ``moe_a2a`` cell beside the
+    analytic winner on ``ect.H100_SXM``.
+    Returns the fused launches of the tp=4 flux step and of the trainer's
+    steps."""
+    from repro_torch.configs.base import (MOE_FFN, ParallelConfig,
+                                          train_schedule)
+    from repro_torch.core import ect
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+    from repro_torch.tuning import autotune as AT
+
+    t_phase = time.perf_counter()
+    cfg = mla_train_cfg()
+    cfg_df = drop_free(cfg)
+    tp, bf16 = MLA_TP, torch.bfloat16
+    tc = T.TrainConfig(total_steps=MLA_TRAIN_STEPS, warmup_steps=0,
+                       base_lr=3e-4, schedule=train_schedule(cfg.name),
+                       log_every=MLA_TRAIN_STEPS)
+    res = {"phase": "mla_train_lane", "arch": cfg.name, "tp": tp,
+           "reduced": {"num_layers": f"{cfg.num_layers} of 61 (3 MLA + "
+                                     "dense FFN, 1 MLA + MoE; the MTP head "
+                                     "kept)",
+                       "num_experts": f"{MLA_TRAIN_EXPERTS} of 256 "
+                                      f"({MLA_TRAIN_EXPERTS // tp} a rank, "
+                                      "top-8 kept)"},
+           "batch": MLA_TRAIN_BATCH, "seq": MLA_TRAIN_SEQ,
+           "steps": MLA_TRAIN_STEPS, "schedule": tc.schedule,
+           "dtype": "bfloat16 weights, float32 moments",
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+           "drop_free_capacity_factor": MLA_DROP_FREE_CF,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "ln_vocab": math.log(cfg.vocab_size),
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    batch0 = {k: torch.from_numpy(v).cuda() for k, v in batch_at(
+        DataConfig(cfg.vocab_size, MLA_TRAIN_SEQ, MLA_TRAIN_BATCH), 0).items()}
+
+    # ---- tp=1: step 0 drop-free, its canonical grads on the host ----------
+    par1 = ParallelConfig(fuse_w13=True)
+    torch.cuda.reset_peak_memory_stats()
+    p1 = M.init_model(cfg, par1, seed=0, dtype=bf16, device="cuda",
+                      trainable=True)
+    res["weights"] = sum(p.numel() for p in p1.parameters())
+    res["weights_mtp"] = sum(p.numel() for p in p1.mtp.parameters())
+    ffn.dropped.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_routes() as rt1:
+        loss1, g1 = T.loss_and_grads(p1, batch0, T.make_ctx(cfg_df, par1),
+                                     cfg_df, par1)
+    torch.cuda.synchronize()
+    res["tp1"] = {"step0_loss": loss1.item(),
+                  "step0_host_ms": (time.perf_counter() - t0) * 1e3,
+                  "step0_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "dropped_assignments": ffn.drop_totals()}
+    check(ffn.drop_totals() == [0], f"the tp=1 drop-free step dropped "
+          f"{ffn.drop_totals()} MoE assignments")
+    check(math.isfinite(res["tp1"]["step0_loss"]), f"tp=1 loss {loss1}")
+    can1 = {n: t.to("cpu") for n, t in
+            M.canonical_leaves(g1, cfg, 1, grads=True).items()}
+    del p1, g1
+    torch.cuda.empty_cache()
+
+    # ---- tp=4 step 0 in flux (the main path) and in xla, drop-free ----------
+    par4 = ParallelConfig(tp=tp, fuse_w13=True, overlap_mode="flux")
+    tr4 = T.Trainer(cfg, par4, tc, device="cuda", dtype=bf16)
+    tr4.data_cfg = dataclasses.replace(tr4.data_cfg, seq_len=MLA_TRAIN_SEQ,
+                                       global_batch=MLA_TRAIN_BATCH)
+    check(all(torch.equal(tr4.batch(0)[k], batch0[k]) for k in batch0),
+          "the trainer's first batch is not the tp=1 step's")
+    group = tr4.group
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = M.init_model(cfg, par4, seed=0, dtype=bf16, device="cuda",
+                        trainable=True)
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["tp4_init_s"] = time.perf_counter() - t0
+    res["tp4_init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["weights_gb_all_ranks"] = sum(
+        p.numel() * p.element_size() for r in ranks
+        for p in r.parameters()) / 1e9
+    want_fwd, want_bwd = plan_launches(
+        T.make_ctx(cfg, par4, group).plans, cfg, tp, 1)
+
+    # the routed experts' grads sum over the tokens routed to them and the
+    # router's over the gates of the experts chosen: a token whose top-k
+    # set differs between the tp degrees (a near tie of the router's
+    # probabilities under bf16 noise in the residual stream) moves its
+    # share from one expert, and one gate, to another.  These leaves are
+    # held against xla's (the same routing) and, in moe_layer_grads,
+    # against tp=1 on identical inputs; every other leaf against tp=1
+    kinds = M.expanded_pattern(cfg)
+    routed = {n for n in can1 if n.startswith("layers.")
+              and kinds[int(n.split(".")[1])][1] == MOE_FFN
+              and n.split(".")[-1] in ("w1", "w3", "w2", "router")
+              and ".shared." not in n}
+
+    def vs_tp1(can):
+        rel = {n: _rel_l2(can[n], can1[n].to("cuda")) for n in can1}
+        rest = sorted((n for n in rel if n not in routed), key=rel.get,
+                      reverse=True)
+        return rel[rest[0]], rest[0], {n: rel[n] for n in rest[:8]}, {
+            n: rel[n] for n in sorted(routed)}
+
+    ffn.dropped.clear()
+    with capture_routes() as rt4:
+        loss4, can4, c_fwd, c_bwd, host4 = tp_step0(torch, cfg_df, par4,
+                                                    group, ranks, batch0)
+    d4 = ffn.drop_totals(tp)
+    check(d4 == [0] * tp, f"the tp={tp} drop-free step dropped {d4}")
+    check(c_fwd == want_fwd, f"mla train flux forward launches {c_fwd}, "
+          f"its PlanSet implies {want_fwd}")
+    check(c_bwd == want_bwd, f"mla train flux backward launches {c_bwd}, "
+          f"its PlanSet implies {want_bwd}")
+    check(set(can4) == set(can1), "tp=4 and tp=1 canonical leaves differ")
+    rel_loss = abs(loss4 - loss1.item()) / abs(loss1.item())
+    rel_g, leaf, named, experts = vs_tp1(can4)
+    routing = routing_vs_tp1(torch, rt1.calls[0], rt4.calls,
+                             MLA_TRAIN_BATCH, MLA_TRAIN_SEQ)
+    emit({"phase": "mla_train_lane", "step0_vs_tp1": {
+        "loss_tp1": loss1.item(), "loss_tp4_flux": loss4,
+        "loss_rel": rel_loss, "grad_rel_l2_worst_leaves": named,
+        "routing_dependent_grad_rel_l2": experts, "routing": routing}})
+    check(rel_loss <= TRAIN_LOSS_RTOL,
+          f"mla train tp={tp} flux step-0 loss {loss4} vs tp=1 "
+          f"{loss1.item()}: relative {rel_loss} > {TRAIN_LOSS_RTOL}")
+    check(rel_g <= TRAIN_GRAD_RTOL,
+          f"mla train tp={tp} flux step-0 grad of {leaf} vs tp=1: relative "
+          f"L2 {rel_g} > {TRAIN_GRAD_RTOL}")
+    check(routing["changed_not_near_tie"] == 0
+          and routing["probs_rel_l2"] <= TRAIN_GRAD_RTOL,
+          f"mla train tp={tp} routing vs tp=1: {routing}")
+    del can1
+    res["tp4_flux"] = {"step0_loss": loss4, "loss_rel_vs_tp1": rel_loss,
+                       "grad_rel_l2_vs_tp1_max": rel_g,
+                       "grad_worst_leaf": leaf,
+                       "grad_rel_l2_vs_tp1_worst_leaves": named,
+                       "routing_dependent_grad_rel_l2_vs_tp1": experts,
+                       "routing_vs_tp1": routing,
+                       "dropped_assignments_per_rank": d4,
+                       "launches_forward": c_fwd, "launches_backward": c_bwd,
+                       "launches_planset": {"forward": want_fwd,
+                                            "backward": want_bwd},
+                       "step0_host": host4}
+    can4 = {n: t.cpu() for n, t in can4.items()}
+    torch.cuda.empty_cache()
+    lx, canx, cfx, cbx, hx = tp_step0(
+        torch, cfg_df, dataclasses.replace(par4, overlap_mode="xla"), group,
+        ranks, batch0)
+    for c in (cfx, cbx):
+        check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
+              f"the xla step launched the fused kernels: {c}")
+    rl = abs(lx - loss4) / abs(loss4)
+    rel_x = {n: _rel_l2(canx[n], can4[n].to("cuda")) for n in can4}
+    lf = max(rel_x, key=rel_x.get)
+    rg = rel_x[lf]
+    check(rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GRAD_RTOL,
+          f"mla train xla vs flux: loss relative {rl}, grad of {lf} "
+          f"relative L2 {rg}")
+    res["tp4_xla"] = {"step0_loss": lx, "loss_rel_vs_flux": rl,
+                      "grad_rel_l2_vs_flux_max": rg, "grad_worst_leaf": lf,
+                      "step0_host": hx}
+    del can4, canx
+    torch.cuda.empty_cache()
+
+    # ---- 3 trainer steps at tp=4 in flux, the config's capacity factor ----
+    opts = [tr4.init_opt(p) for p in ranks]
+    ffn.dropped.clear()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, opts, hist = tr4.train(ranks, opts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: MLA_TRAIN_STEPS * (want_fwd[k] + want_bwd[k])
+            for k in want_fwd}
+    check(counts == want, f"{MLA_TRAIN_STEPS} mla train flux steps launched "
+          f"{counts}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    check(all(map(math.isfinite, losses)), f"mla train losses {losses}")
+    ms = [h["seconds"] * 1e3 for h in hist]
+    res["trainer"] = {
+        "losses": losses, "step_ms": ms,
+        "step_ms_median": sorted(ms)[len(ms) // 2],
+        "dropped_assignments_per_rank": ffn.drop_totals(tp),
+        "assignments_per_rank_a_step": (MLA_TRAIN_BATCH * MLA_TRAIN_SEQ // tp
+                                        * cfg.moe.top_k),
+        "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    res["trainer"]["profiled_step"] = device_profile(
+        torch, lambda: tr4.run_step(ranks, opts, batch0),
+        sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
+    del opts
+    torch.cuda.empty_cache()
+
+    # ---- the routed experts' backward on identical inputs -------------------
+    layer = moe_layer_grads(torch, cfg_df, group, ranks)
+    rel_e = max(layer["grad_rel_l2_vs_tp1"].values())
+    check(rel_e <= TRAIN_GRAD_RTOL
+          and layer["routing"]["changed_not_near_tie"] == 0,
+          f"the MoE layer's grads at tp={tp} vs tp=1 on identical inputs: "
+          f"{layer}")
+    res["moe_layer_grads"] = layer
+    torch.cuda.empty_cache()
+
+    # ---- the a2a op alone, at the lane's buffer -----------------------------
+    cap = ffn._capacity(MLA_TRAIN_BATCH * MLA_TRAIN_SEQ // tp, cfg.moe)
+    res["a2a_op"] = a2a_fwd_bwd_ms(torch, group, ranks, cap)
+    del ranks
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+
+    # ---- the measured sweep of the lane's moe_a2a cell ----------------------
+    kind, m, n, k = AT.model_seam_shapes(
+        cfg, par4, MLA_TRAIN_BATCH * MLA_TRAIN_SEQ)["moe_a2a"]
+    t0 = time.perf_counter()
+    tuned = AT.tune_seam(kind, m, n, k, tp, hw=ect.H100_SXM, group=group,
+                         measure=True, seam="moe_a2a", n_weights=3,
+                         epilogue=True, iters=TUNE_ITERS, warmup=TUNE_WARMUP)
+    sweep_s = time.perf_counter() - t0
+    analytic = AT.tune_seam(kind, m, n, k, tp, hw=ect.H100_SXM,
+                            measure=False, seam="moe_a2a", n_weights=3,
+                            epilogue=True)
+    check(all(r["measured_s"] > 0 for r in tuned.table),
+          "an untimed a2a sweep row")
+
+    def plan_of(p):
+        return {"mode": p.mode, "comm_chunks": p.comm_chunks,
+                "reverse": p.reverse}
+    res["a2a_sweep"] = {
+        "cell": [kind, m, n, k], "seconds": sweep_s,
+        "candidates": len(tuned.table), "iters": TUNE_ITERS,
+        "warmup": TUNE_WARMUP,
+        "bench_x_a_rank": [tp, AT.A2A_BENCH_E_LOC,
+                           max(m // (tp * AT.A2A_BENCH_E_LOC), 1), k],
+        "winner": plan_of(tuned.plan), "winner_ms": tuned.plan.measured_s * 1e3,
+        "rows_ms": [[r["mode"], r["comm_chunks"], r["reverse"],
+                     r["measured_s"] * 1e3] for r in tuned.table],
+        "analytic_winner_h100": plan_of(analytic.plan),
+        "analytic_winner_ms": analytic.plan.predicted_s * 1e3}
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    del tr4
+    torch.cuda.empty_cache()
+    return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts}
+
+
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
     """The kernels one prefill launches at ``tp``, read off a ``PlanSet``:
     a rank's flux seam in the sequence-sharded layout launches one AG-GEMM
@@ -2873,29 +3390,42 @@ def plan_launches(plans, cfg, tp, mlp_weights):
     sequence-sharded layout launches, a rank: an ag seam one AG-GEMM
     forward (one a weight when its gather is not shared) and one GEMM-RS
     backward (its dX over all weights); an rs seam one GEMM-RS forward and
-    one AG-GEMM backward.  Each layer resolves at its reference layer id
-    (``model.layer_slot``); the replicated layout launches none."""
+    one AG-GEMM backward.  An MLA layer's ``attn_ag`` runs twice (the q
+    and the kv up-projections, distinct inputs); an MoE layer's
+    ``mlp_ag`` / ``mlp_rs`` are its shared expert's (its ``moe_a2a``
+    launches none); the MTP head, when the config has one, is one more
+    block at the default plan and a second ``head_ag``.  Each layer
+    resolves at its reference layer id (``model.layer_slot``); the
+    replicated layout launches none."""
+    from repro_torch.configs.base import MLA, MOE_FFN
     from repro_torch.models import model as M
     fwd = {"ag_gemm": 0, "gemm_rs": 0}
     bwd = {"ag_gemm": 0, "gemm_rs": 0}
     if plans.residual_layout() == "seq":
-        def add(seam, layer, n_weights=1):
+        def add(seam, layer, n_weights=1, times=1):
             p = plans.resolve(seam, layer)
             if p.mode != "flux":
                 return
             if seam.endswith("_ag"):
-                fwd["ag_gemm"] += 1 if p.shared_gather else n_weights
-                bwd["gemm_rs"] += 1
+                fwd["ag_gemm"] += times * (1 if p.shared_gather
+                                           else n_weights)
+                bwd["gemm_rs"] += times
             else:
-                fwd["gemm_rs"] += 1
-                bwd["ag_gemm"] += 1
-        for j in range(cfg.num_layers):
-            slot = M.layer_slot(cfg, j)
-            add("attn_ag", slot)
-            add("attn_rs", slot)
-            add("mlp_ag", slot, mlp_weights)
-            add("mlp_rs", slot)
+                fwd["gemm_rs"] += times
+                bwd["ag_gemm"] += times
+
+        def block(layer, kinds):
+            add("attn_ag", layer, times=2 if kinds[0] == MLA else 1)
+            add("attn_rs", layer)
+            if kinds[1] != MOE_FFN or cfg.moe.num_shared_experts:
+                add("mlp_ag", layer, mlp_weights)
+                add("mlp_rs", layer)
+        for j, kinds in enumerate(M.expanded_pattern(cfg)):
+            block(M.layer_slot(cfg, j), kinds)
         add("head_ag", None)
+        if cfg.mtp_depth:
+            block(None, M.mtp_kinds(cfg))
+            add("head_ag", None)
     out = []
     for c in (fwd, bwd):
         c = {k: v * tp for k, v in c.items()}
@@ -3952,15 +4482,16 @@ def main():
     timed("mla_tp_server_lane", phase_mla_tp_server_lane, torch)
     matmul_case = timed("matmul_kernel", phase_matmul_kernel, torch)
     matmul_launches, _ = timed("op_level_lane", phase_op_level_lane, torch)
-    ag_case, ag_mla = timed("ag_gemm_kernel", phase_fused_kernel, torch,
-                            "ag")
-    rs_case, rs_mla = timed("gemm_rs_kernel", phase_fused_kernel, torch,
-                            "rs")
+    ag_case, ag_mla, ag_train_mla = timed("ag_gemm_kernel",
+                                          phase_fused_kernel, torch, "ag")
+    rs_case, rs_mla, rs_train_mla = timed("gemm_rs_kernel",
+                                          phase_fused_kernel, torch, "rs")
     tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
     timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
     del tp1_logits, tp1_decode
     tp1_tokens = timed("tp_server_lane", phase_tp_server_lane, torch)
     train_counts = timed("train_lane", phase_train_lane, torch)
+    mla_train = timed("mla_train_lane", phase_mla_train_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     timed("train_remat", phase_train_remat, torch)
     timed("train_ckpt", phase_train_ckpt, torch)
@@ -4010,7 +4541,9 @@ def main():
              "forward": train_counts["forward"]["ag_gemm"],
              "backward": train_counts["backward"]["ag_gemm"],
              "backward_remat": train_counts["backward_remat"]["ag_gemm"],
-             "trainer_steps": train_counts["trainer_steps"]["ag_gemm"]},
+             "trainer_steps": train_counts["trainer_steps"]["ag_gemm"],
+             "mla_train": {d: mla_train[d]["ag_gemm"] for d in (
+                 "forward", "backward", "trainer_steps")}},
          "tune_launches": {
              "sweep": tune_counts["sweep"]["ag_gemm"],
              "tuned_step": {
@@ -4022,6 +4555,7 @@ def main():
          "paper_launches": paper_launches(paper, "ag_gemm"),
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
+         "train_mla_cases": mla_seam_cases(ag_train_mla),
          "max_abs_err": ag_case["max_abs_err"],
          "ms": ag_case["fused_ms"], "plain_ms": ag_case["plain_ms"],
          "bound_ms": ag_case["bound_ms"], "bound_by": ag_case["bound_by"],
@@ -4034,7 +4568,9 @@ def main():
              "forward": train_counts["forward"]["gemm_rs"],
              "backward": train_counts["backward"]["gemm_rs"],
              "backward_remat": train_counts["backward_remat"]["gemm_rs"],
-             "trainer_steps": train_counts["trainer_steps"]["gemm_rs"]},
+             "trainer_steps": train_counts["trainer_steps"]["gemm_rs"],
+             "mla_train": {d: mla_train[d]["gemm_rs"] for d in (
+                 "forward", "backward", "trainer_steps")}},
          "tune_launches": {
              "sweep": tune_counts["sweep"]["gemm_rs"],
              "tuned_step": {
@@ -4046,6 +4582,7 @@ def main():
          "paper_launches": paper_launches(paper, "gemm_rs"),
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),
+         "train_mla_cases": mla_seam_cases(rs_train_mla),
          "max_abs_err": rs_case["max_abs_err"],
          "ms": rs_case["fused_ms"], "plain_ms": rs_case["plain_ms"],
          "bound_ms": rs_case["bound_ms"], "bound_by": rs_case["bound_by"],

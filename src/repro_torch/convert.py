@@ -7,9 +7,9 @@ The reference's parameter tree is ``{"embed", "final_norm", "lead": [...],
 [{"mixer": {"k", "v"} or {"c", "kr"}, "ffn": {}}]}``.  Layer ``i`` of the
 expanded pattern is ``lead[i]`` for the leading layers and
 ``periods[pos][rep]`` after them (``i = lead + rep * period + pos``).  The
-multi-token-prediction head (``mtp``) is not carried: serving never reads
-it.  Arrays cross as numpy: bf16 leaves go as float32 and are cast back,
-which is exact.
+multi-token-prediction head ``{"mixer", "ffn", "proj"}`` becomes the
+``Model``'s ``mtp`` when the tree holds it.  Arrays cross as numpy: bf16
+leaves go as float32 and are cast back, which is exact.
 
 At tp>1 the reference's tree (``init_model`` with ``ParallelConfig(tp)``,
 before ``shard_map`` cuts it) holds the GLOBAL weights packed for that tp;
@@ -32,9 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.ffn import FP32_PARAMS
-from repro_torch.models.model import (Block, Model, check_ported,
-                                      layer_trees, reference_tree,
-                                      shard_params)
+from repro_torch.models.model import (Block, Model, MTPBlock,
+                                      check_ported, layer_trees,
+                                      reference_tree, shard_params)
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -63,8 +63,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     blocks = [Block(_params(layer["mixer"], dtype, dev),
                     _params(layer["ffn"], dtype, dev))
               for layer in layer_trees(tree, cfg)]
+    mtp = None
+    if "mtp" in tree:
+        t = tree["mtp"]
+        mtp = MTPBlock(_params(t["mixer"], dtype, dev),
+                       _params(t["ffn"], dtype, dev),
+                       _tensor(t["proj"], dtype, dev))
     return Model(_tensor(tree["embed"], dtype, dev),
-                 _tensor(tree["final_norm"], dtype, dev), blocks, trainable)
+                 _tensor(tree["final_norm"], dtype, dev), blocks, trainable,
+                 mtp)
 
 
 def rank_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, tp: int,
@@ -80,10 +87,10 @@ def rank_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, tp: int,
 def to_jax_tree(named: Dict[str, torch.Tensor],
                 cfg: ModelConfig) -> Dict[str, Any]:
     """The port's leaves keyed as ``Model.named_parameters()`` ("embed",
-    "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]") -> the
-    reference's tree of float32 numpy arrays (``model.reference_tree``:
-    ``lead`` layers as a list, the periods' leaves stacked ``[reps, ...]``
-    per pattern position)."""
+    "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]", "mtp.<...>")
+    -> the reference's tree of float32 numpy arrays
+    (``model.reference_tree``: ``lead`` layers as a list, the periods'
+    leaves stacked ``[reps, ...]`` per pattern position, ``mtp``)."""
     def np32(tree):
         if isinstance(tree, dict):
             return {n: np32(a) for n, a in tree.items()}

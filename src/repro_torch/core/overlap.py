@@ -119,23 +119,29 @@ reference changes too.  Not ported (it raises and names its ROADMAP
 item): ``wire_dtype``.
 
 ``kind="a2a"`` is the MoE expert-parallel exchange (the reference's
-``_a2a_impl``), forward only: under grad at n>1 it raises (its backward,
-``_a2a_bwd``, is ROADMAP queue 1 item 8.3).  Dim 0 of x indexes the
-destination EP rank; the op returns the same layout, ``out[j]`` holding
-this rank's tokens as EP rank j's experts processed them.  ``xla`` runs
-the two barrier exchanges (``a2a_exchange``: one ``RankGroup`` exchange
-each) around the batched expert GEMMs; every other mode the shift ring
-(``_a2a_ring``): for each shift, the block bound for the partner that
-far ahead travels as ``_sub_chunks(cap, n, comm_chunks)`` pieces, each
-piece one pull copy out, the expert GEMMs on it, one copy back;
-``reverse`` flips the ring's direction.  Both return the assembled
-received buffer too (``_a2a_impl``), the residual the backward will
-need.  The expert GEMMs are ``torch`` batched matmuls, as the
+``_a2a_impl``).  Dim 0 of x indexes the destination EP rank; the op
+returns the same layout, ``out[j]`` holding this rank's tokens as EP rank
+j's experts processed them.  ``xla`` runs the two barrier exchanges
+(``a2a_exchange``: one ``RankGroup`` exchange each) around the batched
+expert GEMMs; every other mode the shift ring (``_a2a_ring``): for each
+shift, the block bound for the partner that far ahead travels as
+``_sub_chunks(cap, n, comm_chunks)`` pieces, each piece one pull copy
+out, the expert GEMMs on it, one copy back; ``reverse`` flips the ring's
+direction.  Both also return the assembled received buffer, which the
+backward keeps.  At n>1 under grad the op is a seam (``_A2ASeam``, the
+reference's ``_a2a_bwd``): ``xla`` exchanges the cotangent, takes the
+experts' vjp on the saved buffer and exchanges dX back; the ring modes
+send each cotangent piece along the dispatch hops, pair it with the
+saved piece it belongs to, and return dX on the inverse hops, with the
+forward's shifts, pieces and direction (``_a2a_bwd_ring``).  The experts'
+grads accumulate on their rank, with no exchange: each rank's experts
+are its own.  The expert GEMMs are ``torch`` batched matmuls, as the
 reference's ``_expert_fn`` is ``jnp.einsum``: no fused kernel, whatever
 the mode.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -152,9 +158,6 @@ VALID_SCATTER_AXES = ("seq", "hidden")
 NOT_PORTED = {
     "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
                   "(ROADMAP queue 1 item 9)",
-    "a2a_backward": "the MoE a2a exchange across ranks runs forward only: "
-                    "its backward (training through MoE) is ROADMAP queue 1 "
-                    "item 8.3",
 }
 
 
@@ -284,13 +287,17 @@ class SeamTape:
         self.entries.append((seam, tensors, leaves, saved))
         return leaves
 
-    def backward(self, root: torch.Tensor,
-                 grad: Optional[torch.Tensor] = None) -> None:
+    def backward(self, root, grad=None) -> None:
         """Backward from ``root`` (seeded with ``grad``, default ones, as
-        each rank seeds its replicated loss in the reference)."""
-        if grad is None:
-            grad = torch.ones_like(root)
-        torch.autograd.backward([root], [grad])
+        each rank seeds its replicated loss in the reference); a tuple of
+        roots takes a tuple of grads, and a root that needs no grad is
+        passed over."""
+        roots = root if isinstance(root, (tuple, list)) else (root,)
+        grads = (grad if isinstance(grad, (tuple, list))
+                 else (grad,) * len(roots))
+        pairs = [(r, torch.ones_like(r) if g is None else g)
+                 for r, g in zip(roots, grads) if r.requires_grad]
+        torch.autograd.backward([r for r, _ in pairs], [g for _, g in pairs])
         while self.entries:
             # every rank runs every seam's backward, whatever its grads: the
             # exchange needs all ranks
@@ -344,45 +351,73 @@ def cut(x: torch.Tensor, axis) -> torch.Tensor:
     return _run_seam(_CutSeam(), x)[0]
 
 
+def recomputing() -> bool:
+    """True while this thread re-runs a checkpointed block for its
+    backward (``remat``): counters that the forward already bumped (the
+    MoE's dropped assignments) skip the recompute."""
+    return getattr(_TAPE, "recomputing", False)
+
+
+class _Recompute:
+    """Marks this thread as recomputing (``recomputing``)."""
+
+    def __enter__(self):
+        self._outer = recomputing()
+        _TAPE.recomputing = True
+
+    def __exit__(self, *exc):
+        _TAPE.recomputing = self._outer
+        return False
+
+
+def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
+    return out if isinstance(out, tuple) else (out,)
+
+
 class _RematSeam:
     """A checkpointed block as ONE tape entry.  Its forward runs the block
     under ``no_grad`` (its seams forward only) and keeps only the block's
     input; its backward re-runs the block under grad on a nested
     ``SeamTape``, on the rank's own thread (the recompute repeats the
     block's exchanges, as ``jax.checkpoint`` repeats its collectives),
-    runs that tape's backward with the output's grad, and returns the
-    input's.  The block's weights gather their grads in ``.grad``."""
+    runs that tape's backward with the outputs' grads, and returns the
+    input's.  The block may return a tensor or a tuple of them (a block
+    and its MoE aux loss).  The block's weights gather their grads in
+    ``.grad``."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
 
     def forward(self, x):
-        return (self.fn(x),), x
+        return _as_tuple(self.fn(x)), x
 
     def backward(self, saved, gouts):
         x = saved.detach().requires_grad_()
-        with torch.enable_grad(), SeamTape() as tape:
-            out = self.fn(x)
-        tape.backward(out, gouts[0])
+        with torch.enable_grad(), SeamTape() as tape, _Recompute():
+            outs = _as_tuple(self.fn(x))
+        tape.backward(outs, gouts)
         return (torch.zeros_like(x) if x.grad is None else x.grad,)
 
 
-def remat(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
-          axis, weights: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """``fn(x)`` with its activations recomputed in the backward (the
-    reference's ``jax.checkpoint`` of a block); ``weights`` are the
-    block's parameters.  At tp=1 ``torch.utils.checkpoint``; at tp>1 one
-    entry on this thread's tape (``_RematSeam``): the autograd engine's
-    recompute would run on the card's device thread, where the ranks'
-    seams cannot meet."""
+def remat(fn: Callable, x: torch.Tensor, axis,
+          weights: Sequence[torch.Tensor] = ()):
+    """``fn(x)`` (a tensor or a tuple of tensors) with its activations
+    recomputed in the backward (the reference's ``jax.checkpoint`` of a
+    block); ``weights`` are the block's parameters.  At tp=1
+    ``torch.utils.checkpoint``; at tp>1 one entry on this thread's tape
+    (``_RematSeam``): the autograd engine's recompute would run on the
+    card's device thread, where the ranks' seams cannot meet."""
     if not _needs_grad(x, *weights):
         return fn(x)
     if _group_size(axis) == 1:
-        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(
+            fn, x, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), _Recompute()))
     tape = current_tape()
     if tape is None:
         raise RuntimeError(ENGINE_THREAD)
-    return tape.record(_RematSeam(fn), (x,))[0]
+    outs = tape.record(_RematSeam(fn), (x,))
+    return outs if len(outs) > 1 else outs[0]
 
 
 class _TransportSeam:
@@ -878,9 +913,7 @@ class FusedOp:
         if self.kind == "a2a":
             if _group_size(self.axis) == 1:
                 return _expert_fn(epi, x, *ws)
-            if _needs_grad(x, *ws):
-                raise NotImplementedError(NOT_PORTED["a2a_backward"])
-            return _a2a_impl(self, x, ws)[0]
+            return _run_seam(_A2ASeam(self), x, *ws)[0]
         if _group_size(self.axis) == 1:
             # one rank: local GEMMs, plain autograd
             if self.kind == "ag":
@@ -1115,6 +1148,25 @@ def a2a_exchange(buf: torch.Tensor, group) -> torch.Tensor:
     return torch.stack([p[me] for p in group.exchange(buf, "a2a")])
 
 
+def _a2a_stages(op: FusedOp, cap: int):
+    """The ring's stages, in order: (dst, src, fwd, inv, rows) for each
+    shift and each of its ``_sub_chunks`` pieces: at shift sh this rank
+    sends its block for rank dst = me + sh along ``fwd`` and receives rank
+    src = me - sh's block, ``rows`` of it; ``inv`` is the way back
+    (neither for the local shift 0)."""
+    group = op.axis
+    n, me = group.n, group.rank()
+    sub = _sub_chunks(cap, n, op.comm_chunks)
+    sub_len = cap // sub
+    for s in range(n):
+        sh = (n - s) % n if op.reverse else s
+        fwd = [(i, (i + sh) % n) for i in range(n)] if sh else None
+        inv = [(i, (i - sh) % n) for i in range(n)] if sh else None
+        for j in range(sub):
+            yield ((me + sh) % n, (me - sh) % n, fwd, inv,
+                   slice(j * sub_len, (j + 1) * sub_len))
+
+
 def _a2a_ring(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
                                                          torch.Tensor]:
     """The over-decomposed exchange (the reference's ``_a2a_ring`` over one
@@ -1125,29 +1177,19 @@ def _a2a_ring(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
     rank's block as rank dst's experts processed it, ``buf[src]`` the
     block rank src sent here, identical to the barrier path's."""
     group = op.axis
-    n, me = group.n, group.rank()
-    e_loc, cap, dm = x.shape[1:]
-    sub = _sub_chunks(cap, n, op.comm_chunks)
-    sub_len = cap // sub
     out = torch.zeros_like(x)
     buf = torch.zeros_like(x)
-    for s in range(n):
-        sh = (n - s) % n if op.reverse else s
-        dst, src = (me + sh) % n, (me - sh) % n
-        fwd = [(i, (i + sh) % n) for i in range(n)]
-        inv = [(i, (i - sh) % n) for i in range(n)]
-        for j in range(sub):
-            rows = slice(j * sub_len, (j + 1) * sub_len)
-            chunk = x[dst:dst + 1, :, rows]
-            if sh:
-                chunk = group.ppermute(chunk, fwd, "a2a_ring")
-            # arrived: rank src's tokens for this rank's experts
-            buf[src:src + 1, :, rows] = chunk
-            y = _expert_fn(op.epilogue, chunk, *ws)
-            if sh:
-                y = group.ppermute(y, inv, "a2a_ring")
-            # back: this rank's tokens, processed by rank dst's experts
-            out[dst:dst + 1, :, rows] = y
+    for dst, src, fwd, inv, rows in _a2a_stages(op, x.shape[2]):
+        chunk = x[dst:dst + 1, :, rows]
+        if fwd:
+            chunk = group.ppermute(chunk, fwd, "a2a_ring")
+        # arrived: rank src's tokens for this rank's experts
+        buf[src:src + 1, :, rows] = chunk
+        y = _expert_fn(op.epilogue, chunk, *ws)
+        if inv:
+            y = group.ppermute(y, inv, "a2a_ring")
+        # back: this rank's tokens, processed by rank dst's experts
+        out[dst:dst + 1, :, rows] = y
     return out, buf
 
 
@@ -1161,3 +1203,64 @@ def _a2a_impl(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
         y = _expert_fn(op.epilogue, buf, *ws)
         return a2a_exchange(y, op.axis).to(x.dtype), buf
     return _a2a_ring(op, x, ws)
+
+
+def _expert_vjp(epi: Epilogue, b: torch.Tensor, ws, ct: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(db, [dw1, dw3, dw2]): the vjp of ``_expert_fn`` at ``b`` with the
+    cotangent ``ct`` (cast to b's dtype, as the reference does)."""
+    with torch.enable_grad():
+        b = b.detach().requires_grad_()
+        wl = [w.detach().requires_grad_() for w in ws]
+        y = _expert_fn(epi, b, *wl)
+        db, *dws = torch.autograd.grad(y, [b, *wl], ct.to(b.dtype))
+    return db, dws
+
+
+def _a2a_bwd_ring(op: FusedOp, x: torch.Tensor, ws, buf: torch.Tensor,
+                  g: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The ring's backward (the reference's ``_a2a_bwd_ring``): at each
+    stage the cotangent piece of what rank dst's experts returned hops
+    along the dispatch permutation, so that it lands on the rank whose
+    experts made it, beside the saved piece of ``buf`` they read; their
+    vjp's dX hops back on the inverse permutation.  The experts' grads
+    sum over the stages on their own rank."""
+    group = op.axis
+    dx = torch.zeros_like(x)
+    dws = None
+    for dst, src, fwd, inv, rows in _a2a_stages(op, x.shape[2]):
+        gc = g[dst:dst + 1, :, rows]
+        if fwd:
+            gc = group.ppermute(gc, fwd, "a2a_ring")
+        db, dw = _expert_vjp(op.epilogue, buf[src:src + 1, :, rows], ws, gc)
+        dws = dw if dws is None else [a + d for a, d in zip(dws, dw)]
+        if inv:
+            db = group.ppermute(db, inv, "a2a_ring")
+        dx[dst:dst + 1, :, rows] = db
+    return dx, dws
+
+
+class _A2ASeam:
+    """A FusedOp a2a at n>1 as a seam: the forward saves the received
+    buffer, the backward runs the reference's ``_a2a_bwd`` (module
+    docstring)."""
+
+    def __init__(self, op: FusedOp):
+        self.op = op
+
+    def forward(self, x, *ws):
+        out, buf = _a2a_impl(self.op, x, ws)
+        return (out,), (x, ws, buf)
+
+    def backward(self, saved, gouts):
+        op = self.op
+        x, ws, buf = saved
+        g = gouts[0]
+        if op.mode == "xla":
+            # the combine's transpose, the experts' vjp, the dispatch's
+            db, dws = _expert_vjp(op.epilogue, buf, ws,
+                                  a2a_exchange(g, op.axis))
+            dx = a2a_exchange(db, op.axis)
+        else:
+            dx, dws = _a2a_bwd_ring(op, x, ws, buf, g)
+        return (dx.to(x.dtype), *(d.to(w.dtype) for d, w in zip(dws, ws)))

@@ -9,6 +9,8 @@
       --device cpu                   # resumes from ckpt/ when it holds one
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
       --tp 4 --mode flux --autotune --steps 2     # tune, then train
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v3_671b \
+      --smoke --steps 3 --tp 4 --mode flux --device cpu   # MLA, MoE, MTP
 
 Runs on the CUDA card by default (bf16 weights); ``--device cpu`` runs the
 plain PyTorch path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the
@@ -49,7 +51,7 @@ NOT_PORTED = {
     "dp": (lambda v: v != 1, "data parallelism (ROADMAP queue 1 item 10)"),
     "pods": (lambda v: v != 1, "pods (ROADMAP queue 1 item 10)"),
     "ep": (lambda v: v > 1, "a dedicated expert-parallel axis (ROADMAP "
-                            "queue 1 item 10, after MoE training, item 8.3)"),
+                            "queue 1 item 10)"),
     "wire_dtype": (lambda v: v is not None,
                    "wire precision (ROADMAP queue 1 item 9)"),
     "max_logit_rmse": (lambda v: v is not None,

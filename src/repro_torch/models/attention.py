@@ -9,7 +9,10 @@ local heads, the ``attn_rs`` seam for the output projection.  With
 otherwise the plain ``blocked_attention``, which training runs, as the
 reference's does.
 ``mla_train`` runs the same seams around the latent projections and always
-attends in plain ``blocked_attention``, as the reference does.
+attends in plain ``blocked_attention``, as the reference does; under grad
+at tp>1 its seams (the two up-projections' ``attn_ag``, the rope key's
+gather, whose transpose is ``scatter_seq_sum``, and ``attn_rs``) record
+on the rank's ``SeamTape``.
 
 Decode paths (``gqa_decode`` dense, ``gqa_decode_paged`` through block
 tables) and the paged chunked prefill (``gqa_prefill_chunk``) compute
@@ -298,15 +301,19 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
-def _mla_latents(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
+def _mla_latents(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                 axis=None):
     """Pre-norm and the latent down-projections (replicated weights, on
     this rank's rows) at positions pos [B, L]: (q_lat [B, L, Rq], kv_lat
-    [B, L, R], k_rope [B, L, Dr] rotated)."""
+    [B, L, R], k_rope [B, L, Dr] rotated).  The normed input (read by both
+    down-projections) and the kv projection (the latent's and the rope
+    key's) are cut on the seam tape at tp>1 (``overlap.cut`` over
+    ``axis``): each feeds two seams."""
     m = cfg.mla
-    h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+    h = overlap.cut(layers.rms_norm(x, p["norm"], cfg.norm_eps), axis)
     q_lat = layers.rms_norm(torch.matmul(h, p["w_dq"]), p["q_norm"],
                             cfg.norm_eps)
-    kv_all = torch.matmul(h, p["w_dkv"])
+    kv_all = overlap.cut(torch.matmul(h, p["w_dkv"]), axis)
     kv_lat = layers.rms_norm(kv_all[..., :m.kv_lora_rank], p["kv_norm"],
                              cfg.norm_eps)
     k_rope = layers.apply_rope(kv_all[..., None, m.kv_lora_rank:], pos,
@@ -330,7 +337,7 @@ def mla_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
     pos_loc = layers.seq_positions(b, s_loc, x.device, ctx=ctx)
-    q_lat, kv_lat, k_rope_loc = _mla_latents(p, x, pos_loc, cfg)
+    q_lat, kv_lat, k_rope_loc = _mla_latents(p, x, pos_loc, cfg, ctx.axis)
     # head up-projections: the AllGather-GEMM seams (distinct input latents,
     # so no gather sharing between them)
     ag_op = ctx.op("attn_ag")

@@ -27,7 +27,16 @@ an atomic ``index_add_`` would not be).
 
 ``dropped`` counts the assignments capacity evicted, keyed by the rank
 whose experts lost them, for the lanes that must show none: zero it with
-``dropped.clear()``, read it with ``drop_totals``.
+``dropped.clear()``, read it with ``drop_totals``.  A checkpointed
+block's recompute (``overlap.remat``) counts nothing again.
+
+Under grad at tp>1 every seam of ``moe_train`` records on the rank's
+``SeamTape``: the aux loss's psum (its transpose is the psum of the
+cotangent), the ``moe_a2a`` exchange (its backward, ``overlap._A2ASeam``)
+or the local experts' psum, and the shared expert's ``mlp_ag`` /
+``mlp_rs``.  The normed tokens and the router's probabilities each feed
+two of them, so both are cut on the tape (``overlap.cut``), as the model
+cuts its residual stream.
 """
 from __future__ import annotations
 
@@ -157,10 +166,12 @@ def _capacity(tokens: int, mc: MoEConfig) -> int:
     return max(c, 4)
 
 
-def _route(p, ht: torch.Tensor, mc: MoEConfig):
-    """fp32 router: (probs [t, E], gate [t, k] renormalised, eidx [t, k])."""
-    probs = torch.softmax(torch.matmul(ht.float(), p["router"].float()),
-                          dim=-1)
+def _route(p, ht: torch.Tensor, mc: MoEConfig, axis=None):
+    """fp32 router: (probs [t, E], gate [t, k] renormalised, eidx [t, k]).
+    Under a seam tape at tp>1 ``probs`` is cut (``overlap.cut`` over
+    ``axis``): it feeds the aux loss's psum and the gates."""
+    probs = overlap.cut(torch.softmax(
+        torch.matmul(ht.float(), p["router"].float()), dim=-1), axis)
     gate, eidx = torch.topk(probs, mc.top_k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, eidx
@@ -181,6 +192,8 @@ def _bucket(flat_e: torch.Tensor, e: int, cap: int,
 
 def _count_drops(ctx: TPContext, keep: torch.Tensor,
                  counted: Optional[torch.Tensor]) -> None:
+    if overlap.recomputing():       # the forward counted them
+        return
     lost = ~keep if counted is None else counted.bool() & ~keep
     r = ctx.tp_index()
     dropped[r] = dropped.get(r, 0) + lost.sum()
@@ -258,9 +271,11 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     t = b * s_loc
     e = mc.num_experts
     e_loc = _expert_split(e, ctx)
-    h = layers.rms_norm(x, p["norm"], eps)
-    ht = h.reshape(t, dm)
-    probs, gate, eidx = _route(p, ht, mc)
+    # the normed tokens feed the router and the dispatch (or the local
+    # experts): cut on the seam tape at tp>1, as the router's probs are
+    ht = overlap.cut(layers.rms_norm(x, p["norm"], eps).reshape(t, dm),
+                     ctx.axis)
+    probs, gate, eidx = _route(p, ht, mc, ctx.axis)
 
     valid_t = None
     if lengths is not None:

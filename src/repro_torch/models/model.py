@@ -2,21 +2,24 @@
 
 A model is ``num_layers`` blocks of its layer pattern, after its leading
 dense layers.  The port holds the weights in ``Model`` (an ``nn.Module``):
-the tied ``embed`` table [V_pad, D], ``final_norm`` [D] and one ``Block``
+the tied ``embed`` table [V_pad, D], ``final_norm`` [D], one ``Block``
 per layer in expanded-pattern order, whose ``mixer`` / ``ffn`` parameter
 dicts carry the reference's leaf names and packed layouts (nested for the
-MoE's ``shared`` expert).  (The reference stacks a period's layers
-``[reps, ...]`` for ``lax.scan``; an eager loop needs no stacking —
-``convert.params_from_jax`` unstacks.)  The ported layer kinds are
-``PORTED_KINDS``; DeepSeek-V3's multi-token-prediction head is not built:
-serving never reads it.
+MoE's ``shared`` expert), and, for a config with ``mtp_depth``
+(DeepSeek-V3), the multi-token-prediction head ``mtp``: a block of the
+pattern's last mixer kind with a dense FFN, and ``proj`` [2D, D],
+replicated.  (The reference stacks a period's layers ``[reps, ...]`` for
+``lax.scan``; an eager loop needs no stacking — ``convert.params_from_jax``
+unstacks.)  The ported layer kinds are ``PORTED_KINDS``; serving never
+reads ``mtp``.
 
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
-``forward_loss`` are the training forward for the ``TRAIN_KINDS``
-pattern, in either residual layout (``TPContext.seq_sharded``) and with
-or without ``ParallelConfig.remat``; at tp>1 they run as one rank of the
-TP group, on that rank's ``shard_params`` copy.
+``forward_loss`` are the training forward of every ported kind, with the
+MoE's aux loss and the MTP loss, in either residual layout
+(``TPContext.seq_sharded``) and with or without ``ParallelConfig.remat``;
+at tp>1 they run as one rank of the TP group, on that rank's
+``shard_params`` copy.
 
 ``reference_tree`` / ``named_leaves`` map the port's named leaves to the
 reference's tree (periods stacked ``[reps, ...]``) and back, each leaf's
@@ -41,13 +44,6 @@ from repro_torch.parallel.sharding import (EP_NOT_PORTED, TPContext,
 # (mixer, ffn) layer kinds the port runs, at any tp
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
-# layer kinds that train (at any tp)
-TRAIN_KINDS = frozenset({(ATTN, DENSE_FFN)})
-
-TRAIN_KIND_NOT_PORTED = ("training runs the (attn, ffn) pattern only: MLA "
-                         "and MoE layers (the a2a exchange's backward) and "
-                         "the multi-token-prediction head do not train yet "
-                         "(ROADMAP queue 1 item 8.3)")
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
@@ -125,17 +121,31 @@ class Block(nn.Module):
         self.ffn = _param_dict(ffn_params)
 
 
+class MTPBlock(Block):
+    """DeepSeek-V3's multi-token-prediction head: a ``Block`` (the
+    pattern's last mixer kind, a dense FFN) and ``proj`` [2D, D], which
+    maps the final hidden state joined with the next token's embedding
+    into the block."""
+
+    def __init__(self, mixer: Dict, ffn_params: Dict, proj: torch.Tensor):
+        super().__init__(mixer, ffn_params)
+        self.proj = nn.Parameter(proj, requires_grad=False)
+
+
 class Model(nn.Module):
     """The weights: ``embed`` [V_pad, D] (tied LM head), ``final_norm``
-    [D], ``layers`` (one ``Block`` per layer); frozen for serving, every
-    leaf trainable with ``trainable=True``."""
+    [D], ``layers`` (one ``Block`` per layer) and ``mtp`` (an ``MTPBlock``,
+    or None); frozen for serving, every leaf trainable with
+    ``trainable=True``."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 blocks: List[Block], trainable: bool = False):
+                 blocks: List[Block], trainable: bool = False,
+                 mtp: Optional[MTPBlock] = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(blocks)
+        self.mtp = mtp
         self.requires_grad_(trainable)
 
     @property
@@ -162,9 +172,10 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    embed, final_norm, layers_ = _init_leaves(cfg, par, gen, dtype, dev)
+    embed, final_norm, layers_, mtp = _init_leaves(cfg, par, gen, dtype,
+                                                   dev)
     return Model(embed, final_norm, [Block(m, f) for m, f in layers_],
-                 trainable)
+                 trainable, None if mtp is None else MTPBlock(*mtp))
 
 
 def _init_mixer(kind: str, gen: torch.Generator, cfg: ModelConfig, tp: int,
@@ -177,9 +188,12 @@ def _init_mixer(kind: str, gen: torch.Generator, cfg: ModelConfig, tp: int,
 def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
                  gen: torch.Generator, dtype: torch.dtype,
                  dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor,
-                                             List[Tuple[Dict, Dict]]]:
+                                             List[Tuple[Dict, Dict]],
+                                             Optional[Tuple]]:
     """``init_model``'s leaves: (embed, final_norm, [(mixer, ffn)] a
-    layer); on the meta device, their shapes alone."""
+    layer, the MTP head's (mixer, ffn, proj) or None), drawn in that
+    order; on the meta device, their shapes alone.  ``proj`` is
+    normal(0, 1/sqrt(2D)), as the reference draws it."""
     if par.ep != 1:
         raise NotImplementedError(EP_NOT_PORTED)
     check_ported(cfg)
@@ -197,7 +211,15 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
             f = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
         out.append((mixer, f))
-    return embed, torch.ones(cfg.d_model, dtype=dtype, device=dev), out
+    mtp = None
+    if cfg.mtp_depth:
+        d2 = 2 * cfg.d_model
+        mtp = (_init_mixer(cfg.pattern[-1][0], gen, cfg, par.tp, dtype, dev),
+               ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
+                            fuse13=par.fuse_w13),
+               (torch.randn((d2, cfg.d_model), generator=gen, device=dev)
+                * d2 ** -0.5).to(dtype))
+    return embed, torch.ones(cfg.d_model, dtype=dtype, device=dev), out, mtp
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
@@ -207,27 +229,19 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
     reference's ``count_params_analytic``; ``par`` defaults to tp=1).
     ``active_only`` scales routed-expert weights by top_k / num_experts
     (MODEL_FLOPS = 6 * N_active * D for MoE).  A packed ``w13`` counts as
-    its ``w1`` and ``w3``.  The count is the model's, not the port's
-    coverage: DeepSeek-V3's multi-token-prediction head (a layer of the
-    pattern's last mixer kind, a dense FFN and a [2D, D] projection), which
-    ``Model`` does not build yet, is counted from its shapes, as the
+    its ``w1`` and ``w3``.  DeepSeek-V3's MTP head counts, as the
     reference counts it."""
     par = par or ParallelConfig(tp=1)
     meta = torch.device("meta")
     gen = torch.Generator()
-    dtype = torch.bfloat16
-    embed, final_norm, layers_ = _init_leaves(cfg, par, gen, dtype, meta)
+    embed, final_norm, layers_, mtp = _init_leaves(cfg, par, gen,
+                                                   torch.bfloat16, meta)
     total = embed.numel() + final_norm.numel()
     blocks = [(m, f, kind == MOE_FFN)
               for (m, f), (_, kind) in zip(layers_, expanded_pattern(cfg))]
-    if cfg.mtp_depth:
-        kind = cfg.pattern[-1][0]
-        blocks.append((
-            dict(_init_mixer(kind, gen, cfg, par.tp, dtype, meta),
-                 proj=torch.empty((2 * cfg.d_model, cfg.d_model),
-                                  device=meta)),
-            ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, meta,
-                         fuse13=par.fuse_w13), False))
+    if mtp is not None:
+        total += mtp[2].numel()
+        blocks.append((mtp[0], mtp[1], False))
     for mixer, f, moe in blocks:
         total += sum(t.numel() for t in mixer.values())
         for name, t in f.items():
@@ -245,18 +259,31 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
 def param_specs(cfg: ModelConfig, params: Model) -> Dict:
     """The dim each weight is split along over the TP ranks (None:
     replicated), in ``params``' structure: ``{"embed": 0, "final_norm":
-    None, "layers": [{"mixer": {...}, "ffn": {...}}, ...]}`` (the
-    reference's ``param_specs``; the vocab-parallel embedding is split on
-    its rows)."""
+    None, "layers": [{"mixer": {...}, "ffn": {...}}, ...], "mtp": {"mixer",
+    "ffn", "proj"} or None}`` (the reference's ``param_specs``; the
+    vocab-parallel embedding is split on its rows; the MTP head's block is
+    split as a layer of its kinds is, its ``proj`` replicated)."""
     check_ported(cfg)
 
     def pick(table, leaves):
         return {n: pick(table[n], v) if isinstance(v, nn.ParameterDict)
                 else table[n] for n, v in leaves.items()}
-    layers = [{"mixer": pick(_MIXER_SPECS[mk], blk.mixer),
-               "ffn": pick(_FFN_SPECS[fk], blk.ffn)}
-              for (mk, fk), blk in zip(expanded_pattern(cfg), params.layers)]
-    return {"embed": 0, "final_norm": None, "layers": layers}
+
+    def block(kinds, blk):
+        return {"mixer": pick(_MIXER_SPECS[kinds[0]], blk.mixer),
+                "ffn": pick(_FFN_SPECS[kinds[1]], blk.ffn)}
+    layers = [block(kinds, blk)
+              for kinds, blk in zip(expanded_pattern(cfg), params.layers)]
+    mtp = None
+    if params.mtp is not None:
+        mtp = dict(block(mtp_kinds(cfg), params.mtp), proj=None)
+    return {"embed": 0, "final_norm": None, "layers": layers, "mtp": mtp}
+
+
+def mtp_kinds(cfg: ModelConfig) -> Tuple[str, str]:
+    """The MTP head's (mixer, ffn) kinds: the pattern's last mixer and a
+    dense FFN, as the reference builds it."""
+    return cfg.pattern[-1][0], DENSE_FFN
 
 
 def _cut(t: torch.Tensor, dim: Optional[int], rank: int,
@@ -286,9 +313,15 @@ def shard_params(params: Model, rank: int, tp: int,
                 else _cut(t, spec[n], rank, tp) for n, t in leaves.items()}
     blocks = [Block(cut(blk.mixer, sp["mixer"]), cut(blk.ffn, sp["ffn"]))
               for blk, sp in zip(params.layers, specs["layers"])]
+    mtp = None
+    if params.mtp is not None:
+        sp = specs["mtp"]
+        mtp = MTPBlock(cut(params.mtp.mixer, sp["mixer"]),
+                       cut(params.mtp.ffn, sp["ffn"]),
+                       _cut(params.mtp.proj, sp["proj"], rank, tp))
     return Model(_cut(params.embed, specs["embed"], rank, tp),
                  _cut(params.final_norm, None, rank, tp), blocks,
-                 params.trainable)
+                 params.trainable, mtp)
 
 
 def _leaf_dims(cfg: ModelConfig, params: Model) -> Dict[str, Optional[int]]:
@@ -298,6 +331,8 @@ def _leaf_dims(cfg: ModelConfig, params: Model) -> Dict[str, Optional[int]]:
     for i, sp in enumerate(specs["layers"]):
         for part in ("mixer", "ffn"):
             out.update(_flat_names(sp[part], f"layers.{i}.{part}."))
+    if specs["mtp"] is not None:
+        out.update(_flat_names(specs["mtp"], "mtp."))
     return out
 
 
@@ -313,74 +348,125 @@ def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
 # Training forward
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
-    """Raise unless the model trains in the port: the ``TRAIN_KINDS``
-    pattern, no MTP head, ep=1, a ``remat`` of ``REMAT_MODES``."""
+    """Raise unless the model trains in the port: ported layer kinds
+    (``check_ported``), ep=1, a ``remat`` of ``REMAT_MODES``."""
     if par.ep != 1:
         raise NotImplementedError(EP_NOT_PORTED)
-    if set(expanded_pattern(cfg)) - TRAIN_KINDS or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: " + TRAIN_KIND_NOT_PORTED)
+    check_ported(cfg)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
                          f"{REMAT_MODES}")
 
 
-def _block(blk: Block, x: torch.Tensor, ctx: TPContext,
-           cfg: ModelConfig) -> torch.Tensor:
-    """One layer: pre-norm attention, then pre-norm FFN, each added to the
-    residual stream, which is cut on the seam tape before each sub-block
-    (``overlap.cut``), so the backward walks each segment once."""
+def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
+           kinds: Tuple[str, str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of ``kinds`` (mixer, ffn): pre-norm attention (GQA or
+    MLA), then the pre-norm FFN (dense or MoE), each added to the residual
+    stream, which is cut on the seam tape before each sub-block
+    (``overlap.cut``), so the backward walks each segment once.  Returns
+    (x, the layer's aux loss: the MoE's, else 0)."""
+    mixer_kind, ffn_kind = kinds
+    mixer = attention.mla_train if mixer_kind == MLA else attention.gqa_train
     x = overlap.cut(x, ctx.axis)
-    x = x + attention.gqa_train(blk.mixer, x, ctx, cfg)
+    x = x + mixer(blk.mixer, x, ctx, cfg)
     x = overlap.cut(x, ctx.axis)
-    return x + ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+    if ffn_kind == MOE_FFN:
+        y, aux = ffn.moe_train(blk.ffn, x, ctx, cfg, cfg.norm_eps)
+    else:
+        y = ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
-             cfg: ModelConfig, par: ParallelConfig) -> torch.Tensor:
-    """x: [B, S/TP, D] -> hidden [B, S/TP, D] (the replicated layout:
-    [B, S, D] -> [B, S, D]), one ``_block`` a layer (the reference's
-    ``backbone``; a dense model's aux loss is 0).  With ``par.remat`` other
-    than "none" every block after the leading dense layers is checkpointed
-    (``overlap.remat``), as the reference checkpoints its scanned
+             cfg: ModelConfig, par: ParallelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S/TP, D] -> (hidden [B, S/TP, D], the layers' aux losses
+    summed) (the replicated layout: [B, S, D] -> [B, S, D]), one
+    ``_block`` a layer (the reference's ``backbone``).  With
+    ``par.remat`` other than "none" every block after the leading dense
+    layers is checkpointed (``overlap.remat``), its aux loss carried out
+    beside its output, as the reference checkpoints its scanned
     blocks."""
     check_trainable(cfg, par)
-    for i, blk in enumerate(params.layers):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (blk, kinds) in enumerate(zip(params.layers,
+                                         expanded_pattern(cfg))):
         # per-layer plan overrides resolve here
         lctx = ctx.with_layer(layer_slot(cfg, i))
         if par.remat == "none" or i < cfg.leading_dense_layers:
-            x = _block(blk, x, lctx, cfg)
+            x, aux = _block(blk, x, lctx, cfg, kinds)
         else:
-            x = overlap.remat(
-                lambda v, b=blk, c=lctx: _block(b, v, c, cfg), x, ctx.axis,
-                list(blk.parameters()))
-    return x
+            x, aux = overlap.remat(
+                lambda v, b=blk, c=lctx, k=kinds: _block(b, v, c, cfg, k),
+                x, ctx.axis, list(blk.parameters()))
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _masked_mean(ce: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Mean of ``ce`` over the labels in [0, vocab)."""
+    mask = (labels >= 0) & (labels < cfg.vocab_size)
+    return (torch.where(mask, ce, torch.zeros_like(ce)).sum()
+            / torch.clamp(mask.sum(), min=1))
 
 
 def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
                  ctx: TPContext, cfg: ModelConfig,
                  par: ParallelConfig) -> torch.Tensor:
     """Training loss: the mean cross-entropy over the labels in
-    [0, vocab).  batch: tokens [B, S] and labels [B, S], both full
-    sequence and the same on every rank; the embedding's combine produces
-    the residual layout (a reduce-scatter to the sequence-sharded layout,
-    a psum to the replicated one), the LM head's ``head_ag`` seam the
-    vocab-sharded logits.  At tp>1 every rank returns the same loss
-    (its own replicated copy, as in the reference)."""
+    [0, vocab), plus 0.3 x the MTP loss (``_mtp_loss``) when the model
+    has its MTP head, plus 0.01 x the MoE layers' aux loss for an MoE
+    config, as the reference's.  batch: tokens [B, S] and labels [B, S],
+    both full sequence and the same on every rank; the embedding's
+    combine produces the residual layout (a reduce-scatter to the
+    sequence-sharded layout, a psum to the replicated one), the LM head's
+    ``head_ag`` seam the vocab-sharded logits.  At tp>1 every rank
+    returns the same loss (its own replicated copy, as in the
+    reference)."""
     check_trainable(cfg, par)
     if "embeds" in batch:
         raise NotImplementedError(EMBEDS_NOT_PORTED)
     v_pad = pad_vocab(cfg.vocab_size, ctx.tp)
     x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
     x = x.to(getattr(torch, cfg.compute_dtype))
-    h = backbone(params, x, ctx, cfg, par)
+    h, aux = backbone(params, x, ctx, cfg, par)
     h = layers.rms_norm(h, params.final_norm, cfg.norm_eps)
+    mtp = cfg.mtp_depth and params.mtp is not None
+    if mtp:
+        # the final hidden state feeds both heads
+        h = overlap.cut(h, ctx.axis)
     logits = layers.lm_head_logits(h, params.embed, ctx)      # [B, S, V/TP]
     labels = batch["labels"]
-    ce = layers.vocab_parallel_xent(logits, labels, ctx, v_pad,
-                                    cfg.vocab_size)           # [B, S]
-    mask = (labels >= 0) & (labels < cfg.vocab_size)
-    return (torch.where(mask, ce, torch.zeros_like(ce)).sum()
-            / torch.clamp(mask.sum(), min=1))
+    loss = _masked_mean(layers.vocab_parallel_xent(
+        logits, labels, ctx, v_pad, cfg.vocab_size), labels, cfg)
+    if mtp:
+        loss = loss + 0.3 * _mtp_loss(params, h, batch, ctx, cfg, v_pad)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss
+
+
+def _mtp_loss(params: Model, h: torch.Tensor,
+              batch: Dict[str, torch.Tensor], ctx: TPContext,
+              cfg: ModelConfig, v_pad: int) -> torch.Tensor:
+    """DeepSeek's multi-token prediction (the reference's ``_mtp_loss``):
+    the MTP block predicts token t+2 from the final hidden state ``h``
+    joined with the embedding of token t+1, through ``proj``; its logits
+    come off the tied head, its labels are the batch's shifted once
+    more."""
+    mtp = params.mtp
+    nxt = layers.embed_lookup(params.embed, batch["tokens"], ctx)
+    nxt = layers.shift_tokens_left(nxt.to(h.dtype), ctx)       # emb of t+1
+    x = torch.matmul(torch.cat([h, nxt], dim=-1), mtp.proj)
+    x, _ = _block(mtp, x, ctx.with_layer(None), cfg, mtp_kinds(cfg))
+    logits = layers.lm_head_logits(x, params.embed, ctx)
+    labels = batch["labels"]
+    lab2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                     dim=1)
+    return _masked_mean(layers.vocab_parallel_xent(
+        logits, lab2, ctx, v_pad, cfg.vocab_size), lab2, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -442,13 +528,15 @@ def _flat_names(tree: Dict, prefix: str) -> Dict[str, Any]:
 
 def named_leaves(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's tree -> leaves keyed as ``named_parameters()``
-    ("embed", "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]"); a
-    period's layers are views of its stacked leaves.  ``mtp`` is not
-    carried (``Model`` does not build it)."""
+    ("embed", "final_norm", "layers.<i>.<mixer|ffn>.<name>[.<name>]",
+    "mtp.<mixer|ffn>.<name>", "mtp.proj"); a period's layers are views of
+    its stacked leaves."""
     out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     for i, layer in enumerate(layer_trees(tree, cfg)):
         for part in ("mixer", "ffn"):
             out.update(_flat_names(layer[part], f"layers.{i}.{part}."))
+    if "mtp" in tree:
+        out.update(_flat_names(tree["mtp"], "mtp."))
     return out
 
 
@@ -456,16 +544,21 @@ def reference_tree(named: Dict[str, torch.Tensor],
                    cfg: ModelConfig) -> Dict[str, Any]:
     """Leaves keyed as ``named_parameters()`` (weights, grads or moments)
     -> the reference's tree: ``lead`` layers as a list, the periods'
-    leaves stacked ``[reps, ...]`` per pattern position; each leaf keeps
-    its dtype and device."""
+    leaves stacked ``[reps, ...]`` per pattern position, ``mtp`` when the
+    leaves hold it; each leaf keeps its dtype and device."""
     layers: Dict[int, Dict[str, Any]] = {}
+    mtp: Dict[str, Any] = {}
     for key, t in named.items():
         parts = key.split(".")
-        if parts[0] != "layers":
+        if parts[0] == "layers":
+            node = layers.setdefault(int(parts[1]), {"mixer": {}, "ffn": {}})
+            parts = parts[2:]
+        elif parts[0] == "mtp":
+            node = mtp
+            parts = parts[1:]
+        else:
             continue
-        node = layers.setdefault(int(parts[1]), {"mixer": {}, "ffn": {}})
-        node = node[parts[2]]
-        for q in parts[3:-1]:
+        for q in parts[:-1]:
             node = node.setdefault(q, {})
         node[parts[-1]] = t
     lead, period = cfg.leading_dense_layers, len(cfg.pattern)
@@ -475,11 +568,14 @@ def reference_tree(named: Dict[str, torch.Tensor],
             return {n: stack([t[n] for t in trees]) for n in trees[0]}
         return torch.stack(trees)
 
-    return {"embed": named["embed"], "final_norm": named["final_norm"],
+    tree = {"embed": named["embed"], "final_norm": named["final_norm"],
             "lead": [layers[i] for i in range(lead)],
             "periods": [stack([layers[lead + rep * period + pos]
                                for rep in range(n_periods(cfg))])
                         for pos in range(period)]}
+    if mtp:
+        tree["mtp"] = mtp
+    return tree
 
 
 def _blocks(w: torch.Tensor, tp: int, widths: List[int]) -> List:
@@ -532,6 +628,7 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
     for n, t in named.items():
         leaf = n.split(".")[-1]
         base = n[:len(n) - len(leaf)]
+        width = cfg.d_ff               # a dense FFN's (the MTP head's too)
         if n.startswith("layers."):
             ffn_kind = kinds[int(n.split(".")[1])][1]
             if ".ffn.shared." in n:
@@ -540,8 +637,6 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
             elif ".ffn." in n and ffn_kind == MOE_FFN:
                 out[n] = t
                 continue
-            else:
-                width = cfg.d_ff
         if n == "embed":
             out[n] = t[:cfg.vocab_size]
         elif leaf in ("wqkv", "bqkv"):

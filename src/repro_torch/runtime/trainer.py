@@ -107,7 +107,9 @@ def complete_grads(grads: Dict[str, torch.Tensor],
                    replicated: Dict[str, bool],
                    group: Optional[RankGroup]) -> Dict[str, torch.Tensor]:
     """Sum the model-replicated leaves' grads over the TP ranks (the
-    reference's ``psum`` over "model"), all of them in one exchange."""
+    reference's ``psum`` over "model"), all of them in one exchange.  The
+    MoE's routed experts are split over the ranks (expert parallelism
+    over the TP group), so their grads are a rank's own, never summed."""
     names = [n for n in grads if replicated[n]]
     if group is None or group.n == 1 or not names:
         return grads

@@ -30,9 +30,12 @@ The ranks of the port's group share one card, so a measured winner is the
 best on one shared card, and an analytic one the best for ranks on cards
 of their own (``ect.H100_SXM``'s comment).
 
+A measured ``a2a`` cell (the MoE exchange) times the reference's operands
+(``bench_inputs``): the op forward, over ``xla`` and the ``decomposed``
+ring's ``comm_chunks`` and directions.
+
 Not ported: the ``wire_dtype`` sweep and its error budget (ROADMAP queue 1
-item 9), and the measured ``a2a`` sweep (item 8.3, with the exchange's
-backward).
+item 9).
 """
 from __future__ import annotations
 
@@ -54,9 +57,8 @@ _KIND_MODES: Dict[str, Tuple[str, ...]] = {
     "a2a": ("xla", "decomposed"),
 }
 
-A2A_NOT_PORTED = ("measured tuning of the moe_a2a seam is not ported: the "
-                  "a2a exchange runs forward only and the sweep waits for "
-                  "its backward (ROADMAP queue 1 item 8.3)")
+# the a2a bench's local experts a rank (the reference's)
+A2A_BENCH_E_LOC = 2
 _ALIGN_BYTES = 16        # the kernels load K and N rows in 16-byte chunks
 
 
@@ -223,8 +225,11 @@ def _round_to(x: int, mult: int) -> int:
 
 def _bench_epilogue(kind: str, n_weights: int, epilogue: bool):
     """The representative epilogue benched for a seam: the gated-FFN pair
-    for two-weight AG seams, a plain activation otherwise."""
+    for two-weight AG seams and for the a2a op (which takes only that), a
+    plain activation otherwise."""
     from repro_torch.core.overlap import Epilogue
+    if kind == "a2a":
+        return Epilogue(activation="silu", gate="pair")
     if not epilogue:
         return Epilogue()
     if kind == "ag" and n_weights == 2:
@@ -237,9 +242,13 @@ def bench_inputs(kind: str, m: int, n: int, k: int, group,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0
                  ) -> List[Tuple[torch.Tensor, ...]]:
     """Each rank's (x, *ws) for one seam's op, standard-normal from a
-    seeded ``torch.Generator`` on the group's device (weights / sqrt(k)):
-    ag x [1, m / n, k] (the full [1, m, k] in the hidden layout), ws
-    [k, n / n]; rs / ar x [1, m, k / n], w [k / n, n]."""
+    seeded ``torch.Generator`` on the group's device (weights / sqrt of
+    their fan-in): ag x [1, m / n, k] (the full [1, m, k] in the hidden
+    layout), ws [k, n / n]; rs / ar x [1, m, k / n], w [k / n, n]; a2a
+    (the reference's: m routed rows, k = d_model, n the expert width,
+    ``A2A_BENCH_E_LOC`` experts a rank) the dispatch buffer x [n, e_loc,
+    cap, k] with cap = max(m / (n e_loc), 1), (w1, w3) [e_loc, k, n] and
+    w2 [e_loc, n, k]."""
     nd = group.n
     dev = group.device
     gen = torch.Generator(device=dev)
@@ -251,7 +260,14 @@ def bench_inputs(kind: str, m: int, n: int, k: int, group,
 
     out = []
     for _ in range(nd):
-        if kind == "ag":
+        if kind == "a2a":
+            e_loc = A2A_BENCH_E_LOC
+            cap = max(m // (nd * e_loc), 1)
+            out.append((randn(nd, e_loc, cap, k),
+                        randn(e_loc, k, n, scale=k ** -0.5),
+                        randn(e_loc, k, n, scale=k ** -0.5),
+                        randn(e_loc, n, k, scale=n ** -0.5)))
+        elif kind == "ag":
             rows = m if scatter_axis == "hidden" else m // nd
             out.append((randn(1, rows, k),) + tuple(
                 randn(k, n // nd, scale=k ** -0.5)
@@ -266,9 +282,7 @@ def bench_op(kind: str, cand: Candidate, group, n_weights: int = 1,
              epilogue: bool = False):
     """The ``FusedOp`` one candidate runs."""
     from repro_torch.core.overlap import FusedOp
-    if kind == "a2a":
-        raise NotImplementedError(A2A_NOT_PORTED)
-    nw = n_weights if kind == "ag" else 1
+    nw = {"ag": n_weights, "a2a": 3}.get(kind, 1)
     return FusedOp(kind, epilogue=_bench_epilogue(kind, nw, epilogue),
                    n_weights=nw, axis=group, mode=cand.mode,
                    scatter_axis=cand.scatter_axis,
@@ -338,8 +352,6 @@ def tune_seam(kind: str, m: int, n: int, k: int, n_dev: int,
                                       dtype_bytes=dtype_bytes)
     if measured:
         from repro_torch.launch.op_level import time_tp
-        if kind == "a2a":
-            raise NotImplementedError(A2A_NOT_PORTED)
         mr, nr, kr = (_round_to(v, n_dev) for v in (m, n, k))
         dtype = torch.bfloat16 if dtype_bytes == 2 else torch.float32
         args = bench_inputs(kind, mr, nr, kr, group, n_weights,
@@ -488,13 +500,9 @@ def autotune_model(cfg, par, *, hw: ect.Hardware, group=None,
     and every cell stays under its qualified key.  ``registry`` (a
     ``cache.PlanRegistry``) answers the cells it holds and records the
     rest; ``save_path`` persists it.  ``results`` collects each tuned
-    cell's ``TuneResult`` (its table).  A measured sweep of an MoE model
-    raises before it times anything: its ``moe_a2a`` cell cannot be
-    measured yet."""
+    cell's ``TuneResult`` (its table)."""
     if par.tp <= 1:
         return PlanSet.uniform(par.overlap_mode, par.comm_chunks)
-    if _measured(measure, group, par.tp) and cfg.moe is not None:
-        raise NotImplementedError(A2A_NOT_PORTED)
     scatter_axis = "seq"
     if sweep_scatter_axis:
         scatter_axis = sweep_model_layout(

@@ -13,8 +13,12 @@ reference's ``ep_axes or (ctx.axis,)``).  fp32 throughout.
   ring): the output and the received buffer against the reference's
   ``_a2a_impl`` within 1e-5 (the same batched GEMMs on the same rows);
   ``a2a_exchange``'s block order and its involution against the
-  reference's on a payload that names (source, destination) exactly; under
-  grad the op raises and names ROADMAP item 8.3.
+  reference's on a payload that names (source, destination) exactly.
+* The op under grad (its backward, ``overlap._A2ASeam``) in every one of
+  those modes, each rank recording on a ``SeamTape``: dX, dW1, dW3 and dW2
+  of sum(op(x, w1, w3, w2) * probe) on every rank against the reference's
+  ``jax.grad`` through its ``_a2a_bwd``, within relative L2 1e-5; and at
+  tp=1, where the op is the plain expert FFN under autograd.
 * ``moe_train`` on the deepseek_v3_671b SMOKE_CONFIG (4 experts, one a
   rank; top-2; a shared expert), in the sequence-sharded and the
   replicated layout, against the reference's: at the config's capacity
@@ -24,10 +28,16 @@ reference's ``ep_axes or (ctx.axis,)``).  fp32 throughout.
   right-padded batch whose padding lies in the last sequence shard, which
   shows that the pad mask reads each rank's global positions.  Outputs
   within 1e-5 (relative to their scale), aux loss within 1e-6 relative.
+  Under grad, in each layout and case: the grads of sum(y * probe) +
+  aux on every rank, the input's, the router's, the norm's, the rank's
+  experts' and the shared expert's, against the reference's ``jax.grad``
+  within relative L2 1e-5.
 * ``mla_train`` with its cache at tp=4 in both layouts: the output and
   the latent cache ``c`` / rope key ``kr`` (bf16 on both sides) against
   the reference's; the rope key of ranks 1-3 is rotated at their global
-  positions.
+  positions.  Under grad in both layouts: the grads of sum(out * probe)
+  on every rank, every MLA leaf's and the input's, within relative L2
+  1e-5.
 * ``model.shard_params`` against the reference's ``param_specs`` cut of
   its tp=4 init (every leaf, the MoE's nested shared expert included),
   and ``count_params_analytic`` at tp=4 against the reference's.
@@ -63,6 +73,10 @@ LAYOUTS = ["seq", "hidden"]
 OP_TOL = 1e-5
 AUX_RTOL = 1e-6
 CACHE_TOL = 2e-2
+GRAD_RTOL = 1e-5
+# the weight of moe_train's aux loss in the grad tests' objective: large
+# enough that the router's grad holds a visible share of it
+AUX_W = 1.0
 
 _REF = r"""
 import dataclasses, functools
@@ -103,6 +117,28 @@ ex = jax.jit(shard_map(
     check_vma=False))(jnp.asarray(inp["a2a/payload"]))
 out["a2a/exchange"], out["a2a/involution"] = (np.asarray(e) for e in ex)
 
+# ---- the a2a op's grads: jax.grad through _a2a_bwd, every rank's ------------
+probe = jnp.asarray(inp["a2a/probe"])
+for mode, cc, rev in %(a2a_cases)r:
+    op = ov.FusedOp("a2a", axis=("tp",), mode=mode, comm_chunks=cc,
+                    reverse=rev, epilogue=epi, n_weights=3)
+
+    def gbody(a, b, c, d, pr, op=op):
+        gr = jax.grad(lambda *q: jnp.sum(op(*q) * pr),
+                      argnums=(0, 1, 2, 3))(a, b, c, d)
+        return tuple(t[None] for t in gr)
+    got = jax.jit(shard_map(gbody, mesh=tmesh, in_specs=(P("tp"),) * 5,
+                            out_specs=(P("tp"),) * 4, check_vma=False))(
+        x, w1, w3, w2, probe)
+    for i, g in enumerate(got):
+        out[f"a2a_grad/{mode}/{cc}/{int(rev)}/{i}"] = np.asarray(g)
+op1 = ov.FusedOp("a2a", axis=(), epilogue=epi, n_weights=3)
+e_loc = w1.shape[0] // len(jax.devices())
+got = jax.grad(lambda *q: jnp.sum(op1(*q) * probe[:1]), argnums=(0, 1, 2, 3))(
+    x[:1], w1[:e_loc], w3[:e_loc], w2[:e_loc])
+for i, g in enumerate(got):
+    out[f"a2a_grad/tp1/{i}"] = np.asarray(g)
+
 # ---- moe_train and mla_train ------------------------------------------------
 mesh = Mesh(np.array(jax.devices()).reshape(1, 4), ("data", "model"))
 base = dataclasses.replace(get_smoke_config("deepseek_v3_671b"),
@@ -124,6 +160,7 @@ moe_spec = {"router": rep, "w1": P("model"), "w3": P("model"),
 mla_spec = {k: rep for k in mla}
 mla_spec.update(w_uq=col, w_ukv=col, w_o=row)
 xs = jnp.asarray(inp["x"])
+probe_x = jnp.asarray(inp["probe_x"])
 stack = P("model")
 for layout in ("seq", "hidden"):
     ctx = TPContext(axis="model", seq_shard=layout == "seq")
@@ -142,6 +179,26 @@ for layout in ("seq", "hidden"):
         out[f"moe/{layout}/{case}/y"] = np.asarray(y)
         out[f"moe/{layout}/{case}/aux"] = np.asarray(aux)
 
+        def gr(p, a, pr, cfg=cfg, ln=ln):
+            def obj(q, b):
+                y, aux = F.moe_train(q, b, ctx, cfg, lengths=ln)
+                return jnp.sum(y * pr) + %(aux_w)r * aux
+            gp, ga = jax.grad(obj, argnums=(0, 1))(p, a)
+            return jax.tree.map(lambda t: t[None], gp), ga[None]
+        gp, ga = jax.jit(shard_map(
+            gr, mesh=mesh, in_specs=(moe_spec, xspec, xspec),
+            out_specs=(jax.tree.map(lambda _: stack, moe_spec,
+                                    is_leaf=lambda q: isinstance(q, P)),
+                       stack), check_vma=False))(moe, xs, probe_x)
+        pre = f"moe_grad/{layout}/{case}/"
+        out[pre + "x"] = np.asarray(ga)
+        for k, v in gp.items():
+            if isinstance(v, dict):
+                for k2, v2 in v.items():
+                    out[f"{pre}{k}/{k2}"] = np.asarray(v2)
+            else:
+                out[pre + k] = np.asarray(v)
+
     def h(p, a):
         o, c = A.mla_train(p, a, ctx, base, with_cache=True)
         return o[None], c["c"][None], c["kr"][None]
@@ -151,6 +208,18 @@ for layout in ("seq", "hidden"):
     out[f"mla/{layout}/out"] = np.asarray(o)
     out[f"mla/{layout}/c"] = np.asarray(c, np.float32)
     out[f"mla/{layout}/kr"] = np.asarray(kr, np.float32)
+
+    def hg(p, a, pr):
+        gp, ga = jax.grad(lambda q, b: jnp.sum(A.mla_train(q, b, ctx, base)
+                                               * pr), argnums=(0, 1))(p, a)
+        return jax.tree.map(lambda t: t[None], gp), ga[None]
+    gp, ga = jax.jit(shard_map(
+        hg, mesh=mesh, in_specs=(mla_spec, xspec, xspec),
+        out_specs=({k: stack for k in mla}, stack), check_vma=False))(
+        mla, xs, probe_x)
+    out[f"mla_grad/{layout}/x"] = np.asarray(ga)
+    for k, v in gp.items():
+        out[f"mla_grad/{layout}/{k}"] = np.asarray(v)
 
 # ---- the model's specs --------------------------------------------------------
 par = ParallelConfig(tp=4, dp=1)
@@ -191,6 +260,10 @@ def _inputs():
     common = rng.standard_normal((cfg.d_model,), dtype=np.float32)
     inp["x"] = (rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
                 + 2 * common)
+    inp["a2a/probe"] = rng.standard_normal(inp["a2a/x"].shape,
+                                           dtype=np.float32)
+    inp["probe_x"] = rng.standard_normal((B, S, cfg.d_model),
+                                         dtype=np.float32)
     return inp
 
 
@@ -199,7 +272,8 @@ def ref(tmp_path_factory, subproc):
     d = tmp_path_factory.mktemp("tp_a2a")
     inp = _inputs()
     np.savez(d / "in.npz", **inp)
-    code = (_REF % {"a2a_cases": A2A_CASES, "moe_cases": MOE_CASES}).replace(
+    code = (_REF % {"a2a_cases": A2A_CASES, "moe_cases": MOE_CASES,
+                    "aux_w": AUX_W}).replace(
         "IN)", repr(str(d / "in.npz")) + ")").replace(
         "OUT,", repr(str(d / "out.npz")) + ",")
     assert "REF_OK" in subproc(code, n_devices=TP)
@@ -277,6 +351,31 @@ def test_a2a_op_on_card_matches_cpu(mode):
                                rtol=OP_TOL)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["xla", "flux"])
+def test_a2a_op_grads_on_card_match_cpu(mode):
+    """The op's backward on the card (the ranks' streams; ``flux`` is the
+    shift ring's backward) equals the CPU group's, fp32: dX and the
+    experts' grads on every rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the ranks' streams and events)")
+    inp = _inputs()
+    args = _a2a_args(inp)
+    probes = [_t(_cut(inp["a2a/probe"], r, 0)) for r in range(TP)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        g = dist.RankGroup(TP, dev, timeout_s=60)
+        op = tov.FusedOp("a2a", tov.Epilogue(activation="silu", gate="pair"),
+                         3, axis=g, mode=mode, comm_chunks=8)
+        got[dev] = g.spmd(
+            lambda a, pr: [t.cpu() for t in _tape_grads(op, a, pr)],
+            [(tuple(t.to(dev) for t in a), pr.to(dev))
+             for a, pr in zip(args, probes)])
+    for r in range(TP):
+        for want, have in zip(got["cpu"][r], got["cuda"][r]):
+            torch.testing.assert_close(have, want, atol=OP_TOL, rtol=OP_TOL)
+
+
 def test_a2a_exchange_order_and_involution(ref):
     inp, out = ref
     g = dist.RankGroup(TP, "cpu", timeout_s=60)
@@ -295,18 +394,67 @@ def test_a2a_exchange_order_and_involution(ref):
             assert ex[r * EP + j, 0] == j * EP + r
 
 
-def test_a2a_under_grad_raises_naming_item_8_3(ref):
-    inp, _ = ref
+def _rel(got, want):
+    got = got.detach().double().numpy() if torch.is_tensor(got) else got
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def _tape_grads(fn, leaves, probe):
+    """One rank's grads of sum(fn(*leaves) * probe) (plus the aux term
+    when ``fn`` returns (y, aux)), the backward driven from a
+    ``SeamTape``: the leaves' grads, in their order (a dict leaf: a dict
+    of its grads)."""
+    def grad_leaf(v):
+        if isinstance(v, dict):
+            return {k: grad_leaf(t) for k, t in v.items()}
+        return v.detach().clone().requires_grad_()
+
+    leaves = [grad_leaf(v) for v in leaves]
+    with tov.SeamTape() as tape:
+        out = fn(*leaves)
+        if isinstance(out, tuple):
+            loss = (out[0] * probe).sum() + AUX_W * out[1]
+        else:
+            loss = (out * probe).sum()
+    tape.backward(loss)
+
+    def grads(v):
+        if isinstance(v, dict):
+            return {k: grads(t) for k, t in v.items()}
+        return torch.zeros_like(v) if v.grad is None else v.grad
+    return [grads(v) for v in leaves]
+
+
+@pytest.mark.parametrize("mode,cc,rev", A2A_CASES)
+def test_a2a_op_grads_match_reference(ref, mode, cc, rev):
+    """dX, dW1, dW3, dW2 on every rank: the ring's backward (cotangent
+    pieces along the dispatch hops, dX back on the inverse ones) or the
+    barrier exchanges around the experts' vjp, against ``_a2a_bwd``."""
+    inp, out = ref
     g = dist.RankGroup(TP, "cpu", timeout_s=60)
     op = tov.FusedOp("a2a", tov.Epilogue(activation="silu", gate="pair"), 3,
-                     axis=g, mode="decomposed")
+                     axis=g, mode=mode, comm_chunks=cc, reverse=rev)
+    probes = [_t(_cut(inp["a2a/probe"], r, 0)) for r in range(TP)]
+    got = g.spmd(lambda args, pr: _tape_grads(op, args, pr),
+                 [(a, pr) for a, pr in zip(_a2a_args(inp), probes)])
+    key = f"a2a_grad/{mode}/{cc}/{int(rev)}"
+    for i, what in enumerate(("dX", "dW1", "dW3", "dW2")):
+        for r in range(TP):
+            assert _rel(got[r][i], out[f"{key}/{i}"][r]) <= GRAD_RTOL, \
+                (what, r)
 
-    def body(x, *ws):
-        return op(x.requires_grad_(), *ws)
-    with pytest.raises(dist.RankGroupError) as err:
-        g.spmd(body, _a2a_args(inp))
-    assert isinstance(err.value.__cause__, NotImplementedError)
-    assert "item 8.3" in str(err.value.__cause__)
+
+def test_a2a_op_grads_at_tp1_match_reference(ref):
+    """At tp=1 the op is the local expert FFN under plain autograd."""
+    inp, out = ref
+    op = tov.FusedOp("a2a", tov.Epilogue(activation="silu", gate="pair"), 3)
+    args = [_t(inp["a2a/x"][:1])] + [_t(inp["a2a/" + k][:E_LOC])
+                                     for k in ("w1", "w3", "w2")]
+    args = [a.requires_grad_() for a in args]
+    (op(*args) * _t(inp["a2a/probe"][:1])).sum().backward()
+    for i, a in enumerate(args):
+        assert _rel(a.grad, out[f"a2a_grad/tp1/{i}"]) <= GRAD_RTOL, i
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +589,64 @@ def test_mla_train_tp4_matches_reference(ref, layout):
                                    rtol=CACHE_TOL)
 
 
+def _assert_grads(got, out, prefix, r, what):
+    """``got`` (a leaf -> grad dict, nested for the shared expert) against
+    the reference's rank-r grads under ``prefix``."""
+    for k, v in got.items():
+        if isinstance(v, dict):
+            _assert_grads(v, out, f"{prefix}{k}/", r, what)
+        else:
+            assert _rel(v, out[prefix + k][r]) <= GRAD_RTOL, (what, k, r)
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_moe_train_grads_tp4_match_reference(ref, layout, case):
+    """Every rank's grads of sum(y * probe) + aux: the input's and every
+    MoE leaf's (the rank's experts, the router, the norm, the shared
+    expert), through the aux loss's psum, the moe_a2a seam (seq) or the
+    local experts' psum (hidden), and the shared expert's seams."""
+    inp, out = ref
+    cf, lengths = MOE_CASES[case]
+    cfg = _cfg(cf)
+    g = dist.RankGroup(TP, "cpu", timeout_s=60)
+    ctx = _ctx(g, layout)
+    ln = None if lengths is None else torch.tensor(lengths)
+    probe = {"seq": lambda r: _t(inp["probe_x"][:, r * S_LOC:(r + 1) * S_LOC]),
+             "hidden": lambda r: _t(inp["probe_x"])}[layout]
+    got = g.spmd(
+        lambda p, x, pr: _tape_grads(
+            lambda q, a: TF.moe_train(q, a, ctx, cfg, lengths=ln),
+            [p, x], pr),
+        [(_moe_params(out, r), _rank_x(inp, r, layout), probe(r))
+         for r in range(TP)])
+    pre = f"moe_grad/{layout}/{case}/"
+    for r, (gp, gx) in enumerate(got):
+        assert _rel(gx, out[pre + "x"][r]) <= GRAD_RTOL, ("x", r)
+        _assert_grads(gp, out, pre, r, f"{layout} {case}")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mla_train_grads_tp4_match_reference(ref, layout):
+    """Every rank's grads of sum(out * probe): the input's and every MLA
+    leaf's, through the up-projections' attn_ag seams, the rope key's
+    gather (its transpose a reduce-scatter) and attn_rs."""
+    inp, out = ref
+    cfg = _cfg()
+    g = dist.RankGroup(TP, "cpu", timeout_s=60)
+    ctx = _ctx(g, layout)
+    probe = {"seq": lambda r: _t(inp["probe_x"][:, r * S_LOC:(r + 1) * S_LOC]),
+             "hidden": lambda r: _t(inp["probe_x"])}[layout]
+    got = g.spmd(
+        lambda p, x, pr: _tape_grads(
+            lambda q, a: TA.mla_train(q, a, ctx, cfg), [p, x], pr),
+        [(_mla_params(out, r), _rank_x(inp, r, layout), probe(r))
+         for r in range(TP)])
+    for r, (gp, gx) in enumerate(got):
+        assert _rel(gx, out[f"mla_grad/{layout}/x"][r]) <= GRAD_RTOL, r
+        _assert_grads(gp, out, f"mla_grad/{layout}/", r, layout)
+
+
 # ---------------------------------------------------------------------------
 # the model's specs and count
 # ---------------------------------------------------------------------------
@@ -468,12 +674,13 @@ def _tree(flat, prefix):
 
 
 def _port_name(key):
-    """The reference's "lead/0/mixer/w_uq" / "periods/0/ffn/shared/w1" ->
-    the port's "layers.<i>...." on the smoke config (one leading layer, a
-    one-layer pattern repeated once); None for the unbuilt MTP head."""
+    """The reference's "lead/0/mixer/w_uq" / "periods/0/ffn/shared/w1" /
+    "mtp/mixer/w_uq" -> the port's "layers.<i>...." / "mtp...." on the
+    smoke config (one leading layer, a one-layer pattern repeated
+    once)."""
     parts = key.split("/")
     if parts[0] == "mtp":
-        return None
+        return ".".join(parts)
     if parts[0] == "lead":
         return ".".join(["layers", parts[1]] + parts[2:])
     if parts[0] == "periods":
@@ -498,8 +705,6 @@ def test_shard_params_matches_reference_specs(ref):
         if not key.startswith("params/"):
             continue
         name = _port_name(key[len("params/"):])
-        if name is None:
-            continue
         rd = int(out["spec/" + key[len("params/"):]])
         if key.startswith("params/periods/") and rd >= 0:
             rd -= 1        # the reference stacks a period's layers on dim 0
@@ -534,12 +739,13 @@ def test_param_count_tp4_equals_reference(size):
         assert got == ref_count(get_r(ARCH), active_only=active,
                                 par=RB.ParallelConfig(tp=TP)), active
     if size == "smoke":
+        # the count is the built model's, its MTP head included
         model = TM.init_model(get_t(ARCH), TB.ParallelConfig(tp=TP),
                               dtype=torch.float32, device="cpu")
-        mtp = TM.count_params_analytic(get_t(ARCH),
-                                       par=TB.ParallelConfig(tp=TP)) - sum(
+        assert model.mtp is not None
+        assert TM.count_params_analytic(
+            get_t(ARCH), par=TB.ParallelConfig(tp=TP)) == sum(
             p.numel() for p in model.parameters())
-        assert mtp > 0          # the unbuilt MTP head, counted from shapes
 
 
 @pytest.mark.parametrize("fuse13", [False, True], ids=["w1_w3", "w13"])

@@ -264,9 +264,9 @@ def _set_bias(p1, full, bias, cfg):
 
 
 def test_tp_paths_that_raise_name_roadmap():
-    """What still raises at tp>1: training MLA and MoE layers (item 8.3;
-    they serve at tp>1, ``tests/test_torch_tp_mla_moe.py``) and a
-    dedicated expert-parallel axis (item 10).  The replicated layout
+    """What still raises at tp>1: a dedicated expert-parallel axis (item
+    10).  MLA and MoE layers train at tp>1
+    (``tests/test_torch_train_mla_moe.py``).  The replicated layout
     trains: its loss and grads equal the seq layout's."""
     cfg = _cfg("minicpm_2b")
     group = RankGroup(TP, "cpu")
@@ -274,9 +274,8 @@ def test_tp_paths_that_raise_name_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         TM.init_model(get_smoke_config("deepseek_v3_671b"),
                       ParallelConfig(tp=TP, ep=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8.3"):
-        TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
-                           ParallelConfig(tp=TP))
+    assert TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
+                              ParallelConfig(tp=TP)) is None
     full = TM.init_model(cfg, ParallelConfig(tp=TP), seed=0,
                          dtype=torch.float32, device="cpu", trainable=True)
     ranks = [TM.shard_params(full, r, TP, cfg) for r in range(TP)]

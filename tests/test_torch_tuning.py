@@ -27,13 +27,18 @@ analytic with one device).
   1, 4 and 8.
 * ``autotune_model`` (analytic) builds, persists, and serves a second run
   from the registry; a measured ``tune_seam`` on a CPU ``RankGroup(4)``
-  returns the argmin of a fully timed table.
+  returns the argmin of a fully timed table, the MoE exchange's (``a2a``)
+  over the reference's candidates; the a2a bench's operands are the
+  reference's ``_bench_callable``'s, cut over the ranks; a measured
+  ``autotune_model`` of the deepseek_v3_671b smoke config plans its
+  ``moe_a2a`` cell.
 """
 import dataclasses
 import json
 import os
 
 import pytest
+import torch
 
 from repro.configs import base as rbase
 from repro.core import ect as rect
@@ -483,17 +488,58 @@ def test_measured_tune_seam_on_cpu_group_is_the_argmin_of_a_timed_table():
                            group=g).source == "analytic"
     with pytest.raises(ValueError, match="RankGroup of 4"):
         tauto.tune_seam("rs", 64, 64, 32, 4, hw=_v5e(), measure=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tauto.tune_seam("a2a", 64, 64, 32, 4, hw=_v5e(), group=g,
-                        measure=True)
+    # the MoE exchange is measured too: its op forward over the
+    # reference's candidates (no flux row: the op has no fused kernel)
+    res = tauto.tune_seam("a2a", 256, 64, 32, 4, hw=_v5e(), group=g,
+                          measure=True, n_weights=3, epilogue=True,
+                          iters=2, warmup=1, dtype_bytes=4)
+    want = {(c.mode, c.comm_chunks, c.reverse)
+            for c in rauto.candidate_space("a2a", 256, 64, 32, 4,
+                                           allow_q8=False, n_weights=3,
+                                           epilogue=True)}
+    assert {(r["mode"], r["comm_chunks"], r["reverse"])
+            for r in res.table} == want
+    assert all(r["measured_s"] > 0 for r in res.table)
+    assert (res.plan.mode, res.plan.comm_chunks, res.plan.reverse) in want
+    assert res.plan.measured_s == min(r["measured_s"] for r in res.table)
 
 
-def test_measured_tuning_of_an_mla_model_raises_like_running_it():
+@pytest.mark.parametrize("m,n,k", [(256, 64, 32), (1000, 48, 40),
+                                   (8, 16, 16)])
+def test_a2a_bench_inputs_match_reference_shapes(m, n, k):
+    """The a2a bench's operands a rank are the reference's
+    ``_bench_callable`` global ones cut over 4 ranks (its one-device run
+    keeps the global shapes): x [4, 2, cap, k] with cap = m / 8, the
+    experts' (w1, w3) [2, k, n] and w2 [2, n, k]."""
+    import jax.numpy as jnp
+    g = dist.RankGroup(4, "cpu", timeout_s=60)
+    mr, nr, kr = (max(4, v - v % 4) for v in (m, n, k))
+    cand = rauto.Candidate("xla", 0, False)
+    _, want = rauto._bench_callable("a2a", m, n, k, 4, cand, jnp.float32)
+    got = tauto.bench_inputs("a2a", mr, nr, kr, g, dtype=torch.float32)
+    assert len(got) == 4
+    for rank in got:
+        assert [tuple(t.shape) for t in rank] == [
+            (w.shape[0] // 4,) + tuple(w.shape[1:]) for w in want]
+    op = tauto.bench_op("a2a", tauto.Candidate("xla", 0, False), g)
+    assert (op.kind, op.n_weights, op.epilogue.gate) == ("a2a", 3, "pair")
+
+
+def test_measured_tuning_of_an_mla_model_plans_moe_a2a():
+    """A measured sweep of the MoE model (MLA, MoE, on a CPU group) tunes
+    every seam cell, ``moe_a2a`` included; analytic tuning of it is pure
+    arithmetic."""
     g = dist.RankGroup(4, "cpu", timeout_s=60)
     cfg = tbase.get_smoke_config("deepseek_v3_671b")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tauto.autotune_model(cfg, tbase.ParallelConfig(tp=4), hw=_v5e(),
-                             group=g, measure=True)
+    results = []
+    plans = tauto.autotune_model(cfg, tbase.ParallelConfig(tp=4), hw=_v5e(),
+                                 group=g, measure=True, tokens_per_dp=256,
+                                 iters=1, warmup=1, results=results)
+    a2a = next(r for r in results if r.seam == "moe_a2a")
+    assert a2a.source == "measured" and len(a2a.table) == 7
+    assert plans.seams["moe_a2a"].mode in ("xla", "decomposed")
+    assert plans.seams["moe_a2a"].measured_s == min(
+        r["measured_s"] for r in a2a.table)
     # analytic tuning of it is pure arithmetic
     plans = tauto.autotune_model(cfg, tbase.ParallelConfig(tp=4), hw=_v5e(),
                                  tokens_per_dp=256)
