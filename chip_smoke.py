@@ -139,6 +139,25 @@ a checkout of this repository.  Phases, one JSON object per line each:
              launches their PlanSets imply; then the Trainer, ``launch.
              train`` (full depth, 2 steps) and ``launch.serve`` (tp=4, 8
              layers, first tokens against tp=1's) from the profile;
+   wire_lane — wire precision (``FusedOp.wire_dtype``) at tp=4 on the
+             one card: ``wire_encode`` on the card against the CPU (bytes
+             and scales bit-equal; a zero block, width 200, int4 at width
+             127) with the codec's device price per hop; each wired op
+             alone at the tp lane's seam shapes, the decode ``ar`` and the
+             ``moe_a2a`` cell, every mode that carries a wire under int8,
+             fp8_e4m3 and int4 beside the fp wire (grads equal to the fp
+             wire's, no encode in the backward); minicpm_2b's 40-layer
+             prefill logits under each wire against the fp wire
+             (``error_budget.model_logit_rmse``, decomposed; int8 within
+             0.05) and the flux control (a wired ``ParallelConfig`` keeps
+             flux's fp wire: bit-equal logits, 320 / 320 / 160 launches);
+             step 0 of the train lane's cut in decomposed under int8 (the
+             encodes its plans imply, none in the backward); the measured
+             and the analytic wire sweep (``autotune_model`` with
+             ``WIRE_DTYPE_SWEEP`` under a 0.05 budget: no winner out of
+             budget); ``launch.serve --mode decomposed --wire-dtype int8``
+             over the tp server lane's 8 layers and requests against the
+             fp wire (first-token logits within 0.05);
 15. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
              steps at tp=1 with ``remat="full"``: finite losses, step time
              and peak memory;
@@ -2581,14 +2600,17 @@ def _worst_leaf(got, want):
 
 
 def zero_counts():
-    """Every kernel wrapper's launch count set to 0."""
+    """Every kernel wrapper's launch count set to 0, and the wire codec's
+    encode count (``overlap.wire_encode.calls``)."""
     from repro_torch.kernels import ag_gemm as AG
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm_rs as RS
     from repro_torch.kernels import matmul as mm
+    from repro_torch.core import overlap as tov
     for fn in (AG.ag_gemm, RS.gemm_rs, fa.flash_attention, mm.matmul):
         fn.launches = 0
     RS.gemm_rs.reduce_launches = 0
+    tov.wire_encode.calls = 0
 
 
 def read_counts():
@@ -2608,7 +2630,9 @@ def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
     backward and the replicated leaves' sum: (loss, canonical grads / tp,
     counts after the forward, counts of the backward, {host ms of the
     forward and of the backward, seams a rank recorded, the step's peak
-    GB}); ``plans`` overrides the ``PlanSet`` ``par`` implies."""
+    GB, the wire encodes of the forward and of the backward}); ``plans``
+    overrides the ``PlanSet`` ``par`` implies."""
+    from repro_torch.core import overlap as tov
     from repro_torch.models import model as M
     from repro_torch.runtime import trainer as T
     tp = par.tp
@@ -2627,6 +2651,7 @@ def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     c_fwd = read_counts()
+    enc_fwd = tov.wire_encode.calls
     seams = len(outs[0][0].entries)
     zero_counts()
     grads = group.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
@@ -2634,7 +2659,9 @@ def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
     host = {"forward_ms": (t1 - t0) * 1e3,
             "backward_ms": (time.perf_counter() - t1) * 1e3,
             "seams_a_rank": seams,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wire_encodes": {"forward": enc_fwd,
+                             "backward": tov.wire_encode.calls}}
     c_bwd = read_counts()
     losses = [l.item() for _, l in outs]
     check(max(losses) == min(losses),
@@ -3766,6 +3793,508 @@ def phase_tune_lane(torch, tp1_tokens):
                 "backward": res["heterogeneous_step0"]["launches_backward"]}}
 
 
+# ---------------------------------------------------------------------------
+# the wire lane: quantized forward wires at tp=4 (minicpm_2b, full width)
+# ---------------------------------------------------------------------------
+WIRES = ("int8", "fp8_e4m3", "int4")
+# the codec's shard: one rank's share of the tp lane's attn_ag input
+# (4 x 1024 tokens over 4 ranks, d_model 2304), seeded bf16
+WIRE_CODEC_SHAPE = (4, 256, 2304)
+# the reference's end-to-end promise (tests/test_wire_dtype.py's
+# test_minicpm_int8_end_to_end_4dev): int8 prefill logits within the
+# default budget, relative RMS over the valid vocab
+WIRE_BUDGET = 0.05
+# the wired ops alone: the tp lane's five seam shapes (kind, m, n, k) at
+# 4 x 1024 tokens and tp=4 (tests/test_torch_plan_plumbing.py's GPU_SHAPES)
+# and the decode ar at the tune lane's 8 rows
+WIRE_OP_SHAPES = {"mlp_ag": ("ag", 4096, 12288, 2304),
+                  "mlp_rs": ("rs", 4096, 2304, 6144),
+                  "attn_ag": ("ag", 4096, 6912, 2304),
+                  "attn_rs": ("rs", 4096, 2304, 2304),
+                  "head_ag": ("ag", 4096, 122880, 2304),
+                  "decode_ar": ("ar", 8, 2304, 6144)}
+WIRE_OP_ITERS = 3
+# the wire sweep's timed calls a candidate (after one warm call): its 347
+# rows are a report, not a gate, and the script has a time limit
+WIRE_SWEEP_ITERS = 1
+# the wire lane's server: the tp server lane's 8 requests, 4 new tokens
+# each (its first-token logits are the gate; later tokens are reported)
+WIRE_SERVE_NEW = 4
+# the cells whose decomposed op is profiled under the fp wire and int8:
+# the summed device activity (the codec's kernels included)
+WIRE_PROFILED = ("mlp_ag", "mlp_rs", "decode_ar", "moe_a2a")
+
+
+def wire_codec_phase(torch):
+    """Phase 1: ``wire_encode`` of a seeded bf16 shard on the card against
+    the same call on its CPU copy (q bytes and scales bit-equal), each
+    wire, with three edge cases (a zero block, width 200: one block,
+    int4 at width 127: unpacked); the zero block decodes to zeros.  The
+    bytes on the wire beside the bf16 shard's, ``codec_rmse``, and the
+    codec's device price per hop: encode and decode ms (CUDA events)
+    beside the pull copy of the bf16 shard and of the (q, scale) pair."""
+    from repro_torch.core import overlap as tov
+    from repro_torch.tuning import error_budget as EB
+
+    gen = torch.Generator().manual_seed(7)
+    base = torch.randn(WIRE_CODEC_SHAPE, generator=gen).to(torch.bfloat16)
+    zero = base.clone()
+    zero[..., :128] = 0
+    cases = {"shard": base, "zero_block": zero,
+             "width_200": base[..., :200].contiguous(),
+             "odd_width_127": base[..., :127].contiguous()}
+    res = {"shape": list(WIRE_CODEC_SHAPE), "dtype": "bfloat16",
+           "bf16_bytes": base.numel() * 2, "wires": {}}
+    xg = base.cuda()
+    copy_ms = time_ms(torch, lambda: xg.clone(), 20)
+    for wire in WIRES:
+        row = {}
+        for name, x in cases.items():
+            qc, sc = tov.wire_encode(x, wire)
+            qg, sg = tov.wire_encode(x.cuda(), wire)
+            check(torch.equal(qg.cpu().view(torch.uint8),
+                              qc.view(torch.uint8))
+                  and torch.equal(sg.cpu(), sc),
+                  f"{wire} {name}: the card's codec bytes differ from the "
+                  "CPU's")
+            dec = tov.wire_decode((qg, sg), wire, torch.bfloat16)
+            check(bool(torch.isfinite(dec.float()).all()),
+                  f"{wire} {name}: non-finite decode")
+            if name == "zero_block":
+                check(not bool(dec[..., :128].any()),
+                      f"{wire}: the zero block does not decode to zeros")
+            if name == "odd_width_127" and wire == "int4":
+                check(qg.dtype == torch.int8, "int4 at an odd width packed")
+        q, s = tov.wire_encode(xg, wire)
+        wire_bytes = q.numel() * q.element_size() + s.numel() * 4
+        enc_ms = time_ms(torch, lambda: tov.wire_encode(xg, wire), 20)
+        dec_ms = time_ms(torch, lambda: tov.wire_decode((q, s), wire,
+                                                        torch.bfloat16), 20)
+        pair_ms = time_ms(torch, lambda: (q.clone(), s.clone()), 20)
+        row.update(bytes=wire_bytes, bytes_vs_bf16=wire_bytes / (
+            base.numel() * 2), q_dtype=str(q.dtype), codec_rmse=EB.codec_rmse(
+                wire), encode_ms=enc_ms, decode_ms=dec_ms,
+            pair_copy_ms=pair_ms, bf16_copy_ms=copy_ms,
+            hop_extra_ms=enc_ms + dec_ms + pair_ms - copy_ms,
+            cases_bit_equal=list(cases))
+        res["wires"][wire] = row
+    return res
+
+
+def _wired_op_run(torch, group, op, args, probes):
+    """Every rank's (output, input grads) of sum(op(*args) * probe), the
+    backward from a SeamTape, and the encodes of the forward and of the
+    backward."""
+    from repro_torch.core import overlap as tov
+    phase = {}
+
+    def mark(name):
+        group.barrier(name)
+        if group.rank() == 0:
+            phase[name] = tov.wire_encode.calls
+        group.barrier(name + " read")
+
+    def body(*a):
+        *xs, pr = a
+        leaves = [x.detach().clone().requires_grad_() for x in xs]
+        mark("f0")
+        with tov.SeamTape() as tape:
+            y = op(*leaves)
+            loss = (y.float() * pr).sum()
+        mark("f1")
+        tape.backward(loss)
+        mark("b1")
+        return y.detach(), [lf.grad for lf in leaves]
+    outs = group.spmd(body, [tuple(a) + (p,) for a, p in zip(args, probes)])
+    torch.cuda.synchronize()
+    return outs, {"forward": phase["f1"] - phase["f0"],
+                  "backward": phase["b1"] - phase["f1"]}
+
+
+def wire_ops_phase(torch, group):
+    """Phase 2: each wired op alone at tp=4 (bf16 ``bench_inputs``), every
+    (kind, mode) that ``wire_supported`` admits under each wire beside the
+    fp wire, and ``xla``'s rs / ar (which ignore the wire); then the
+    ``a2a`` op at the mla train lane's ``moe_a2a`` cell in ``xla`` and the
+    ring.  Gates: a finite, non-zero forward deviation from the fp wire
+    (zero where the wire is ignored), dX and every dW ``torch.equal`` to
+    the fp wire's, no encode in the backward, ``flux`` + wire raises.
+    Each row's ``event_ms`` is CUDA events around the 4-rank call (host
+    gaps included, ``_spmd_ms``); the ``WIRE_PROFILED`` cells' decomposed
+    rows also carry the summed device activity of one profiled call under
+    int8 and the fp wire (``device_ms``)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import overlap as tov
+    from repro_torch.tuning import autotune as AT
+    from repro_torch.tuning import error_budget as EB
+
+    try:
+        tov.FusedOp("ag", axis=group, mode="flux", wire_dtype="int8")
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "FusedOp(mode='flux', wire_dtype='int8') did not raise")
+    cells = dict(WIRE_OP_SHAPES)
+    kind, m, n, k = AT.model_seam_shapes(
+        mla_train_cfg(), ParallelConfig(tp=TP_LANE),
+        MLA_TRAIN_BATCH * MLA_TRAIN_SEQ)["moe_a2a"]
+    cells["moe_a2a"] = (kind, m, n, k)
+    rows, enc_total = [], {"forward": 0, "backward": 0}
+    for cell, (kind, m, n, k) in cells.items():
+        modes = [md for md in AT._KIND_MODES[kind] if md != "flux"]
+        args = AT.bench_inputs(kind, m, n, k, group)
+        nw = 3 if kind == "a2a" else 1
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for mode in modes:
+            def op_for(wire):
+                return tov.FusedOp(
+                    kind, AT._bench_epilogue(kind, nw, kind == "a2a"), nw,
+                    axis=group, mode=mode, wire_dtype=wire)
+            fp_op = op_for(None)
+            ys = group.spmd(lambda *a: fp_op(*a), args)
+            probes = [torch.randn(y.shape, generator=gen, device="cuda")
+                      for y in ys]
+            fp, enc = _wired_op_run(torch, group, fp_op, args, probes)
+            check(enc == {"forward": 0, "backward": 0},
+                  f"{cell} {mode}: the fp wire encoded {enc}")
+            base_ms = _spmd_ms(torch, group, fp_op, args, WIRE_OP_ITERS)
+            profiled = mode == "decomposed" and cell in WIRE_PROFILED
+            if profiled:
+                base_prof = device_profile(
+                    torch, lambda: group.spmd(fp_op, args))["device_ms"]
+            base_host, _ = wall_ms(torch, lambda: group.spmd(fp_op, args), 2)
+            ignored = mode == "xla" and kind in ("rs", "ar")
+            for wire in WIRES:
+                op = op_for(wire)
+                got, enc = _wired_op_run(torch, group, op, args, probes)
+                dev = _rel_l2(torch.cat([g[0].flatten() for g in got]),
+                              torch.cat([f[0].flatten() for f in fp]))
+                ok_dev = dev == 0.0 if ignored else 0.0 < dev < 1.0
+                check(ok_dev and all(bool(torch.isfinite(g[0]).all())
+                                     for g in got),
+                      f"{cell} {mode} {wire}: forward deviation {dev}")
+                same = all(torch.equal(a, b) for g, f in zip(got, fp)
+                           for a, b in zip(g[1], f[1]))
+                check(same, f"{cell} {mode} {wire}: the grads differ from "
+                      "the fp wire's")
+                check(enc["backward"] == 0 and (enc["forward"] == 0)
+                      == ignored, f"{cell} {mode} {wire}: encodes {enc}")
+                enc_total = {d: enc_total[d] + enc[d] for d in enc}
+                rows.append({
+                    "cell": cell, "kind": kind, "mkn": [m, n, k],
+                    "mode": mode, "wire": wire, "rel_dev_vs_fp": dev,
+                    "seam_wire_rmse": (0.0 if ignored else
+                                       EB.seam_wire_rmse(kind, m, n, k,
+                                                         TP_LANE, wire)),
+                    "grads_equal_fp": same, "encodes": enc,
+                    "event_ms": _spmd_ms(torch, group, op, args,
+                                         WIRE_OP_ITERS),
+                    "fp_event_ms": base_ms,
+                    "device_ms": (device_profile(
+                        torch, lambda: group.spmd(op, args))["device_ms"]
+                        if profiled and wire == "int8" else None),
+                    "fp_device_ms": base_prof if profiled else None,
+                    "host_ms": wall_ms(torch, lambda: group.spmd(op, args),
+                                       2)[0],
+                    "fp_host_ms": base_host})
+                del got
+            del fp, ys, probes
+        del args
+        group.free_symmetric()
+        torch.cuda.empty_cache()
+    return {"rows_fields": list(rows[0]), "rows": [list(r.values())
+                                                   for r in rows],
+            "encodes": enc_total, "flux_with_wire_raises": raised}
+
+
+def wire_encodes_planned(plans, cfg, tp, layout, head):
+    """The encodes a rank's forward performs under ``plans`` on a dense
+    model: each layer's attn_ag / mlp_ag (one a shard; bidir two; xla one;
+    none in the replicated layout), attn_rs / mlp_rs (n - 1 hops; bidir
+    two rings; the replicated layout's quantized AllReduce n; xla none),
+    and with ``head`` the LM head's ag."""
+    from repro_torch.models import model as M
+
+    def seam(name, layer):
+        p = plans.resolve(name, layer)
+        if not p.wire_dtype:
+            return 0
+        bidir = 2 if p.mode == "decomposed_bidir" else 1
+        if name.endswith("_ag"):
+            return 0 if layout == "hidden" else (1 if p.mode == "xla"
+                                                 else bidir)
+        if p.mode == "xla":
+            return 0
+        return tp if layout == "hidden" else bidir * (tp - 1)
+    total = sum(seam(s, M.layer_slot(cfg, i)) for i in range(cfg.num_layers)
+                for s in ("attn_ag", "attn_rs", "mlp_ag", "mlp_rs"))
+    return total + (seam("head_ag", None) if head else 0)
+
+
+def phase_wire_lane(torch):
+    """Wire precision on the card (the module docstring's wire_lane): the
+    codec,
+    the wired ops alone, the prefill logits' deviation under each wire
+    (``error_budget.model_logit_rmse``) and the flux control, step 0 of
+    the train lane's cut under int8 against the fp wire, the measured
+    and the analytic wire sweep, and ``launch.serve --wire-dtype int8``
+    against the fp wire."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.core import ect
+    from repro_torch.core import overlap as tov
+    from repro_torch.dist import RankGroup
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.runtime import trainer as T
+    from repro_torch.tuning import autotune as AT
+    from repro_torch.tuning import error_budget as EB
+    from repro_torch.tuning import plan_set_from_parallel
+
+    t_phase = time.perf_counter()
+    tp = TP_LANE
+    torch.cuda.reset_peak_memory_stats()
+    res = {"phase": "wire_lane", "arch": "minicpm_2b", "tp": tp,
+           "wires": list(WIRES), "budget": WIRE_BUDGET}
+    launches = {"ag_gemm": 0, "gemm_rs": 0, "gemm_rs_reduce": 0,
+                "flash_attention": 0}
+
+    def add(counts):
+        for key in launches:
+            launches[key] += counts.get(key, 0)
+
+    t0 = time.perf_counter()
+    res["codec"] = wire_codec_phase(torch)
+    res["codec"]["seconds"] = time.perf_counter() - t0
+    group = RankGroup(tp, "cuda", timeout_s=120)
+    t0 = time.perf_counter()
+    zero_counts()
+    res["ops"] = wire_ops_phase(torch, group)
+    add(read_counts())
+    res["ops"]["seconds"] = time.perf_counter() - t0
+
+    # ---- 3. prefill: the logits' deviation, and the flux control ----------
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm_2b")
+    par = ParallelConfig(tp=tp, fuse_w13=True, kernel_decode=True)
+    full = M.init_model(cfg, par, seed=0, dtype=torch.bfloat16,
+                        device="cuda")
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.empty_cache()
+    lengths = torch.tensor([256, 512, 777, 1024], device="cuda")
+    s = int(lengths.max())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)                    # the kernel and tp lanes' tokens
+    toks = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
+                         device="cuda")
+    toks = toks.masked_fill(torch.arange(s, device="cuda")[None]
+                            >= lengths[:, None], 0)
+    zero_counts()
+    rmse = {w: EB.model_logit_rmse(cfg, par, w, device="cuda", group=group,
+                                   params=ranks, tokens=toks)
+            for w in WIRES}
+    torch.cuda.synchronize()
+    c = read_counts()
+    add(c)
+    check(rmse["int8"] <= WIRE_BUDGET, f"int8 prefill logits {rmse['int8']} "
+          f"relative RMS from the fp wire > {WIRE_BUDGET}")
+    check(all(0.0 < v < 1.0 for v in rmse.values()), f"logit rmse {rmse}")
+    check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0
+          and c["flash_attention"] == 2 * len(WIRES) * cfg.num_layers * tp,
+          f"the decomposed prefills launched {c}")
+    res["prefill"] = {
+        "mode": "decomposed", "layers": cfg.num_layers, "batch": 4,
+        "seq": s, "logit_rmse": rmse,
+        "ordered_int8_fp8_int4": rmse["int8"] < rmse["fp8_e4m3"]
+        < rmse["int4"], "launches": c}
+
+    args = [(p,) for p in ranks]
+
+    def flux_logits(ctx):
+        outs = group.spmd(lambda p: S.prefill_logits(
+            p, {"tokens": toks}, ctx, cfg, lengths)[0], args)
+        return torch.cat(outs, dim=-1)[:, :cfg.vocab_size].float()
+    fpar = dc.replace(par, overlap_mode="flux")
+    wctx = make_ctx(dc.replace(fpar, wire_dtype="int8"), group)
+    check(all(wctx.plans.resolve(sm).wire_dtype is None for sm in
+              ("mlp_ag", "mlp_rs", "attn_ag", "attn_rs", "head_ag",
+               "decode_ar")), "a flux plan took the wire")
+    per_seam = cfg.num_layers * tp
+    want = {"ag_gemm": 2 * per_seam, "gemm_rs": 2 * per_seam,
+            "gemm_rs_reduce": 2 * per_seam, "flash_attention": per_seam,
+            "matmul": 0}
+    zero_counts()
+    lf = flux_logits(make_ctx(fpar, group))
+    torch.cuda.synchronize()
+    add(read_counts())
+    zero_counts()
+    lw = flux_logits(wctx)
+    torch.cuda.synchronize()
+    c = read_counts()
+    add(c)
+    check(c == want, f"the flux control launched {c}, expected {want}")
+    check(torch.equal(lw, lf), "the flux prefill under wire_dtype='int8' "
+          "differs from the fp wire's")
+    res["flux_control"] = {"bit_equal_fp_wire": True, "launches": c,
+                           "encodes": tov.wire_encode.calls}
+    check(tov.wire_encode.calls == 0, "the flux control encoded")
+    del ranks, args, lf, lw
+    group.free_symmetric()
+    torch.cuda.empty_cache()
+    res["prefill"]["seconds"] = time.perf_counter() - t0
+
+    # ---- 4. train step 0 at tp=4 under int8 --------------------------------
+    t0 = time.perf_counter()
+    cfg8 = dc.replace(cfg, num_layers=TRAIN_LAYERS)
+    tpar = ParallelConfig(tp=tp, overlap_mode="decomposed", fuse_w13=True)
+    tr = T.Trainer(cfg8, tpar, T.TrainConfig(total_steps=1), device="cuda",
+                   dtype=torch.bfloat16)
+    tr.data_cfg = dc.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    ranks, opts = tr.init_state()
+    del opts
+    batch = tr.batch(0)
+    step = {}
+    for wire in (None, "int8"):
+        p = dc.replace(tpar, wire_dtype=wire)
+        loss, can, cf, cb, host = tp_step0(torch, cfg8, p, tr.group, ranks,
+                                           batch)
+        add(cf)
+        add(cb)
+        step[wire] = (loss, can, host)
+    plans = plan_set_from_parallel(dc.replace(tpar, wire_dtype="int8"),
+                                   "cuda")
+    enc_want = tp * wire_encodes_planned(plans, cfg8, tp, "seq", True)
+    enc = step["int8"][2]["wire_encodes"]
+    check(enc == {"forward": enc_want, "backward": 0},
+          f"int8 step 0 encodes {enc}, its plans imply {enc_want} forward "
+          "and none backward")
+    check(step[None][2]["wire_encodes"] == {"forward": 0, "backward": 0},
+          "the fp step encoded")
+    worst, leaf = _worst_leaf(step["int8"][1], step[None][1])
+    l0, l1 = step[None][0], step["int8"][0]
+    check(math.isfinite(l1) and worst < 1.0,
+          f"int8 step 0: loss {l1}, worst grad {worst} at {leaf}")
+    res["train_step0"] = {
+        "layers": TRAIN_LAYERS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "mode": "decomposed", "loss_fp": l0, "loss_int8": l1,
+        "loss_rel_diff": abs(l1 - l0) / abs(l0),
+        "grad_rel_l2_worst": worst, "grad_worst_leaf": leaf,
+        "encodes": enc, "encodes_planned": enc_want,
+        "host_ms": {"fp": step[None][2]["forward_ms"]
+                    + step[None][2]["backward_ms"],
+                    "int8": step["int8"][2]["forward_ms"]
+                    + step["int8"][2]["backward_ms"]},
+        "peak_gb": step["int8"][2]["peak_gb"],
+        "seconds": time.perf_counter() - t0}
+    del ranks, step, tr
+    torch.cuda.empty_cache()
+
+    # ---- 5. the wire sweep, measured and analytic ---------------------------
+    t0 = time.perf_counter()
+    spar = ParallelConfig(tp=tp, overlap_mode="flux")
+    sweeps = {}
+    for measured in (True, False):
+        results = []
+        zero_counts()
+        plans = AT.autotune_model(
+            cfg, spar, hw=ect.H100_SXM, group=group,
+            tokens_per_dp=TUNE_TOKENS, decode_batch=TUNE_DECODE_BATCH,
+            measure=measured, iters=WIRE_SWEEP_ITERS, warmup=1,
+            results=results, wire_dtypes=AT.WIRE_DTYPE_SWEEP,
+            max_logit_rmse=WIRE_BUDGET)
+        torch.cuda.synchronize()
+        c = read_counts()
+        add(c)
+        if measured:
+            want = sweep_launches(results, cfg, spar,
+                                  (1 + WIRE_SWEEP_ITERS) * tp)
+            check(c == want, f"the wire sweep launched {c}, its flux rows "
+                  f"call for {want}")
+        for r in results:
+            check(r.plan.logit_rmse <= WIRE_BUDGET,
+                  f"{r.seam}: winner out of budget {r.plan}")
+            win = [x for x in r.table if (x["mode"], x["comm_chunks"],
+                                          x["reverse"], x["wire_dtype"])
+                   == (r.plan.mode, r.plan.comm_chunks, r.plan.reverse,
+                       r.plan.wire_dtype)]
+            check(win and all(x["within_budget"] for x in win),
+                  f"{r.seam}: the winner is not within budget")
+        key = "measured" if measured else "analytic"
+        sweeps[key] = {
+            "rows": sum(len(r.table) for r in results),
+            "winners": {r.seam: [r.plan.mode, r.plan.comm_chunks,
+                                 r.plan.reverse, r.plan.wire_dtype,
+                                 (r.plan.measured_s if measured
+                                  else r.plan.predicted_s) * 1e3,
+                                 r.plan.logit_rmse] for r in results},
+            "wire_rows": {r.seam: [[x["mode"], x["comm_chunks"],
+                                    x["reverse"], x["wire_dtype"],
+                                    (x["measured_s"] if measured
+                                     else x["predicted_s"]) * 1e3,
+                                    x["logit_rmse"], x["within_budget"]]
+                                   for x in r.table if x["wire_dtype"]]
+                          for r in results},
+            "launches": c}
+        del plans
+    sweeps["winner_fields"] = ["mode", "comm_chunks", "reverse", "wire",
+                               "ms", "logit_rmse"]
+    sweeps["seconds"] = time.perf_counter() - t0
+    res["sweep"] = sweeps
+    group.free_symmetric()
+    del group
+    torch.cuda.empty_cache()
+
+    # ---- 6. serving under int8 ---------------------------------------------
+    t0 = time.perf_counter()
+    argv = TP_SERVER_ARGV + ["--tp", str(tp), "--mode", "decomposed",
+                             "--max-new", str(WIRE_SERVE_NEW)]
+    served = {}
+    for wire in (None, "int8"):
+        zero_counts()
+        server, done = launch_serve.main(
+            argv + (["--wire-dtype", wire] if wire else []))
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(not any(c.values()), f"the decomposed server launched {c}")
+        check(server.par.wire_dtype == wire
+              and server.ctx.plans.resolve("decode_ar").wire_dtype == wire,
+              f"the server's plans do not carry wire {wire}")
+        check(len(done) == 8 and all(r.done and r.error is None
+                                     and len(r.output) == WIRE_SERVE_NEW
+                                     for r in done),
+              f"wire {wire}: not every request finished")
+        prompts = {r.rid: r.prompt for r in done}
+        served[wire] = ({r.rid: r.output for r in done},
+                        first_logits(torch, server, prompts),
+                        sorted(r.per_token_s() for r in done)[
+                            len(done) // 2] * 1e3)
+        del server
+        torch.cuda.empty_cache()
+    (tok0, lg0, tpot0), (tok1, lg1, tpot1) = served[None], served["int8"]
+    rel = {i: _rel_l2(lg1[i], lg0[i]) for i in lg0}
+    check(max(rel.values()) <= WIRE_BUDGET, f"int8 server first-token "
+          f"logits vs the fp wire's: {rel} > {WIRE_BUDGET}")
+    first = sum(tok0[i][0] == tok1[i][0] for i in tok0)
+    agree = sum(a == b for i in tok0 for a, b in zip(tok0[i], tok1[i]))
+    res["serve"] = {
+        "argv": argv + ["--wire-dtype", "int8"],
+        "first_logits_rel_rms_vs_fp": rel,
+        "first_tokens_equal_fp": f"{first}/{len(tok0)}",
+        "tokens_equal_fp": f"{agree}/{WIRE_SERVE_NEW * len(tok0)}",
+        "tpot_p50_ms": tpot1, "tpot_p50_ms_fp": tpot0,
+        "seconds": time.perf_counter() - t0}
+    res["launches"] = launches
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return launches
+
+
 def phase_train_remat(torch):
     """minicpm_2b at full width and all 40 layers, trained at tp=1 with
     ``remat="full"`` (every block recomputed in the backward), 3 trainer
@@ -4493,6 +5022,7 @@ def main():
     train_counts = timed("train_lane", phase_train_lane, torch)
     mla_train = timed("mla_train_lane", phase_mla_train_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
+    wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
     timed("train_ckpt", phase_train_ckpt, torch)
     paper = paper_lane(torch, timed)
@@ -4509,7 +5039,8 @@ def main():
          "bound_ms": flash_case["bound_ms"],
          "bound_by": flash_case["bound_by"],
          "library_ms": flash_case["library_ms"],
-         "paper_launches": paper_launches(paper, "flash_attention")},
+         "paper_launches": paper_launches(paper, "flash_attention"),
+         "wire_launches": wire_counts["flash_attention"]},
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
@@ -4553,6 +5084,7 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
                  for d in ("forward", "backward")}},
          "paper_launches": paper_launches(paper, "ag_gemm"),
+         "wire_launches": wire_counts["ag_gemm"],
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
          "train_mla_cases": mla_seam_cases(ag_train_mla),
@@ -4580,6 +5112,8 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
                  for d in ("forward", "backward")}},
          "paper_launches": paper_launches(paper, "gemm_rs"),
+         "wire_launches": {"gemm_rs": wire_counts["gemm_rs"],
+                           "reduce": wire_counts["gemm_rs_reduce"]},
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),
          "train_mla_cases": mla_seam_cases(rs_train_mla),

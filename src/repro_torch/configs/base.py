@@ -88,8 +88,7 @@ class ModelConfig:
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
     reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1 and
-    dp>1 raise; ZeRO, pipelines and wire precision come with their
-    slices).  ``remat`` ("none" | "selective" | "full")
+    dp>1 raise; ZeRO and pipelines come with their slices).  ``remat`` ("none" | "selective" | "full")
     recomputes each pattern block's activations in the backward (both
     values checkpoint every block, as the reference's do).
     ``kernel_decode`` turns on the hand-written kernels
@@ -104,7 +103,10 @@ class ParallelConfig:
     (``tuning.plans.plan_set_from_parallel``).  ``scatter_axis`` is the
     residual stream's layout between the seams: "seq" (sequence-sharded,
     Megatron-SP), "hidden" (replicated), or "auto": the profile's layout,
-    else "seq"."""
+    else "seq".  ``wire_dtype`` (None | "int8" | "fp8_e4m3" | "int4")
+    quantizes the TP seams' forward wire (lossy; cotangents never ride
+    it; flux seams keep the fp wire); ``max_logit_rmse`` is the error
+    budget that gates the tuner's wire sweep."""
     tp: int = 1
     dp: int = 1
     ep: int = 1
@@ -115,6 +117,8 @@ class ParallelConfig:
     comm_chunks: int = 0
     plan_profile: Optional[str] = None
     scatter_axis: str = "auto"
+    wire_dtype: Optional[str] = None
+    max_logit_rmse: Optional[float] = None
 
 
 # The archs the port has a config module for (the reference's ``ARCH_IDS``

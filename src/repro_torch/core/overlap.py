@@ -115,8 +115,25 @@ The reference's tuning knobs ride every transport, forward and backward
   weight of a multi-weight ``ag`` op instead of one over all of them.
 
 The knobs change scheduling, never values, beyond the order of sums the
-reference changes too.  Not ported (it raises and names its ROADMAP
-item): ``wire_dtype``.
+reference changes too.
+
+``wire_dtype`` (None | "int8" | "fp8_e4m3" | "int4", ``VALID_WIRE_DTYPES``)
+quantizes the FORWARD wire, as in the reference: every payload that
+crosses the group is block-quantized (``wire_encode``: per-128-block
+absmax fp32 scales; int4 two nibbles a byte) and decoded where it lands
+(``wire_decode``), so the GEMMs see the decoded values.  It rides the
+AllGather rings (each shard encoded once, its pieces cut after encoding),
+``xla``'s monolithic gather, the reduce-scatter rings (the travelling
+accumulator requantized each hop), the decomposed ``ar`` (the two
+quantized rings of ``_ar_ring_quant`` when the output width divides by
+the group, else the fp chunked sum) and the ``a2a`` dispatch (the combine
+stays fp).  ``flux`` has no quantized path (``FusedOp`` raises), and
+``xla``'s reduce-scatter and AllReduce ignore the knob.  The backward
+never carries a wire: its transports are fp, and the ``a2a`` backward
+rebuilds the fp received buffer by an exact exchange, so the grads are
+the fp wire's, bit for bit.  ``wire_encode.calls`` counts the encodes.
+The non-GEMM transports (``gather_seq``, ``scatter_seq_sum``, ``psum``)
+take no wire.
 
 ``kind="a2a"`` is the MoE expert-parallel exchange (the reference's
 ``_a2a_impl``).  Dim 0 of x indexes the destination EP rank; the op
@@ -150,15 +167,14 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.dist import clone as dist_clone
+
 
 VALID_KINDS = ("ag", "rs", "ar", "a2a")
 VALID_MODES = ("xla", "decomposed", "flux", "decomposed_bidir")
 VALID_SCATTER_AXES = ("seq", "hidden")
 
-NOT_PORTED = {
-    "wire_dtype": "wire_dtype (quantized wire transports) is not ported "
-                  "(ROADMAP queue 1 item 9)",
-}
+VALID_WIRE_DTYPES = (None, "int8", "fp8_e4m3", "int4")
 
 
 def _sqrelu(v):
@@ -444,6 +460,104 @@ class _TransportSeam:
 
 
 # ---------------------------------------------------------------------------
+# wire_dtype: the block-quantized wire codec (the reference's, op for op)
+# ---------------------------------------------------------------------------
+_WIRE_BLOCK = 128
+
+# symmetric range of each wire dtype (the block scale is amax / qmax)
+_WIRE_QMAX = {"int8": 127.0, "fp8_e4m3": 448.0, "int4": 7.0}
+
+
+def wire_encode(x: torch.Tensor, wire_dtype: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scale)`` payload pair for one wire hop: per-128-block absmax
+    scales (fp32; one block when the width is not a multiple of 128),
+    values quantized to the wire dtype.  ``int4`` packs two sign-extended
+    nibbles a uint8 when the width is even (decode detects packing by
+    dtype).  An all-zero block's scale is clamped to fp32's smallest
+    normal, so it decodes to exact zeros.  The reference's arithmetic in
+    its order (``amax / qmax``, the clamp, ``x / scale``; ``torch.round``
+    rounds half to even, as ``jnp.round``), so CPU and CUDA tensors give
+    the same bytes.  Each call adds one to ``wire_encode.calls``."""
+    from repro_torch.kernels.build import count_launch
+    qmax = _WIRE_QMAX.get(wire_dtype)
+    if qmax is None:
+        raise ValueError(f"invalid wire_dtype {wire_dtype!r}")
+    count_launch(wire_encode, "calls")
+    d = x.shape[-1]
+    blocks = d // _WIRE_BLOCK if d % _WIRE_BLOCK == 0 else 1
+    xb = x.reshape(*x.shape[:-1], blocks, d // blocks).float()
+    amax = xb.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, which rounds differently from the CPU's (and XLA's) divide
+    scale = torch.clamp_min(amax / torch.full_like(amax, qmax),
+                            torch.finfo(torch.float32).tiny)
+    v = xb / scale
+    if wire_dtype == "fp8_e4m3":
+        q = v.to(torch.float8_e4m3fn).reshape(x.shape)
+    else:
+        q = torch.clamp(torch.round(v), -qmax, qmax).to(torch.int8)
+        q = q.reshape(x.shape)
+        if wire_dtype == "int4":
+            q = _int4_pack(q)
+    return q, scale[..., 0]
+
+
+wire_encode.calls = 0
+
+
+def wire_decode(payloads: Sequence[torch.Tensor], wire_dtype: str,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``wire_encode`` on a ``(q, scale)`` pair, in ``dtype``."""
+    q, scale = payloads
+    if wire_dtype == "int4" and q.dtype == torch.uint8:
+        q = _int4_unpack(q)
+    d = q.shape[-1]
+    blocks = scale.shape[-1]
+    xb = q.float().reshape(*q.shape[:-1], blocks, d // blocks)
+    return (xb * scale[..., None]).reshape(q.shape).to(dtype)
+
+
+def _int4_pack(q4: torch.Tensor) -> torch.Tensor:
+    """Two int4 values a uint8 (even positions in the low nibble); an odd
+    width stays int8, a byte each."""
+    if q4.shape[-1] % 2:
+        return q4
+    lo = q4[..., 0::2].to(torch.int32)
+    hi = q4[..., 1::2].to(torch.int32)
+    return ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8)
+
+
+def _int4_unpack(q: torch.Tensor) -> torch.Tensor:
+    b = q.to(torch.int32)
+    lo = ((b & 0xF) ^ 8) - 8            # sign-extend the nibble
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *q.shape[:-1], q.shape[-1] * 2).to(torch.int8)
+
+
+def _encode(x: torch.Tensor, wire_dtype: Optional[str]
+            ) -> Tuple[torch.Tensor, ...]:
+    """The payload a transport moves: ``(x,)`` on the fp wire, else the
+    ``(q, scale)`` pair."""
+    return wire_encode(x, wire_dtype) if wire_dtype else (x,)
+
+
+def _decode(payloads: Sequence[torch.Tensor], wire_dtype: Optional[str],
+            dtype: torch.dtype) -> torch.Tensor:
+    return (wire_decode(payloads, wire_dtype, dtype) if wire_dtype
+            else payloads[0])
+
+
+def _wire_hop(acc: torch.Tensor, group, perm, what: str,
+              wire_dtype: Optional[str]) -> torch.Tensor:
+    """One ring hop of ``acc``, quantized on the wire when asked (encode,
+    one pull of the pair, decode: lossy each hop, by design)."""
+    return _decode(group.ppermute(_encode(acc, wire_dtype), perm, what),
+                   wire_dtype, acc.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Ring transports over the rank group
 # ---------------------------------------------------------------------------
 def _ring_perm(n: int, reverse: bool = False) -> List[Tuple[int, int]]:
@@ -456,10 +570,17 @@ def _seq_rows(x: torch.Tensor, start: int, length: int) -> torch.Tensor:
     return x.narrow(x.dim() - 2, start, length)
 
 
-def _gather_full(x: torch.Tensor, group) -> torch.Tensor:
+def _gather_full(x: torch.Tensor, group,
+                 wire_dtype: Optional[str] = None) -> torch.Tensor:
     """Monolithic (xla-mode) sequence gather: every rank's shard, copied
-    in rank order."""
-    return group.all_gather(x, x.dim() - 2, "ag_full")
+    in rank order; on a quantized wire every rank's ``(q, scale)`` pair in
+    one exchange, decoded once gathered."""
+    if not wire_dtype:
+        return group.all_gather(x, x.dim() - 2, "ag_full")
+    parts = group.exchange(wire_encode(x, wire_dtype), "ag_full")
+    return wire_decode([torch.cat([p[i] for p in parts],
+                                  dim=parts[0][i].dim() - 2)
+                        for i in range(2)], wire_dtype, x.dtype)
 
 
 def _psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
@@ -588,21 +709,27 @@ def _sub_chunks(s_shard: int, n: int, comm_chunks: int) -> int:
 
 
 def _ag_ring(x: torch.Tensor, group, comm_chunks: int, reverse: bool,
-             chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
+             chunk_fn: Callable, wire_dtype: Optional[str] = None
+             ) -> Tuple[torch.Tensor, ...]:
     """Chunked AllGather ring of shard hops along dim -2: each shard
     travels as ``_sub_chunks`` pieces, and each landed piece is consumed
     by ``chunk_fn`` ([..., L, D] -> tuple of [..., L, W_b]) as soon as it
-    arrives.  Ring order starts at the LOCAL shard (paper §4.3)."""
+    arrives.  Ring order starts at the LOCAL shard (paper §4.3).  On a
+    quantized wire the shard is encoded once and its ``(q, scale)``
+    pieces travel; ``chunk_fn`` sees each piece decoded (the local one
+    too, as in the reference)."""
     n, me = group.n, group.rank()
     s_shard = x.shape[-2]
     sub = _sub_chunks(s_shard, n, comm_chunks)
     sub_len = s_shard // sub
-    bufs = [_seq_rows(x, j * sub_len, sub_len) for j in range(sub)]
+    payloads = _encode(x, wire_dtype)
+    bufs = [tuple(_seq_rows(p, j * sub_len, sub_len) for p in payloads)
+            for j in range(sub)]
     ys: Optional[List[torch.Tensor]] = None
     for step in range(n):
         owner = (me + step) % n if reverse else (me - step) % n
         for j, buf in enumerate(bufs):
-            chunks = chunk_fn(buf)
+            chunks = chunk_fn(_decode(buf, wire_dtype, x.dtype))
             if ys is None:
                 ys = _out_buffers(x, s_shard * n, chunks)
             for y, ch in zip(ys, chunks):
@@ -614,38 +741,42 @@ def _ag_ring(x: torch.Tensor, group, comm_chunks: int, reverse: bool,
     return tuple(ys)
 
 
-def _bidir_hop(group, right: torch.Tensor, left: torch.Tensor, what: str
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _bidir_hop(group, right, left, what: str):
     """One step of the two counter-rotating rings, in one exchange:
-    ``right`` moves to the next rank and ``left`` to the previous one;
-    each rank pulls a copy from each neighbour."""
+    ``right`` moves to the next rank and ``left`` to the previous one (a
+    tensor each, or a tuple: a quantized payload and its scales); each
+    rank pulls a copy from each neighbour."""
     n, me = group.n, group.rank()
     pairs = group.publish((right, left), what)
     (from_prev, ev_prev), (from_next, ev_next) = (pairs[(me - 1) % n],
                                                   pairs[(me + 1) % n])
-    return (group.wait_for((from_prev[0], ev_prev)).clone(),
-            group.wait_for((from_next[1], ev_next)).clone())
+    return (dist_clone(group.wait_for((from_prev[0], ev_prev))),
+            dist_clone(group.wait_for((from_next[1], ev_next))))
 
 
 def _ag_bidir(x: torch.Tensor, group, comm_chunks: int,
-              chunk_fn: Callable) -> Tuple[torch.Tensor, ...]:
+              chunk_fn: Callable, wire_dtype: Optional[str] = None
+              ) -> Tuple[torch.Tensor, ...]:
     """Counter-rotating half rings (the reference's ``_ag_bidir``): each
     shard's top half rides the forward ring and its bottom half the
     reverse ring, and ``chunk_fn`` consumes each landed half as it
     arrives.  An odd shard (or a one-row shard) takes the one-way
     forward ring, sub-chunked by ``comm_chunks``: the reference's own
     rule (its ``overlap.py:386``); the half rings themselves are not
-    sub-chunked there either."""
+    sub-chunked there either.  On a quantized wire each half is encoded
+    once and travels as its ``(q, scale)`` pair."""
     n, me = group.n, group.rank()
     s_shard = x.shape[-2]
     half = s_shard // 2
     if half == 0 or s_shard % 2:
-        return _ag_ring(x, group, comm_chunks, False, chunk_fn)
-    buf_r, buf_l = _seq_rows(x, 0, half), _seq_rows(x, half, half)
+        return _ag_ring(x, group, comm_chunks, False, chunk_fn, wire_dtype)
+    buf_r = _encode(_seq_rows(x, 0, half), wire_dtype)
+    buf_l = _encode(_seq_rows(x, half, half), wire_dtype)
     ys: Optional[List[torch.Tensor]] = None
     for step in range(n):
         owner_r, owner_l = (me - step) % n, (me + step) % n
-        cr, cl = chunk_fn(buf_r), chunk_fn(buf_l)
+        cr = chunk_fn(_decode(buf_r, wire_dtype, x.dtype))
+        cl = chunk_fn(_decode(buf_l, wire_dtype, x.dtype))
         if ys is None:
             ys = _out_buffers(x, s_shard * n, cr)
         for y, top, bottom in zip(ys, cr, cl):
@@ -657,10 +788,13 @@ def _ag_bidir(x: torch.Tensor, group, comm_chunks: int,
 
 
 def _reduce_ring(group, reverse: bool, what: str,
-                 partial_for: Callable[[int], torch.Tensor]) -> torch.Tensor:
+                 partial_for: Callable[[int], torch.Tensor],
+                 wire_dtype: Optional[str] = None) -> torch.Tensor:
     """ReduceScatter ring: at step s each rank adds ``partial_for(owner)``
     for the owner whose sum it holds next and forwards it; after n - 1 hops
-    each rank holds the sum for its own shard."""
+    each rank holds the sum for its own shard.  ``wire_dtype`` requantizes
+    the travelling accumulator before each hop (the sum stays in its
+    dtype); the non-GEMM scatter never passes one."""
     n, me = group.n, group.rank()
 
     def owner_at(s):
@@ -668,7 +802,7 @@ def _reduce_ring(group, reverse: bool, what: str,
 
     acc = partial_for(owner_at(0))
     for s in range(1, n):
-        acc = group.ppermute(acc, _ring_perm(n, reverse), what)
+        acc = _wire_hop(acc, group, _ring_perm(n, reverse), what, wire_dtype)
         acc = acc + partial_for(owner_at(s))
     return acc
 
@@ -691,7 +825,8 @@ def _rs_partial(ys, ws, owner: int, s_shard: int,
     return acc
 
 
-def _rs_ring(ys, ws, group, reverse: bool = False) -> torch.Tensor:
+def _rs_ring(ys, ws, group, reverse: bool = False,
+             wire_dtype: Optional[str] = None) -> torch.Tensor:
     """GEMM-ReduceScatter ring: at step s each rank computes ONLY the
     output chunk the ring needs next, adds the partial arriving from its
     neighbour, and forwards (paper Fig. 3, medium-grained)."""
@@ -700,10 +835,12 @@ def _rs_ring(ys, ws, group, reverse: bool = False) -> torch.Tensor:
         raise ValueError(f"seq {seq} not divisible by TP {group.n}")
     s_shard = seq // group.n
     return _reduce_ring(group, reverse, "rs_ring",
-                        lambda o: _rs_partial(ys, ws, o, s_shard))
+                        lambda o: _rs_partial(ys, ws, o, s_shard),
+                        wire_dtype)
 
 
-def _rs_bidir(ys, ws, group) -> torch.Tensor:
+def _rs_bidir(ys, ws, group, wire_dtype: Optional[str] = None
+              ) -> torch.Tensor:
     """Counter-rotating GEMM-ReduceScatter (the reference's ``_rs_bidir``):
     the top halves of the owners' rows accumulate along the forward ring,
     the bottom halves along the reverse ring, one exchange a step.  An odd
@@ -715,7 +852,7 @@ def _rs_bidir(ys, ws, group) -> torch.Tensor:
         raise ValueError(f"seq {seq} not divisible by TP {n}")
     s_shard = seq // n
     if s_shard % 2:
-        return _rs_ring(ys, ws, group)
+        return _rs_ring(ys, ws, group, False, wire_dtype)
     half = s_shard // 2
 
     def partial(owner: int, top: bool) -> torch.Tensor:
@@ -724,15 +861,21 @@ def _rs_bidir(ys, ws, group) -> torch.Tensor:
     acc_r = partial((me + n - 1) % n, True)
     acc_l = partial((me - (n - 1)) % n, False)
     for s in range(1, n):
-        acc_r, acc_l = _bidir_hop(group, acc_r, acc_l, "rs_bidir")
+        pr, pl = _bidir_hop(group, _encode(acc_r, wire_dtype),
+                            _encode(acc_l, wire_dtype), "rs_bidir")
+        acc_r = _decode(pr, wire_dtype, acc_r.dtype)
+        acc_l = _decode(pl, wire_dtype, acc_l.dtype)
         acc_r = acc_r + partial((me + n - 1 - s) % n, True)
         acc_l = acc_l + partial((me - (n - 1) + s) % n, False)
     return torch.cat([acc_r, acc_l], dim=acc_r.dim() - 2)
 
 
 def _rs_core(ys, ws, axis, mode: str, reverse: bool = False,
-             blocks=None) -> torch.Tensor:
-    """sum_i ReduceScatter_seq(ys_i @ ws_i) with ONE collective pass."""
+             blocks=None, wire_dtype: Optional[str] = None) -> torch.Tensor:
+    """sum_i ReduceScatter_seq(ys_i @ ws_i) with ONE collective pass.
+    ``wire_dtype`` quantizes the rings' travelling partials; ``xla``'s
+    monolithic reduce-scatter ignores it, as the reference's
+    ``psum_scatter`` does, and ``flux`` never gets one."""
     if _group_size(axis) == 1:
         return _rs_partial(ys, ws, 0, ys[0].shape[-2])
     if mode == "xla":
@@ -744,23 +887,57 @@ def _rs_core(ys, ws, axis, mode: str, reverse: bool = False,
         w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
         return _rs_flux(y, w, axis, reverse, blocks)
     if mode == "decomposed_bidir":
-        return _rs_bidir(ys, ws, axis)
-    return _rs_ring(ys, ws, axis, reverse)
+        return _rs_bidir(ys, ws, axis, wire_dtype)
+    return _rs_ring(ys, ws, axis, reverse, wire_dtype)
+
+
+def _ar_ring_quant(p: torch.Tensor, group, wire_dtype: str) -> torch.Tensor:
+    """AllReduce of every rank's full partial ``p`` over quantized hops
+    (the reference's ``_ar_ring_quant``): a reduce-scatter ring over the
+    width's n shards (the travelling accumulator requantized each hop,
+    each rank's own partial added in full precision), then an AllGather
+    ring of the reduced shards (each encoded once; the local one stays
+    unquantized).  The sums are in p's dtype, as the reference's."""
+    n, me = group.n, group.rank()
+    shard = p.shape[-1] // n
+
+    def part(s):
+        o = (me + n - 1 - s) % n
+        return p[..., o * shard:(o + 1) * shard]
+
+    acc = part(0)
+    for s in range(1, n):
+        acc = _wire_hop(acc, group, _ring_perm(n), "ar_ring", wire_dtype)
+        acc = acc + part(s)
+    out = torch.empty_like(p)
+    out[..., me * shard:(me + 1) * shard] = acc
+    payloads = wire_encode(acc, wire_dtype)
+    for step in range(1, n):
+        payloads = group.ppermute(payloads, _ring_perm(n), "ar_ring")
+        owner = (me - step) % n
+        out[..., owner * shard:(owner + 1) * shard] = wire_decode(
+            payloads, wire_dtype, p.dtype)
+    return out
 
 
 def _ar_core(y: torch.Tensor, w: torch.Tensor, axis, mode: str,
-             comm_chunks: int = 0) -> torch.Tensor:
+             comm_chunks: int = 0,
+             wire_dtype: Optional[str] = None) -> torch.Tensor:
     """AllReduce(y @ w): the row-parallel GEMM of the replicated layout.
     The ring modes cut the contraction dim into ``comm_chunks or n``
     chunks (fewer when that does not divide it), AllReduce each chunk's
     partial in fp32 and sum the reduced chunks in chunk order, in fp32
     (the reference rounds each reduced chunk to y's dtype first); ``xla``
     and ``flux`` reduce the one partial (a one-token GEMM is
-    latency-bound)."""
+    latency-bound).  Under the ring modes a ``wire_dtype`` rides the two
+    quantized rings (``_ar_ring_quant``) when the output width divides by
+    the group, as in the reference; ``xla`` and ``flux`` ignore it."""
     if _group_size(axis) == 1:
         return torch.matmul(y, w)
     if not mode.startswith("decomposed"):
         return _psum_raw(torch.matmul(y, w), axis, y.dtype)
+    if wire_dtype and w.shape[-1] % axis.n == 0:
+        return _ar_ring_quant(torch.matmul(y, w), axis, wire_dtype)
     k = y.shape[-1]
     chunks = max(1, min(comm_chunks or axis.n, k))
     while k % chunks:
@@ -838,8 +1015,13 @@ class FusedOp:
             raise ValueError(f"invalid overlap mode {self.mode!r}")
         if self.scatter_axis not in VALID_SCATTER_AXES:
             raise ValueError(f"invalid scatter_axis {self.scatter_axis!r}")
-        if self.wire_dtype is not None:
-            raise NotImplementedError(NOT_PORTED["wire_dtype"])
+        if self.wire_dtype not in VALID_WIRE_DTYPES:
+            raise ValueError(f"invalid wire_dtype {self.wire_dtype!r}")
+        if self.wire_dtype is not None and self.mode == "flux":
+            raise ValueError(
+                "wire_dtype is not supported with mode='flux' (the fused "
+                "kernels have no quantized path); use a decomposed mode or "
+                "drop wire_dtype")
         if self.n_weights < 1:
             raise ValueError("n_weights must be >= 1")
         if self.comm_chunks < 0:
@@ -943,7 +1125,7 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
     if op.mode == "flux":
         return _fused_ag_flux(op, x, ws, bias, scale, residual)
     if op.mode == "xla":
-        full = _gather_full(x, op.axis)
+        full = _gather_full(x, op.axis, op.wire_dtype)
         ys = [torch.matmul(full, w) for w in ws]
         return _apply_epilogue(op, ys, bias, scale, residual)
 
@@ -962,8 +1144,9 @@ def _fused_ag(op: FusedOp, x, ws, bias, scale, residual):
 
     def run(fn):
         if op.mode == "decomposed_bidir":
-            return _ag_bidir(x, op.axis, op.comm_chunks, fn)
-        return _ag_ring(x, op.axis, op.comm_chunks, op.reverse, fn)
+            return _ag_bidir(x, op.axis, op.comm_chunks, fn, op.wire_dtype)
+        return _ag_ring(x, op.axis, op.comm_chunks, op.reverse, fn,
+                        op.wire_dtype)
 
     if op.shared_gather or op.n_weights == 1:
         outs = run(chunk_fn)          # ONE ring pass for all weights
@@ -1003,10 +1186,12 @@ def _fused_ag_flux(op: FusedOp, x, ws, bias, scale, residual):
 def _fused_z(op: FusedOp, x, ws):
     """Pre-epilogue output of an rs/ar op (the collective's result).  An rs
     op in the hidden layout is the row-parallel GEMM and an AllReduce
-    without the sequence scatter: the ar op."""
+    without the sequence scatter: the ar op (and its quantized ring)."""
     if op.kind == "rs" and op.scatter_axis == "seq":
-        return _rs_core((x,), ws, op.axis, op.mode, op.reverse, op.blocks)
-    return _ar_core(x, ws[0], op.axis, op.mode, op.comm_chunks)
+        return _rs_core((x,), ws, op.axis, op.mode, op.reverse, op.blocks,
+                        op.wire_dtype)
+    return _ar_core(x, ws[0], op.axis, op.mode, op.comm_chunks,
+                    op.wire_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1116,10 +1301,11 @@ class _OpSeam:
             return (dy.to(x.dtype), dw, dbias, dscale, dres)
         # dY: the interchanged AllGather-GEMM over the cotangent of this
         # rank's sequence rows (flux: one AG-GEMM kernel) with the op's
-        # knobs, its own tile; dW needs the gathered cotangent too (a
-        # second gather, as the reference)
+        # knobs, its own tile and the fp wire (cotangents never ride a
+        # quantized one); dW needs the gathered cotangent too (a second
+        # gather, as the reference)
         bwd_op = dataclasses.replace(op, kind="ag", epilogue=Epilogue(),
-                                     blocks=None)
+                                     blocks=None, wire_dtype=None)
         dy = _fused_ag(bwd_op, dz, (w.t(),), None, None, None)
         gf = _gather_seq_raw(dz, op.axis, op.mode, op.reverse)
         dw = _contract(x, gf).to(w.dtype)
@@ -1175,14 +1361,19 @@ def _a2a_ring(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
     time; each landed piece goes through the local experts and hops back
     on the inverse permutation.  Returns (out, buf): ``out[dst]`` this
     rank's block as rank dst's experts processed it, ``buf[src]`` the
-    block rank src sent here, identical to the barrier path's."""
+    block rank src sent here, identical to the barrier path's (both
+    decoded from the same quantized wire under ``wire_dtype``)."""
     group = op.axis
+    wd = op.wire_dtype
     out = torch.zeros_like(x)
     buf = torch.zeros_like(x)
     for dst, src, fwd, inv, rows in _a2a_stages(op, x.shape[2]):
-        chunk = x[dst:dst + 1, :, rows]
+        # on a quantized wire every dispatch piece is encoded, the local
+        # one too (the reference's rule); the combine hop stays fp
+        payloads = _encode(x[dst:dst + 1, :, rows], wd)
         if fwd:
-            chunk = group.ppermute(chunk, fwd, "a2a_ring")
+            payloads = group.ppermute(payloads, fwd, "a2a_ring")
+        chunk = _decode(payloads, wd, x.dtype)
         # arrived: rank src's tokens for this rank's experts
         buf[src:src + 1, :, rows] = chunk
         y = _expert_fn(op.epilogue, chunk, *ws)
@@ -1199,7 +1390,13 @@ def _a2a_impl(op: FusedOp, x: torch.Tensor, ws) -> Tuple[torch.Tensor,
     two barrier exchanges around the batched expert GEMMs, every other
     mode the shift ring."""
     if op.mode == "xla":
-        buf = a2a_exchange(x, op.axis)
+        if op.wire_dtype:
+            q, sc = wire_encode(x, op.wire_dtype)
+            buf = wire_decode((a2a_exchange(q, op.axis),
+                               a2a_exchange(sc, op.axis)), op.wire_dtype,
+                              x.dtype)
+        else:
+            buf = a2a_exchange(x, op.axis)
         y = _expert_fn(op.epilogue, buf, *ws)
         return a2a_exchange(y, op.axis).to(x.dtype), buf
     return _a2a_ring(op, x, ws)
@@ -1224,7 +1421,10 @@ def _a2a_bwd_ring(op: FusedOp, x: torch.Tensor, ws, buf: torch.Tensor,
     along the dispatch permutation, so that it lands on the rank whose
     experts made it, beside the saved piece of ``buf`` they read; their
     vjp's dX hops back on the inverse permutation.  The experts' grads
-    sum over the stages on their own rank."""
+    sum over the stages on their own rank.  Under a quantized wire
+    (``buf`` None) each stage rebuilds the fp piece it pairs with by the
+    exact dispatch hop, as the reference does, so the grads are the fp
+    wire's."""
     group = op.axis
     dx = torch.zeros_like(x)
     dws = None
@@ -1232,7 +1432,13 @@ def _a2a_bwd_ring(op: FusedOp, x: torch.Tensor, ws, buf: torch.Tensor,
         gc = g[dst:dst + 1, :, rows]
         if fwd:
             gc = group.ppermute(gc, fwd, "a2a_ring")
-        db, dw = _expert_vjp(op.epilogue, buf[src:src + 1, :, rows], ws, gc)
+        if buf is None:
+            bc = x[dst:dst + 1, :, rows]
+            if fwd:
+                bc = group.ppermute(bc, fwd, "a2a_ring")
+        else:
+            bc = buf[src:src + 1, :, rows]
+        db, dw = _expert_vjp(op.epilogue, bc, ws, gc)
         dws = dw if dws is None else [a + d for a, d in zip(dws, dw)]
         if inv:
             db = group.ppermute(db, inv, "a2a_ring")
@@ -1243,20 +1449,25 @@ def _a2a_bwd_ring(op: FusedOp, x: torch.Tensor, ws, buf: torch.Tensor,
 class _A2ASeam:
     """A FusedOp a2a at n>1 as a seam: the forward saves the received
     buffer, the backward runs the reference's ``_a2a_bwd`` (module
-    docstring)."""
+    docstring).  Under a quantized wire the saved buffer would be the
+    lossy one, so none is kept: the backward rebuilds the fp received
+    buffer by an exact exchange of x (``xla``) or per stage
+    (``_a2a_bwd_ring``)."""
 
     def __init__(self, op: FusedOp):
         self.op = op
 
     def forward(self, x, *ws):
         out, buf = _a2a_impl(self.op, x, ws)
-        return (out,), (x, ws, buf)
+        return (out,), (x, ws, None if self.op.wire_dtype else buf)
 
     def backward(self, saved, gouts):
         op = self.op
         x, ws, buf = saved
         g = gouts[0]
         if op.mode == "xla":
+            if buf is None:
+                buf = a2a_exchange(x, op.axis)
             # the combine's transpose, the experts' vjp, the dispatch's
             db, dws = _expert_vjp(op.epilogue, buf, ws,
                                   a2a_exchange(g, op.axis))

@@ -16,7 +16,6 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from repro_torch.core import ect
-from repro_torch.core.overlap import NOT_PORTED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,13 +41,14 @@ def plan_seam(seam: str, m: int, n: int, k: int, n_dev: int,
     """Pick the best strategy for one TP seam (``seam`` is the kind: "ag",
     "rs", "ar").  ``reverse`` pins the ring direction (None lets the tuner
     choose; the roofline is direction-symmetric, so the analytic plan
-    keeps the pinned value or False).  The cache is keyed by the hardware
-    and the group too: a plan priced for one card never answers for
-    another."""
-    if wire_dtype is not None:
-        raise NotImplementedError(NOT_PORTED["wire_dtype"])
+    keeps the pinned value or False).  ``wire_dtype`` pins the wire the
+    roofline prices (None: the fp wire; flux candidates always price the
+    fp wire; the accuracy-gated wire sweep is ``tuning.autotune``'s, and
+    the measured path never picks a wire).  The cache is keyed by the
+    wire, the hardware and the group too: a plan priced for one wire or
+    card never answers for another."""
     key = (seam, m, n, k, n_dev, dtype_bytes, allow_flux, bool(measure),
-           reverse, hw, None if group is None else id(group))
+           reverse, wire_dtype, hw, None if group is None else id(group))
     if key in _CACHE:
         return _CACHE[key]
 
@@ -82,9 +82,11 @@ def plan_seam(seam: str, m: int, n: int, k: int, n_dev: int,
     for mode in modes:
         chunk_opts = ([0] if mode != "decomposed"
                       else [n_dev, 2 * n_dev, 4 * n_dev])
+        wd = wire_dtype if mode != "flux" else None
         for chunks in chunk_opts:
             est = ect.model_overlap(seam, m, n, k, n_dev, mode,
-                                    dtype_bytes, comm_chunks=chunks, hw=hw)
+                                    dtype_bytes, comm_chunks=chunks,
+                                    wire_dtype=wd, hw=hw)
             candidates.append((est["overall"], mode, chunks, est))
 
     candidates.sort(key=lambda c: c[0])

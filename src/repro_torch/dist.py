@@ -70,6 +70,13 @@ def _walk_tensors(obj, fn):
             _walk_tensors(o, fn)
 
 
+def clone(x):
+    """A copy of a tensor, or a tuple of copies of a tuple's tensors."""
+    if isinstance(x, tuple):
+        return tuple(t.clone() for t in x)
+    return x.clone()
+
+
 class RankGroup:
     """n ranks on one device, one thread and (on CUDA) two streams each:
     ``stream(r)`` runs the rank's work, ``comm_stream(r)`` its peer copies
@@ -213,15 +220,17 @@ class RankGroup:
         return list(self._slots[g])
 
     def wait_for(self, pair, stream=None) -> torch.Tensor:
-        """A peer's published tensor, made safe to read on ``stream``
-        (default: the current one): the stream waits on the peer's event and
-        the tensor is kept alive until the stream is done with it."""
+        """A peer's published tensor (or tuple of tensors), made safe to
+        read on ``stream`` (default: the current one): the stream waits on
+        the peer's event and each tensor is kept alive until the stream is
+        done with it."""
         t, ev = pair
         if ev is not None:
             stream = stream or torch.cuda.current_stream(self.device)
             stream.wait_event(ev)
-            if isinstance(t, torch.Tensor) and t.is_cuda:
-                t.record_stream(stream)
+            for u in (t if isinstance(t, tuple) else (t,)):
+                if isinstance(u, torch.Tensor) and u.is_cuda:
+                    u.record_stream(stream)
         return t
 
     def stream_barrier(self, what: str) -> None:
@@ -243,14 +252,16 @@ class RankGroup:
                  what: str) -> torch.Tensor:
         """Send ``x`` along ``perm`` ((src, dst) pairs, a permutation):
         returns a copy of what this rank's source sent, pulled onto this
-        rank's stream once the source's event has fired."""
+        rank's stream once the source's event has fired.  ``x`` may be a
+        tuple of tensors (a quantized payload and its scales): they move
+        in the one exchange, and a tuple of copies comes back."""
         r = self.rank()
         srcs = [s for s, d in perm if d == r]
         if len(srcs) != 1:
             raise ValueError(f"perm {perm} sends {len(srcs)} tensors to "
                              f"rank {r}")
         pairs = self.publish(x, what)
-        return self.wait_for(pairs[srcs[0]]).clone()
+        return clone(self.wait_for(pairs[srcs[0]]))
 
     # ---- shared buffers ---------------------------------------------------
     def symmetric(self, name: str, shape: Sequence[int], dtype: torch.dtype,

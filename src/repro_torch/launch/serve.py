@@ -7,6 +7,8 @@ a seeded random-init model.
       --tp 4 --mode flux
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
       --tp 4 --mode flux --autotune     # tune (decode at --max-batch), serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
+      --tp 4 --mode decomposed --wire-dtype int8   # quantized forward wire
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the ranks are the
@@ -15,8 +17,10 @@ threads of one ``dist.RankGroup`` on the one device, each with its
 the tp=1 run's up to the sums' rounding.  ``--plan-profile`` serves from a
 tuned per-seam profile; ``--autotune`` (tp > 1) tunes first, with the
 decode seam at ``--max-batch`` rows, and writes the profile as the train
-CLI's does.  ``--wire-dtype`` and ``--max-logit-rmse`` are accepted and
-raise (ROADMAP queue 1 item 9).
+CLI's does.  ``--wire-dtype`` quantizes the seams' forward wire (serving
+has no backward, so this is the whole of it; flux seams keep the fp
+wire) and ``--max-logit-rmse`` gates ``--autotune``'s wire sweep, as in
+the train CLI.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config)
 from repro_torch.core.overlap import VALID_MODES
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import autotune
+from repro_torch.launch.train import add_wire_args, autotune
 from repro_torch.models import model as M
 from repro_torch.runtime.server import Request, ServeConfig, Server
 
@@ -65,16 +69,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--autotune", action="store_true",
                     help="tune the seam plans first (decode_ar at "
                          "--max-batch rows); needs --tp > 1")
-    ap.add_argument("--wire-dtype", default=None,
-                    choices=["int8", "fp8_e4m3", "int4"])
-    ap.add_argument("--max-logit-rmse", type=float, default=None)
-    args = ap.parse_args(argv)
-    for flag in ("wire_dtype", "max_logit_rmse"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: wire precision and its error "
-                "budget are not ported (ROADMAP queue 1 item 9)")
-    return args
+    add_wire_args(ap)
+    return ap.parse_args(argv)
 
 
 def make_requests(vocab: int, n: int, prompt_len: int,
@@ -93,7 +89,9 @@ def main(argv: Optional[List[str]] = None
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     par = ParallelConfig(tp=args.tp, overlap_mode=args.mode,
-                         plan_profile=args.plan_profile)
+                         plan_profile=args.plan_profile,
+                         wire_dtype=args.wire_dtype,
+                         max_logit_rmse=args.max_logit_rmse)
     if args.autotune:
         # the reference tunes serving at its default 2048 tokens a seam
         par = autotune(args, cfg, par, 2048, decode_batch=args.max_batch)

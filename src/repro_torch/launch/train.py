@@ -9,6 +9,8 @@
       --device cpu                   # resumes from ckpt/ when it holds one
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
       --tp 4 --mode flux --autotune --steps 2     # tune, then train
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+      --smoke --steps 3 --tp 4 --wire-dtype int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v3_671b \
       --smoke --steps 3 --tp 4 --mode flux --device cpu   # MLA, MoE, MTP
 
@@ -27,8 +29,14 @@ cover.  ``--autotune`` at ``--tp`` > 1 first tunes every seam on a
 card, the ``core.ect`` roofline for an H100 on the CPU) at the run's
 ``--batch`` x ``--seq`` tokens, writes the profile (``--plan-profile``,
 default ``experiments/plans_torch/<arch>_tp<tp>.json``) and trains from
-it.  The reference's flags for what the port does not carry are accepted
-and raise when set, each naming its ROADMAP item.
+it.  ``--wire-dtype`` quantizes the TP seams' forward wire (int8,
+fp8_e4m3 or int4; the backward stays fp; flux seams keep the fp wire).
+With ``--autotune`` a pinned ``--wire-dtype`` sweeps the fp wire and
+that one, ``--max-logit-rmse`` alone sweeps every wire
+(``WIRE_DTYPE_SWEEP``), the quantized rows gated by ``--max-logit-rmse``
+when given, and neither flag keeps the sweep to the fp wire.  The
+reference's flags for what the port does not carry are accepted and
+raise when set, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,10 +60,6 @@ NOT_PORTED = {
     "pods": (lambda v: v != 1, "pods (ROADMAP queue 1 item 10)"),
     "ep": (lambda v: v > 1, "a dedicated expert-parallel axis (ROADMAP "
                             "queue 1 item 10)"),
-    "wire_dtype": (lambda v: v is not None,
-                   "wire precision (ROADMAP queue 1 item 9)"),
-    "max_logit_rmse": (lambda v: v is not None,
-                       "the wire error budget (ROADMAP queue 1 item 9)"),
     "zero3": (bool, "ZeRO-3 (ROADMAP queue 1 item 10)"),
     "grad_compress": (bool,
                       "gradient compression (ROADMAP queue 1 item 10)"),
@@ -92,13 +96,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="tune every seam before training and save the "
                          "profile (measured on the card, the roofline on "
                          "the CPU); needs --tp > 1")
+    add_wire_args(ap)
     # the reference's flags the port does not carry (raise when set)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--ep", type=int, default=0)
-    ap.add_argument("--wire-dtype", default=None,
-                    choices=["int8", "fp8_e4m3", "int4"])
-    ap.add_argument("--max-logit-rmse", type=float, default=None)
     ap.add_argument("--zero3", action="store_true")
     ap.add_argument("--grad-compress", action="store_true")
     args = ap.parse_args(argv)
@@ -107,6 +109,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported")
     return args
+
+
+def add_wire_args(ap: argparse.ArgumentParser) -> None:
+    """The wire flags both CLIs take (the reference's)."""
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["int8", "fp8_e4m3", "int4"],
+                    help="forward-wire precision of the TP seams (lossy on "
+                         "the forward value only; flux seams keep the fp "
+                         "wire)")
+    ap.add_argument("--max-logit-rmse", type=float, default=None,
+                    help="error budget of the --autotune wire sweep: a "
+                         "quantized wire wins a seam only within it")
+
+
+def wire_sweep(args: argparse.Namespace
+               ) -> Optional[Tuple[Optional[str], ...]]:
+    """The wires ``--autotune`` sweeps: the fp wire and a pinned
+    ``--wire-dtype``; every wire when only ``--max-logit-rmse`` is given;
+    else None (the fp wire alone)."""
+    from repro_torch.tuning.autotune import WIRE_DTYPE_SWEEP
+    if args.wire_dtype:
+        return (None, args.wire_dtype)
+    if args.max_logit_rmse is not None:
+        return WIRE_DTYPE_SWEEP
+    return None
 
 
 def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
@@ -133,7 +160,9 @@ def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
     group = RankGroup(par.tp, device)
     autotune_model(cfg, par, hw=ect.H100_SXM, group=group,
                    tokens_per_dp=tokens, decode_batch=decode_batch,
-                   registry=reg, save_path=path)
+                   registry=reg, save_path=path,
+                   wire_dtypes=wire_sweep(args),
+                   max_logit_rmse=args.max_logit_rmse)
     group.free_symmetric()
     print(f"autotuned seam plans -> {path}")
     return dataclasses.replace(par, plan_profile=path)
@@ -146,7 +175,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[T.Trainer, List[dict]]:
     par = ParallelConfig(tp=args.tp, overlap_mode=args.mode, fuse_w13=True,
                          scatter_axis=args.scatter_axis,
                          comm_chunks=args.comm_chunks,
-                         plan_profile=args.plan_profile)
+                         plan_profile=args.plan_profile,
+                         wire_dtype=args.wire_dtype,
+                         max_logit_rmse=args.max_logit_rmse)
     if args.autotune:
         par = autotune(args, cfg, par, args.batch * args.seq)
     schedule = args.schedule or train_schedule(args.arch)

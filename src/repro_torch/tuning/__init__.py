@@ -14,16 +14,18 @@ the communication tile size, and caches them.  The port's subsystem:
   cache.py     the JSON profile cache (``experiments/plans_torch/``,
                git-ignored), the reference's schema and staleness rules
                with the backend "cuda" or "cpu".
-
-Not ported: ``error_budget`` and the ``wire_dtype`` sweep (ROADMAP queue 1
-item 9).
+  error_budget.py  the deviation estimates that gate the ``wire_dtype``
+               sweep (``codec_rmse``, ``seam_wire_rmse``,
+               ``model_logit_rmse``).
 """
 from repro_torch.tuning.plans import (  # noqa: F401
     KNOWN_SEAMS, RESIDUAL_SEAMS, SEAM_KINDS, PlanSet, SeamPlan,
     plan_set_from_parallel, seam_of)
 from repro_torch.tuning.cache import (PROFILE_VERSION,  # noqa: F401
                                       PlanRegistry, default_plans_dir)
-from repro_torch.tuning.autotune import (TuneResult,  # noqa: F401
-                                         autotune_model, candidate_space,
-                                         model_seam_shapes,
-                                         sweep_model_layout, tune_seam)
+from repro_torch.tuning.autotune import (WIRE_DTYPE_SWEEP,  # noqa: F401
+                                         TuneResult, autotune_model,
+                                         candidate_space, model_seam_shapes,
+                                         sweep_model_layout, tune_seam,
+                                         wire_supported)
+from repro_torch.tuning import error_budget  # noqa: F401

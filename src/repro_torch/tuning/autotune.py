@@ -2,8 +2,9 @@
 paper §4.4).
 
 For one seam (collective kind + GEMM shape) the tuner enumerates candidate
-``(mode, comm_chunks, reverse, blocks, shared_gather, fuse_epilogue)``
-settings, scores each, and returns the winner as a ``SeamPlan``:
+``(mode, comm_chunks, reverse, blocks, shared_gather, fuse_epilogue,
+wire_dtype)`` settings, scores each, and returns the winner as a
+``SeamPlan``:
 
   * **measured** — every candidate's ``FusedOp`` run by the ranks of a
     ``dist.RankGroup`` of ``n_dev`` ranks on seeded inputs, timed by
@@ -34,8 +35,15 @@ A measured ``a2a`` cell (the MoE exchange) times the reference's operands
 (``bench_inputs``): the op forward, over ``xla`` and the ``decomposed``
 ring's ``comm_chunks`` and directions.
 
-Not ported: the ``wire_dtype`` sweep and its error budget (ROADMAP queue 1
-item 9).
+Wire precision is a knob of its own (``Candidate.wire_dtype``), swept over
+``wire_dtypes`` only where the transport carries a quantized payload
+(``wire_supported``) and under an error budget: each quantized row is
+scored by ``rmse_fn`` (default ``error_budget.seam_wire_rmse``), a row
+beyond ``max_logit_rmse`` stays in the table with ``within_budget``
+False and cannot win.  Unlike the reference, whose ``tune_seam`` and
+``candidate_space`` default to its deprecated ``allow_q8=True`` (which
+adds int8 rows), ``wire_dtypes=None`` is the fp wire alone: a quantized
+wire is always asked for.
 """
 from __future__ import annotations
 
@@ -57,6 +65,24 @@ _KIND_MODES: Dict[str, Tuple[str, ...]] = {
     "a2a": ("xla", "decomposed"),
 }
 
+# the wire dtypes a full sweep tries (None: the fp wire)
+WIRE_DTYPE_SWEEP: Tuple[Optional[str], ...] = (None, "int8", "fp8_e4m3",
+                                               "int4")
+
+
+def wire_supported(kind: str, mode: str, scatter_axis: str = "seq") -> bool:
+    """Whether (kind, mode, layout) carries a quantized payload: flux has
+    no quantized path; ``xla``'s reductions (rs, ar) cannot carry the
+    per-block scales; an ag seam in the replicated layout has no
+    collective."""
+    if mode == "flux":
+        return False
+    if kind == "ag":
+        return scatter_axis != "hidden"
+    if kind == "a2a":
+        return True
+    return mode.startswith("decomposed")
+
 # the a2a bench's local experts a rank (the reference's)
 A2A_BENCH_E_LOC = 2
 _ALIGN_BYTES = 16        # the kernels load K and N rows in 16-byte chunks
@@ -71,6 +97,7 @@ class Candidate:
     shared_gather: bool = True        # one ring pass for N-weight gathers
     fuse_epilogue: bool = True        # epilogue inside the overlapped loop
     scatter_axis: str = "seq"         # residual-stream layout (seq | hidden)
+    wire_dtype: Optional[str] = None  # forward-wire precision (None: fp)
 
 
 @dataclasses.dataclass
@@ -117,13 +144,19 @@ def candidate_space(kind: str, m: int, n: int, k: int, n_dev: int,
                     modes: Optional[Sequence[str]] = None,
                     n_weights: int = 1, epilogue: bool = False,
                     scatter_axis: str = "seq",
-                    dtype_bytes: int = 2) -> List[Candidate]:
+                    dtype_bytes: int = 2,
+                    wire_dtypes: Optional[Sequence[Optional[str]]] = None
+                    ) -> List[Candidate]:
     """All tunable settings for one seam kind (the reference's space with
     the Hopper tiles in place of its TPU blocks).  ``n_weights > 1``
     sweeps ``shared_gather`` and ``epilogue=True`` sweeps
     ``fuse_epilogue``, on the transports that consume them (ag ring and
     flux modes).  Under ``scatter_axis="hidden"`` an AG seam has no
-    collective (one candidate) and an RS seam is the "ar" kind."""
+    collective (one candidate) and an RS seam is the "ar" kind.
+    ``wire_dtypes`` (default: the fp wire alone; ``WIRE_DTYPE_SWEEP`` for
+    all) expands each candidate over the wires its transport carries
+    (``wire_supported``)."""
+    wire_dtypes = (None,) if wire_dtypes is None else tuple(wire_dtypes)
     hidden = scatter_axis == "hidden"
     if kind == "ag" and hidden:
         return [Candidate("xla", 0, False, scatter_axis="hidden")]
@@ -162,8 +195,11 @@ def candidate_space(kind: str, m: int, n: int, k: int, n_dev: int,
                     out.append(Candidate(mode, chunks, reverse,
                                          shared_gather=sg, fuse_epilogue=fe,
                                          scatter_axis=scatter_axis))
+    expanded = [dataclasses.replace(c, wire_dtype=wd) for c in out
+                for wd in wire_dtypes
+                if wd is None or wire_supported(kind, c.mode, c.scatter_axis)]
     seen, uniq = set(), []
-    for c in out:
+    for c in expanded:
         if c not in seen:
             seen.add(c)
             uniq.append(c)
@@ -212,7 +248,8 @@ def analytic_estimate(kind: str, m: int, n: int, k: int, n_dev: int,
                             shared_gather=cand.shared_gather,
                             epilogue=epilogue,
                             fuse_epilogue=cand.fuse_epilogue,
-                            scatter_axis=cand.scatter_axis)
+                            scatter_axis=cand.scatter_axis,
+                            wire_dtype=cand.wire_dtype)
     return est if full else est["overall"]
 
 
@@ -288,7 +325,8 @@ def bench_op(kind: str, cand: Candidate, group, n_weights: int = 1,
                    scatter_axis=cand.scatter_axis,
                    comm_chunks=cand.comm_chunks, reverse=cand.reverse,
                    blocks=cand.blocks, fuse_epilogue=cand.fuse_epilogue,
-                   shared_gather=cand.shared_gather)
+                   shared_gather=cand.shared_gather,
+                   wire_dtype=cand.wire_dtype)
 
 
 def _measurable_modes(kind: str, allow_flux: bool,
@@ -318,28 +356,50 @@ def tune_seam(kind: str, m: int, n: int, k: int, n_dev: int,
               seam: Optional[str] = None, iters: int = 3,
               warmup: int = 1, n_weights: int = 1,
               epilogue: bool = False,
-              scatter_axis: str = "seq") -> TuneResult:
+              scatter_axis: str = "seq",
+              wire_dtypes: Optional[Sequence[Optional[str]]] = None,
+              max_logit_rmse: Optional[float] = None,
+              rmse_fn=None) -> TuneResult:
     """Tune one seam.  Returns the winning plan and the table (rows:
     mode / comm_chunks / reverse / blocks / shared_gather / fuse_epilogue
-    / scatter_axis / comm_bytes / predicted_s / measured_s; ``measured_s``
-    is 0 on the analytic path).  ``n_weights`` / ``epilogue`` describe the
-    seam's ``FusedOp`` (the gated FFN's two-weight silu gate) so the
-    fusion knobs are swept; ``scatter_axis`` is the layout it is tuned
-    under (a model-level decision: ``autotune_model``)."""
+    / scatter_axis / wire_dtype / comm_bytes / predicted_s / logit_rmse /
+    within_budget / measured_s; ``measured_s`` is 0 on the analytic
+    path).  ``n_weights`` / ``epilogue`` describe the seam's ``FusedOp``
+    (the gated FFN's two-weight silu gate) so the fusion knobs are swept;
+    ``scatter_axis`` is the layout it is tuned under (a model-level
+    decision: ``autotune_model``).  ``wire_dtypes`` sweeps the wires (the
+    fp wire alone by default); each quantized row is scored by
+    ``rmse_fn(kind, m, n, k, n_dev, wire_dtype)`` (default
+    ``error_budget.seam_wire_rmse``), and the winner is the best row
+    within ``max_logit_rmse`` (None: no budget; every row when none
+    is)."""
     if kind not in _KIND_MODES:
         raise ValueError(f"unknown seam kind {kind!r}")
     measured = _measured(measure, group, n_dev)
+    if rmse_fn is None:
+        from repro_torch.tuning.error_budget import seam_wire_rmse
+        rmse_fn = seam_wire_rmse
 
     def row(c, t=0.0):
         est = analytic_estimate(kind, m, n, k, n_dev, c, dtype_bytes,
                                 n_weights, epilogue, full=True, hw=hw)
+        rmse = (rmse_fn(kind, m, n, k, n_dev, c.wire_dtype)
+                if c.wire_dtype else 0.0)
         return {"mode": c.mode, "comm_chunks": c.comm_chunks,
                 "reverse": c.reverse, "blocks": c.blocks,
                 "shared_gather": c.shared_gather,
                 "fuse_epilogue": c.fuse_epilogue,
                 "scatter_axis": c.scatter_axis,
+                "wire_dtype": c.wire_dtype,
                 "comm_bytes": est["comm_bytes"],
-                "predicted_s": est["overall"], "measured_s": t}
+                "predicted_s": est["overall"], "logit_rmse": rmse,
+                "within_budget": (max_logit_rmse is None
+                                  or rmse <= max_logit_rmse),
+                "measured_s": t}
+
+    def pick(table, key):
+        eligible = [r for r in table if r["within_budget"]]
+        return min(eligible or table, key=lambda r: r[key])
 
     mode_kind = "ar" if (kind == "rs" and scatter_axis == "hidden") else kind
     if measured and modes is None:
@@ -347,7 +407,7 @@ def tune_seam(kind: str, m: int, n: int, k: int, n_dev: int,
     cands = candidate_space(kind, m, n, k, n_dev, allow_flux=allow_flux,
                             modes=modes, n_weights=n_weights,
                             epilogue=epilogue, scatter_axis=scatter_axis,
-                            dtype_bytes=dtype_bytes)
+                            dtype_bytes=dtype_bytes, wire_dtypes=wire_dtypes)
     cands, dropped = prune_infeasible(kind, cands, n, k, n_dev,
                                       dtype_bytes=dtype_bytes)
     if measured:
@@ -361,11 +421,11 @@ def tune_seam(kind: str, m: int, n: int, k: int, n_dev: int,
                                 args, iters, warmup))
                  for c in cands]
         del args
-        best = min(table, key=lambda r: r["measured_s"])
+        best = pick(table, "measured_s")
         source = "measured"
     else:
         table = [row(c) for c in cands]
-        best = min(table, key=lambda r: r["predicted_s"])
+        best = pick(table, "predicted_s")
         source = "analytic"
 
     blocks = best["blocks"]
@@ -376,8 +436,10 @@ def tune_seam(kind: str, m: int, n: int, k: int, n_dev: int,
                     shared_gather=best["shared_gather"],
                     fuse_epilogue=best["fuse_epilogue"],
                     scatter_axis=best["scatter_axis"],
+                    wire_dtype=best["wire_dtype"],
                     source=source, predicted_s=best["predicted_s"],
-                    measured_s=best["measured_s"]).validate()
+                    measured_s=best["measured_s"],
+                    logit_rmse=best["logit_rmse"]).validate()
     return TuneResult(seam=seam or kind, kind=kind, m=m, n=n, k=k,
                       n_dev=n_dev, plan=plan, table=table, source=source,
                       pruned=len(dropped))
@@ -493,14 +555,18 @@ def autotune_model(cfg, par, *, hw: ect.Hardware, group=None,
                    registry=None, save_path: Optional[str] = None,
                    allow_flux: bool = True, sweep_scatter_axis: bool = True,
                    iters: int = 3, warmup: int = 1,
-                   results: Optional[List[TuneResult]] = None) -> PlanSet:
+                   results: Optional[List[TuneResult]] = None,
+                   wire_dtypes: Optional[Sequence[Optional[str]]] = None,
+                   max_logit_rmse: Optional[float] = None) -> PlanSet:
     """Tune every seam cell of a model and return the PlanSet.  The layout
     is decided first (``sweep_model_layout``) and every seam is tuned
     under it; a seam's plan is its dominant (largest-FLOPs) cell's winner
     and every cell stays under its qualified key.  ``registry`` (a
     ``cache.PlanRegistry``) answers the cells it holds and records the
     rest; ``save_path`` persists it.  ``results`` collects each tuned
-    cell's ``TuneResult`` (its table)."""
+    cell's ``TuneResult`` (its table).  Quantized wires are lossy, so
+    they are an opt-in: ``wire_dtypes`` (e.g. ``WIRE_DTYPE_SWEEP``) sweeps
+    them, gated per seam by ``max_logit_rmse``."""
     if par.tp <= 1:
         return PlanSet.uniform(par.overlap_mode, par.comm_chunks)
     scatter_axis = "seq"
@@ -520,6 +586,8 @@ def autotune_model(cfg, par, *, hw: ect.Hardware, group=None,
                             allow_flux=allow_flux, measure=measure,
                             seam=cell_key, scatter_axis=scatter_axis,
                             iters=iters, warmup=warmup,
+                            wire_dtypes=wire_dtypes,
+                            max_logit_rmse=max_logit_rmse,
                             **seam_op_shape(cfg, par, seam_name))
             seams[cell_key] = res.plan
             if results is not None:

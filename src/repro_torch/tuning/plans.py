@@ -21,16 +21,15 @@ repetition (the reference's ``lax.scan`` shares one trace per pattern
 position; ``models.model.layer_slot`` maps the port's unstacked layers).
 
 The JSON is the reference's, field for field, so a profile written by
-either package opens in the other.  ``wire_dtype`` stays in it; a plan
-with a quantized wire raises (``NOT_PORTED``, ROADMAP queue 1 item 9).
+either package opens in the other, its wires included.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
-from repro_torch.core.overlap import (NOT_PORTED, VALID_MODES,
-                                      VALID_SCATTER_AXES, FusedOp)
+from repro_torch.core.overlap import (VALID_MODES, VALID_SCATTER_AXES,
+                                      VALID_WIRE_DTYPES, FusedOp)
 
 KNOWN_SEAMS: Tuple[str, ...] = ("mlp_ag", "mlp_rs", "attn_ag", "attn_rs",
                                 "decode_ar", "head_ag", "moe_a2a")
@@ -65,7 +64,11 @@ class SeamPlan:
     TPU tile from a reference profile never reaches the card, because a
     profile tuned on another backend is stale (``tuning.cache``).
     ``scatter_axis`` is the activation layout, swept jointly across the
-    residual seams (``PlanSet.residual_layout``)."""
+    residual seams (``PlanSet.residual_layout``).  ``wire_dtype`` (None |
+    "int8" | "fp8_e4m3" | "int4") quantizes the seam's forward wire,
+    swept by the tuner under a logit-RMSE budget
+    (``tuning.error_budget``); ``logit_rmse`` records the deviation the
+    tuner estimated for the chosen wire (0.0 for the fp wire)."""
     mode: str = "decomposed"
     comm_chunks: int = 0
     reverse: bool = False
@@ -82,8 +85,8 @@ class SeamPlan:
     def validate(self) -> "SeamPlan":
         if self.mode not in VALID_MODES:
             raise ValueError(f"invalid overlap mode {self.mode!r}")
-        if self.wire_dtype is not None:
-            raise NotImplementedError(NOT_PORTED["wire_dtype"])
+        if self.wire_dtype not in VALID_WIRE_DTYPES:
+            raise ValueError(f"invalid wire_dtype {self.wire_dtype!r}")
         if self.comm_chunks < 0:
             raise ValueError(
                 f"comm_chunks must be >= 0, got {self.comm_chunks}")
@@ -197,10 +200,11 @@ class PlanSet:
             p, scatter_axis=scatter_axis).validate())
 
     def with_wire_dtype(self, wire_dtype: Optional[str]) -> "PlanSet":
-        """The reference's wire stamp: only the fp wire (None) is ported."""
-        if wire_dtype is not None:
-            raise NotImplementedError(NOT_PORTED["wire_dtype"])
-        return self
+        """Stamp one wire dtype onto every plan (default, seams, per-layer
+        overrides).  Flux plans keep the fp wire: the fused kernels have
+        no quantized path and would reject the knob."""
+        return _stamp(self, lambda p: p if p.mode == "flux" else
+                      dataclasses.replace(p, wire_dtype=wire_dtype).validate())
 
     def to_json(self) -> Dict:
         return {"default": self.default.to_json(),
@@ -224,7 +228,8 @@ def plan_set_from_parallel(par, backend: Optional[str] = None) -> PlanSet:
     profile exists, is fresh, and was tuned for this TP degree on
     ``backend`` ("cuda" | "cpu"; default ``cache.default_backend()``).
     ``par.scatter_axis`` ("seq" / "hidden") stamps the activation layout;
-    "auto" keeps the profile's (or the "seq" default)."""
+    "auto" keeps the profile's (or the "seq" default).  ``par.wire_dtype``
+    stamps the wire onto every plan but the flux ones."""
     base = PlanSet.uniform(par.overlap_mode, par.comm_chunks)
     profile = getattr(par, "plan_profile", None)
     if profile:
@@ -244,4 +249,7 @@ def plan_set_from_parallel(par, backend: Optional[str] = None) -> PlanSet:
     forced = getattr(par, "scatter_axis", "auto")
     if forced and forced != "auto":
         base = base.with_scatter_axis(forced)
+    wire = getattr(par, "wire_dtype", None)
+    if wire:
+        base = base.with_wire_dtype(wire)
     return base

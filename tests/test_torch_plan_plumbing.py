@@ -628,9 +628,10 @@ def test_serve_cli_autotune_and_profile(tmp_path, capsys):
     srv3, _ = LS.main(["--arch", "minicpm_2b", "--smoke", "--device", "cpu",
                        "--requests", "1", "--max-new", "1", "--autotune"])
     assert srv3.par.tp == 1 and "no TP seams" in capsys.readouterr().out
-    for flag in (["--wire-dtype", "int8"], ["--max-logit-rmse", "0.1"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            LS.parse_args(["--arch", "minicpm_2b", *flag])
+    # the wire flags are ported: they reach the parsed arguments
+    args = LS.parse_args(["--arch", "minicpm_2b", "--wire-dtype", "int8",
+                          "--max-logit-rmse", "0.1"])
+    assert args.wire_dtype == "int8" and args.max_logit_rmse == 0.1
 
 
 # ---------------------------------------------------------------------------

@@ -293,8 +293,9 @@ def test_gather_and_scatter_seq_match_reference(ref, mode, reverse):
 
 def test_fused_op_rejects_what_is_not_ported():
     g = dist.RankGroup(N, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tov.FusedOp(axis=g, kind="ag", wire_dtype="int8")
+    # the fused kernels have no quantized wire (the reference's rule)
+    with pytest.raises(ValueError, match="mode='flux'"):
+        tov.FusedOp(axis=g, kind="ag", mode="flux", wire_dtype="int8")
     # decomposed_bidir runs at tp>1: its forward equals decomposed's
     x = torch.arange(B * S * D, dtype=torch.float32).reshape(B, S, D) / 100
     w = torch.ones((D, F // N))

@@ -100,10 +100,16 @@ def test_seam_plan_validation_matches_reference(bad):
 
 
 def test_wire_dtype_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tplans.SeamPlan(mode="decomposed", wire_dtype="int8").validate()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tplans.PlanSet().with_wire_dtype("int8")
+    """Wire precision is ported: only an invalid wire raises (ValueError,
+    as the reference's), and a valid one validates and stamps."""
+    with pytest.raises(ValueError, match="wire_dtype"):
+        tplans.SeamPlan(mode="decomposed", wire_dtype="int2").validate()
+    with pytest.raises(ValueError, match="wire_dtype"):
+        tplans.PlanSet().with_wire_dtype("bf8")
+    for wd in ("int8", "fp8_e4m3", "int4"):
+        assert (tplans.SeamPlan(mode="decomposed", wire_dtype=wd)
+                .validate().wire_dtype == wd)
+        assert tplans.PlanSet().with_wire_dtype(wd).default.wire_dtype == wd
     assert tplans.PlanSet().with_wire_dtype(None) == tplans.PlanSet()
 
 
