@@ -127,6 +127,16 @@ a checkout of this repository.  Phases, one JSON object per line each:
              its ``moe_a2a`` cell beside the analytic winner.  The
              ag_gemm and gemm_rs phases hold the kernels at this lane's
              backward operands (``mla_train_seam_cases``);
+   dp_lane — data parallelism on a ``dist.RankMesh``: the train lane's
+             cut and tokens at dp=2 x tp=2 in flux (two TP groups of 2
+             launching the fused kernels at once, each data rank on its
+             2 x 1024 shard): step 0 against dp=1 x tp=2 on the same global
+             batch (loss and canonical grads), the launches its PlanSet
+             implies per TP group; the int8 pod all-reduce of those grads
+             at pods=2 x dp=1 x tp=2 against the fp32 one and one
+             ``Trainer`` step there with ``grad_compress``; 3 ``Trainer``
+             steps at dp=2 x tp=2 (losses, step ms, each rank's ZeRO-1
+             moment bytes against dp=1's, peak memory, a profiled step);
 14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
              at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
              each Hopper tile and ring direction forced at the lane's seam
@@ -161,12 +171,13 @@ a checkout of this repository.  Phases, one JSON object per line each:
 15. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
              steps at tp=1 with ``remat="full"``: finite losses, step time
              and peak memory;
-16. train_ckpt — minicpm_2b at full width cut to 2 layers, tp=4 flux: 4
-             steps with a checkpoint every 2 (save and restore seconds,
-             bytes on disk), a fresh trainer resuming at step 2 (its
-             weights and moments bit-equal to the checkpoint, its losses
-             against the uninterrupted run's), and a run that recovers
-             from a failure before step 3;
+16. train_ckpt — minicpm_2b at full width cut to 2 layers, dp=2 x tp=2
+             flux: 4 steps with a checkpoint every 2 (save and restore
+             seconds, bytes on disk), a fresh trainer on the dp=1 x tp=2
+             mesh of ``elastic_remesh`` resuming at step 2 (its weights and
+             moments bit-equal to the checkpoint, its losses against the
+             uninterrupted run's), and a run that recovers from a failure
+             before step 3;
 17. paper lane — the paper's §5 models at full width, cut in depth only,
              at tp=8 on the one card (8 ranks, seeded bf16 weights drawn
              as at tp=1, w1|w3 packed, cut per rank), 8 x 2048 tokens with
@@ -292,6 +303,11 @@ MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_STEPS = 2, 1024, 3
 TP_SERVER_LAYERS = 8
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
 TP_LANE = 4              # minicpm_2b prefill's and training's ranks
+DP_LANE = (2, 2)         # the dp lane's mesh: (tp, dp) = 2 x 2 ranks
+# the tp lane's timed calls a mode, its prefills' and its decode steps'
+# (5 and 3 until the dp lane came: the script stays inside its time
+# budget; host-clock times here move far more than these repeats settle)
+TP_LANE_REPEATS = 2
 # the train lane: minicpm_2b at full width cut to its first 8 of 40 layers,
 # batch 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
 TRAIN_LAYERS = 8
@@ -307,6 +323,17 @@ CKPT_STEPS = 4
 # grad; xla and decomposed against flux with the same tolerances
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 5e-2
+# the dp lane's int8 pod all-reduce against the fp32 one on the same grads
+# (pods=2): each pod's piece rounds to absmax/127 a 256-element block, at
+# most 1/254 of the block's largest element an element; measured 1.09 %
+# on the worst canonical leaf (PR 26's runs 5-6), limited at 2 %
+POD_INT8_RTOL = 2e-2
+# the compressed pods=2 step's weight update against the uncompressed
+# one's from the same weights and shards, relative L2 over every leaf of
+# pod 0: AdamW's first step moves an element by lr x sign(grad), so the
+# elements whose synced grad int8 rounds to zero or across zero differ by
+# lr or 2 lr; a wrong or missing exchange differs everywhere (about 1.4)
+POD_INT8_UPDATE_RTOL = 0.25
 # the tune lane: minicpm_2b at full width, tp=4 on the one card, the train
 # lane's 4 x 1024 tokens a seam and 8 decode rows; each candidate of the
 # measured sweep is timed over TUNE_ITERS calls after TUNE_WARMUP (CUDA
@@ -1903,7 +1930,7 @@ def phase_fused_kernel(torch, which):
     backward cases by name.  Each case: every rank's error, the fused n-rank time,
     the xla mode's (gather + torch.matmul, or torch.matmul + the slots'
     sum), n x the GEMM kernel at one rank's shape, the plain version's
-    and the bound."""
+    and the bound.  Then the dp lane's cases (``fused_mesh_cases``)."""
     from repro_torch.core.overlap import Epilogue, FusedOp
     from repro_torch.dist import RankGroup
     from repro_torch.kernels import ag_gemm as AG
@@ -2052,10 +2079,103 @@ def phase_fused_kernel(torch, which):
         for grp in groups.values():
             grp.free_symmetric()
         torch.cuda.empty_cache()
+    fused_mesh_cases(torch, which)
     emit({"phase": results[f"{which}_m8192"]["phase"], "ptxas": ptxas})
     return (results[f"{which}_m8192"],
             {c[0]: results[c[0]] for c in mla_cases},
             {c[0]: results[c[0]] for c in train_mla})
+
+
+def fused_mesh_cases(torch, which):
+    """The dp lane's operands of the AG-GEMM (``which="ag"``) or GEMM-RS
+    kernel: the two TP groups of a (dp, tp) = DP_LANE ``make_mesh`` launch
+    at once, each its "model" sub-group (a launch sized for the mesh's
+    ranks on the card, ``group.share``), every rank against the plain
+    version of its own group's inputs.  The shapes are each seam's
+    forward and backward operands a rank at the lane's 2 x 1024 tokens a
+    data rank (``tuning.autotune.model_seam_shapes``: an ag seam's forward
+    and an rs seam's dY are AG-GEMMs, the others GEMM-RS).  One line a
+    case: every rank's error, the two groups' time and their bound."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.kernels import ag_gemm as AG
+    from repro_torch.kernels import gemm_rs as RS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_level import tp_bound_s
+    from repro_torch.tuning import autotune as AT
+
+    tp, dp = DP_LANE
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=TRAIN_LAYERS)
+    par = ParallelConfig(tp=tp, dp=dp, fuse_w13=True, overlap_mode="flux")
+    cases = []      # name, rows (AG: m_sh a rank; RS: M), K, N
+    for seam, (kind, m, n, k) in AT.model_seam_shapes(
+            cfg, par, TRAIN_BATCH * TRAIN_SEQ // dp).items():
+        if kind not in ("ag", "rs"):
+            continue
+        fwd = kind == which
+        if kind == "ag":      # forward AG-GEMM; dX a GEMM-RS over N / tp
+            shape = (m // tp, k, n // tp) if fwd else (m, n // tp, k)
+        else:                 # forward GEMM-RS; dY an AG-GEMM
+            shape = (m, k // tp, n) if fwd else (m // tp, n, k // tp)
+        cases.append((f"{which}_dp_{seam.replace('@', '_')}_"
+                      f"{'fwd' if fwd else 'bwd'}", *shape))
+    mesh = make_mesh(1, dp, tp, "cuda")
+    kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
+    gen = torch.Generator(device="cuda")
+
+    def call(a, b):
+        return kern(a, b, group=mesh.group("model"))
+
+    for i, (name, rows, k, nn) in enumerate(cases):
+        gen.manual_seed(700 + i + (0 if which == "ag" else 50))
+        args = _rank_inputs(torch, gen, ((rows, k), (k, nn)), mesh.size,
+                            bf16)
+        outs = mesh.spmd(call, args)
+        torch.cuda.synchronize()
+        errs, bad = [], []
+        for g0 in range(0, mesh.size, tp):      # a TP group's mesh ranks
+            mine = args[g0:g0 + tp]
+            max_partial = 0.0
+            if which == "ag":
+                wants = [AG.ag_gemm_ref([a for a, _ in mine], b)
+                         for _, b in mine]
+            else:
+                parts = [(a.float() @ b.float()).to(bf16) for a, b in mine]
+                max_partial = max(q.abs().max().item() for q in parts)
+                wants = [RS.reduce_ref(parts, r, None, None, bf16)
+                         for r in range(tp)]
+                del parts
+            for r, (out, want) in enumerate(zip(outs[g0:g0 + tp], wants)):
+                check(bool(torch.isfinite(out).all()),
+                      f"{name}: non-finite output")
+                ok, err, atol, rtol = fused_check(
+                    torch, out, want, k, tp if which == "rs" else 1,
+                    max_partial)
+                errs.append(err)
+                if not ok:
+                    bad.append(g0 + r)
+            del wants
+        check(not bad, f"{name}: kernel vs plain max_abs_err {max(errs)} "
+              f"beyond atol {atol} + rtol {rtol} * |C| on mesh ranks {bad}")
+        del outs
+        op_mkn = ((rows * tp, k, nn * tp) if which == "ag" else
+                  (rows, k * tp, nn))
+        bound_s, bound_by = tp_bound_s(*op_mkn)
+        fused_ms = _spmd_ms(torch, mesh, call, args, 10)
+        emit({"phase": f"{'ag_gemm' if which == 'ag' else 'gemm_rs'}_kernel",
+              "case": name, "mesh": {"dp": dp, "tp": tp},
+              "groups_at_once": dp,
+              "share": mesh.group("model", 0).share, "rank_rows": rows,
+              "K": k, "N": nn, "max_abs_err": max(errs), "atol": atol,
+              "rtol": rtol, "fused_ms": fused_ms,
+              "bound_ms": dp * bound_s * 1e3, "bound_by": bound_by,
+              "bound_share": dp * bound_s * 1e3 / fused_ms,
+              "timing": f"mean of 10 calls of all {mesh.size} ranks (both "
+                        "TP groups) on one card, CUDA events"})
+        del args
+        mesh.free_symmetric()
+        torch.cuda.empty_cache()
 
 
 def phase_tp_op_level_lane(torch):
@@ -2271,7 +2391,7 @@ def phase_tp_lane(torch, tp1_logits, tp1_decode):
         res[f"{mode}_launches"] = c
         del lm
     for mode in ("flux", "xla", "decomposed"):
-        med, samples = wall_ms(torch, lambda: step(mode))
+        med, samples = wall_ms(torch, lambda: step(mode), TP_LANE_REPEATS)
         res[f"prefill_ms_median_{mode}"] = med
         res[f"prefill_ms_samples_{mode}"] = samples
     res["prefill_profile_flux"] = device_profile(torch, lambda: step("flux"))
@@ -2279,7 +2399,7 @@ def phase_tp_lane(torch, tp1_logits, tp1_decode):
     emit(res)
     group.free_symmetric()
     tp_decode(torch, group, ranks, cfg, lengths, prefill_caches, counts,
-              tp1_decode)
+              tp1_decode, repeats=TP_LANE_REPEATS)
     del ranks, args, prefill_caches
     group.free_symmetric()
     torch.cuda.empty_cache()
@@ -2288,7 +2408,7 @@ def phase_tp_lane(torch, tp1_logits, tp1_decode):
 
 def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
               prefill_counts, tp1_decode, n_decode=N_DECODE,
-              n_other=N_DECODE_OTHER_MODES, phase="tp_decode"):
+              n_other=N_DECODE_OTHER_MODES, phase="tp_decode", repeats=3):
     """A tp lane's dense decode: from the flux prefill's caches, n_decode
     steps in flux (``decode_step``'s halves) teacher-forced on the tp=1
     decode's tokens (each step's logits, the ranks' vocab shards
@@ -2356,7 +2476,7 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
             args))[..., 0]
     check(torch.equal(whole(), toks), "tp decode: decode_step's tokens "
           "differ from its halves' at the last step")
-    res["decode_step_ms_median"], _ = wall_ms(torch, whole, repeats=3)
+    res["decode_step_ms_median"], _ = wall_ms(torch, whole, repeats)
     res["logits_rel_l2_vs_tp1"] = rel_tp1
     res["tokens_agree_with_tp1"] = f"{agree}/{n_decode * len(lengths)}"
     warm = sorted(samples[1:])
@@ -2373,7 +2493,7 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
                   f"tp decode step {step}: {mode} vs flux logits differ by "
                   f"{rels[-1]} (relative L2) > {TP_LANE_RTOL}")
         res[f"logits_rel_l2_{mode}_vs_flux"] = rels
-        med, _ = wall_ms(torch, lambda: one(mode, 0), repeats=3)
+        med, _ = wall_ms(torch, lambda: one(mode, 0), repeats)
         res[f"decode_ms_per_step_median_{mode}"] = med
     # where one more flux step's time goes (it rewrites step 0's position)
     res["decode_profile_flux"] = device_profile(torch, lambda: one("flux", 0))
@@ -2625,36 +2745,48 @@ def read_counts():
             "matmul": mm.matmul.launches}
 
 
-def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
-    """Step 0's forward on every rank of ``group``, the counts, then its
-    backward and the replicated leaves' sum: (loss, canonical grads / tp,
-    counts after the forward, counts of the backward, {host ms of the
-    forward and of the backward, seams a rank recorded, the step's peak
-    GB, the wire encodes of the forward and of the backward}); ``plans``
-    overrides the ``PlanSet`` ``par`` implies."""
+def step0(torch, cfg, par, mesh, ranks, batches, plans=None,
+          grads_out=None):
+    """Step 0 on every rank of ``mesh`` (a ``Trainer``'s ``group``), each
+    rank on its data shard's batch (``batches``: ``Trainer.step_batch``):
+    the forward, the counts, then the backward, the replicated leaves' sum
+    over each TP group and, at dp>1 or pods>1, the port's grad sync
+    (``adamw.sync_grads``: the ZeRO-1 reduce-scatter over data, the pod
+    pmean), its data ranks' pieces joined.  Returns (the loss: the
+    shards' mean, canonical grads / tp, counts after the forward, counts
+    of the backward, {host ms of the forward and of the backward, seams a
+    rank recorded, the step's peak GB, the wire encodes of the forward and
+    of the backward}); ``plans`` overrides the ``PlanSet`` ``par``
+    implies; ``grads_out`` (a list) takes every rank's TP-complete grads,
+    before the sync."""
     from repro_torch.core import overlap as tov
     from repro_torch.models import model as M
+    from repro_torch.optim import adamw
     from repro_torch.runtime import trainer as T
-    tp = par.tp
-    ctx = T.make_ctx(cfg, par, group, plans)
+    tp, dp, shards = par.tp, par.dp, par.pods * par.dp
+    first = T.make_ctx(cfg, par, plans=plans, mesh=mesh, rank=0)
+    ctxs = [first] + [T.make_ctx(cfg, par, plans=first.plans, mesh=mesh,
+                                 rank=r) for r in range(1, mesh.size)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def bwd(p, tape, loss):
         return T.complete_grads(T.grads_from_tape(p, tape, loss),
-                                M.replicated_leaves(cfg, p), group)
+                                M.replicated_leaves(cfg, p),
+                                ctxs[mesh.rank()].axis)
 
     zero_counts()
     t0 = time.perf_counter()
-    outs = group.spmd(lambda p: T.forward_on_tape(p, batch, ctx, cfg, par),
-                      [(p,) for p in ranks])
+    outs = mesh.spmd(lambda p, b: T.forward_on_tape(
+        p, b, ctxs[mesh.rank()], cfg, par),
+        [(p, batches[r // tp]) for r, p in enumerate(ranks)])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     c_fwd = read_counts()
     enc_fwd = tov.wire_encode.calls
     seams = len(outs[0][0].entries)
     zero_counts()
-    grads = group.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
+    grads = mesh.spmd(bwd, [(p, t, l) for p, (t, l) in zip(ranks, outs)])
     torch.cuda.synchronize()
     host = {"forward_ms": (t1 - t0) * 1e3,
             "backward_ms": (time.perf_counter() - t1) * 1e3,
@@ -2664,12 +2796,32 @@ def tp_step0(torch, cfg, par, group, ranks, batch, plans=None):
                              "backward": tov.wire_encode.calls}}
     c_bwd = read_counts()
     losses = [l.item() for _, l in outs]
-    check(max(losses) == min(losses),
-          f"{par.overlap_mode}: ranks' losses {losses}")
-    glob = M.gather_rank_leaves(grads, cfg, ranks[0])
+    del outs
+    for s in range(shards):
+        group = losses[s * tp:(s + 1) * tp]
+        check(max(group) == min(group),
+              f"{par.overlap_mode}: shard {s}'s TP ranks' losses {group}")
+    if grads_out is not None:
+        grads_out.extend(grads)
+    if shards > 1:
+        plan = T.zero1_plan(cfg, ranks[0], dp)
+
+        def sync(g):
+            pod, data = T._pod_data(ctxs[mesh.rank()])
+            return adamw.sync_grads(g, plan, data, pod)
+        held = mesh.spmd(sync, [(g,) for g in grads])
+        # pod 0's data ranks' pieces of each TP rank's leaves, joined
+        grads = []
+        for i in range(tp):
+            peers = [held[d * tp + i] for d in range(dp)]
+            grads.append({n: torch.cat([q[n] for q in peers]) if z.rows
+                          else peers[z.owner or 0][n]
+                          for n, z in plan.items()})
+        del held
+    glob = M.gather_rank_leaves(grads[:tp], cfg, ranks[0])
     can = {n: g / tp for n, g in
            M.canonical_leaves(glob, cfg, tp, grads=True).items()}
-    return losses[0], can, c_fwd, c_bwd, host
+    return sum(losses[::tp]) / shards, can, c_fwd, c_bwd, host
 
 
 def tape_backward_scaling(torch, depths=TAPE_DEPTHS, reps=3):
@@ -2819,10 +2971,10 @@ def phase_train_lane(torch):
     ranks, opts = tr4.init_state()
 
     def rank_grads(mode, **kw):
-        """``tp_step0`` in ``mode``; ``kw`` overrides ``ParallelConfig``
+        """``step0`` in ``mode``; ``kw`` overrides ``ParallelConfig``
         fields (remat, the layout)."""
         par = dataclasses.replace(par4, overlap_mode=mode, **kw)
-        return tp_step0(torch, cfg, par, group, ranks, batch0)
+        return step0(torch, cfg, par, group, ranks, [batch0])
 
     # the main path, part 1: step 0's forward and backward in flux mode
     loss4, can4, c_fwd, c_bwd, host4 = rank_grads("flux")
@@ -2925,7 +3077,7 @@ def phase_train_lane(torch):
         step_ms=step_ms(hist4)[1], trainer_launches=counts,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     res["tp4_flux"]["profiled_step"] = device_profile(
-        torch, lambda: tr4.run_step(ranks, opts, batch0),
+        torch, lambda: tr4.run_step(ranks, opts, [batch0]),
         sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
     res["tape_backward_scaling"] = tape_backward_scaling(torch)
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2934,7 +3086,222 @@ def phase_train_lane(torch):
     group.free_symmetric()
     torch.cuda.empty_cache()
     return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts,
-            "backward_remat": res["remat_tp4_flux"]["launches_backward"]}
+            "backward_remat": res["remat_tp4_flux"]["launches_backward"],
+            "losses": losses4}
+
+
+def phase_dp_lane(torch, train_losses):
+    """Data parallelism on a rank mesh: minicpm_2b at full width cut to
+    the train lane's TRAIN_LAYERS layers, its 4 x 1024 global tokens, bf16
+    weights from seed 0, flux.  Step 0 at dp=2 x tp=2 (the mesh's two TP
+    groups run the fused kernels at once, each rank on its 2 x 1024
+    shard; the grads through the port's ZeRO-1 sync) against dp=1 x tp=2
+    on the same global batch: the loss within TRAIN_LOSS_RTOL, every
+    canonical grad (/ tp on both sides) within TRAIN_GRAD_RTOL; the fused
+    launches its PlanSet implies per TP group.  The int8 pod all-reduce on
+    those grads at pods=2 x dp=1 x tp=2 (``adamw.sync_grads``, compressed
+    against uncompressed, within POD_INT8_RTOL), then one ``Trainer`` step
+    there with ``grad_compress`` and one without, from the same weights
+    (put back after each): the updates within POD_INT8_UPDATE_RTOL.  Then
+    3 ``Trainer`` steps at dp=2 x tp=2 from seed 0's weights (the main
+    path): losses within TRAIN_LOSS_RTOL of ``train_losses`` (the train
+    lane's tp=4 trainer: the same weights and global batches), host ms a
+    step, each rank's ZeRO-1 moment bytes against dp=1's, peak memory, a
+    profiled step's busy share."""
+    from repro_torch.configs.base import (ParallelConfig, get_config,
+                                          train_schedule)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import trainer as T
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=TRAIN_LAYERS)
+    tp, dp = DP_LANE
+    par1 = ParallelConfig(tp=tp, fuse_w13=True, overlap_mode="flux")
+    par2 = dataclasses.replace(par1, dp=dp)
+
+    def trainer(par, steps):
+        tc = T.TrainConfig(total_steps=steps, warmup_steps=0, base_lr=3e-4,
+                           schedule=train_schedule("minicpm_2b"),
+                           log_every=steps)
+        tr = T.Trainer(cfg, par, tc, device="cuda", dtype=torch.bfloat16)
+        tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)
+        return tr
+
+    res = {"phase": "dp_lane", "arch": cfg.name,
+           "layers": f"{TRAIN_LAYERS} of 40 (cut in depth)",
+           "mesh": {"dp": dp, "tp": tp}, "mode": "flux",
+           "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+           "pod_int8_rtol": POD_INT8_RTOL,
+           "pod_int8_update_rtol": POD_INT8_UPDATE_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    trd = trainer(par2, TRAIN_STEPS)
+    mesh = trd.group
+    ranks, _ = trd.init_state()          # 2 replicas of the tp=2 copies
+    batch0 = trd.batch(0)
+
+    # ---- step 0: dp=1 x tp=2 on the global batch, then dp=2 x tp=2 ------
+    tr1 = trainer(par1, 1)
+    loss1, can1, _, _, host1 = step0(torch, cfg, par1, tr1.group,
+                                     ranks[:tp], [batch0])
+    tr1.group.free_symmetric()
+    del tr1
+    grads = []
+    loss2, can2, c_fwd, c_bwd, host2 = step0(
+        torch, cfg, par2, mesh, ranks, trd.step_batch(0), grads_out=grads)
+    plans = T.make_ctx(cfg, par2, mesh=mesh, rank=0).plans
+    want_fwd, want_bwd = (
+        {k: v * dp for k, v in c.items()}
+        for c in plan_launches(plans, cfg, tp, mlp_weights=1))
+    check(c_fwd == want_fwd and c_bwd == want_bwd,
+          f"dp={dp} x tp={tp} flux step 0 launches {c_fwd} / {c_bwd}, its "
+          f"PlanSet implies {want_fwd} / {want_bwd}")
+    rel_loss = abs(loss2 - loss1) / abs(loss1)
+    rel_g, leaf = _worst_leaf(can2, can1)
+    check(rel_loss <= TRAIN_LOSS_RTOL and rel_g <= TRAIN_GRAD_RTOL,
+          f"dp={dp} step 0 vs dp=1: loss {loss2} vs {loss1} (relative "
+          f"{rel_loss}), grad of {leaf} relative L2 {rel_g}")
+    res["step0"] = {"loss_dp1": loss1, "loss_dp2": loss2,
+                    "loss_rel_vs_dp1": rel_loss,
+                    "grad_rel_l2_vs_dp1_max": rel_g, "grad_worst_leaf": leaf,
+                    "launches_forward": c_fwd, "launches_backward": c_bwd,
+                    "launches_planset": [want_fwd, want_bwd],
+                    "host_dp1": host1, "host_dp2": host2}
+    del can1, can2
+    mesh.free_symmetric()
+
+    # ---- the int8 pod all-reduce at pods=2 x dp=1 on those grads --------
+    podm = make_mesh(dp, 1, tp, "cuda")
+    plan = T.zero1_plan(cfg, ranks[0], 1)
+
+    def synced(compress):
+        out = podm.spmd(lambda g: adamw.sync_grads(
+            g, plan, None, podm.group("pod"), compress),
+            [(g,) for g in grads])
+        glob = M.gather_rank_leaves(out[:tp], cfg, ranks[0])
+        return {n: g / tp for n, g in
+                M.canonical_leaves(glob, cfg, tp, grads=True).items()}
+
+    plain = synced(False)
+    rel_c, leaf_c = _worst_leaf(synced(True), plain)
+    del plain, grads, podm
+    check(rel_c <= POD_INT8_RTOL,
+          f"the int8 pod sync's grad of {leaf_c}: relative L2 {rel_c} from "
+          f"the fp32 sync's > {POD_INT8_RTOL}")
+    fp32_bytes = 4 * sum(p.numel() for p in ranks[0].parameters())
+    pieces = {}             # a reference leaf's local piece: one payload
+    for n, p in ranks[0].named_parameters():
+        pieces[plan[n].stack] = pieces.get(plan[n].stack, 0) + p.numel()
+    blocks = sum(-(-k // adamw.QUANT_BLOCK) for k in pieces.values())
+    res["pod_int8"] = {"grad_rel_l2_vs_fp32_max": rel_c,
+                       "grad_worst_leaf": leaf_c,
+                       "wire_bytes_a_rank": blocks * (adamw.QUANT_BLOCK + 4),
+                       "fp32_bytes_a_rank": fp32_bytes}
+    torch.cuda.empty_cache()
+
+    # ---- one Trainer step at pods=2 x dp=1, with grad_compress and ------
+    # without, each from the same weights (put back after it: the trainer
+    # below starts from seed 0's, as the train lane's)
+    saved = [[t.detach().clone() for t in p.parameters()] for p in ranks]
+
+    def pod_step(compress):
+        trp = trainer(dataclasses.replace(par1, pods=dp,
+                                          grad_compress=compress), 1)
+        zero_counts()
+        _, _, hist = trp.train(ranks, [trp.init_opt(p, r)
+                                       for r, p in enumerate(ranks)])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        trp.group.free_symmetric()
+        new = [[t.detach().clone() for t in p.parameters()]
+               for p in ranks[:tp]]        # pod 0's TP ranks
+        with torch.no_grad():
+            for p, ts in zip(ranks, saved):
+                for t, v in zip(p.parameters(), ts):
+                    t.copy_(v)
+        return hist[0], counts, new
+
+    hp, cp, new_c = pod_step(True)
+    hu, cu, new_u = pod_step(False)
+    want_p = {k: want_fwd[k] + want_bwd[k] for k in want_fwd}
+    diff2 = ref2 = 0.0
+    for i in range(tp):
+        for w0, wc, wu in zip(saved[i], new_c[i], new_u[i]):
+            du = wu.float() - w0.float()
+            diff2 += (wc.float() - w0.float() - du).square().sum().item()
+            ref2 += du.square().sum().item()
+    rel_u = math.sqrt(diff2 / max(ref2, 1e-30))
+    del new_c, new_u, saved
+    rel_p = abs(hp["loss"] - loss2) / abs(loss2)
+    check(cp == want_p and cu == want_p and rel_p <= TRAIN_LOSS_RTOL
+          and rel_u <= POD_INT8_UPDATE_RTOL,
+          f"pods={dp} steps: launches {cp} / {cu} (expected {want_p}), "
+          f"loss {hp['loss']} / {hu['loss']} vs dp={dp}'s {loss2}, the "
+          f"compressed update's relative L2 from the fp32 one {rel_u}")
+    res["pods_compress_step"] = {"loss": hp["loss"],
+                                 "loss_rel_vs_dp2_step0": rel_p,
+                                 "loss_fp32_step": hu["loss"],
+                                 "update_rel_l2_vs_fp32": rel_u,
+                                 "step_ms": hp["seconds"] * 1e3,
+                                 "step_ms_fp32": hu["seconds"] * 1e3,
+                                 "launches": cp}
+    torch.cuda.empty_cache()
+
+    # ---- the main path: 3 Trainer steps at dp=2 x tp=2 ------------------
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    _, opts, hist = trd.train(ranks, [trd.init_opt(p, r)
+                                      for r, p in enumerate(ranks)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: TRAIN_STEPS * v for k, v in want_p.items()}
+    losses = [h["loss"] for h in hist]
+    rel_t = [abs(x - y) / abs(y) for x, y in zip(losses, train_losses)]
+    check(counts == want and len(losses) == len(train_losses)
+          and max(rel_t) <= TRAIN_LOSS_RTOL,
+          f"{TRAIN_STEPS} dp={dp} steps: launches {counts} (expected "
+          f"{want}), losses {losses} vs the tp={TP_LANE} train lane's "
+          f"{train_losses}")
+    ms = sorted(h["seconds"] * 1e3 for h in hist)
+    zplan = trd.zero1(ranks[0])
+    split = [n for n, z in zplan.items() if z.rows or z.owner is not None]
+    named = dict(ranks[0].named_parameters())
+    dp1_split = 8 * sum(named[n].numel() for n in split)
+    dp1_all = 8 * sum(t.numel() for t in named.values())
+    moment_bytes = [sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                        for t in o[k].values()) for o in opts]
+    split_bytes = [sum(o[k][n].numel() * o[k][n].element_size()
+                       for k in ("mu", "nu") for n in split if n in o[k])
+                   for o in opts]
+    res["trainer"] = {
+        "losses": losses, "train_lane_tp4_losses": train_losses,
+        "loss_rel_vs_train_lane": rel_t,
+        "step_ms_median": ms[len(ms) // 2],
+        "step_ms": [h["seconds"] * 1e3 for h in hist],
+        "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "moment_bytes_a_rank": moment_bytes,
+        "moment_bytes_dp1_a_rank": dp1_all,
+        "split_leaves": len(split), "whole_leaves": len(zplan) - len(split),
+        "split_moment_bytes_a_rank": split_bytes,
+        "split_moment_bytes_dp1": dp1_split,
+        "split_share_vs_dp1": [b / dp1_split for b in split_bytes]}
+    check(all(abs(b / dp1_split - 1 / dp) <= 0.1 for b in split_bytes),
+          f"ZeRO-1 moment bytes {split_bytes} of dp=1's {dp1_split}")
+    res["trainer"]["profiled_step"] = device_profile(
+        torch, lambda: trd.run_step(ranks, opts, trd.step_batch(0)),
+        sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    mesh.free_symmetric()
+    del ranks, opts, trd
+    torch.cuda.empty_cache()
+    return {"step0_forward": c_fwd, "step0_backward": c_bwd,
+            "pods_compress_step": cp, "trainer_steps": counts}
 
 
 def mla_train_cfg():
@@ -3152,6 +3519,7 @@ def phase_mla_train_lane(torch):
                                           train_schedule)
     from repro_torch.core import ect
     from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dist import RankGroup
     from repro_torch.models import ffn
     from repro_torch.models import model as M
     from repro_torch.runtime import trainer as T
@@ -3215,7 +3583,7 @@ def phase_mla_train_lane(torch):
                                        global_batch=MLA_TRAIN_BATCH)
     check(all(torch.equal(tr4.batch(0)[k], batch0[k]) for k in batch0),
           "the trainer's first batch is not the tp=1 step's")
-    group = tr4.group
+    mesh = tr4.group
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     full = M.init_model(cfg, par4, seed=0, dtype=bf16, device="cuda",
@@ -3230,7 +3598,7 @@ def phase_mla_train_lane(torch):
         p.numel() * p.element_size() for r in ranks
         for p in r.parameters()) / 1e9
     want_fwd, want_bwd = plan_launches(
-        T.make_ctx(cfg, par4, group).plans, cfg, tp, 1)
+        T.make_ctx(cfg, par4, mesh=mesh, rank=0).plans, cfg, tp, 1)
 
     # the routed experts' grads sum over the tokens routed to them and the
     # router's over the gates of the experts chosen: a token whose top-k
@@ -3254,8 +3622,8 @@ def phase_mla_train_lane(torch):
 
     ffn.dropped.clear()
     with capture_routes() as rt4:
-        loss4, can4, c_fwd, c_bwd, host4 = tp_step0(torch, cfg_df, par4,
-                                                    group, ranks, batch0)
+        loss4, can4, c_fwd, c_bwd, host4 = step0(torch, cfg_df, par4,
+                                                 mesh, ranks, [batch0])
     d4 = ffn.drop_totals(tp)
     check(d4 == [0] * tp, f"the tp={tp} drop-free step dropped {d4}")
     check(c_fwd == want_fwd, f"mla train flux forward launches {c_fwd}, "
@@ -3294,9 +3662,9 @@ def phase_mla_train_lane(torch):
                        "step0_host": host4}
     can4 = {n: t.cpu() for n, t in can4.items()}
     torch.cuda.empty_cache()
-    lx, canx, cfx, cbx, hx = tp_step0(
-        torch, cfg_df, dataclasses.replace(par4, overlap_mode="xla"), group,
-        ranks, batch0)
+    lx, canx, cfx, cbx, hx = step0(
+        torch, cfg_df, dataclasses.replace(par4, overlap_mode="xla"), mesh,
+        ranks, [batch0])
     for c in (cfx, cbx):
         check(c["ag_gemm"] == 0 and c["gemm_rs"] == 0,
               f"the xla step launched the fused kernels: {c}")
@@ -3338,12 +3706,15 @@ def phase_mla_train_lane(torch):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     torch.cuda.empty_cache()
     res["trainer"]["profiled_step"] = device_profile(
-        torch, lambda: tr4.run_step(ranks, opts, batch0),
+        torch, lambda: tr4.run_step(ranks, opts, [batch0]),
         sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
     del opts
+    mesh.free_symmetric()
     torch.cuda.empty_cache()
 
     # ---- the routed experts' backward on identical inputs -------------------
+    # (op-level calls: a rank group of their own)
+    group = RankGroup(tp, "cuda")
     layer = moe_layer_grads(torch, cfg_df, group, ranks)
     rel_e = max(layer["grad_rel_l2_vs_tp1"].values())
     check(rel_e <= TRAIN_GRAD_RTOL
@@ -3682,8 +4053,8 @@ def phase_tune_lane(torch, tp1_tokens):
     # the uniform flux step twice: the first (the reference values) also
     # warms the trainer's group, so that the host times below compare
     # warm steps
-    loss_u, can_u, _, _, host_cold = tp_step0(torch, cfg, par_u, tr.group,
-                                              ranks, batch0)
+    loss_u, can_u, _, _, host_cold = step0(torch, cfg, par_u, tr.group,
+                                           ranks, [batch0])
     par_t = dataclasses.replace(par_u, plan_profile=path)
     plans_loaded = plan_set_from_parallel(par_t, "cuda")
     check(plans_loaded.seams, f"the profile {path} did not load")
@@ -3702,8 +4073,8 @@ def phase_tune_lane(torch, tp1_tokens):
     for name, par, plans in (("uniform_flux", par_u, None),
                              ("tuned", par_t, None),
                              ("heterogeneous", par_u, het)):
-        lm, canm, cf, cb, hm = tp_step0(torch, cfg, par, tr.group, ranks,
-                                        batch0, plans)
+        lm, canm, cf, cb, hm = step0(torch, cfg, par, tr.group, ranks,
+                                     [batch0], plans)
         want_f, want_b = plan_launches(
             plans or plan_set_from_parallel(par, "cuda"), cfg, tp, mlp_w)
         check(cf == want_f and cb == want_b, f"{name} step 0 launched "
@@ -3813,7 +4184,9 @@ WIRE_OP_SHAPES = {"mlp_ag": ("ag", 4096, 12288, 2304),
                   "attn_rs": ("rs", 4096, 2304, 2304),
                   "head_ag": ("ag", 4096, 122880, 2304),
                   "decode_ar": ("ar", 8, 2304, 6144)}
-WIRE_OP_ITERS = 3
+# CUDA-event calls a wired op (3 until the dp lane came: the script's time
+# budget)
+WIRE_OP_ITERS = 2
 # the wire sweep's timed calls a candidate (after one warm call): its 347
 # rows are a report, not a gate, and the script has a time limit
 WIRE_SWEEP_ITERS = 1
@@ -4161,8 +4534,8 @@ def phase_wire_lane(torch):
     step = {}
     for wire in (None, "int8"):
         p = dc.replace(tpar, wire_dtype=wire)
-        loss, can, cf, cb, host = tp_step0(torch, cfg8, p, tr.group, ranks,
-                                           batch)
+        loss, can, cf, cb, host = step0(torch, cfg8, p, tr.group, ranks,
+                                        [batch])
         add(cf)
         add(cb)
         step[wire] = (loss, can, host)
@@ -4335,15 +4708,18 @@ def phase_train_remat(torch):
 
 
 def phase_train_ckpt(torch):
-    """Checkpoints through ``runtime.trainer`` at tp=4 in flux: minicpm_2b
-    at full width cut to its first CKPT_LAYERS layers (bf16 weights, fp32
-    moments, batch 4 x 1024), 4 steps with a checkpoint every 2 into a
-    temporary directory (removed at the end).  A fresh ``Trainer``
+    """Checkpoints and elastic restart through ``runtime.trainer`` on a
+    dp=2 x tp=2 mesh in flux: minicpm_2b at full width cut to its first
+    CKPT_LAYERS layers (bf16 weights, fp32 ZeRO-1 moments, batch 4 x
+    1024), 4 steps with a checkpoint every 2 into a temporary directory
+    (removed at the end).  A fresh ``Trainer`` on the mesh that
+    ``elastic_remesh`` builds from 2 surviving ranks (dp=1 x tp=2)
     restores step 2 (weights and moments equal to the checkpoint's bit for
     bit, cut per rank and joined again) and runs steps 2-3, whose losses
     must lie within TRAIN_LOSS_RTOL of the uninterrupted run's; then a run
-    whose ``fault_hook`` raises once before step 3 recovers from the
-    step-2 checkpoint and finishes with one failure."""
+    at dp=2 x tp=2 whose ``fault_hook`` raises once before step 3 recovers
+    (a fresh mesh) from the step-2 checkpoint and finishes with one
+    failure."""
     import shutil
     import tempfile
 
@@ -4352,28 +4728,33 @@ def phase_train_ckpt(torch):
     from repro_torch.checkpoint.checkpointer import host_leaves
     from repro_torch.configs.base import (ParallelConfig, get_config,
                                           train_schedule)
+    from repro_torch.launch.mesh import elastic_remesh
     from repro_torch.runtime import trainer as T
 
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config("minicpm_2b"),
                               num_layers=CKPT_LAYERS)
-    par = ParallelConfig(tp=TP_LANE, fuse_w13=True, overlap_mode="flux")
+    tp, dp = DP_LANE
+    par = ParallelConfig(tp=tp, dp=dp, fuse_w13=True, overlap_mode="flux")
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        def trainer(sub):
+        def trainer(sub, mesh=None):
             tc = T.TrainConfig(total_steps=CKPT_STEPS, warmup_steps=0,
                                base_lr=3e-4,
                                schedule=train_schedule("minicpm_2b"),
                                checkpoint_dir=os.path.join(d, sub),
                                checkpoint_every=2, log_every=CKPT_STEPS)
-            tr = T.Trainer(cfg, par, tc, device="cuda", dtype=torch.bfloat16)
+            tr = T.Trainer(cfg, par if mesh is None else
+                           dataclasses.replace(par, dp=mesh.shape[0]), tc,
+                           device="cuda", dtype=torch.bfloat16, mesh=mesh)
             tr.data_cfg = dataclasses.replace(
                 tr.data_cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
             return tr
 
         res = {"phase": "train_ckpt", "arch": cfg.name,
                "layers": f"{CKPT_LAYERS} of 40 (cut in depth)",
-               "tp": TP_LANE, "mode": "flux", "steps": CKPT_STEPS,
+               "mesh": {"dp": dp, "tp": tp}, "mode": "flux",
+               "steps": CKPT_STEPS,
                "checkpoint_every": 2, "loss_rtol": TRAIN_LOSS_RTOL,
                "disk_free_gb": shutil.disk_usage(d).free / 1e9}
         # the uninterrupted run: checkpoints at steps 2 and 4
@@ -4393,9 +4774,12 @@ def phase_train_ckpt(torch):
         del params, opt, tra
         torch.cuda.empty_cache()
 
-        # a fresh trainer resumes at step 2
+        # two ranks survive: a fresh trainer on the (1, tp) mesh resumes at
+        # step 2
         shutil.rmtree(os.path.join(d, "a", "step_4"))
-        trb = trainer("a")
+        trb = trainer("a", elastic_remesh(tp, tp, "cuda"))
+        check(trb.group.shape == (1, tp), f"elastic mesh {trb.group.shape}")
+        res["elastic_mesh"] = {"dp": 1, "tp": tp}
         params, _ = trb.init_state()
         opt = trb.restore(params)
         check(trb.step == 2, f"restored step {trb.step}")
@@ -4415,6 +4799,7 @@ def phase_train_ckpt(torch):
               f"resumed losses {lb} vs {la[2:]}")
         res.update(losses=la, resumed_losses=lb, resumed_loss_rel=rel,
                    resumed_bit_equal=lb == la[2:])
+        trb.group.free_symmetric()
         del params, opt, trb
         torch.cuda.empty_cache()
 
@@ -4858,8 +5243,8 @@ def phase_paper_train(torch, arch, layers, steps):
     ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
     del full
     torch.cuda.empty_cache()
-    loss8, can8, c_fwd, c_bwd, host8 = tp_step0(torch, cfg, par8, group,
-                                                ranks, batch0)
+    loss8, can8, c_fwd, c_bwd, host8 = step0(torch, cfg, par8, group,
+                                             ranks, [batch0])
     want_f, want_b = plan_launches(plan_set_from_parallel(par8, "cuda"), cfg,
                                    tp, 1)
     check(c_fwd == want_f and c_bwd == want_b,
@@ -4875,9 +5260,9 @@ def phase_paper_train(torch, arch, layers, steps):
                    "launches_forward": c_fwd, "launches_backward": c_bwd,
                    "step0_host": host8}
     del can1
-    lx, canx, cf, cb, hx = tp_step0(
+    lx, canx, cf, cb, hx = step0(
         torch, cfg, dataclasses.replace(par8, overlap_mode="xla"), group,
-        ranks, batch0)
+        ranks, [batch0])
     check(cf["ag_gemm"] == cf["gemm_rs"] == cb["ag_gemm"] == cb["gemm_rs"]
           == 0, f"{arch} xla step launched the fused kernels: {cf} / {cb}")
     rl = abs(lx - loss8) / abs(loss8)
@@ -4912,7 +5297,7 @@ def phase_paper_train(torch, arch, layers, steps):
             "launches": counts,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "profiled_step": device_profile(
-                torch, lambda: tr8.run_step(ranks, opts, batch0),
+                torch, lambda: tr8.run_step(ranks, opts, [batch0]),
                 sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})}
         del opts
     res["phase_s"] = time.perf_counter() - t_phase
@@ -5021,6 +5406,9 @@ def main():
     tp1_tokens = timed("tp_server_lane", phase_tp_server_lane, torch)
     train_counts = timed("train_lane", phase_train_lane, torch)
     mla_train = timed("mla_train_lane", phase_mla_train_lane, torch)
+    # after the mla train lane, whose peak leaves the least room
+    dp_counts = timed("dp_lane", phase_dp_lane, torch,
+                      train_counts.pop("losses"))
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -5083,6 +5471,7 @@ def main():
              "heterogeneous_step": {
                  d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
                  for d in ("forward", "backward")}},
+         "dp_launches": {k: v["ag_gemm"] for k, v in dp_counts.items()},
          "paper_launches": paper_launches(paper, "ag_gemm"),
          "wire_launches": wire_counts["ag_gemm"],
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
@@ -5111,6 +5500,7 @@ def main():
              "heterogeneous_step": {
                  d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
                  for d in ("forward", "backward")}},
+         "dp_launches": {k: v["gemm_rs"] for k, v in dp_counts.items()},
          "paper_launches": paper_launches(paper, "gemm_rs"),
          "wire_launches": {"gemm_rs": wire_counts["gemm_rs"],
                            "reduce": wire_counts["gemm_rs_reduce"]},

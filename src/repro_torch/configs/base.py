@@ -87,8 +87,13 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
-    reads so far (tp>1 runs its ranks in a ``dist.RankGroup``; ep>1 and
-    dp>1 raise; ZeRO and pipelines come with their slices).  ``remat`` ("none" | "selective" | "full")
+    reads so far.  tp>1 runs its ranks in a ``dist.RankGroup``; dp>1 or
+    pods>1 runs the ``("pod", "data", "model")`` mesh of
+    ``launch.mesh.make_mesh`` (a ``dist.RankMesh``): ZeRO-1 moments over
+    "data" and, with ``grad_compress``, the int8 block-quantized grad
+    all-reduce over "pod".  ep>1 raises; ``zero3`` and ``ep_over_dp`` are
+    carried and raise in ``models.model.check_trainable``; pipelines come
+    with their slice.  ``remat`` ("none" | "selective" | "full")
     recomputes each pattern block's activations in the backward (both
     values checkpoint every block, as the reference's do).
     ``kernel_decode`` turns on the hand-written kernels
@@ -109,7 +114,11 @@ class ParallelConfig:
     budget that gates the tuner's wire sweep."""
     tp: int = 1
     dp: int = 1
+    pods: int = 1
     ep: int = 1
+    ep_over_dp: bool = False
+    zero3: bool = False
+    grad_compress: bool = False
     remat: str = "none"
     fuse_w13: bool = False
     kernel_decode: bool = False

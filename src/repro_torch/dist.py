@@ -27,11 +27,26 @@ What the ranks share:
 On CPU tensors the same group runs, with no streams or events.  All ranks
 sit on one device; placing rank i on card i is not written yet (ROADMAP
 queue 1 item 2).
+
+``RankMesh(shape, axes, device)`` is the port's counterpart of a
+multi-axis ``jax.sharding.Mesh`` (``launch.mesh.make_mesh``): one thread
+and one stream pair per rank, ranks numbered row-major over ``shape``.
+Each rank sees one sub-group per axis, the ranks that share every other
+coordinate: a ``RankGroup`` view (``mesh.group(axis)``) with its own
+barrier, slots, symmetric buffers and flag epochs over the mesh's threads
+and streams, so two TP groups of one mesh never share a flag array.
+Inside a mesh rank ``current_group()`` is the rank's "model" sub-group.
+One rank's failure aborts every sub-group's barrier.  ``RankGroup(n,
+device)`` is the one-axis case and runs its own ``spmd``; a view runs
+inside its mesh's.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import sys
 import threading
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -55,7 +70,8 @@ class RankGroupError(RuntimeError):
 
 
 def current_group() -> Optional["RankGroup"]:
-    """The group whose rank thread is running, or None outside ``spmd``."""
+    """The group whose rank thread is running (a mesh rank's "model"
+    sub-group), or None outside ``spmd``."""
     return getattr(_LOCAL, "group", None)
 
 
@@ -77,41 +93,28 @@ def clone(x):
     return x.clone()
 
 
-class RankGroup:
-    """n ranks on one device, one thread and (on CUDA) two streams each:
-    ``stream(r)`` runs the rank's work, ``comm_stream(r)`` its peer copies
-    (the AG-GEMM's pulls)."""
+class _Ranks:
+    """What runs ranks: ``spmd`` over ``n`` threads.  A subclass names the
+    thread's rank (``_enter`` / ``_leave``), the barriers a failure
+    aborts (``_groups``) and the streams (``_streams``)."""
 
-    def __init__(self, n: int, device=None,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
-        if n < 1:
-            raise ValueError(f"a rank group needs n >= 1 ranks, got {n}")
-        self.n = n
-        self.device = resolve_device(device)
-        self.timeout_s = timeout_s
-        self._barrier = threading.Barrier(n)
-        self._slots: List[List[Any]] = [[None] * n, [None] * n]
-        self._gen = [0] * n                 # per-rank exchange generation
-        self._where: List[str] = ["idle"] * n
-        self._lock = threading.Lock()
-        self._sym: Dict[Tuple, List[torch.Tensor]] = {}
-        self._epoch = [0] * n
-        self.cuda = self.device.type == "cuda"
-        if self.cuda:
-            self._streams = [torch.cuda.Stream(self.device) for _ in range(n)]
-            self._comm = [torch.cuda.Stream(self.device) for _ in range(n)]
+    n: int
+    device: torch.device
+    cuda: bool
+    timeout_s: float
 
-    # ---- running the ranks -----------------------------------------------
-    def stream(self, rank: int):
-        return self._streams[rank]
+    def _groups(self) -> List["RankGroup"]:
+        raise NotImplementedError
 
-    def comm_stream(self, rank: int):
-        return self._comm[rank]
+    def _enter(self, r: int) -> None:
+        raise NotImplementedError
 
-    def rank(self) -> int:
-        if current_group() is not self:
-            raise RankGroupError("this thread is not a rank of this group")
-        return _LOCAL.rank
+    def _done(self, r: int) -> None:
+        raise NotImplementedError
+
+    def _leave(self) -> None:
+        _LOCAL.group = None
+        _LOCAL.mesh = None
 
     def spmd(self, fn: Callable, per_rank_args: Sequence[Sequence[Any]]
              ) -> List[Any]:
@@ -120,11 +123,11 @@ class RankGroup:
         first waits for the caller's stream, and the caller's stream waits
         for every rank's at the end.  The first failing rank's exception is
         raised (a rank that failed first outranks ranks whose barrier it
-        broke)."""
+        broke); a failure aborts every barrier of the ranks."""
         if len(per_rank_args) != self.n:
             raise ValueError(f"spmd: {len(per_rank_args)} argument sets for "
                              f"{self.n} ranks")
-        if current_group() is not None:
+        if current_group() is not None or getattr(_LOCAL, "mesh", None):
             raise RankGroupError("spmd cannot nest inside a rank")
         results: List[Any] = [None] * self.n
         errors: List[Optional[BaseException]] = [None] * self.n
@@ -133,8 +136,12 @@ class RankGroup:
             start = torch.cuda.current_stream(self.device).record_event()
             done = [None] * self.n
 
+        def abort():
+            for g in self._groups():
+                g._barrier.abort()
+
         def body(r: int):
-            _LOCAL.group, _LOCAL.rank = self, r
+            self._enter(r)
             try:
                 if self.cuda:
                     torch.cuda.set_device(self.device)
@@ -147,10 +154,10 @@ class RankGroup:
                     results[r] = fn(*per_rank_args[r])
             except BaseException as e:      # re-raised by the caller below
                 errors[r] = e
-                self._barrier.abort()
+                abort()
             finally:
-                self._where[r] = "done"
-                _LOCAL.group = None
+                self._done(r)
+                self._leave()
 
         threads = [threading.Thread(target=body, args=(r,), daemon=True,
                                     name=f"rank{r}") for r in range(self.n)]
@@ -165,13 +172,18 @@ class RankGroup:
             sys.setswitchinterval(switch)
         alive = [r for r, t in enumerate(threads) if t.is_alive()]
         if alive:
-            self._barrier.abort()
+            abort()
             raise RankGroupError(f"ranks {alive} still running after "
                                  f"{self.timeout_s * 4} s")
+        for g in self._groups():
+            # the last exchanges' slots would keep what they carried (a
+            # step's grads) alive until the next run
+            g._slots = [[None] * g.n, [None] * g.n]
         failed = [r for r in range(self.n) if errors[r] is not None]
         if failed:
-            self._barrier.reset()
-            self._gen = [0] * self.n
+            for g in self._groups():
+                g._barrier.reset()
+                g._gen = [0] * g.n
             first = next((r for r in failed
                           if not isinstance(errors[r], _BrokenBarrier)),
                          failed[0])
@@ -184,6 +196,99 @@ class RankGroup:
             _walk_tensors(results, lambda t: t.record_stream(caller)
                           if t.is_cuda else None)
         return results
+
+
+class RankGroup(_Ranks):
+    """n ranks on one device, one thread and (on CUDA) two streams each:
+    ``stream(r)`` runs the rank's work, ``comm_stream(r)`` its peer copies
+    (the AG-GEMM's pulls).  ``share`` is the number of ranks that run on
+    the card at once (n; a mesh sub-group's is the mesh's size): the fused
+    kernels size their persistent grids by it."""
+
+    def __init__(self, n: int, device=None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
+        if n < 1:
+            raise ValueError(f"a rank group needs n >= 1 ranks, got {n}")
+        self._setup(n, resolve_device(device), timeout_s)
+        self._mesh = None
+        self.share = n
+        if self.cuda:
+            self._streams = [torch.cuda.Stream(self.device) for _ in range(n)]
+            self._comm = [torch.cuda.Stream(self.device) for _ in range(n)]
+
+    def _setup(self, n: int, device: torch.device, timeout_s: float) -> None:
+        self.n = n
+        self.device = device
+        self.timeout_s = timeout_s
+        self._barrier = threading.Barrier(n)
+        self._slots: List[List[Any]] = [[None] * n, [None] * n]
+        self._gen = [0] * n                 # per-rank exchange generation
+        self._where: List[str] = ["idle"] * n
+        self._lock = threading.Lock()
+        self._sym: Dict[Tuple, List[torch.Tensor]] = {}
+        self._epoch = [0] * n
+        self.cuda = self.device.type == "cuda"
+
+    @classmethod
+    def _view(cls, mesh: "RankMesh", members: Sequence[int]) -> "RankGroup":
+        """The sub-group of ``mesh`` over its ranks ``members`` (in this
+        group's rank order): its own barrier, slots, buffers and epochs,
+        the mesh's threads and streams."""
+        g = cls.__new__(cls)
+        g._setup(len(members), mesh.device, mesh.timeout_s)
+        # weak: the mesh holds its views, and a cycle would keep a dropped
+        # mesh's symmetric buffers until the cyclic collector ran
+        g._mesh = weakref.ref(mesh)
+        g.share = mesh.size
+        g._index = {m: i for i, m in enumerate(members)}
+        if g.cuda:
+            g._streams = [mesh._streams[m] for m in members]
+            g._comm = [mesh._comm[m] for m in members]
+        return g
+
+    @property
+    def mesh(self) -> Optional["RankMesh"]:
+        """The mesh of a sub-group (None for a group of its own)."""
+        return None if self._mesh is None else self._mesh()
+
+    # ---- running the ranks -----------------------------------------------
+    def _groups(self) -> List["RankGroup"]:
+        return [self]
+
+    def _enter(self, r: int) -> None:
+        _LOCAL.group, _LOCAL.rank = self, r
+
+    def _done(self, r: int) -> None:
+        self._where[r] = "done"
+
+    def stream(self, rank: int):
+        return self._streams[rank]
+
+    def comm_stream(self, rank: int):
+        return self._comm[rank]
+
+    def rank(self) -> int:
+        """This thread's rank in the group (a mesh sub-group answers from
+        the thread's mesh coordinates)."""
+        if self.mesh is None:
+            if current_group() is not self:
+                raise RankGroupError("this thread is not a rank of this "
+                                     "group")
+            return _LOCAL.rank
+        if getattr(_LOCAL, "mesh", None) is self.mesh:
+            r = self._index.get(_LOCAL.mesh_rank)
+            if r is not None:
+                return r
+        raise RankGroupError("this thread is not a rank of this group")
+
+    def spmd(self, fn: Callable, per_rank_args: Sequence[Sequence[Any]]
+             ) -> List[Any]:
+        if self.mesh is not None:
+            raise RankGroupError("a mesh sub-group runs inside its mesh's "
+                                 "spmd")
+        return super().spmd(fn, per_rank_args)
+
+    spmd.__doc__ = _Ranks.spmd.__doc__
 
     # ---- synchronisation --------------------------------------------------
     def barrier(self, what: str) -> None:
@@ -295,3 +400,97 @@ class RankGroup:
 
 class _BrokenBarrier(RankGroupError):
     """A barrier that timed out or that another rank's failure aborted."""
+
+
+class RankMesh(_Ranks):
+    """``shape`` ranks over named ``axes`` on one device, numbered
+    row-major (the last axis fastest), one thread and (on CUDA) two
+    streams each (module docstring).  ``group(axis)`` is the calling
+    rank's sub-group along ``axis``; ``coord(axis)`` its coordinate."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device=None, timeout_s: float = DEFAULT_TIMEOUT_S):
+        self.shape = tuple(int(s) for s in shape)
+        self.axes = tuple(axes)
+        if len(self.shape) != len(self.axes) or len(set(self.axes)) != len(
+                self.axes) or min(self.shape, default=0) < 1:
+            raise ValueError(f"a mesh needs one size >= 1 for each of its "
+                             f"distinct axes: {self.shape} {self.axes}")
+        self.size = self.n = math.prod(self.shape)
+        self.device = resolve_device(device)
+        self.cuda = self.device.type == "cuda"
+        self._timeout_s = timeout_s
+        if self.cuda:
+            self._streams = [torch.cuda.Stream(self.device)
+                             for _ in range(self.size)]
+            self._comm = [torch.cuda.Stream(self.device)
+                          for _ in range(self.size)]
+        self._coords = list(itertools.product(*(range(s)
+                                                for s in self.shape)))
+        self._rank_of = {c: r for r, c in enumerate(self._coords)}
+        self._sub: Dict[Tuple[str, int], RankGroup] = {}
+        self._views: List[RankGroup] = []
+        for a, axis in enumerate(self.axes):
+            for r, c in enumerate(self._coords):
+                if (axis, r) in self._sub:
+                    continue
+                members = [self._rank_of[c[:a] + (i,) + c[a + 1:]]
+                           for i in range(self.shape[a])]
+                view = RankGroup._view(self, members)
+                self._views.append(view)
+                for m in members:
+                    self._sub[(axis, m)] = view
+
+    @property
+    def timeout_s(self) -> float:
+        return self._timeout_s
+
+    @timeout_s.setter
+    def timeout_s(self, value: float) -> None:
+        """Every sub-group's barriers take the new bound."""
+        self._timeout_s = value
+        for g in self._views:
+            g.timeout_s = value
+
+    # ---- coordinates and sub-groups ---------------------------------------
+    def rank(self) -> int:
+        """The calling thread's mesh rank."""
+        if getattr(_LOCAL, "mesh", None) is not self:
+            raise RankGroupError("this thread is not a rank of this mesh")
+        return _LOCAL.mesh_rank
+
+    def coords(self, rank: Optional[int] = None) -> Tuple[int, ...]:
+        """A rank's coordinates (default: the calling rank's)."""
+        return self._coords[self.rank() if rank is None else rank]
+
+    def coord(self, axis: str, rank: Optional[int] = None) -> int:
+        return self.coords(rank)[self.axes.index(axis)]
+
+    def group(self, axis: str, rank: Optional[int] = None) -> RankGroup:
+        """A rank's sub-group along ``axis`` (default: the calling
+        rank's)."""
+        if axis not in self.axes:
+            raise ValueError(f"no axis {axis!r} in the mesh's {self.axes}")
+        return self._sub[(axis, self.rank() if rank is None else rank)]
+
+    # ---- running the ranks -----------------------------------------------
+    def _groups(self) -> List[RankGroup]:
+        return self._views
+
+    def _done(self, r: int) -> None:
+        for axis in self.axes:
+            view = self._sub[(axis, r)]
+            view._where[view._index[r]] = "done"
+
+    def _enter(self, r: int) -> None:
+        _LOCAL.mesh, _LOCAL.mesh_rank = self, r
+        model = (self._sub[("model", r)] if "model" in self.axes else None)
+        _LOCAL.group = model
+        _LOCAL.rank = None if model is None else model._index[r]
+
+    def free_symmetric(self) -> None:
+        """Drop every sub-group's cached buffers (between ``spmd`` runs
+        only)."""
+        for g in self._views:
+            g.free_symmetric()
+

@@ -103,8 +103,10 @@ def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
     accumulation.  Called by every rank of ``group`` inside ``spmd``, all
     with shards of one shape.  ``reverse`` flips the ring order of the
     pulls and of the kernel's walk (not the result); ``tile`` picks the
-    bf16 output tile.  The group's n ranks share one card, so each launch
-    holds at most 1/n of its block slots (``csrc/ag_gemm.cu``)."""
+    bf16 output tile.  Every rank on the card runs at once (the group's n,
+    or a mesh's size when the group is one of its sub-groups:
+    ``group.share``), so each launch holds at most 1/share of its block
+    slots (``csrc/ag_gemm.cu``)."""
     out_dtype = out_dtype or a_shard.dtype
     check_operands("ag_gemm", a_shard, b_local, bias, activation, out_dtype)
     on_cpu = all(t is None or t.device.type == "cpu"
@@ -160,7 +162,7 @@ def ag_gemm(a_shard: torch.Tensor, b_local: torch.Tensor, *, group,
         b_local.data_ptr(), None if bias_f is None else bias_f.data_ptr(),
         out.data_ptr(), m_sh, n_loc, k, n, me, int(reverse), epoch,
         ACT_CODES[activation], DTYPE_CODES[a_shard.dtype],
-        DTYPE_CODES[out_dtype], *targs, group.n, stream.cuda_stream)
+        DTYPE_CODES[out_dtype], *targs, group.share, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"ag_gemm kernel launch failed: CUDA error {err}")
     build.count_launch(ag_gemm)

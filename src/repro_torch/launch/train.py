@@ -13,10 +13,18 @@
       --smoke --steps 3 --tp 4 --wire-dtype int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v3_671b \
       --smoke --steps 3 --tp 4 --mode flux --device cpu   # MLA, MoE, MTP
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+      --smoke --steps 3 --dp 2 --tp 2 --device cpu        # ZeRO-1 over dp
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+      --smoke --steps 3 --pods 2 --tp 2 --grad-compress --device cpu
 
 Runs on the CUDA card by default (bf16 weights); ``--device cpu`` runs the
 plain PyTorch path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the
-ranks are the threads of one ``dist.RankGroup`` on the one device.  The
+ranks are the threads of one ``dist.RankGroup`` on the one device; at
+``--dp`` or ``--pods`` > 1 the threads of the ``(pods, dp, tp)`` mesh
+(``launch.mesh.make_mesh``): ZeRO-1 moments over the data ranks, the
+batch split over pods · dp shards, and ``--grad-compress`` quantizes the
+pod all-reduce of the grads to int8 blocks.  The
 schedule is per arch, as in the reference (``configs.base.train_schedule``:
 ``wsd`` for minicpm).  ``--scatter-axis`` picks the residual layout
 (``auto`` is ``seq``); ``--ckpt-dir`` checkpoints there (every 50 steps,
@@ -27,7 +35,8 @@ profile (``tuning.cache``; ignored when stale for this tp and device) and
 cover.  ``--autotune`` at ``--tp`` > 1 first tunes every seam on a
 ``RankGroup`` of the run's tp on its device (a measured sweep on the
 card, the ``core.ect`` roofline for an H100 on the CPU) at the run's
-``--batch`` x ``--seq`` tokens, writes the profile (``--plan-profile``,
+tokens per data replica (``--batch`` x ``--seq`` / ``--dp``, as the
+reference's), writes the profile (``--plan-profile``,
 default ``experiments/plans_torch/<arch>_tp<tp>.json``) and trains from
 it.  ``--wire-dtype`` quantizes the TP seams' forward wire (int8,
 fp8_e4m3 or int4; the backward stays fp; flux seams keep the fp wire).
@@ -35,8 +44,11 @@ With ``--autotune`` a pinned ``--wire-dtype`` sweeps the fp wire and
 that one, ``--max-logit-rmse`` alone sweeps every wire
 (``WIRE_DTYPE_SWEEP``), the quantized rows gated by ``--max-logit-rmse``
 when given, and neither flag keeps the sweep to the fp wire.  The
-reference's flags for what the port does not carry are accepted and
-raise when set, each naming its ROADMAP item.
+reference's flags for what the port does not carry (``--ep``,
+``--zero3``) are accepted and raise when set, each naming its ROADMAP
+item; so does ``--dp`` > 1 on an MoE config of more than 16 experts,
+where the reference shards the experts over (data, model)
+(``ep_over_dp``).
 """
 from __future__ import annotations
 
@@ -56,14 +68,12 @@ from repro_torch.runtime import trainer as T
 
 # flag -> (is it set?, what it needs)
 NOT_PORTED = {
-    "dp": (lambda v: v != 1, "data parallelism (ROADMAP queue 1 item 10)"),
-    "pods": (lambda v: v != 1, "pods (ROADMAP queue 1 item 10)"),
     "ep": (lambda v: v > 1, "a dedicated expert-parallel axis (ROADMAP "
                             "queue 1 item 10)"),
     "zero3": (bool, "ZeRO-3 (ROADMAP queue 1 item 10)"),
-    "grad_compress": (bool,
-                      "gradient compression (ROADMAP queue 1 item 10)"),
 }
+# the reference shards the experts over (data, model) above this count
+EP_OVER_DP_EXPERTS = 16
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -97,12 +107,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "profile (measured on the card, the roofline on "
                          "the CPU); needs --tp > 1")
     add_wire_args(ap)
-    # the reference's flags the port does not carry (raise when set)
-    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks a pod (ZeRO-1 moments)")
     ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8 block-quantized pod all-reduce of the grads")
+    # the reference's flags the port does not carry (raise when set)
     ap.add_argument("--ep", type=int, default=0)
     ap.add_argument("--zero3", action="store_true")
-    ap.add_argument("--grad-compress", action="store_true")
     args = ap.parse_args(argv)
     for flag, (is_set, what) in NOT_PORTED.items():
         if is_set(getattr(args, flag)):
@@ -168,18 +180,34 @@ def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
     return dataclasses.replace(par, plan_profile=path)
 
 
+def parallel_config(args: argparse.Namespace, cfg) -> ParallelConfig:
+    """The run's ``ParallelConfig``; raises, naming ROADMAP item 10, where
+    the reference would shard the experts over (data, model): an MoE
+    config of more than 16 experts at dp > 1."""
+    if (args.dp > 1 and cfg.moe is not None
+            and cfg.moe.num_experts > EP_OVER_DP_EXPERTS):
+        raise NotImplementedError(
+            f"--dp {args.dp} with {cfg.moe.num_experts} experts: the "
+            f"reference shards experts over (data, model) above "
+            f"{EP_OVER_DP_EXPERTS} (ep_over_dp), which is not ported "
+            f"(ROADMAP queue 1 item 10)")
+    return ParallelConfig(tp=args.tp, dp=args.dp, pods=args.pods,
+                          grad_compress=args.grad_compress,
+                          overlap_mode=args.mode, fuse_w13=True,
+                          scatter_axis=args.scatter_axis,
+                          comm_chunks=args.comm_chunks,
+                          plan_profile=args.plan_profile,
+                          wire_dtype=args.wire_dtype,
+                          max_logit_rmse=args.max_logit_rmse)
+
+
 def main(argv: Optional[List[str]] = None) -> Tuple[T.Trainer, List[dict]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    par = ParallelConfig(tp=args.tp, overlap_mode=args.mode, fuse_w13=True,
-                         scatter_axis=args.scatter_axis,
-                         comm_chunks=args.comm_chunks,
-                         plan_profile=args.plan_profile,
-                         wire_dtype=args.wire_dtype,
-                         max_logit_rmse=args.max_logit_rmse)
+    par = parallel_config(args, cfg)
     if args.autotune:
-        par = autotune(args, cfg, par, args.batch * args.seq)
+        par = autotune(args, cfg, par, args.batch * args.seq // args.dp)
     schedule = args.schedule or train_schedule(args.arch)
     tc = T.TrainConfig(total_steps=args.steps,
                        warmup_steps=args.steps // 10, base_lr=args.lr,
@@ -193,7 +221,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[T.Trainer, List[dict]]:
     if hist:
         print(f"final loss: {hist[-1]['loss']:.4f} "
               f"(start {hist[0]['loss']:.4f}); {len(hist)} steps at tp="
-              f"{args.tp} ({args.mode}, {args.scatter_axis})")
+              f"{args.tp} ({args.mode}, {args.scatter_axis}), dp="
+              f"{args.dp}, pods={args.pods}")
     else:
         print(f"nothing to run: the checkpoint is at step {tr.step}")
     print(f"straggler events {tr.straggler_events}; failures "

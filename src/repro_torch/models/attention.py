@@ -307,8 +307,8 @@ def _mla_latents(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
     this rank's rows) at positions pos [B, L]: (q_lat [B, L, Rq], kv_lat
     [B, L, R], k_rope [B, L, Dr] rotated).  The normed input (read by both
     down-projections) and the kv projection (the latent's and the rope
-    key's) are cut on the seam tape at tp>1 (``overlap.cut`` over
-    ``axis``): each feeds two seams."""
+    key's) are cut on the seam tape (``overlap.cut`` over ``axis``, the
+    context's ``tape_axis``): each feeds two seams."""
     m = cfg.mla
     h = overlap.cut(layers.rms_norm(x, p["norm"], cfg.norm_eps), axis)
     q_lat = layers.rms_norm(torch.matmul(h, p["w_dq"]), p["q_norm"],
@@ -337,7 +337,8 @@ def mla_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
     pos_loc = layers.seq_positions(b, s_loc, x.device, ctx=ctx)
-    q_lat, kv_lat, k_rope_loc = _mla_latents(p, x, pos_loc, cfg, ctx.axis)
+    q_lat, kv_lat, k_rope_loc = _mla_latents(p, x, pos_loc, cfg,
+                                               ctx.tape_axis)
     # head up-projections: the AllGather-GEMM seams (distinct input latents,
     # so no gather sharing between them)
     ag_op = ctx.op("attn_ag")

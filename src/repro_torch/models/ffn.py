@@ -31,8 +31,10 @@ whose experts lost them, for the lanes that must show none: zero it with
 block's recompute (``overlap.remat``) counts nothing again.
 
 Under grad at tp>1 every seam of ``moe_train`` records on the rank's
-``SeamTape``: the aux loss's psum (its transpose is the psum of the
-cotangent), the ``moe_a2a`` exchange (its backward, ``overlap._A2ASeam``)
+``SeamTape``: the aux loss's psums over the TP group and, at dp>1, over
+the pod and data groups (each one's transpose is the psum of the
+cotangent; at tp=1 and dp>1 these are the only seams, and the tape cuts
+over the data group, ``TPContext.tape_axis``), the ``moe_a2a`` exchange (its backward, ``overlap._A2ASeam``)
 or the local experts' psum, and the shared expert's ``mlp_ag`` /
 ``mlp_rs``.  The normed tokens and the router's probabilities each feed
 two of them, so both are cut on the tape (``overlap.cut``), as the model
@@ -40,6 +42,7 @@ cuts its residual stream.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -153,6 +156,7 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, tp: int,
 # the drops of the assignments to its own experts, so the ranks' totals
 # add up to the layer's.
 dropped: Dict[int, torch.Tensor] = {}
+_DROPPED_LOCK = threading.Lock()
 
 
 def drop_totals(n_ranks: int = 1) -> List[int]:
@@ -168,8 +172,9 @@ def _capacity(tokens: int, mc: MoEConfig) -> int:
 
 def _route(p, ht: torch.Tensor, mc: MoEConfig, axis=None):
     """fp32 router: (probs [t, E], gate [t, k] renormalised, eidx [t, k]).
-    Under a seam tape at tp>1 ``probs`` is cut (``overlap.cut`` over
-    ``axis``): it feeds the aux loss's psum and the gates."""
+    Under a seam tape ``probs`` is cut (``overlap.cut`` over ``axis``, the
+    context's ``tape_axis``): it feeds the aux loss's psum and the
+    gates."""
     probs = overlap.cut(torch.softmax(
         torch.matmul(ht.float(), p["router"].float()), dim=-1), axis)
     gate, eidx = torch.topk(probs, mc.top_k, dim=-1)
@@ -196,7 +201,8 @@ def _count_drops(ctx: TPContext, keep: torch.Tensor,
         return
     lost = ~keep if counted is None else counted.bool() & ~keep
     r = ctx.tp_index()
-    dropped[r] = dropped.get(r, 0) + lost.sum()
+    with _DROPPED_LOCK:         # data replicas add to the same TP rank
+        dropped[r] = dropped.get(r, 0) + lost.sum()
 
 
 def _dispatch(ht: torch.Tensor, flat_e, slot, keep, e: int, cap: int,
@@ -274,21 +280,23 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     # the normed tokens feed the router and the dispatch (or the local
     # experts): cut on the seam tape at tp>1, as the router's probs are
     ht = overlap.cut(layers.rms_norm(x, p["norm"], eps).reshape(t, dm),
-                     ctx.axis)
-    probs, gate, eidx = _route(p, ht, mc, ctx.axis)
+                     ctx.tape_axis)
+    probs, gate, eidx = _route(p, ht, mc, ctx.tape_axis)
 
     valid_t = None
     if lengths is not None:
         valid_t = (layers.seq_positions(b, s_loc, x.device, ctx=ctx)
                    < lengths.to(x.device)[:, None]).reshape(t)
     # Switch-style load-balance loss over the valid tokens of every rank
-    # (me, ce and the count summed over the group, in one exchange)
+    # (me, ce and the count summed over the TP group, then over the pod
+    # and data groups, as the reference's psums: one exchange a group)
     vmask = (torch.ones(t, device=x.device) if valid_t is None
              else valid_t.float())
     sums = torch.cat([(probs * vmask[:, None]).sum(0),
                       (F.one_hot(eidx[:, 0], e).float()
                        * vmask[:, None]).sum(0), vmask.sum()[None]])
-    sums = overlap.psum(sums, ctx.axis)
+    for axis in (ctx.axis, *ctx.dp_groups):
+        sums = overlap.psum(sums, axis)
     me, ce = sums[:e], sums[e:2 * e]
     cnt = torch.clamp(sums[-1], min=1.0)
     aux = e * torch.sum((me / cnt) * (ce / cnt))

@@ -45,6 +45,9 @@ from repro_torch.parallel.sharding import (EP_NOT_PORTED, TPContext,
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
 REMAT_MODES = ("none", "selective", "full")
+ZERO3_NOT_PORTED = ("ZeRO-3 (the per-layer weight gather over the data "
+                    "axis, recorded on the SeamTape in the backward) is not "
+                    "ported: moments are ZeRO-1 (ROADMAP queue 1 item 10)")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
 
@@ -349,9 +352,12 @@ def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
     """Raise unless the model trains in the port: ported layer kinds
-    (``check_ported``), ep=1, a ``remat`` of ``REMAT_MODES``."""
-    if par.ep != 1:
+    (``check_ported``), ep=1 without ``ep_over_dp``, no ``zero3``, a
+    ``remat`` of ``REMAT_MODES``."""
+    if par.ep != 1 or par.ep_over_dp:
         raise NotImplementedError(EP_NOT_PORTED)
+    if par.zero3:
+        raise NotImplementedError(ZERO3_NOT_PORTED)
     check_ported(cfg)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
@@ -367,9 +373,9 @@ def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     (x, the layer's aux loss: the MoE's, else 0)."""
     mixer_kind, ffn_kind = kinds
     mixer = attention.mla_train if mixer_kind == MLA else attention.gqa_train
-    x = overlap.cut(x, ctx.axis)
+    x = overlap.cut(x, ctx.tape_axis)
     x = x + mixer(blk.mixer, x, ctx, cfg)
-    x = overlap.cut(x, ctx.axis)
+    x = overlap.cut(x, ctx.tape_axis)
     if ffn_kind == MOE_FFN:
         y, aux = ffn.moe_train(blk.ffn, x, ctx, cfg, cfg.norm_eps)
     else:
@@ -399,7 +405,7 @@ def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
         else:
             x, aux = overlap.remat(
                 lambda v, b=blk, c=lctx, k=kinds: _block(b, v, c, cfg, k),
-                x, ctx.axis, list(blk.parameters()))
+                x, ctx.tape_axis, list(blk.parameters()))
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -436,7 +442,7 @@ def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
     mtp = cfg.mtp_depth and params.mtp is not None
     if mtp:
         # the final hidden state feeds both heads
-        h = overlap.cut(h, ctx.axis)
+        h = overlap.cut(h, ctx.tape_axis)
     logits = layers.lm_head_logits(h, params.embed, ctx)      # [B, S, V/TP]
     labels = batch["labels"]
     loss = _masked_mean(layers.vocab_parallel_xent(
@@ -537,6 +543,25 @@ def named_leaves(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
             out.update(_flat_names(layer[part], f"layers.{i}.{part}."))
     if "mtp" in tree:
         out.update(_flat_names(tree["mtp"], "mtp."))
+    return out
+
+
+def stacked_leaves(cfg: ModelConfig, named) -> Dict[str, Tuple[str, int,
+                                                               int]]:
+    """For each leaf (of ``named``'s keys, as ``named_parameters()``) of a
+    repeated-pattern layer: (the key of the reference's stacked leaf it is
+    a layer of, "periods.<position>.<mixer|ffn>.<name>", its repetition,
+    the repetitions): the reference splits those leaves over its data
+    ranks along the stacked dim (``optim.adamw.zero1_plan``)."""
+    lead, period, reps = (cfg.leading_dense_layers, len(cfg.pattern),
+                          n_periods(cfg))
+    out = {}
+    for key in named:
+        parts = key.split(".")
+        if parts[0] != "layers" or int(parts[1]) < lead:
+            continue
+        rep, pos = divmod(int(parts[1]) - lead, period)
+        out[key] = (".".join(["periods", str(pos), *parts[2:]]), rep, reps)
     return out
 
 

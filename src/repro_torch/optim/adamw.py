@@ -1,39 +1,60 @@
-"""AdamW (port of ``repro.optim.adamw``) at dp=1.
+"""AdamW with ZeRO-1 moments and the hierarchical, optionally int8
+compressed, grad sync (port of ``repro.optim.adamw``).
 
-Runs as one rank of the TP group (inside ``group.spmd`` at tp>1) on that
-rank's leaves, keyed by name (``Model.named_parameters()``):
+Runs as one rank (inside ``spmd`` at tp>1 or dp>1) on that rank's leaves,
+keyed by name (``Model.named_parameters()``).  ``group`` is the rank's TP
+group, ``data`` and ``pod`` its data-parallel sub-groups of the mesh
+(``dist.RankMesh``; None or a group of one rank when there is no such
+axis).  Every leaf is replicated over data and pod (no ZeRO-3, no
+experts over data), so the reference's "rep" branch is the only one.
 
-  phase 1 — the gradients arrive complete: the trainer has psum'd the
-    model-replicated leaves' grads over the TP ranks.  There is no data
-    axis, so no reduce-scatter and no pod all-reduce.
-  phase 2 — global grad-norm clip: each leaf's squared sum, weighted by
-    1/tp for a model-replicated leaf (every rank holds the same grad), is
-    summed over the rank group, so every element counts once (a rank's
-    routed experts, like every tp-split leaf, count on their rank).
-  phase 3 — AdamW in fp32 (moments in ``moment_dtype``), the new values
-    cast back to the parameter's and the moments' dtypes and written in
-    place (the reference donates the buffers): the step never holds two
-    copies of the moments, and a leaf is updated ``UPDATE_CHUNK``
-    elements at a time, so that its fp32 temporaries stay small when
-    every rank of the group updates at once on one card.
+How the data ranks split a leaf is the reference's, on its layout
+(``zero1_plan``): the reference stacks a repeated-pattern layer's leaves
+``[reps, ...]`` and tests that stacked dim, so when dp divides the
+repetitions a data rank owns whole layers of each pattern position
+(``Zero1Leaf.owner``); any other leaf (the embedding, the leading
+layers, the MTP head) is split along its own dim 0 when dp divides it
+(``rows``); the rest stay whole.  Following the reference's layout, and
+not only its values, keeps the int8 pod codec's 256-element blocks (the
+flattened local piece of each reference leaf) the reference's, so the
+compressed sync gives its values too.
 
-Not ported (ROADMAP queue 1 item 10): the ZeRO-1 reduce-scatter over a
-data axis (dp>1), the pod all-reduce and its int8 compression.  A dp>1
-config raises in ``sharding.make_ctx``, and the training CLI refuses
-``--dp``, ``--pods`` and ``--grad-compress``.
+  phase 1 — grad sync, in fp32: the trainer has psum'd the
+    model-replicated leaves' grads over the TP ranks.  An owned piece
+    (a row shard, or a whole layer on its owner) is reduce-scattered over
+    data and divided by dp; a whole leaf takes the pmean over data.  Then
+    the pod all-reduce (``pod_allreduce``) of each reference leaf's
+    piece: a pmean, or with ``grad_compress`` every pod's int8
+    block-quantized piece gathered and the dequantized sum divided by the
+    pod count.  One exchange a phase carries every leaf.
+  phase 2 — global grad-norm clip: each piece's squared sum, weighted by
+    1/dp for a leaf held whole on every data rank and by 1/tp for a
+    model-replicated leaf, is summed over the TP group, then over data
+    (never pod: the grads are pod-identical after the sync), so every
+    element counts once.
+  phase 3 — AdamW in fp32 on the owned pieces (moments in
+    ``moment_dtype``, only for those pieces; the new values cast back to
+    the parameter's and the moments' dtypes and written in place: the
+    step never holds two copies of the moments), a leaf ``UPDATE_CHUNK``
+    elements at a time so that its fp32 temporaries stay small when every
+    rank updates at once on one card; then the owned pieces are
+    all-gathered over data into every rank's copy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import overlap
 
 
 # elements of a leaf updated at once (a few fp32 temporaries of 256 MB)
 UPDATE_CHUNK = 1 << 26
+# the int8 pod wire's block (the reference's ``_quantize_int8``)
+QUANT_BLOCK = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,33 +68,213 @@ class AdamWConfig:
     moment_dtype: str = "float32"
 
 
+def _size(group) -> int:
+    return 1 if group is None else group.n
+
+
+def _sharddable(p: torch.Tensor, n: int) -> bool:
+    return p.dim() >= 1 and _sharddable_n(p.shape[0], n)
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1Leaf:
+    """How the data ranks split one leaf (``zero1_plan``): ``rows`` — each
+    owns its dim-0 shard; ``owner`` — that data rank owns the whole leaf
+    (a layer of the reference's stacked leaf); neither — every data rank
+    holds it whole.  ``stack``: the reference leaf whose local piece the
+    int8 pod codec quantizes in one piece (the leaf's own name when it is
+    not stacked)."""
+    stack: str
+    rows: bool = False
+    owner: Optional[int] = None
+
+    def holds(self, data_rank: int) -> bool:
+        """Does this data rank update (and keep moments of) the leaf?"""
+        return self.owner is None or self.owner == data_rank
+
+
+def zero1_plan(params: Dict[str, torch.Tensor], dp: int,
+               stacked: Dict[str, Tuple[str, int, int]]
+               ) -> Dict[str, Zero1Leaf]:
+    """Each leaf's split over ``dp`` data ranks, the reference's
+    ``opt_state_specs`` on its layout: a leaf of ``stacked`` (name ->
+    (stacked key, repetition, repetitions); ``models.model.
+    stacked_leaves``) is owned by data rank ``rep // (reps / dp)`` when dp
+    divides the repetitions, else held whole; any other leaf is split
+    along its dim 0 when dp divides it."""
+    plan = {}
+    for n, p in params.items():
+        if n in stacked:
+            key, rep, reps = stacked[n]
+            owner = (rep // (reps // dp) if dp > 1 and _sharddable_n(reps, dp)
+                     else None)
+            plan[n] = Zero1Leaf(stack=key, owner=owner)
+        else:
+            plan[n] = Zero1Leaf(stack=n, rows=dp > 1 and _sharddable(p, dp))
+    return plan
+
+
+def _sharddable_n(dim0: int, n: int) -> bool:
+    return dim0 % n == 0 and dim0 >= n
+
+
+def _dp_shard(x: torch.Tensor, group) -> torch.Tensor:
+    """This data rank's dim-0 shard of ``x`` (a view), or ``x`` when it is
+    not sharddable over the group."""
+    n = _size(group)
+    if n == 1 or not _sharddable(x, n):
+        return x
+    sh = x.shape[0] // n
+    r = group.rank()
+    return x[r * sh:(r + 1) * sh]
+
+
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` by a device tensor: CUDA divides by a host scalar as a
+    multiply by its reciprocal, which rounds differently from the CPU's
+    (and XLA's) divide."""
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# int8 block-quantized pod all-reduce (ZeRO++ analogue)
+# ---------------------------------------------------------------------------
+def _quantize_int8(x: torch.Tensor, block: int = QUANT_BLOCK
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q [blocks, block] int8, scale [blocks, 1] fp32): per-block
+    ``absmax / 127 + 1e-12``, values rounded half to even and clipped to
+    ±127, the flat leaf zero-padded to whole blocks (the reference's
+    arithmetic in its order)."""
+    flat = x.reshape(-1)
+    blocks = F.pad(flat, (0, (-flat.numel()) % block)).view(-1, block)
+    amax = torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def pod_allreduce(grads: Dict[str, torch.Tensor], pod, compress: bool = False,
+                  stacks: Optional[Dict[str, str]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The pmean over the pods of each reference leaf's local piece (the
+    leaves of one ``stacks`` key joined flat, in order; a leaf alone
+    without one), summed in pod order, every piece in one exchange.  With
+    ``compress`` each pod's int8 block-quantized ``(q, scale)`` of a piece
+    is gathered and the dequantized sum divided by the pod count (lossy,
+    as the reference's)."""
+    if _size(pod) == 1:
+        return grads
+    groups: Dict[str, list] = {}
+    for n in grads:
+        groups.setdefault((stacks or {}).get(n, n), []).append(n)
+    flats = [torch.cat([grads[n].reshape(-1) for n in names])
+             if len(names) > 1 else grads[names[0]].reshape(-1)
+             for names in groups.values()]
+    k = 2 if compress else 1
+    payload = []
+    for f in flats:
+        payload.extend(_quantize_int8(f) if compress else (f,))
+    parts = pod.exchange(tuple(payload), "pod_allreduce")
+    out = {}
+    for i, (names, f) in enumerate(zip(groups.values(), flats)):
+        acc = None
+        for part in parts:
+            d = (part[k * i].float() * part[k * i + 1] if compress
+                 else part[k * i])
+            acc = d if acc is None else acc + d
+        acc = _div(acc, pod.n).reshape(-1)[:f.numel()]
+        for n, piece in zip(names, acc.split([grads[n].numel()
+                                              for n in names])):
+            out[n] = piece.view(grads[n].shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+def moment_shape(p: torch.Tensor, z: Optional[Zero1Leaf] = None,
+                 dp: int = 1) -> Tuple[int, ...]:
+    """A held leaf's moments' shape on one data rank: the leaf's, or its
+    dim-0 shard under ``rows``."""
+    if z is not None and z.rows:
+        return (p.shape[0] // dp, *p.shape[1:])
+    return tuple(p.shape)
+
+
 def init_opt_state(params: Dict[str, torch.Tensor],
-                   moment_dtype: str = "float32") -> Dict:
-    """Zero moments shaped like each leaf, in ``moment_dtype``."""
+                   moment_dtype: str = "float32",
+                   plan: Optional[Dict[str, Zero1Leaf]] = None, dp: int = 1,
+                   data_rank: int = 0) -> Dict:
+    """Zero moments in ``moment_dtype`` for the leaves data rank
+    ``data_rank`` holds under ``plan`` (every leaf, whole, without one),
+    each ``moment_shape``."""
     dt = getattr(torch, moment_dtype)
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=dt, device=p.device)
-                for n, p in params.items()}
+        return {n: torch.zeros(moment_shape(p, z, dp), dtype=dt,
+                               device=p.device)
+                for n, p in params.items()
+                for z in [None if plan is None else plan[n]]
+                if z is None or z.holds(data_rank)}
     return {"mu": zeros(), "nu": zeros(), "count": 0}
 
 
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def sync_grads(grads: Dict[str, torch.Tensor],
+               plan: Optional[Dict[str, Zero1Leaf]] = None, data=None,
+               pod=None, compress: bool = False) -> Dict[str, torch.Tensor]:
+    """Phase 1: the fp32 grads of the pieces a rank holds under ``plan``:
+    an owned piece (a row shard, a layer on its owner) reduce-scattered
+    over ``data`` and divided by dp, a whole leaf's pmean over ``data``;
+    then ``pod_allreduce`` of each reference leaf's piece.  One exchange
+    over data, and one over the pods, carries every leaf."""
+    dp = _size(data)
+    out = {n: g.float() for n, g in grads.items()}
+    if dp > 1:
+        names = list(out)
+        parts = data.exchange(tuple(out[n] for n in names), "zero1_grads")
+        me = data.rank()
+        synced = {}
+        for i, n in enumerate(names):
+            z = plan[n]
+            if not z.holds(me):
+                continue
+            rows = slice(None)
+            if z.rows:
+                sh = out[n].shape[0] // dp
+                rows = slice(me * sh, (me + 1) * sh)
+            acc = None
+            for p in parts:
+                acc = p[i][rows] if acc is None else acc + p[i][rows]
+            synced[n] = _div(acc, dp)
+        out = synced
+    return pod_allreduce(out, pod, compress, None if plan is None else
+                         {n: z.stack for n, z in plan.items()})
+
+
 def grad_norm(grads: Dict[str, torch.Tensor], replicated: Dict[str, bool],
-              group=None) -> torch.Tensor:
-    """The global L2 norm of the grads over the rank group: a
-    model-replicated leaf's squared sum counts 1/tp on each rank.  A leaf
-    is summed ``UPDATE_CHUNK`` elements at a time (small fp32
-    temporaries)."""
-    tp = 1 if group is None else group.n
+              group=None, data=None,
+              plan: Optional[Dict[str, Zero1Leaf]] = None) -> torch.Tensor:
+    """Phase 2: the global L2 norm of the synced grads.  A piece's squared
+    sum counts 1/dp when every data rank holds the leaf whole (``plan``)
+    and 1/tp when it is model-replicated; the sum runs over the TP group,
+    then over data.  A leaf is summed ``UPDATE_CHUNK`` elements at a time
+    (small fp32 temporaries)."""
+    tp, dp = _size(group), _size(data)
     total = None
     for n, g in grads.items():
         s = sum(torch.sum(torch.square(c.float()))
                 for c in g.reshape(-1).split(UPDATE_CHUNK))
+        if dp > 1 and not plan[n].rows and plan[n].owner is None:
+            s = s / dp
         if replicated[n] and tp > 1:
             s = s / tp
         total = s if total is None else total + s
-    if tp > 1:
-        total = overlap.psum(total, group)
+    for axis in (group, data):
+        total = overlap.psum(total, axis)
     return torch.sqrt(total)
 
 
@@ -105,12 +306,23 @@ def _update(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt: Dict,
                  cfg: AdamWConfig, lr, *, replicated: Dict[str, bool],
-                 group=None) -> Tuple[Dict, Dict]:
+                 group=None, data=None, pod=None,
+                 plan: Optional[Dict[str, Zero1Leaf]] = None,
+                 grad_compress: bool = False) -> Tuple[Dict, Dict]:
     """One AdamW step on ``params`` and the moments (both updated in
     place) with ``grads``; returns (params, new optimizer state).
     ``replicated[name]`` is True for a model-replicated leaf
-    (``model.param_specs`` dim None)."""
-    gnorm = grad_norm(grads, replicated, group)
+    (``model.param_specs`` dim None).  ``data`` / ``pod``: the rank's
+    data-parallel groups; ``plan``: ``zero1_plan`` at dp (needed at
+    dp>1; module docstring)."""
+    dp = _size(data)
+    if plan is None:
+        if dp > 1:
+            raise ValueError("adamw_update at dp>1 needs the zero1_plan")
+        plan = {n: Zero1Leaf(stack=n) for n in params}
+    me = data.rank() if dp > 1 else 0
+    gsync = sync_grads(grads, plan, data, pod, grad_compress)
+    gnorm = grad_norm(gsync, replicated, group, data, plan)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
     count = opt["count"] + 1
     cnt = torch.tensor(float(count), dtype=torch.float32)
@@ -118,12 +330,31 @@ def adamw_update(params: Dict[str, torch.Tensor],
     c2 = (1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** cnt).item()
     device = next(iter(params.values())).device
     lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
-    mu_out, nu_out = {}, {}
+    pieces = {}
     for n, p in params.items():
-        mu, nu = opt["mu"][n], opt["nu"][n]
-        flat = [t.view(-1) for t in (p, mu, nu)] + [grads[n].reshape(-1)]
-        for lo in range(0, p.numel(), UPDATE_CHUNK):
+        if not plan[n].holds(me):
+            continue
+        p_sh = _dp_shard(p, data) if plan[n].rows else p
+        flat = [t.view(-1) for t in (p_sh, opt["mu"][n], opt["nu"][n])]
+        flat.append(gsync.pop(n).reshape(-1))
+        for lo in range(0, p_sh.numel(), UPDATE_CHUNK):
             _update(*(t[lo:lo + UPDATE_CHUNK] for t in flat), clip, c1, c2,
                     lr, cfg)
-        mu_out[n], nu_out[n] = mu, nu
-    return params, {"mu": mu_out, "nu": nu_out, "count": count}
+        del flat
+        if dp > 1 and (plan[n].rows or plan[n].owner is not None):
+            pieces[n] = p_sh
+    if dp > 1:
+        # the ZeRO re-assembly over data: every peer's updated pieces into
+        # this rank's copy, one exchange for every leaf
+        for q, part in enumerate(data.exchange(tuple(pieces.values()),
+                                               "zero1_params")):
+            if q == me:
+                continue
+            held = [n for n in params
+                    if plan[n].rows or plan[n].owner == q]
+            for n, t in zip(held, part):
+                dst = params[n]
+                if plan[n].rows:
+                    dst = dst[q * t.shape[0]:(q + 1) * t.shape[0]]
+                dst.copy_(t)
+    return params, {"mu": opt["mu"], "nu": opt["nu"], "count": count}

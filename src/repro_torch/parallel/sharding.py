@@ -18,11 +18,18 @@ and rank r holds experts ``[r * E / tp, (r + 1) * E / tp)``.  The
 ``moe_a2a`` seam's op runs over that group; at tp=1 it is the local
 expert FFN.  A dedicated ``ep`` axis (``ParallelConfig.ep > 1``, which
 also carries batch) raises.
+
+Data parallelism (dp>1, pods>1) runs each rank as one thread of a
+``dist.RankMesh`` (``launch.mesh.make_mesh``): the context holds the
+rank's "model" sub-group (``group``, at tp>1) and its data-parallel
+sub-groups (``dp_groups``: pod, then data, the reference's ``dp_axes``),
+over which the MoE aux loss sums its statistics and the trainer and
+``optim.adamw`` sync the grads.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,11 +42,12 @@ TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
                   "dist.RankGroup of size tp inside group.spmd: pass "
                   "group= (ROADMAP queue 1 item 2)")
 EP_NOT_PORTED = ("a dedicated expert-parallel axis (ep>1, which also "
-                 "carries batch) is not ported: MoE runs expert parallelism "
+                 "carries batch) and experts over (data, model) "
+                 "(ep_over_dp) are not ported: MoE runs expert parallelism "
                  "over the tp ranks (ROADMAP queue 1 item 10)")
-DP_NOT_PORTED = ("data parallelism (dp>1) is not ported: the port's ranks "
-                 "are the tp ranks of one dist.RankGroup (ROADMAP queue 1 "
-                 "item 10)")
+DP_NEEDS_MESH = ("data parallelism (dp>1 or pods>1) runs the ranks of a "
+                 "dist.RankMesh of shape (pods, dp, tp) inside mesh.spmd: "
+                 "pass mesh= (launch.mesh.make_mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +65,8 @@ class TPContext:
                   and chunked prefill always run, and training runs with
                   ``ParallelConfig.scatter_axis="hidden"``)
     group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
+    dp_groups   : this rank's data-parallel sub-groups of its mesh, pod
+                  then data (empty without a mesh)
     mode        : the transport of seams without a plan
                   (``overlap.VALID_MODES``)
     comm_chunks : the ring sub-chunking of seams without a plan
@@ -70,6 +80,7 @@ class TPContext:
     use_kernels: bool = False
     seq_sharded: bool = True
     group: Optional[object] = None
+    dp_groups: Tuple = ()
     mode: str = "decomposed"
     comm_chunks: int = 0
     plans: Optional[PlanSet] = None
@@ -87,6 +98,17 @@ class TPContext:
     def axis(self):
         """The TP group seams run over (None at tp=1)."""
         return self.group if self.tp > 1 else None
+
+    @property
+    def tape_axis(self):
+        """The group whose size decides whether a rank's backward is cut
+        into tape segments (``overlap.cut``, ``overlap.remat``): the TP
+        group at tp>1; at tp=1 a data-parallel group of more than one
+        rank, whose psum (the MoE aux loss's) rides the tape; else
+        None."""
+        if self.tp > 1:
+            return self.group
+        return next((g for g in self.dp_groups if g.n > 1), None)
 
     @property
     def seq_factor(self) -> int:
@@ -170,27 +192,44 @@ def _backend(group) -> Optional[str]:
     return None if group is None else group.device.type
 
 
-def make_ctx(par, group=None, plans: Optional[PlanSet] = None
-             ) -> TPContext:
+def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
+             mesh=None, rank: Optional[int] = None) -> TPContext:
     """The context a ``ParallelConfig`` implies (the reference's
-    ``trainer.make_ctx`` at dp=1): ``use_kernels`` from ``kernel_decode``,
-    the seams' plans from ``plan_set_from_parallel(par)`` (the uniform
+    ``trainer.make_ctx``): ``use_kernels`` from ``kernel_decode``, the
+    seams' plans from ``plan_set_from_parallel(par)`` (the uniform
     ``overlap_mode`` overlaid with ``par.plan_profile``, loaded for the
     group's device, the layout stamped by ``par.scatter_axis`` unless
     "auto") unless ``plans`` is given, and the residual layout from the
-    plans (``PlanSet.residual_layout``)."""
-    if par.dp != 1:
-        raise NotImplementedError(DP_NOT_PORTED)
+    plans (``PlanSet.residual_layout``).  With ``mesh`` (a
+    ``dist.RankMesh`` of shape ``(pods, dp, tp)``; needed at dp>1 or
+    pods>1) the context of mesh rank ``rank`` (default: the calling rank
+    thread's): its "model" sub-group at tp>1 and its pod and data
+    sub-groups."""
+    dp_groups = ()
+    if mesh is not None:
+        from repro_torch.launch.mesh import dp_axes
+        want = (par.pods, par.dp, par.tp) if par.pods > 1 else (par.dp,
+                                                                 par.tp)
+        if tuple(mesh.shape) != want:
+            raise ValueError(f"mesh {mesh.shape} {mesh.axes} is not the "
+                             f"(pods, dp, tp) = {want} of the config")
+        rank = mesh.rank() if rank is None else rank
+        group = mesh.group("model", rank) if par.tp > 1 else None
+        dp_groups = tuple(mesh.group(a, rank) for a in dp_axes(mesh))
+    elif par.dp * par.pods != 1:
+        raise ValueError(DP_NEEDS_MESH)
     axis = getattr(par, "scatter_axis", "auto")
     if axis not in SCATTER_AXES:
         raise ValueError(f"invalid scatter_axis {axis!r}; one of "
                          f"{SCATTER_AXES}")
     if plans is None:
-        plans = plan_set_from_parallel(par, _backend(group))
+        plans = plan_set_from_parallel(
+            par, _backend(group if mesh is None else mesh))
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
                      seq_sharded=plans.residual_layout() == "seq",
-                     group=group, mode=par.overlap_mode,
-                     comm_chunks=par.comm_chunks, plans=plans)
+                     group=group, dp_groups=dp_groups,
+                     mode=par.overlap_mode, comm_chunks=par.comm_chunks,
+                     plans=plans)
 
 
 def ceil_mult(x: int, m: int) -> int:

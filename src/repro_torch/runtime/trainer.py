@@ -1,11 +1,15 @@
-"""Training runtime (port of ``repro.runtime.trainer``) at dp=1.
+"""Training runtime (port of ``repro.runtime.trainer``).
 
 One train step is ``forward_loss``, its backward, the sum over the TP
-ranks of the model-replicated leaves' grads, the LR schedule and
-``adamw_update``, with the weights and the optimizer state updated in
-place (the reference donates them).  At tp>1 ``Trainer`` owns the
-``dist.RankGroup`` and runs each rank's step inside ``group.spmd`` on the
-rank's ``model.shard_params`` copy; the step records the forward's seams
+ranks of the model-replicated leaves' grads, the pmean of the loss over
+the data-parallel ranks, the LR schedule and ``adamw_update`` (ZeRO-1
+over data, the pod all-reduce), with the weights and the optimizer state
+updated in place (the reference donates them).  At more than one rank
+``Trainer`` owns the ``dist.RankMesh`` of ``launch.mesh.make_mesh``
+("pod", "data", "model"; ("data", "model") at one pod), whose TP
+sub-groups run the seams.  Each rank's step runs inside ``spmd`` on the rank's
+``model.shard_params`` copy (data replicas hold equal copies) and its
+data shard of the global batch; the step records the forward's seams
 on a ``core.overlap.SeamTape`` and drives the backward from the rank's
 own thread (the autograd engine runs a card's CUDA nodes on one device
 thread, where the ranks' exchanges cannot meet).
@@ -18,11 +22,15 @@ the latest one with the data stream reseeked (``batch_at`` is a function
 of the step); a failed step (``fault_hook(step)`` may raise to simulate
 one) reloads the last checkpoint, or re-inits, up to ``max_retries``
 times; a step slower than ``straggler_factor`` x the step-time EWMA is
-counted and logged.  Left out: elastic restart, which re-meshes over the
-data axis (dp>1, ROADMAP queue 1 item 10).
+counted and logged.  The checkpoint tree is global: the ZeRO-1 moments
+are gathered over data into it and cut again on restore, so a
+checkpoint written on one mesh restores on another (elastic restart:
+``launch.mesh.elastic_remesh`` keeps TP whole and shrinks dp, and a
+``Trainer`` on the new mesh resumes from the checkpoint).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import time
@@ -36,7 +44,8 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import overlap
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.device import resolve_device
-from repro_torch.dist import RankGroup
+from repro_torch.dist import RankGroup, RankMesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.optim import schedule as sched
@@ -61,13 +70,17 @@ class TrainConfig:
 
 
 def make_ctx(cfg: ModelConfig, par: ParallelConfig,
-             group: Optional[RankGroup] = None, plans=None) -> TPContext:
-    """The reference's ``trainer.make_ctx`` at dp=1: the TP context over
-    ``group`` (None at tp=1) with ``plans`` (a ``tuning.plans.PlanSet``;
-    default ``plan_set_from_parallel(par)``: the uniform
-    ``par.overlap_mode`` overlaid with ``par.plan_profile``)."""
+             group: Optional[RankGroup] = None, plans=None, *,
+             mesh: Optional[RankMesh] = None,
+             rank: Optional[int] = None) -> TPContext:
+    """The reference's ``trainer.make_ctx``: the context over ``group``
+    (the TP ranks; None at tp=1), or of mesh rank ``rank`` of ``mesh``
+    (needed at dp>1 or pods>1; default the calling rank's), with
+    ``plans`` (a ``tuning.plans.PlanSet``; default
+    ``plan_set_from_parallel(par)``: the uniform ``par.overlap_mode``
+    overlaid with ``par.plan_profile``)."""
     M.check_trainable(cfg, par)
-    return sharding.make_ctx(par, group, plans)
+    return sharding.make_ctx(par, group, plans, mesh=mesh, rank=rank)
 
 
 def forward_on_tape(params: M.Model, batch: Dict[str, torch.Tensor],
@@ -123,26 +136,68 @@ def complete_grads(grads: Dict[str, torch.Tensor],
     return out
 
 
+def zero1_plan(cfg: ModelConfig, params: M.Model, dp: int
+               ) -> Dict[str, adamw.Zero1Leaf]:
+    """How dp data ranks split one rank's leaves (``adamw.zero1_plan`` on
+    the reference's stacked layout)."""
+    named = dict(params.named_parameters())
+    return adamw.zero1_plan(named, dp, M.stacked_leaves(cfg, named))
+
+
+def plan_once(kept: List[Dict[str, adamw.Zero1Leaf]], cfg: ModelConfig,
+              params: M.Model, dp: int) -> Dict[str, adamw.Zero1Leaf]:
+    """``zero1_plan`` of ``params``, built on the first call and kept in
+    ``kept`` (every rank's leaves have one shape)."""
+    if not kept:
+        kept.append(zero1_plan(cfg, params, dp))
+    return kept[0]
+
+
+def _pod_data(ctx: TPContext):
+    """(pod group, data group) of a context: ``dp_groups`` is (pod, data)
+    with a pod axis, (data,) without, () without a mesh."""
+    return (None, None, *ctx.dp_groups)[-2:]
+
+
 def make_train_step(cfg: ModelConfig, par: ParallelConfig,
                     opt_cfg: adamw.AdamWConfig, train_cfg: TrainConfig,
-                    group: Optional[RankGroup] = None) -> Callable:
+                    mesh: Optional[RankMesh] = None,
+                    zero1: Optional[List[Dict[str, adamw.Zero1Leaf]]] = None
+                    ) -> Callable:
     """(params, opt, batch, step) -> (params, opt, metrics), run by each
-    rank (inside ``group.spmd`` at tp>1); ``params`` is updated in
-    place."""
-    ctx = make_ctx(cfg, par, group)
+    rank (inside ``mesh.spmd`` at tp>1, dp>1 or pods>1; ``mesh`` None at
+    one rank); ``params`` is updated in place.  ``zero1``: a list that
+    keeps the ranks' ``zero1_plan`` once built (``plan_once``; shared with
+    ``Trainer.zero1``).  The loss in the metrics is the pmean over the
+    data-parallel ranks."""
+    if mesh is None:
+        ctxs = [make_ctx(cfg, par)]
+    else:
+        first = make_ctx(cfg, par, mesh=mesh, rank=0)
+        ctxs = [first] + [make_ctx(cfg, par, plans=first.plans, mesh=mesh,
+                                   rank=r) for r in range(1, mesh.size)]
     schedule_fn = sched.get_schedule(train_cfg.schedule)
+    kept = [] if zero1 is None else zero1
 
     def step_fn(params: M.Model, opt: Dict, batch: Dict[str, torch.Tensor],
                 step: int):
+        ctx = ctxs[0] if mesh is None else ctxs[mesh.rank()]
         replicated = M.replicated_leaves(cfg, params)
         loss, grads = loss_and_grads(params, batch, ctx, cfg, par)
         grads = complete_grads(grads, replicated, ctx.axis)
+        for axis in ctx.dp_groups:
+            loss = overlap.psum(loss, axis)
+        loss = loss / (par.dp * par.pods)
         lr = schedule_fn(step, base_lr=train_cfg.base_lr,
                          warmup=train_cfg.warmup_steps,
                          total=train_cfg.total_steps)
+        pod, data = _pod_data(ctx)
         _, opt = adamw.adamw_update(dict(params.named_parameters()), grads,
-                                    opt, opt_cfg, lr, replicated=replicated,
-                                    group=ctx.axis)
+                                    opt, opt_cfg, lr,
+                                    replicated=replicated, group=ctx.axis,
+                                    data=data, pod=pod,
+                                    plan=plan_once(kept, cfg, params, par.dp),
+                                    grad_compress=par.grad_compress)
         return params, opt, {"loss": loss, "lr": lr,
                              "grad_count": opt["count"]}
 
@@ -151,15 +206,19 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig,
 
 class Trainer:
     """Runs ``total_steps`` train steps on ``batch_at``'s stream.  The
-    state is a list of one ``(Model, optimizer state)`` per rank; at tp>1
-    the trainer owns the ``RankGroup``.  ``failures`` and
+    state is a list of one ``(Model, optimizer state)`` per rank (mesh
+    ranks in row-major order); ``group`` is None at one rank, else the
+    ``RankMesh`` of ``launch.mesh.make_mesh(pods, dp, tp)`` (or ``mesh``,
+    e.g. from ``elastic_remesh``; its shape must be the config's), whose
+    "model" sub-groups run the seams.  ``failures`` and
     ``straggler_events`` count what ``train`` survived and flagged."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  train_cfg: TrainConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 mesh: Optional[RankMesh] = None):
         self.cfg, self.par, self.tc = cfg, par, train_cfg
         self.oc = opt_cfg or adamw.AdamWConfig(lr=train_cfg.base_lr)
         self.device = resolve_device(device)
@@ -168,38 +227,93 @@ class Trainer:
         self.failures = 0
         self.straggler_events = 0
         self._ewma: Optional[float] = None
-        self._make_group()
+        self._zero1: List[Dict[str, adamw.Zero1Leaf]] = []
+        self._make_group(mesh)
         self.ckpt = (Checkpointer(train_cfg.checkpoint_dir)
                      if train_cfg.checkpoint_dir else None)
         self.data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
                                    global_batch=8, seed=train_cfg.seed)
 
-    def _make_group(self) -> None:
-        """A fresh rank group (tp>1) and the step that runs on it."""
-        tp = self.par.tp
-        self.group = RankGroup(tp, self.device) if tp > 1 else None
-        self.step_fn = make_train_step(self.cfg, self.par, self.oc, self.tc,
-                                       self.group)
+    def _make_group(self, mesh: Optional[RankMesh] = None) -> None:
+        """A fresh mesh (more than one rank) or ``mesh``, and the step that
+        runs on it."""
+        par = self.par
+        if mesh is None and par.pods * par.dp * par.tp > 1:
+            mesh = make_mesh(par.pods, par.dp, par.tp, self.device)
+        self.group = mesh
+        self.step_fn = make_train_step(self.cfg, par, self.oc, self.tc,
+                                       mesh, self._zero1)
+
+    def zero1(self, params: M.Model) -> Dict[str, adamw.Zero1Leaf]:
+        """The ZeRO-1 plan of every rank's leaves (one shape on every
+        rank), built once for the trainer and its step."""
+        return plan_once(self._zero1, self.cfg, params, self.par.dp)
+
+    # ---- the ranks --------------------------------------------------------
+    @property
+    def n_ranks(self) -> int:
+        return 1 if self.group is None else self.group.size
+
+    def _coord(self, axis: str, r: int) -> int:
+        g = self.group
+        return g.coord(axis, r) if g is not None and axis in g.axes else 0
+
+    def tp_index(self, r: int) -> int:
+        """Rank r's index in its TP group."""
+        return self._coord("model", r)
+
+    def data_index(self, r: int) -> int:
+        """Rank r's coordinate on the data axis."""
+        return self._coord("data", r)
+
+    def shard_index(self, r: int) -> int:
+        """Rank r's data shard: pod · dp + data (the reference's axis-major
+        ``P(("pod", "data"))`` batch split)."""
+        return self._coord("pod", r) * self.par.dp + self.data_index(r)
+
+    def first_replica(self, per_rank: List[Any]) -> List[Any]:
+        """The items of the TP ranks of pod 0, data 0, in TP order."""
+        return [x for r, x in enumerate(per_rank) if self.shard_index(r) == 0]
+
+    def place(self, tp_ranks: List[M.Model]) -> List[M.Model]:
+        """One copy a rank from one a TP rank: the first data replica
+        holds ``tp_ranks`` themselves, the others equal copies."""
+        return [tp_ranks[self.tp_index(r)] if self.shard_index(r) == 0
+                else copy.deepcopy(tp_ranks[self.tp_index(r)])
+                for r in range(self.n_ranks)]
 
     def init_state(self) -> Tuple[List[M.Model], List[Dict]]:
-        """Seeded weights (``init_model`` at this tp, cut per rank) and
-        zero moments."""
+        """Seeded weights (``init_model`` at this tp, cut per TP rank,
+        placed on every data replica) and zero moments."""
         full = M.init_model(self.cfg, self.par, seed=self.tc.seed,
                             dtype=self.dtype, device=self.device,
                             trainable=True)
         tp = self.par.tp
-        params = ([full] if tp == 1 else
-                  [M.shard_params(full, r, tp, self.cfg) for r in range(tp)])
+        tp_ranks = ([full] if tp == 1 else
+                    [M.shard_params(full, r, tp, self.cfg)
+                     for r in range(tp)])
         del full
-        return params, [self.init_opt(p) for p in params]
+        params = self.place(tp_ranks)
+        return params, [self.init_opt(p, r) for r, p in enumerate(params)]
 
-    def init_opt(self, params: M.Model) -> Dict:
-        return adamw.init_opt_state(dict(params.named_parameters()),
-                                    self.oc.moment_dtype)
+    def init_opt(self, params: M.Model, r: int = 0) -> Dict:
+        """Zero moments for rank r's leaves (at dp>1 the pieces its data
+        rank holds under ZeRO-1)."""
+        return adamw.init_opt_state(
+            dict(params.named_parameters()), self.oc.moment_dtype,
+            self.zero1(params), self.par.dp,
+            self.data_index(r))
 
-    def batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch_at(self.data_cfg, step).items()}
+    def batch(self, step: int, shard: int = 0, num_shards: int = 1
+              ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in
+                batch_at(self.data_cfg, step, shard, num_shards).items()}
+
+    def step_batch(self, step: int) -> List[Dict[str, torch.Tensor]]:
+        """The step's input: every data shard's batch (``batch_at`` at
+        shard pod · dp + data of pods · dp)."""
+        n = self.par.pods * self.par.dp
+        return [self.batch(step, s, n) for s in range(n)]
 
     # ------------------------------------------------------------ checkpoint
     def _global(self, per_rank: List[Dict[str, torch.Tensor]],
@@ -208,22 +322,43 @@ class Trainer:
                  M.gather_rank_leaves(per_rank, self.cfg, params[0]))
         return M.reference_tree(named, self.cfg)
 
+    def _moments(self, params: List[M.Model], opt: List[Dict], key: str
+                 ) -> List[Dict[str, torch.Tensor]]:
+        """Each TP rank's whole moments (pod 0): the data ranks' ZeRO-1
+        pieces joined (row shards along dim 0, a layer from its owner)."""
+        out = []
+        for i in self.first_replica(list(range(len(params)))):
+            peers = [r for r in range(len(params))
+                     if self.tp_index(r) == self.tp_index(i)
+                     and self.shard_index(r) < self.par.dp]
+            plan = self.zero1(params[i])
+            out.append({n: torch.cat([opt[r][key][n] for r in peers])
+                        if z.rows else opt[peers[z.owner or 0]][key][n]
+                        for n, z in plan.items()})
+        return out
+
     def checkpoint_tree(self, params: List[M.Model],
                         opt: List[Dict]) -> Dict[str, Any]:
         """The reference's checkpoint tree of the ranks' state:
         ``{"params": the global tp-packed tree (periods stacked), "opt":
         {"mu", "nu": the same, "count": int32 scalar}}``, each leaf in its
         own dtype (at tp>1 the ranks' leaves joined by
-        ``gather_rank_leaves``)."""
+        ``gather_rank_leaves``, at dp>1 the ZeRO-1 moments joined over
+        data first; the first data replica's weights)."""
+        tp_params = self.first_replica(params)
         return {"params": self._global(
-                    [dict(p.named_parameters()) for p in params], params),
-                "opt": {"mu": self._global([o["mu"] for o in opt], params),
-                        "nu": self._global([o["nu"] for o in opt], params),
+                    [dict(p.named_parameters()) for p in tp_params],
+                    tp_params),
+                "opt": {"mu": self._global(self._moments(params, opt, "mu"),
+                                           tp_params),
+                        "nu": self._global(self._moments(params, opt, "nu"),
+                                           tp_params),
                         "count": np.asarray(opt[0]["count"], np.int32)}}
 
     def _tree_like(self, params: List[M.Model]) -> Dict[str, Any]:
         """``checkpoint_tree``'s shapes and dtypes, on the meta device."""
         moment = getattr(torch, self.oc.moment_dtype)
+        params = self.first_replica(params)
 
         def meta(p: M.Model, dtype=None):
             return {n: torch.empty(t.shape, dtype=dtype or t.dtype,
@@ -244,43 +379,56 @@ class Trainer:
     def restore(self, params: List[M.Model],
                 step: Optional[int] = None) -> List[Dict]:
         """Load a checkpoint (the latest by default) into ``params`` in
-        place, cut per rank with ``shard_params``'s specs; sets
-        ``self.step`` and returns the ranks' optimizer states.  The
-        checkpoint's shapes must be this tp's (padding included)."""
+        place, cut per TP rank with ``shard_params``'s specs and, for the
+        ZeRO-1 moments, per data rank (``zero1_plan``); sets ``self.step`` and
+        returns the ranks' optimizer states.  The checkpoint's shapes must
+        be this tp's (padding included); its dp may be any (elastic
+        restart)."""
         tree, self.step, _ = self.ckpt.restore(self._tree_like(params), step)
-        tp = self.par.tp
+        tp, dp = self.par.tp, self.par.dp
 
         def ranks(sub):
             return M.cut_rank_leaves(M.named_leaves(sub, self.cfg), self.cfg,
                                      params[0], tp)
 
-        for p, leaves in zip(params, ranks(tree["params"])):
+        weights = ranks(tree["params"])
+        for r, p in enumerate(params):
             for n, t in p.named_parameters():
-                t.copy_(leaves[n])
+                t.copy_(weights[self.tp_index(r)][n])
         moment = getattr(torch, self.oc.moment_dtype)
+        mus, nus = ranks(tree["opt"]["mu"]), ranks(tree["opt"]["nu"])
 
-        def to_dev(leaves):
-            return {n: t.to(self.device, moment, copy=True)
-                    for n, t in leaves.items()}
+        plan = self.zero1(params[0])
+
+        def to_dev(leaves, r):
+            out, d = {}, self.data_index(r)
+            for n, t in leaves.items():
+                if not plan[n].holds(d):
+                    continue
+                if plan[n].rows:
+                    t = t.chunk(dp)[d]
+                out[n] = t.to(self.device, moment, copy=True)
+            return out
 
         count = int(tree["opt"]["count"])
-        return [{"mu": to_dev(mu), "nu": to_dev(nu), "count": count}
-                for mu, nu in zip(ranks(tree["opt"]["mu"]),
-                                  ranks(tree["opt"]["nu"]))]
+        return [{"mu": to_dev(mus[self.tp_index(r)], r),
+                 "nu": to_dev(nus[self.tp_index(r)], r), "count": count}
+                for r in range(len(params))]
 
     # ------------------------------------------------------------------ loop
-    def run_step(self, params: List[M.Model], opt: List[Dict],
-                 batch: Dict[str, torch.Tensor]
+    def run_step(self, params: List[M.Model], opt: List[Dict], batch
                  ) -> Tuple[List[Dict], Dict[str, torch.Tensor]]:
         """One step on every rank; returns the new optimizer states and
-        rank 0's metrics (every rank's loss is the same)."""
+        rank 0's metrics (every rank's loss is the same).  ``batch``: the
+        data shards' (``step_batch``)."""
         step = self.step
         if self.group is None:
-            _, o, m = self.step_fn(params[0], opt[0], batch, step)
+            _, o, m = self.step_fn(params[0], opt[0], batch[0], step)
             return [o], m
-        outs = self.group.spmd(
-            lambda p, o: self.step_fn(p, o, batch, step),
-            list(zip(params, opt)))
+        args = [(p, o, batch[self.shard_index(r)])
+                for r, (p, o) in enumerate(zip(params, opt))]
+        outs = self.group.spmd(lambda p, o, b: self.step_fn(p, o, b, step),
+                               args)
         return [o for _, o, _ in outs], outs[0][2]
 
     def train(self, params: Optional[List[M.Model]] = None,
@@ -301,7 +449,7 @@ class Trainer:
         hist = []
         while self.step < self.tc.total_steps:
             t0 = time.perf_counter()
-            batch = self.batch(self.step)
+            batch = self.step_batch(self.step)
             try:
                 if fault_hook is not None:
                     fault_hook(self.step)
@@ -337,9 +485,10 @@ class Trainer:
 
     def _recover(self, params: List[M.Model]
                  ) -> Tuple[List[M.Model], List[Dict]]:
-        """After a failed step: at tp>1 a new rank group (a rank that
-        failed inside the step leaves the others' exchanges, and the fused
-        kernels' flag epochs, mid-way); then the last checkpoint, loaded
+        """After a failed step: at more than one rank a new mesh of the same
+        shape (a rank that failed inside the step leaves the
+        others' exchanges, and the fused kernels' flag epochs, mid-way);
+        then the last checkpoint, loaded
         over every weight and moment, or a fresh init at step 0.  A save
         still being written is waited for: until its rename it is not the
         last checkpoint."""

@@ -372,7 +372,8 @@ def test_training_paths_not_ported_raise(tmp_path):
     # MLA, MoE and the MTP head train (tests/test_torch_train_mla_moe.py)
     assert TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
                               par) is None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # data parallelism runs on a rank mesh: without one it raises
+    with pytest.raises(ValueError, match="RankMesh"):
         TT.make_ctx(cfg, ParallelConfig(dp=2))
     # checkpoints are ported: the trainer opens its directory
     tr = TT.Trainer(cfg, par, TT.TrainConfig(checkpoint_dir=str(tmp_path)),
@@ -381,14 +382,30 @@ def test_training_paths_not_ported_raise(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dp", "2"], "item 10"),
-    (["--zero3"], "item 10"), (["--grad-compress"], "item 10"),
-    (["--pods", "2"], "item 10"),
-    (["--ep", "2"], "item 10")])
+    (["--zero3"], "item 10"), (["--ep", "2"], "item 10"),
+    (["--arch", "deepseek_v3_671b", "--dp", "2"], "item 10")])
 def test_train_cli_flags_not_ported_raise(flag, item):
+    """``--zero3`` and ``--ep`` raise as they parse; ``--dp`` > 1 on an MoE
+    config of more than 16 experts raises where the run's
+    ``ParallelConfig`` is built (the reference would shard the experts
+    over (data, model))."""
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import train as LT
     with pytest.raises(NotImplementedError, match=item):
-        LT.parse_args(["--arch", "minicpm_2b", *flag])
+        args = LT.parse_args(["--arch", "minicpm_2b", *flag])
+        LT.parallel_config(args, get_config(args.arch))
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--dp", "2"], "dp", 2), (["--pods", "2"], "pods", 2),
+    (["--grad-compress"], "grad_compress", True)])
+def test_train_cli_dp_flags_reach_their_fields(flag, field, value):
+    """The three data-parallel flags that raised until data parallelism
+    was ported: each parses and reaches its ``ParallelConfig`` field."""
+    from repro_torch.launch import train as LT
+    args = LT.parse_args(["--arch", "minicpm_2b", *flag])
+    par = LT.parallel_config(args, get_smoke_config("minicpm_2b"))
+    assert getattr(par, field) == value
 
 
 @pytest.mark.parametrize("flag,field,value", [
