@@ -304,6 +304,16 @@ TP_SERVER_LAYERS = 8
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
 TP_LANE = 4              # minicpm_2b prefill's and training's ranks
 DP_LANE = (2, 2)         # the dp lane's mesh: (tp, dp) = 2 x 2 ranks
+# the ep lane: the mla train lane's configuration at tp=2 in three layouts
+# of 4 ranks (experts over "model", a dedicated ep axis, experts over
+# (data, model))
+EP_LANE_TP = 2
+# the pipeline lane: GPipe over a 4-rank pod view, the dp lane's 8
+# minicpm_2b layers 2 a stage at tp=1 with the flash kernel, its 4 x 1024
+# tokens in 4 microbatches
+PIPE_STAGES, PIPE_MICRO = 4, 4
+EP_LANE_LAYOUTS = (("dp2_tp2", {"dp": 2}), ("ep2_tp2", {"ep": 2}),
+                   ("dp2_tp2_ep_over_dp", {"dp": 2, "ep_over_dp": True}))
 # the tp lane's timed calls a mode, its prefills' and its decode steps'
 # (5 and 3 until the dp lane came: the script stays inside its time
 # budget; host-clock times here move far more than these repeats settle)
@@ -374,8 +384,9 @@ PAPER_TRAIN_STEPS = 3
 PAPER_REPEATS = 3
 PAPER_TUNE_DECODE_BATCH = 8
 # the near-ties (ROADMAP queue 1 item 6.3): the same sweep again with more
-# timed calls a candidate
-PAPER_TUNE_ITERS_LONG = 8
+# timed calls a candidate (8 until the ep and pipeline lanes came: the
+# script stays inside its time budget; it gates nothing)
+PAPER_TUNE_ITERS_LONG = 4
 PAPER_SERVER_ARGV = (["--arch", "llama2_70b", "--layers",
                       str(LLAMA_SERVE_LAYERS)] + TP_SERVER_ARGV[4:])
 
@@ -2086,40 +2097,57 @@ def phase_fused_kernel(torch, which):
             {c[0]: results[c[0]] for c in train_mla})
 
 
-def fused_mesh_cases(torch, which):
-    """The dp lane's operands of the AG-GEMM (``which="ag"``) or GEMM-RS
-    kernel: the two TP groups of a (dp, tp) = DP_LANE ``make_mesh`` launch
-    at once, each its "model" sub-group (a launch sized for the mesh's
-    ranks on the card, ``group.share``), every rank against the plain
-    version of its own group's inputs.  The shapes are each seam's
-    forward and backward operands a rank at the lane's 2 x 1024 tokens a
-    data rank (``tuning.autotune.model_seam_shapes``: an ag seam's forward
-    and an rs seam's dY are AG-GEMMs, the others GEMM-RS).  One line a
-    case: every rank's error, the two groups' time and their bound."""
+def mesh_seam_cases(which):
+    """(name, rows, K, N) of a rank's AG-GEMM (``which="ag"``: rows its
+    sequence shard) or GEMM-RS (rows M) operands on the (dp, tp) = DP_LANE
+    mesh: each seam's forward and backward at the dp lane's 2 x 1024
+    tokens a data rank (minicpm_2b), and the ep lane's (deepseek_v3_671b
+    at tp=EP_LANE_TP, MLA_TRAIN_BATCH x MLA_TRAIN_SEQ / 2 tokens a data
+    rank) ``w_uq`` / ``w_ukv`` (``attn_ag``) and dense ``mlp_ag`` forward
+    AG-GEMMs and their dX GEMM-RS (``tuning.autotune.model_seam_shapes``:
+    an ag seam's forward and an rs seam's dY are AG-GEMMs, the others
+    GEMM-RS)."""
     from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.tuning import autotune as AT
+
+    tp, dp = DP_LANE
+    lanes = (("dp", dataclasses.replace(get_config("minicpm_2b"),
+                                        num_layers=TRAIN_LAYERS),
+              TRAIN_BATCH * TRAIN_SEQ // dp, None),
+             ("ep", mla_train_cfg(), MLA_TRAIN_BATCH * MLA_TRAIN_SEQ // dp,
+              ("attn_ag@q_up", "attn_ag@kv_up", "mlp_ag")))
+    cases = []
+    for lane, cfg, tokens, keep in lanes:
+        par = ParallelConfig(tp=tp, dp=dp, fuse_w13=True, overlap_mode="flux")
+        for seam, (kind, m, n, k) in AT.model_seam_shapes(
+                cfg, par, tokens).items():
+            if kind not in ("ag", "rs") or (keep and seam not in keep):
+                continue
+            fwd = kind == which
+            if kind == "ag":      # forward AG-GEMM; dX a GEMM-RS over N/tp
+                shape = (m // tp, k, n // tp) if fwd else (m, n // tp, k)
+            else:                 # forward GEMM-RS; dY an AG-GEMM
+                shape = (m, k // tp, n) if fwd else (m // tp, n, k // tp)
+            cases.append((f"{which}_{lane}_{seam.replace('@', '_')}_"
+                          f"{'fwd' if fwd else 'bwd'}", *shape))
+    return cases
+
+
+def fused_mesh_cases(torch, which):
+    """The mesh lanes' operands of the AG-GEMM (``which="ag"``) or GEMM-RS
+    kernel (``mesh_seam_cases``): the two TP groups of a (dp, tp) =
+    DP_LANE ``make_mesh`` launch at once, each its "model" sub-group (a
+    launch sized for the mesh's ranks on the card, ``group.share``), every
+    rank against the plain version of its own group's inputs.  One line a
+    case: every rank's error, the two groups' time and their bound."""
     from repro_torch.kernels import ag_gemm as AG
     from repro_torch.kernels import gemm_rs as RS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.op_level import tp_bound_s
-    from repro_torch.tuning import autotune as AT
 
     tp, dp = DP_LANE
     bf16 = torch.bfloat16
-    cfg = dataclasses.replace(get_config("minicpm_2b"),
-                              num_layers=TRAIN_LAYERS)
-    par = ParallelConfig(tp=tp, dp=dp, fuse_w13=True, overlap_mode="flux")
-    cases = []      # name, rows (AG: m_sh a rank; RS: M), K, N
-    for seam, (kind, m, n, k) in AT.model_seam_shapes(
-            cfg, par, TRAIN_BATCH * TRAIN_SEQ // dp).items():
-        if kind not in ("ag", "rs"):
-            continue
-        fwd = kind == which
-        if kind == "ag":      # forward AG-GEMM; dX a GEMM-RS over N / tp
-            shape = (m // tp, k, n // tp) if fwd else (m, n // tp, k)
-        else:                 # forward GEMM-RS; dY an AG-GEMM
-            shape = (m, k // tp, n) if fwd else (m // tp, n, k // tp)
-        cases.append((f"{which}_dp_{seam.replace('@', '_')}_"
-                      f"{'fwd' if fwd else 'bwd'}", *shape))
+    cases = mesh_seam_cases(which)
     mesh = make_mesh(1, dp, tp, "cuda")
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     gen = torch.Generator(device="cuda")
@@ -2745,35 +2773,36 @@ def read_counts():
             "matmul": mm.matmul.launches}
 
 
-def step0(torch, cfg, par, mesh, ranks, batches, plans=None,
-          grads_out=None):
-    """Step 0 on every rank of ``mesh`` (a ``Trainer``'s ``group``), each
-    rank on its data shard's batch (``batches``: ``Trainer.step_batch``):
+def step0_grads(torch, cfg, par, mesh, ranks, batches, plans=None):
+    """Step 0's forward and backward on every rank of ``mesh`` (a
+    ``Trainer``'s ``group``), each rank on its data shard's batch
+    (``batches``: ``Trainer.step_batch``; mesh rank r's shard is r // tp):
     the forward, the counts, then the backward, the replicated leaves' sum
-    over each TP group and, at dp>1 or pods>1, the port's grad sync
-    (``adamw.sync_grads``: the ZeRO-1 reduce-scatter over data, the pod
-    pmean), its data ranks' pieces joined.  Returns (the loss: the
-    shards' mean, canonical grads / tp, counts after the forward, counts
-    of the backward, {host ms of the forward and of the backward, seams a
-    rank recorded, the step's peak GB, the wire encodes of the forward and
-    of the backward}); ``plans`` overrides the ``PlanSet`` ``par``
-    implies; ``grads_out`` (a list) takes every rank's TP-complete grads,
-    before the sync."""
+    over each TP group and, on a dedicated ep axis, the trainer's pmean
+    over it (``trainer.ep_grads``).  Returns (every rank's loss, every
+    rank's grads, counts after the forward, counts of the backward, {host
+    ms of the forward and of the backward, seams a rank recorded, the
+    step's peak GB, the wire encodes of the forward and of the
+    backward})."""
     from repro_torch.core import overlap as tov
     from repro_torch.models import model as M
-    from repro_torch.optim import adamw
     from repro_torch.runtime import trainer as T
-    tp, dp, shards = par.tp, par.dp, par.pods * par.dp
+    tp = par.tp
     first = T.make_ctx(cfg, par, plans=plans, mesh=mesh, rank=0)
     ctxs = [first] + [T.make_ctx(cfg, par, plans=first.plans, mesh=mesh,
                                  rank=r) for r in range(1, mesh.size)]
+    replicated = M.replicated_leaves(cfg, None, par)
+    ep_rep = {n: "ep" not in M.spec_axes(sp)
+              for n, sp in M.mesh_specs(cfg, par).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def bwd(p, tape, loss):
-        return T.complete_grads(T.grads_from_tape(p, tape, loss),
-                                M.replicated_leaves(cfg, p),
-                                ctxs[mesh.rank()].axis)
+        ctx = ctxs[mesh.rank()]
+        # one statement each: a grad replaced in the dict is freed at once
+        g = T.grads_from_tape(p, tape, loss)
+        g = T.complete_grads(g, replicated, ctx.axis)
+        return T.ep_grads(g, ep_rep, ctx.ep_group if par.ep > 1 else None)
 
     zero_counts()
     t0 = time.perf_counter()
@@ -2797,31 +2826,58 @@ def step0(torch, cfg, par, mesh, ranks, batches, plans=None,
     c_bwd = read_counts()
     losses = [l.item() for _, l in outs]
     del outs
-    for s in range(shards):
+    for s in range(mesh.size // tp):
         group = losses[s * tp:(s + 1) * tp]
         check(max(group) == min(group),
               f"{par.overlap_mode}: shard {s}'s TP ranks' losses {group}")
-    if grads_out is not None:
-        grads_out.extend(grads)
-    if shards > 1:
-        plan = T.zero1_plan(cfg, ranks[0], dp)
+    return losses, grads, c_fwd, c_bwd, host
+
+
+def synced_canonical(torch, cfg, par, mesh, ranks, grads, names=None):
+    """The trainer's grad sync of step 0's ``grads`` (``step0_grads``) at
+    dp>1 or pods>1 (``adamw.sync_grads``: the ZeRO-1 reduce-scatter over
+    data, the pod pmean; a leaf split over data as it is), the ranks'
+    pieces joined into the global leaves (``model.mesh_join``), in the
+    canonical layout, / tp: the leaves ``names`` (default every leaf)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import trainer as T
+    names = list(grads[0]) if names is None else names
+    sub = [{n: g[n] for n in names} for g in grads]
+    if par.pods * par.dp > 1:
+        plan = T.zero1_plan(cfg, ranks[0], par.dp, par)
+        groups = [T._pod_data(T.make_ctx(cfg, par, mesh=mesh, rank=r))
+                  for r in range(mesh.size)]
 
         def sync(g):
-            pod, data = T._pod_data(ctxs[mesh.rank()])
-            return adamw.sync_grads(g, plan, data, pod)
-        held = mesh.spmd(sync, [(g,) for g in grads])
-        # pod 0's data ranks' pieces of each TP rank's leaves, joined
-        grads = []
-        for i in range(tp):
-            peers = [held[d * tp + i] for d in range(dp)]
-            grads.append({n: torch.cat([q[n] for q in peers]) if z.rows
-                          else peers[z.owner or 0][n]
-                          for n, z in plan.items()})
-        del held
-    glob = M.gather_rank_leaves(grads[:tp], cfg, ranks[0])
-    can = {n: g / tp for n, g in
-           M.canonical_leaves(glob, cfg, tp, grads=True).items()}
-    return sum(losses[::tp]) / shards, can, c_fwd, c_bwd, host
+            pod, data = groups[mesh.rank()]
+            return adamw.sync_grads(g, {n: plan[n] for n in g}, data, pod)
+        held = mesh.spmd(sync, [(g,) for g in sub])
+        plan = {n: plan[n] for n in names}
+        sub = [T.RankPieces(held, plan, T.data_peers(mesh, r), r)
+               for r in range(mesh.size)]
+    glob = M.mesh_join(sub, [T.mesh_coords(mesh, r)
+                             for r in range(mesh.size)], cfg, par)
+    del sub
+    return {n: g / par.tp for n, g in
+            M.canonical_leaves(glob, cfg, par.tp, grads=True).items()}
+
+
+def step0(torch, cfg, par, mesh, ranks, batches, plans=None,
+          grads_out=None):
+    """Step 0 on every rank of ``mesh`` (``step0_grads``) and the grad
+    sync (``synced_canonical``).  Returns (the loss: the shards' mean,
+    canonical grads / tp, counts after the forward, counts of the
+    backward, host figures); ``plans`` overrides the ``PlanSet`` ``par``
+    implies; ``grads_out`` (a list) takes every rank's TP-complete grads,
+    before the sync."""
+    losses, grads, c_fwd, c_bwd, host = step0_grads(
+        torch, cfg, par, mesh, ranks, batches, plans)
+    if grads_out is not None:
+        grads_out.extend(grads)
+    can = synced_canonical(torch, cfg, par, mesh, ranks, grads)
+    shards = mesh.size // par.tp
+    return sum(losses[::par.tp]) / shards, can, c_fwd, c_bwd, host
 
 
 def tape_backward_scaling(torch, depths=TAPE_DEPTHS, reps=3):
@@ -3107,7 +3163,15 @@ def phase_dp_lane(torch, train_losses):
     path): losses within TRAIN_LOSS_RTOL of ``train_losses`` (the train
     lane's tp=4 trainer: the same weights and global batches), host ms a
     step, each rank's ZeRO-1 moment bytes against dp=1's, peak memory, a
-    profiled step's busy share."""
+    profiled step's busy share.  ZeRO-3 on the same mesh, weights and
+    shards (``zero3``: every layer's wqkv and packed w13 split over data,
+    gathered a layer at a time): step 0's loss equal to ZeRO-1's, each
+    ZeRO-3 leaf's synced grad dp x ZeRO-1's within TRAIN_GRAD_RTOL (the
+    gather's summing transpose, the reference's contract), every other
+    leaf equal to ZeRO-1's; the launches its PlanSet implies; each rank's
+    bytes of the ZeRO-3 leaves exactly 1/dp of ZeRO-1's; then 3
+    ``Trainer`` steps from seed 0's weights, their losses within
+    TRAIN_LOSS_RTOL of the ZeRO-1 trainer's, peak memory beside it."""
     from repro_torch.configs.base import (ParallelConfig, get_config,
                                           train_schedule)
     from repro_torch.launch.mesh import make_mesh
@@ -3171,8 +3235,68 @@ def phase_dp_lane(torch, train_losses):
                     "launches_forward": c_fwd, "launches_backward": c_bwd,
                     "launches_planset": [want_fwd, want_bwd],
                     "host_dp1": host1, "host_dp2": host2}
-    del can1, can2
+    del can1
     mesh.free_symmetric()
+
+    # ---- ZeRO-3 step 0: the same mesh, weights and shards ----------------
+    par3 = dataclasses.replace(par2, zero3=True)
+    trz = trainer(par3, TRAIN_STEPS)
+    ranks3 = trz.place(ranks[:tp])       # each rank's pieces, seed 0's
+    flagged = M.zero3_leaves(cfg, par3)
+    z3_bytes = [sum(dict(p.named_parameters())[n].nbytes for n in flagged)
+                for p in ranks3]
+    z1_bytes = [sum(dict(p.named_parameters())[n].nbytes for n in flagged)
+                for p in ranks]
+    check(all(b1 == dp * b3 for b1, b3 in zip(z1_bytes, z3_bytes)),
+          f"ZeRO-3 leaf bytes a rank {z3_bytes}, ZeRO-1's {z1_bytes}: not "
+          f"1/{dp}")
+    loss3, can3, c_fwd3, c_bwd3, host3 = step0(
+        torch, cfg, par3, trz.group, ranks3, trd.step_batch(0))
+    check(c_fwd3 == want_fwd and c_bwd3 == want_bwd,
+          f"ZeRO-3 step 0 launches {c_fwd3} / {c_bwd3}, its PlanSet implies "
+          f"{want_fwd} / {want_bwd}")
+
+    def flagged_leaf(n):            # canonical names: w13 -> w1 and w3
+        base = n.rsplit(".", 1)[0]
+        return n in flagged or (n.endswith((".w1", ".w3"))
+                                and base + ".w13" in flagged)
+    rel_z = {n: _rel_l2(can3[n], dp * can2[n]) for n in can3
+             if flagged_leaf(n)}
+    others = [n for n in can3 if not flagged_leaf(n)]
+    rel_o = {n: _rel_l2(can3[n], can2[n]) for n in others}
+    equal_o = sum(bool(torch.equal(can3[n], can2[n])) for n in others)
+    worst_z = max(rel_z, key=rel_z.get)
+    worst_o = max(rel_o, key=rel_o.get)
+    res["zero3"] = {"flagged": sorted(flagged), "leaves": len(can3),
+                    "step0": {"loss": loss3, "loss_zero1": loss2,
+                              "loss_equal": loss3 == loss2,
+                              "grad_rel_l2_vs_dp_x_zero1_max":
+                                  rel_z[worst_z],
+                              "grad_worst_leaf": worst_z,
+                              "other_leaves_bit_equal":
+                                  f"{equal_o}/{len(others)}",
+                              "other_rel_l2_max": rel_o[worst_o],
+                              "other_worst_leaf": worst_o,
+                              "launches_forward": c_fwd3,
+                              "launches_backward": c_bwd3,
+                              "host": host3},
+                    "leaf_bytes_a_rank": z3_bytes,
+                    "leaf_bytes_a_rank_zero1": z1_bytes,
+                    "weight_bytes_a_rank": [
+                        sum(t.nbytes for t in p.parameters())
+                        for p in ranks3],
+                    "weight_bytes_a_rank_zero1": [
+                        sum(t.nbytes for t in p.parameters())
+                        for p in ranks]}
+    check(loss3 == loss2, f"ZeRO-3 step-0 loss {loss3} != ZeRO-1's {loss2}")
+    check(rel_z[worst_z] <= TRAIN_GRAD_RTOL,
+          f"ZeRO-3 grad of {worst_z} vs dp x ZeRO-1's: relative L2 "
+          f"{rel_z[worst_z]}")
+    check(equal_o == len(others),
+          f"ZeRO-3 grads of {len(others) - equal_o} unflagged leaves differ "
+          f"from ZeRO-1's (worst {worst_o}: relative L2 {rel_o[worst_o]})")
+    del can2, can3, ranks3
+    trz.group.free_symmetric()
 
     # ---- the int8 pod all-reduce at pods=2 x dp=1 on those grads --------
     podm = make_mesh(dp, 1, tp, "cuda")
@@ -3252,10 +3376,11 @@ def phase_dp_lane(torch, train_losses):
     torch.cuda.empty_cache()
 
     # ---- the main path: 3 Trainer steps at dp=2 x tp=2 ------------------
+    opts = [trd.init_opt(p, r) for r, p in enumerate(ranks)]
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
     zero_counts()
-    _, opts, hist = trd.train(ranks, [trd.init_opt(p, r)
-                                      for r, p in enumerate(ranks)])
+    _, opts, hist = trd.train(ranks, opts)
     torch.cuda.synchronize()
     counts = read_counts()
     want = {k: TRAIN_STEPS * v for k, v in want_p.items()}
@@ -3284,6 +3409,7 @@ def phase_dp_lane(torch, train_losses):
         "step_ms": [h["seconds"] * 1e3 for h in hist],
         "launches": counts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "start_mem_gb": start_gb,
         "moment_bytes_a_rank": moment_bytes,
         "moment_bytes_dp1_a_rank": dp1_all,
         "split_leaves": len(split), "whole_leaves": len(zplan) - len(split),
@@ -3295,13 +3421,47 @@ def phase_dp_lane(torch, train_losses):
     res["trainer"]["profiled_step"] = device_profile(
         torch, lambda: trd.run_step(ranks, opts, trd.step_batch(0)),
         sums={"ag_gemm_ms": "ag_gemm", "gemm_rs_ms": "gemm_rs"})
+    mesh.free_symmetric()
+    del ranks, opts, trd, named
+    torch.cuda.empty_cache()
+
+    # ---- ZeRO-3: 3 Trainer steps from seed 0's weights -------------------
+    # (drawn again: ZeRO-1's trainer ran without ZeRO-3 copies beside it)
+    ranks3, opts3 = trz.init_state()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start3_gb = torch.cuda.memory_allocated() / 1e9
+    zero_counts()
+    _, opts3, hist3 = trz.train(ranks3, opts3)
+    torch.cuda.synchronize()
+    counts3 = read_counts()
+    losses3 = [h["loss"] for h in hist3]
+    rel_3 = [abs(x - y) / abs(y) for x, y in zip(losses3, losses)]
+    check(counts3 == want and len(losses3) == len(losses)
+          and max(rel_3) <= TRAIN_LOSS_RTOL,
+          f"{TRAIN_STEPS} ZeRO-3 steps: launches {counts3} (expected "
+          f"{want}), losses {losses3} vs ZeRO-1's {losses}")
+    ms3 = sorted(h["seconds"] * 1e3 for h in hist3)
+    res["zero3"]["trainer"] = {
+        "losses": losses3, "loss_rel_vs_zero1": rel_3,
+        "step_ms": [h["seconds"] * 1e3 for h in hist3],
+        "step_ms_median": ms3[len(ms3) // 2], "launches": counts3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "start_mem_gb": start3_gb,
+        "peak_above_start_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                - start3_gb),
+        "peak_above_start_gb_zero1": (res["trainer"]["peak_mem_gb"]
+                                      - res["trainer"]["start_mem_gb"]),
+        "peak_mem_gb_zero1": res["trainer"]["peak_mem_gb"]}
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
-    mesh.free_symmetric()
-    del ranks, opts, trd
+    trz.group.free_symmetric()
+    del ranks3, opts3, trz
     torch.cuda.empty_cache()
     return {"step0_forward": c_fwd, "step0_backward": c_bwd,
-            "pods_compress_step": cp, "trainer_steps": counts}
+            "pods_compress_step": cp, "trainer_steps": counts,
+            "zero3_step0_forward": c_fwd3, "zero3_step0_backward": c_bwd3,
+            "zero3_trainer_steps": counts3}
 
 
 def mla_train_cfg():
@@ -3316,8 +3476,9 @@ def mla_train_cfg():
 
 class capture_routes:
     """Records the MoE router's decisions while it is active: each call of
-    ``models.ffn._route`` appends (TP rank or -1 at tp=1, probs [t, E]
-    fp32, the top-k experts [t, k]) to ``calls``, on the host."""
+    ``models.ffn._route`` appends (the rank: its mesh rank, or -1 at one
+    rank; probs [t, E] fp32, the top-k experts [t, k]) to ``calls``, on
+    the host."""
 
     def __enter__(self):
         from repro_torch.models import ffn
@@ -3325,7 +3486,9 @@ class capture_routes:
 
         def route(p, ht, mc, axis=None):
             probs, gate, eidx = self._route(p, ht, mc, axis)
-            self.calls.append((-1 if axis is None else axis.rank(),
+            rank = (-1 if axis is None else axis.mesh.rank()
+                    if axis.mesh is not None else axis.rank())
+            self.calls.append((rank,
                                probs.detach().float().cpu(),
                                eidx.detach().cpu()))
             return probs, gate, eidx
@@ -3424,18 +3587,22 @@ def moe_layer_grads(torch, cfg, group, ranks, seed=9):
                                       MLA_TRAIN_BATCH, MLA_TRAIN_SEQ)}
 
 
-def a2a_fwd_bwd_ms(torch, group, ranks, cap, calls=5):
+def a2a_fwd_bwd_ms(torch, group, ranks, cap, calls=5, axes=None):
     """The MoE layer's ``moe_a2a`` op alone, forward and backward, at the
-    lane's buffer (x [tp, E/tp, cap, D] bf16 a rank, the rank's experts as
+    lane's buffer (x [ep, E/ep, cap, D] bf16 a rank, the rank's experts as
     leaves that take grads), ``xla`` (barrier exchanges) and ``flux`` (the
     shift ring): host ms a call each way (``calls`` calls inside one
     ``spmd``; each backward's forward recorded beforehand) and the summed
     device ms of one profiled call, forward alone and forward with
-    backward (the backward's device ms their difference)."""
+    backward (the backward's device ms their difference).  The op runs
+    over ``group`` (its ranks the EP group), or with ``axes`` over each
+    rank's view ``group.group(axes)`` of the mesh ``group``."""
     from repro_torch.core.overlap import Epilogue, FusedOp, SeamTape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
-    tp = group.n
+    views = [group if axes is None else group.group(axes, r)
+             for r in range(len(ranks))]
+    tp = views[0].n
     args = []
     for rank in ranks:
         f = rank.layers[-1].ffn
@@ -3447,16 +3614,16 @@ def a2a_fwd_bwd_ms(torch, group, ranks, cap, calls=5):
                                  device="cuda").bfloat16()))
     out = {"shape_a_rank": list(args[0][0].shape), "calls": calls}
     for mode in ("xla", "flux"):
-        op = FusedOp("a2a", Epilogue(activation="silu", gate="pair"), 3,
-                     axis=group, mode=mode)
+        ops = [FusedOp("a2a", Epilogue(activation="silu", gate="pair"), 3,
+                       axis=v, mode=mode) for v in views]
 
         def forward(x, ws, g):
             with torch.no_grad():
-                return op(x, *ws)
+                return ops[group.rank()](x, *ws)
 
         def record(x, ws, g):
             with torch.enable_grad(), SeamTape() as tape:
-                y = op(x, *ws)
+                y = ops[group.rank()](x, *ws)
             return tape, y
 
         def backward(tape, y, g, ws):
@@ -3764,6 +3931,272 @@ def phase_mla_train_lane(torch):
     del tr4
     torch.cuda.empty_cache()
     return {"forward": c_fwd, "backward": c_bwd, "trainer_steps": counts}
+
+
+def routing_vs(torch, calls, base):
+    """The MoE layer's routing of one layout (``capture_routes``' calls,
+    one a mesh rank) against another's on the same ranks and tokens: the
+    tokens sent to another set of experts and how many of them are not
+    near ties (``routing_vs_tp1``'s rule: margin <= 2 x the token's
+    largest probability difference)."""
+    def whole(cs, i):
+        return torch.cat([c[i] for c in sorted(cs, key=lambda c: c[0])])
+    pa, ea = whole(calls, 1), whole(calls, 2)
+    pb, eb = whole(base, 1), whole(base, 2)
+    k = eb.shape[-1]
+    changed = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+    top = pb.sort(-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]
+    wide = changed & (margin > 2 * (pa - pb).abs().amax(-1))
+    return {"tokens": int(pb.shape[0]),
+            "tokens_routed_elsewhere": int(changed.sum()),
+            "changed_not_near_tie": int(wide.sum())}
+
+
+def phase_ep_lane(torch):
+    """Expert parallelism on the rank mesh: the mla train lane's
+    configuration (``mla_train_cfg``: deepseek_v3_671b at full width, 4
+    layers, 16 of 256 routed experts, the MTP head; 2 x 1024 tokens;
+    drop-free capacity) at tp=EP_LANE_TP in flux, its weights drawn again
+    from seed 0 (that lane's are gone).  Step 0 through the trainer's grad
+    completion and sync in three layouts of 4 ranks: (dp 2, tp 2) with
+    the experts over "model" (8 a rank), (ep 2, dp 1, tp 2) with a
+    dedicated ep axis (8 a rank, whole over "model"), and (dp 2, tp 2)
+    with ``ep_over_dp`` (4 a rank over the (data, model) view).  Gates:
+    each layout's loss within TRAIN_LOSS_RTOL of the first's, every
+    synced canonical grad within TRAIN_GRAD_RTOL (under ``ep_over_dp``
+    the routed experts' grads / dp: their ``a2a`` backward sums both data
+    shards' tokens and no data mean follows, the reference's contract),
+    the routed experts and the router against the near-tie rule when a
+    token routes elsewhere; no assignment dropped; the launches each
+    PlanSet implies per TP group.  The ``moe_a2a`` op alone over the ep
+    view and over the (data, model) view.  No optimizer step: two
+    replicas' fp32 moments do not fit beside them (the lane records each
+    layout's step-0 peak and the moment bytes it would add).  Returns
+    each layout's fused launches of step 0."""
+    from repro_torch.configs.base import (MOE_FFN, ParallelConfig,
+                                          train_schedule)
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+
+    t_phase = time.perf_counter()
+    cfg = mla_train_cfg()
+    cfg_df = drop_free(cfg)
+    tp, bf16 = EP_LANE_TP, torch.bfloat16
+    tc = T.TrainConfig(total_steps=1, warmup_steps=0, base_lr=3e-4,
+                       schedule=train_schedule(cfg.name), log_every=1)
+    res = {"phase": "ep_lane", "arch": cfg.name, "tp": tp,
+           "reduced": "as the mla train lane: 4 of 61 layers, "
+                      f"{MLA_TRAIN_EXPERTS} of 256 routed experts",
+           "batch": MLA_TRAIN_BATCH, "seq": MLA_TRAIN_SEQ,
+           "drop_free_capacity_factor": MLA_DROP_FREE_CF,
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    par_w = ParallelConfig(tp=tp, fuse_w13=True)
+    names = list(M.mesh_specs(cfg, par_w))
+    groups = {}
+    for n in names:      # a layer's leaves a sync, the embedding alone
+        key = (".".join(n.split(".")[:2]) if n.startswith("layers.")
+               else n.split(".")[0])
+        groups.setdefault(key, []).append(n)
+    kinds = M.expanded_pattern(cfg)
+    routed = {n for n in names if n.startswith("layers.")
+              and kinds[int(n.split(".")[1])][1] == MOE_FFN
+              and n.split(".")[-1] in ("w1", "w3", "w2", "router")
+              and ".shared." not in n}
+    experts = {n for n in routed if not n.endswith("router")}
+    base = {}                   # the first layout's canonical grads, host
+    base_loss = base_routes = None
+    counts = {}
+    for name, kw in EP_LANE_LAYOUTS:
+        par = ParallelConfig(tp=tp, fuse_w13=True, overlap_mode="flux", **kw)
+        tr = T.Trainer(cfg_df, par, tc, device="cuda", dtype=bf16)
+        tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=MLA_TRAIN_SEQ,
+                                          global_batch=MLA_TRAIN_BATCH)
+        mesh = tr.group
+        # seed 0's weights drawn again for each layout: the global copy is
+        # dropped before the step
+        t0 = time.perf_counter()
+        full = M.init_model(cfg, par_w, seed=0, dtype=bf16, device="cuda",
+                            trainable=True)
+        ranks = tr.shard(full)
+        del full
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        ffn.dropped.clear()
+        with capture_routes() as rt:
+            losses, grads, c_fwd, c_bwd, host = step0_grads(
+                torch, cfg_df, par, mesh, ranks, tr.step_batch(0))
+        drops = ffn.drop_totals(tp)
+        loss = sum(losses[::tp]) / (mesh.size // tp)
+        plans = T.make_ctx(cfg_df, par, mesh=mesh, rank=0).plans
+        want_f, want_b = ({k: v * (mesh.size // tp) for k, v in c.items()}
+                          for c in plan_launches(plans, cfg_df, tp, 1))
+        check(c_fwd == want_f and c_bwd == want_b,
+              f"ep lane {name}: launches {c_fwd} / {c_bwd}, its PlanSet "
+              f"implies {want_f} / {want_b}")
+        check(drops == [0] * tp, f"ep lane {name} dropped {drops}")
+        n_exp = ranks[0].layers[-1].ffn["w1"].shape[0]
+        check(n_exp == MLA_TRAIN_EXPERTS // (
+            mesh.size if par.ep_over_dp else 2),
+              f"ep lane {name}: {n_exp} experts a rank")
+        dp_x = par.dp if par.ep_over_dp else 1
+        rel = {}
+        for leaves in groups.values():
+            can = synced_canonical(torch, cfg_df, par, mesh, ranks, grads,
+                                   leaves)
+            for n, g in can.items():
+                if n in experts and dp_x > 1:
+                    g = g / dp_x
+                if base_routes is None:
+                    base[n] = g.float().cpu()
+                else:
+                    rel[n] = _rel_l2(g, base[n].to("cuda"))
+            del can
+        del grads
+        torch.cuda.empty_cache()
+        params_a_rank = [sum(p.numel() for p in r.parameters())
+                         for r in ranks]
+        row = {"mesh": dict(zip(mesh.axes, mesh.shape)),
+               "experts_a_rank": n_exp, "loss": loss,
+               "launches_forward": c_fwd, "launches_backward": c_bwd,
+               "launches_planset": [want_f, want_b],
+               "dropped_assignments_per_rank": drops,
+               "weights_gb_a_rank": [2 * n / 1e9 for n in params_a_rank],
+               "fp32_moments_gb_all_ranks": 8 * sum(params_a_rank) / 1e9,
+               "init_and_shard_s": init_s, "step0_host": host}
+        if base_routes is None:
+            base_loss, base_routes = loss, rt.calls
+            row["canonical_leaves"] = len(base)
+        else:
+            routing = routing_vs(torch, rt.calls, base_routes)
+            moved = routing["tokens_routed_elsewhere"] > 0
+            strict = {n: r for n, r in rel.items()
+                      if not (moved and n in routed)}
+            worst = max(strict, key=strict.get)
+            rel_loss = abs(loss - base_loss) / abs(base_loss)
+            row.update({"loss_rel_vs_first": rel_loss,
+                        "grad_rel_l2_max": strict[worst],
+                        "grad_worst_leaf": worst,
+                        "routed_grad_rel_l2": {n: rel[n]
+                                               for n in sorted(routed)},
+                        "routing_vs_first": routing,
+                        "expert_grads_divided_by": dp_x})
+            check(rel_loss <= TRAIN_LOSS_RTOL
+                  and strict[worst] <= TRAIN_GRAD_RTOL
+                  and routing["changed_not_near_tie"] == 0,
+                  f"ep lane {name} vs {EP_LANE_LAYOUTS[0][0]}: loss "
+                  f"{loss} vs {base_loss}, grad of {worst} relative L2 "
+                  f"{strict[worst]}, routing {routing}")
+        if par.ep > 1 or par.ep_over_dp:
+            cap = ffn._capacity(MLA_TRAIN_BATCH * MLA_TRAIN_SEQ
+                                // mesh.size, cfg.moe)
+            row["a2a_op"] = a2a_fwd_bwd_ms(
+                torch, mesh, ranks, cap, calls=3,
+                axes="ep" if par.ep > 1 else ("data", "model"))
+        res[name] = row
+        emit({"phase": "ep_lane", "layout": name, **row})
+        counts[name] = {"forward": c_fwd, "backward": c_bwd}
+        mesh.free_symmetric()
+        del ranks, tr, mesh
+        torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del base
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return counts
+
+
+def phase_pipeline_lane(torch):
+    """GPipe over the pod view of a (PIPE_STAGES, 1, 1) mesh
+    (``parallel.pipeline.pipeline_forward``, forward only, as the
+    reference's): minicpm_2b at full width cut to TRAIN_LAYERS layers,
+    bf16 weights from seed 0 at tp=1 with the flash kernel
+    (``kernel_decode``), TRAIN_LAYERS / PIPE_STAGES layers a stage, the
+    embedded 4 x 1024 tokens in PIPE_MICRO microbatches; the counts set
+    to 0 just before and read just after.  Gates: the last stage's output
+    within TOL["bfloat16"] relative L2 of the layers run one after
+    another on the whole batch (not counted), one flash launch a layer a
+    microbatch, ``bubble_fraction`` (4, 4) = 3/7.  Returns the flash
+    launches."""
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               pipeline_forward)
+    from repro_torch.parallel.sharding import make_ctx
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=TRAIN_LAYERS)
+    par = ParallelConfig(fuse_w13=True, kernel_decode=True)
+    ctx = make_ctx(par)
+    model = M.init_model(cfg, par, seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    kinds = M.expanded_pattern(cfg)
+    per = TRAIN_LAYERS // PIPE_STAGES
+    tokens = torch.from_numpy(batch_at(DataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0)["tokens"]).cuda()
+
+    def run_layers(h, lo, hi):
+        for i in range(lo, hi):
+            h, _ = M._block(model.layers[i], h,
+                            ctx.with_layer(M.layer_slot(cfg, i)), cfg,
+                            kinds[i])
+        return h
+
+    with torch.no_grad():
+        x = layers.embed_lookup(model.embed, tokens, ctx).to(torch.bfloat16)
+        want = run_layers(x, 0, TRAIN_LAYERS)
+    mesh = make_mesh(PIPE_STAGES, 1, 1, "cuda")
+
+    def stage(r):
+        pod = mesh.group("pod")
+        s = pod.rank()
+        with torch.no_grad():
+            return pipeline_forward(
+                lambda h, t: run_layers(h, s * per, (s + 1) * per), x, pod,
+                PIPE_MICRO)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = mesh.spmd(stage, [(r,) for r in range(PIPE_STAGES)])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    rel = _rel_l2(outs[-1], want)
+    want_launches = TRAIN_LAYERS * PIPE_MICRO
+    bubble = bubble_fraction(PIPE_MICRO, PIPE_STAGES)
+    res = {"phase": "pipeline_lane", "arch": cfg.name,
+           "layers": f"{TRAIN_LAYERS} of 40 (cut in depth), {per} a stage",
+           "stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "out_rel_l2_vs_sequential": rel, "tol": TOL["bfloat16"],
+           "flash_launches": counts["flash_attention"],
+           "flash_launches_expected": want_launches,
+           "bubble_fraction": bubble, "host_ms": host_ms,
+           "other_stages_zero": all(bool((o == 0).all())
+                                    for o in outs[:-1])}
+    check(rel <= TOL["bfloat16"] and bool(torch.isfinite(outs[-1]).all()),
+          f"pipeline output vs sequential: relative L2 {rel}")
+    check(counts["flash_attention"] == want_launches,
+          f"pipeline flash launches {counts['flash_attention']}, expected "
+          f"{want_launches}")
+    check(abs(bubble - 3 / 7) < 1e-12 and res["other_stages_zero"],
+          f"bubble fraction {bubble}; other stages' outputs zero: "
+          f"{res['other_stages_zero']}")
+    del outs, want, x, model
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return counts["flash_attention"]
 
 
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
@@ -5406,9 +5839,12 @@ def main():
     tp1_tokens = timed("tp_server_lane", phase_tp_server_lane, torch)
     train_counts = timed("train_lane", phase_train_lane, torch)
     mla_train = timed("mla_train_lane", phase_mla_train_lane, torch)
+    # after the mla train lane has freed its moments
+    ep_counts = timed("ep_lane", phase_ep_lane, torch)
     # after the mla train lane, whose peak leaves the least room
     dp_counts = timed("dp_lane", phase_dp_lane, torch,
                       train_counts.pop("losses"))
+    pipe_flash = timed("pipeline_lane", phase_pipeline_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -5428,7 +5864,8 @@ def main():
          "bound_by": flash_case["bound_by"],
          "library_ms": flash_case["library_ms"],
          "paper_launches": paper_launches(paper, "flash_attention"),
-         "wire_launches": wire_counts["flash_attention"]},
+         "wire_launches": wire_counts["flash_attention"],
+         "pipeline_launches": pipe_flash},
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
@@ -5472,6 +5909,8 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["ag_gemm"]
                  for d in ("forward", "backward")}},
          "dp_launches": {k: v["ag_gemm"] for k, v in dp_counts.items()},
+         "ep_launches": {k: {d: v[d]["ag_gemm"] for d in v}
+                         for k, v in ep_counts.items()},
          "paper_launches": paper_launches(paper, "ag_gemm"),
          "wire_launches": wire_counts["ag_gemm"],
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
@@ -5501,6 +5940,8 @@ def main():
                  d: tune_counts["heterogeneous_step"][d]["gemm_rs"]
                  for d in ("forward", "backward")}},
          "dp_launches": {k: v["gemm_rs"] for k, v in dp_counts.items()},
+         "ep_launches": {k: {d: v[d]["gemm_rs"] for d in v}
+                         for k, v in ep_counts.items()},
          "paper_launches": paper_launches(paper, "gemm_rs"),
          "wire_launches": {"gemm_rs": wire_counts["gemm_rs"],
                            "reduce": wire_counts["gemm_rs_reduce"]},

@@ -87,13 +87,19 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto devices: the reference's fields that the port
-    reads so far.  tp>1 runs its ranks in a ``dist.RankGroup``; dp>1 or
-    pods>1 runs the ``("pod", "data", "model")`` mesh of
+    reads so far.  tp>1 runs its ranks in a ``dist.RankGroup``; dp>1,
+    pods>1 or ep>1 runs the ``("pod", "ep", "data", "model")`` mesh of
     ``launch.mesh.make_mesh`` (a ``dist.RankMesh``): ZeRO-1 moments over
     "data" and, with ``grad_compress``, the int8 block-quantized grad
-    all-reduce over "pod".  ep>1 raises; ``zero3`` and ``ep_over_dp`` are
-    carried and raise in ``models.model.check_trainable``; pipelines come
-    with their slice.  ``remat`` ("none" | "selective" | "full")
+    all-reduce over "pod".  ``ep`` > 1 is a dedicated expert-parallel axis
+    (it carries batch; the routed experts split over it, whole over the
+    TP ranks; 1: no such axis, the reference's 0), ``ep_over_dp`` splits
+    the experts over ("data", "model") instead, and ``zero3`` also splits
+    the layers' weights over "data", gathered a layer at a time
+    (``models.model``; training only: serving at dp>1 is not ported).
+    The reference's ``pp`` (the pod axis read as pipeline stages,
+    ``parallel.pipeline``) and ``seq_shard_attn`` are not carried.
+    ``remat`` ("none" | "selective" | "full")
     recomputes each pattern block's activations in the backward (both
     values checkpoint every block, as the reference's do).
     ``kernel_decode`` turns on the hand-written kernels

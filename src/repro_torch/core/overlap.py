@@ -155,6 +155,13 @@ grads accumulate on their rank, with no exchange: each rank's experts
 are its own.  The expert GEMMs are ``torch`` batched matmuls, as the
 reference's ``_expert_fn`` is ``jnp.einsum``: no fused kernel, whatever
 the mode.
+
+ZeRO-3's weight gather (``zero3_gather``) is a seam of the data group,
+not of a TP seam: every rank's dim-0 shards of a layer's flagged leaves
+concatenated in rank order, its backward the summing reduce-scatter (the
+transpose of the reference's tiled ``lax.all_gather``).  ``zero3_release``
+frees the gathered copies' storage and records the gather that fills
+them again when the tape's backward reaches it.
 """
 from __future__ import annotations
 
@@ -677,6 +684,80 @@ class _PermuteSeam:
     def backward(self, saved, gouts):
         inverse = [(d, s) for s, d in self.perm]
         return (self.group.ppermute(gouts[0], inverse, "ppermute"),)
+
+
+class _Zero3GatherSeam:
+    """ZeRO-3's per-layer weight gather over the data group: the ranks'
+    dim-0 shards joined in rank order, one exchange for the layer's
+    leaves; its backward sums every rank's grad rows of this rank's shard
+    (the summing reduce-scatter)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def forward(self, *shards):
+        parts = self.group.exchange(tuple(shards), "zero3_gather")
+        return tuple(torch.cat([p[i] for p in parts])
+                     for i in range(len(shards))), None
+
+    def backward(self, saved, gouts):
+        parts = self.group.exchange(tuple(gouts), "zero3_grads")
+        me = self.group.rank()
+        out = []
+        for i, g in enumerate(gouts):
+            rows = g.shape[0] // self.group.n
+            acc = None
+            for p in parts:
+                piece = p[i][me * rows:(me + 1) * rows]
+                acc = piece.clone() if acc is None else acc.add_(piece)
+            out.append(acc)
+        return tuple(out)
+
+
+def zero3_gather(shards: Sequence[torch.Tensor], group
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The whole leaves of ``shards`` (each this rank's dim-0 shard) over
+    the data ``group``: a seam on the rank's tape under grad (its
+    backward the summing reduce-scatter); the shards themselves in a
+    group of one rank."""
+    if _group_size(group) == 1 or not shards:
+        return tuple(shards)
+    return tuple(_run_seam(_Zero3GatherSeam(group), *shards))
+
+
+class _Zero3ReleaseSeam:
+    """Frees gathered weights' storage in the forward; in the backward
+    gathers them again into the same storage (written through ``.data``:
+    the saved tensors' version counters stay as autograd saved them)."""
+
+    def __init__(self, full, shards, group):
+        self.full, self.shards, self.group = full, shards, group
+        self.nbytes = [t.untyped_storage().nbytes() for t in full]
+
+    def forward(self):
+        for t in self.full:
+            t.untyped_storage().resize_(0)
+        return (), None
+
+    def backward(self, saved, gouts):
+        parts = self.group.exchange(tuple(t.detach() for t in self.shards),
+                                    "zero3_regather")
+        for i, (t, nb) in enumerate(zip(self.full, self.nbytes)):
+            t.untyped_storage().resize_(nb)
+            torch.cat([p[i] for p in parts], out=t.data)
+        return ()
+
+
+def zero3_release(full: Sequence[torch.Tensor],
+                  shards: Sequence[torch.Tensor], group) -> None:
+    """Free the storage of ``zero3_gather``'s copies ``full`` once their
+    layer's forward is done, and record on this thread's tape the gather
+    (of ``shards``) that refills them when the backward reaches this
+    point: record it after every op of the forward that reads them."""
+    tape = current_tape()
+    if tape is None or _group_size(group) == 1:
+        return
+    tape.record(_Zero3ReleaseSeam(tuple(full), tuple(shards), group), ())
 
 
 def pmax(x: torch.Tensor, axis) -> torch.Tensor:

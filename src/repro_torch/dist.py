@@ -24,7 +24,12 @@ What the ranks share:
   the missing ranks were.  An exception in one rank aborts the others and
   is raised to the caller of ``spmd``.
 
-On CPU tensors the same group runs, with no streams or events.  All ranks
+On CPU tensors the same group runs, with no streams or events.  cuBLAS
+keeps a workspace (33.5 MB on the H100) for every (handle, stream) pair
+that ran a GEMM, for the life of the process, and the rank threads of
+each ``spmd`` take the pooled handles in a varying order: ``spmd``
+releases them all when its ranks return (``release_gemm_workspaces``;
+the caching allocator keeps the blocks for the next calls).  All ranks
 sit on one device; placing rank i on card i is not written yet (ROADMAP
 queue 1 item 2).
 
@@ -36,7 +41,10 @@ coordinate: a ``RankGroup`` view (``mesh.group(axis)``) with its own
 barrier, slots, symmetric buffers and flag epochs over the mesh's threads
 and streams, so two TP groups of one mesh never share a flag array.
 Inside a mesh rank ``current_group()`` is the rank's "model" sub-group.
-One rank's failure aborts every sub-group's barrier.  ``RankGroup(n,
+``mesh.group(("data", "model"))`` is the view over several axes at once
+(the experts' group under ``ep_over_dp``), its ranks in the reference's
+axis-major order: index ``data · tp + model``.  One rank's failure
+aborts every sub-group's barrier.  ``RankGroup(n,
 device)`` is the one-axis case and runs its own ``spmd``; a view runs
 inside its mesh's.
 """
@@ -63,6 +71,14 @@ EPOCHS = 1 << 20
 SWITCH_INTERVAL_S = 1e-4
 
 _LOCAL = threading.local()
+
+
+def release_gemm_workspaces() -> None:
+    """Free cuBLAS's workspaces of every (handle, stream) pair (module
+    docstring); the next GEMM on a stream takes one again."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
 
 
 class RankGroupError(RuntimeError):
@@ -195,6 +211,7 @@ class _Ranks:
                 caller.wait_event(ev)
             _walk_tensors(results, lambda t: t.record_stream(caller)
                           if t.is_cuda else None)
+            release_gemm_workspaces()
         return results
 
 
@@ -428,18 +445,32 @@ class RankMesh(_Ranks):
         self._coords = list(itertools.product(*(range(s)
                                                 for s in self.shape)))
         self._rank_of = {c: r for r, c in enumerate(self._coords)}
-        self._sub: Dict[Tuple[str, int], RankGroup] = {}
+        self._sub: Dict[Tuple[Any, int], RankGroup] = {}
         self._views: List[RankGroup] = []
-        for a, axis in enumerate(self.axes):
-            for r, c in enumerate(self._coords):
-                if (axis, r) in self._sub:
-                    continue
-                members = [self._rank_of[c[:a] + (i,) + c[a + 1:]]
-                           for i in range(self.shape[a])]
-                view = RankGroup._view(self, members)
-                self._views.append(view)
-                for m in members:
-                    self._sub[(axis, m)] = view
+        self._views_lock = threading.Lock()
+        for axis in self.axes:
+            self._make_views(axis)
+
+    def _make_views(self, axis) -> None:
+        """The views along ``axis`` (a name, or a tuple of names: the
+        ranks that share every other coordinate, axis-major over the
+        tuple)."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        dims = [self.axes.index(a) for a in names]
+        for r, c in enumerate(self._coords):
+            if (axis, r) in self._sub:
+                continue
+            members = []
+            for idx in itertools.product(*(range(self.shape[d])
+                                           for d in dims)):
+                q = list(c)
+                for d, i in zip(dims, idx):
+                    q[d] = i
+                members.append(self._rank_of[tuple(q)])
+            view = RankGroup._view(self, members)
+            self._views.append(view)
+            for m in members:
+                self._sub[(axis, m)] = view
 
     @property
     def timeout_s(self) -> float:
@@ -466,21 +497,32 @@ class RankMesh(_Ranks):
     def coord(self, axis: str, rank: Optional[int] = None) -> int:
         return self.coords(rank)[self.axes.index(axis)]
 
-    def group(self, axis: str, rank: Optional[int] = None) -> RankGroup:
+    def group(self, axis, rank: Optional[int] = None) -> RankGroup:
         """A rank's sub-group along ``axis`` (default: the calling
-        rank's)."""
-        if axis not in self.axes:
+        rank's); a tuple of axes is the view over all of them, axis-major
+        (built at its first use)."""
+        if not isinstance(axis, str):
+            axis = tuple(axis)
+            if len(axis) == 1:
+                axis = axis[0]
+        names = (axis,) if isinstance(axis, str) else axis
+        if not names or any(a not in self.axes for a in names) or len(
+                set(names)) != len(names):
             raise ValueError(f"no axis {axis!r} in the mesh's {self.axes}")
-        return self._sub[(axis, self.rank() if rank is None else rank)]
+        r = self.rank() if rank is None else rank
+        if (axis, r) not in self._sub:
+            with self._views_lock:
+                self._make_views(axis)
+        return self._sub[(axis, r)]
 
     # ---- running the ranks -----------------------------------------------
     def _groups(self) -> List[RankGroup]:
-        return self._views
+        return list(self._views)
 
     def _done(self, r: int) -> None:
-        for axis in self.axes:
-            view = self._sub[(axis, r)]
-            view._where[view._index[r]] = "done"
+        for view in list(self._views):
+            if r in view._index:
+                view._where[view._index[r]] = "done"
 
     def _enter(self, r: int) -> None:
         _LOCAL.mesh, _LOCAL.mesh_rank = self, r

@@ -1,15 +1,15 @@
 """Rank meshes (port of ``repro.launch.mesh``).
 
-``make_mesh(pods, dp, tp, device)`` is the reference's mesh with its axis
-order and names: ``("pod", "data", "model")`` when ``pods > 1``, else
-``("data", "model")``, so model code can always address "data" and
-"model".  The port's mesh is a ``dist.RankMesh``: every rank a thread on
-the one device.  ``dp_axes`` names the axes that carry the batch and
-the grad sync, pod before data.  ``elastic_remesh`` rebuilds a mesh from
-the surviving ranks: TP groups stay whole (a TP group dies with any of
-its members) and dp shrinks to what still forms full groups.  The
-reference's dedicated ``ep`` axis is not ported (ROADMAP queue 1 item
-10).
+``make_mesh(pods, dp, tp, device, ep=1)`` is the reference's mesh with its
+axis order and names: ``("pod", "ep", "data", "model")``, "pod" dropped
+when ``pods == 1`` and the dedicated expert-parallel axis "ep" when
+``ep == 1``, so model code can always address "data" and "model".  The
+port's mesh is a ``dist.RankMesh``: every rank a thread on the one
+device.  ``dp_axes`` names the axes that carry the batch, pod, then ep,
+then data: a dedicated "ep" axis shards the batch too, and only the MoE
+layers' ``moe_a2a`` seam crosses it.  ``elastic_remesh`` rebuilds a mesh
+from the surviving ranks: TP groups stay whole (a TP group dies with any
+of its members) and dp shrinks to what still forms full groups.
 """
 from __future__ import annotations
 
@@ -17,18 +17,30 @@ from typing import Tuple
 
 from repro_torch.dist import RankMesh
 
-DP_AXES = ("pod", "data")
+DP_AXES = ("pod", "ep", "data")
 
 
-def make_mesh(pods: int, dp: int, tp: int, device=None) -> RankMesh:
-    """The (pods, dp, tp) mesh, "pod" dropped when ``pods == 1``."""
-    if pods > 1:
-        return RankMesh((pods, dp, tp), ("pod", "data", "model"), device)
-    return RankMesh((dp, tp), ("data", "model"), device)
+def make_mesh(pods: int, dp: int, tp: int, device=None, ep: int = 1
+              ) -> RankMesh:
+    """The (pods, ep, dp, tp) mesh, "pod" dropped when ``pods == 1`` and
+    "ep" when ``ep == 1``."""
+    shape, axes = [], []
+    for size, axis in ((pods, "pod"), (ep, "ep")):
+        if size > 1:
+            shape.append(size)
+            axes.append(axis)
+    return RankMesh((*shape, dp, tp), (*axes, "data", "model"), device)
+
+
+def mesh_shape(par) -> Tuple[int, ...]:
+    """The shape ``make_mesh`` gives a ``ParallelConfig``."""
+    return tuple(s for s, keep in ((par.pods, par.pods > 1),
+                                   (par.ep, par.ep > 1), (par.dp, True),
+                                   (par.tp, True)) if keep)
 
 
 def dp_axes(mesh: RankMesh) -> Tuple[str, ...]:
-    """The axes that carry data parallelism (batch), pod before data."""
+    """The axes that carry data parallelism (batch): pod, ep, data."""
     return tuple(a for a in DP_AXES if a in mesh.axes)
 
 

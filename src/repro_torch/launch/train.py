@@ -17,14 +17,24 @@
       --smoke --steps 3 --dp 2 --tp 2 --device cpu        # ZeRO-1 over dp
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
       --smoke --steps 3 --pods 2 --tp 2 --grad-compress --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+      --smoke --steps 3 --dp 2 --tp 2 --zero3 --device cpu   # ZeRO-3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v3_671b \
+      --smoke --steps 3 --ep 2 --tp 2 --device cpu   # a dedicated ep axis
 
 Runs on the CUDA card by default (bf16 weights); ``--device cpu`` runs the
 plain PyTorch path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the
 ranks are the threads of one ``dist.RankGroup`` on the one device; at
-``--dp`` or ``--pods`` > 1 the threads of the ``(pods, dp, tp)`` mesh
-(``launch.mesh.make_mesh``): ZeRO-1 moments over the data ranks, the
-batch split over pods · dp shards, and ``--grad-compress`` quantizes the
-pod all-reduce of the grads to int8 blocks.  The
+``--dp``, ``--pods`` or ``--ep`` > 1 the threads of the ``(pods, ep,
+dp, tp)`` mesh (``launch.mesh.make_mesh``): ZeRO-1 moments over the data
+ranks, the batch split over pods · ep · dp shards, and
+``--grad-compress`` quantizes the pod all-reduce of the grads to int8
+blocks.  ``--zero3`` also shards the layers' weights over the data ranks
+and gathers each layer's before it runs; ``--ep`` > 1 is a dedicated
+expert-parallel axis (experts split over it, replicated over the TP
+ranks); without it an MoE config of more than 16 experts at ``--dp`` > 1
+splits its experts over (data, model) (``ep_over_dp``), as the
+reference's launcher does.  The
 schedule is per arch, as in the reference (``configs.base.train_schedule``:
 ``wsd`` for minicpm).  ``--scatter-axis`` picks the residual layout
 (``auto`` is ``seq``); ``--ckpt-dir`` checkpoints there (every 50 steps,
@@ -43,12 +53,7 @@ fp8_e4m3 or int4; the backward stays fp; flux seams keep the fp wire).
 With ``--autotune`` a pinned ``--wire-dtype`` sweeps the fp wire and
 that one, ``--max-logit-rmse`` alone sweeps every wire
 (``WIRE_DTYPE_SWEEP``), the quantized rows gated by ``--max-logit-rmse``
-when given, and neither flag keeps the sweep to the fp wire.  The
-reference's flags for what the port does not carry (``--ep``,
-``--zero3``) are accepted and raise when set, each naming its ROADMAP
-item; so does ``--dp`` > 1 on an MoE config of more than 16 experts,
-where the reference shards the experts over (data, model)
-(``ep_over_dp``).
+when given, and neither flag keeps the sweep to the fp wire.
 """
 from __future__ import annotations
 
@@ -63,17 +68,10 @@ import torch
 from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config, train_schedule)
 from repro_torch.core.overlap import VALID_MODES
+from repro_torch.launch.presets import EP_OVER_DP_EXPERTS
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime import trainer as T
 
-# flag -> (is it set?, what it needs)
-NOT_PORTED = {
-    "ep": (lambda v: v > 1, "a dedicated expert-parallel axis (ROADMAP "
-                            "queue 1 item 10)"),
-    "zero3": (bool, "ZeRO-3 (ROADMAP queue 1 item 10)"),
-}
-# the reference shards the experts over (data, model) above this count
-EP_OVER_DP_EXPERTS = 16
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -112,15 +110,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--grad-compress", action="store_true",
                     help="int8 block-quantized pod all-reduce of the grads")
-    # the reference's flags the port does not carry (raise when set)
-    ap.add_argument("--ep", type=int, default=0)
-    ap.add_argument("--zero3", action="store_true")
-    args = ap.parse_args(argv)
-    for flag, (is_set, what) in NOT_PORTED.items():
-        if is_set(getattr(args, flag)):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: {what} is not ported")
-    return args
+    ap.add_argument("--ep", type=int, default=0,
+                    help="dedicated expert-parallel mesh axis size (0: no "
+                         "\"ep\" axis; experts over \"model\" or, above "
+                         "16 experts at --dp > 1, (\"data\", \"model\"))")
+    ap.add_argument("--zero3", action="store_true",
+                    help="shard the layers' weights over the data ranks "
+                         "(gathered a layer at a time)")
+    return ap.parse_args(argv)
 
 
 def add_wire_args(ap: argparse.ArgumentParser) -> None:
@@ -181,17 +178,14 @@ def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
 
 
 def parallel_config(args: argparse.Namespace, cfg) -> ParallelConfig:
-    """The run's ``ParallelConfig``; raises, naming ROADMAP item 10, where
-    the reference would shard the experts over (data, model): an MoE
-    config of more than 16 experts at dp > 1."""
-    if (args.dp > 1 and cfg.moe is not None
-            and cfg.moe.num_experts > EP_OVER_DP_EXPERTS):
-        raise NotImplementedError(
-            f"--dp {args.dp} with {cfg.moe.num_experts} experts: the "
-            f"reference shards experts over (data, model) above "
-            f"{EP_OVER_DP_EXPERTS} (ep_over_dp), which is not ported "
-            f"(ROADMAP queue 1 item 10)")
+    """The run's ``ParallelConfig``, as the reference's launcher builds
+    it: ``ep_over_dp`` without a dedicated ep axis on an MoE config of
+    more than 16 experts."""
     return ParallelConfig(tp=args.tp, dp=args.dp, pods=args.pods,
+                          ep=max(args.ep, 1), zero3=args.zero3,
+                          ep_over_dp=(args.ep <= 1 and cfg.moe is not None
+                                      and cfg.moe.num_experts
+                                      > EP_OVER_DP_EXPERTS),
                           grad_compress=args.grad_compress,
                           overlap_mode=args.mode, fuse_w13=True,
                           scatter_axis=args.scatter_axis,
@@ -222,7 +216,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[T.Trainer, List[dict]]:
         print(f"final loss: {hist[-1]['loss']:.4f} "
               f"(start {hist[0]['loss']:.4f}); {len(hist)} steps at tp="
               f"{args.tp} ({args.mode}, {args.scatter_axis}), dp="
-              f"{args.dp}, pods={args.pods}")
+              f"{args.dp}, pods={args.pods}, ep={par.ep}"
+              + (", zero3" if par.zero3 else "")
+              + (", ep_over_dp" if par.ep_over_dp else ""))
     else:
         print(f"nothing to run: the checkpoint is at step {tr.step}")
     print(f"straggler events {tr.straggler_events}; failures "

@@ -16,9 +16,14 @@ batched expert SwiGLU, the exchange back.  Under the replicated layout
 (the chunked prefill, the replicated prefill) every rank holds every token:
 each buckets them in one global order, runs its local experts only, and a
 psum over the group combines the ranks' contributions.  ``moe_decode``
-does the same with the statistical decode capacity.  The EP group is the
-TP group (``ctx.axis``): rank r holds experts ``[r * E_loc,
-(r + 1) * E_loc)``.  Which tokens a saturated expert evicts depends on the
+does the same with the statistical decode capacity.  The EP group is
+``ctx.ep_axis``: the TP group, or in training on a mesh a dedicated "ep"
+sub-group or the ("data", "model") view under ``ep_over_dp``; rank r of
+it holds experts ``[r * E_loc, (r + 1) * E_loc)``.  The replicated
+layout's local-experts path runs over the TP group only: with experts
+over another group it raises, as the reference's does (each rank's
+experts would see every data shard's tokens, which breaks the
+per-shard grads).  Which tokens a saturated expert evicts depends on the
 layout (per shard under "seq", one global order otherwise); drop-free, the
 layouts agree.  A shared expert, when configured, is a dense FFN on the
 same pre-norm.  The reference's ``segment_sum`` combine is a sum over each
@@ -253,9 +258,18 @@ def _shared(p) -> Dict:
 
 
 def _expert_split(e: int, ctx: TPContext) -> int:
-    if e % ctx.tp:
-        raise ValueError(f"{e} experts do not split over {ctx.tp} ranks")
-    return e // ctx.tp
+    if e % ctx.ep_size:
+        raise ValueError(f"{e} experts do not split over {ctx.ep_size} "
+                         f"ranks")
+    return e // ctx.ep_size
+
+
+EP_REPLICATED_LAYOUT = (
+    "the replicated residual layout (scatter_axis='hidden') does not train "
+    "MoE with experts over another group than the TP ranks (a dedicated "
+    "ep axis or ep_over_dp): the local-expert combine would give each "
+    "rank's experts every data shard's tokens and break the per-shard "
+    "grads, as in the reference; train it under scatter_axis='seq'")
 
 
 def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
@@ -306,7 +320,9 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     counted = (None if valid_t is None
                else valid_t.repeat_interleave(mc.top_k))
     slot, keep = _bucket(flat_e, e, cap, counted)
-    if ctx.tp > 1 and not ctx.seq_sharded:
+    if ctx.ep_size > 1 and not ctx.seq_sharded:
+        if ctx.ep_group is not None:
+            raise NotImplementedError(EP_REPLICATED_LAYOUT)
         local_e, is_local = _local(ctx, flat_e, e_loc)
         _count_drops(ctx, keep, is_local if counted is None
                      else is_local & counted)
@@ -318,7 +334,8 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
         # dim 0 of the [ep, E_loc, cap, D] buffer is the destination EP
         # rank (experts are blocked: global id = ep rank * E_loc + local)
         ret = ctx.op("moe_a2a", epilogue=_SWIGLU, n_weights=3)(
-            disp.reshape(ctx.tp, e_loc, cap, dm), p["w1"], p["w3"], p["w2"])
+            disp.reshape(ctx.ep_size, e_loc, cap, dm), p["w1"], p["w3"],
+            p["w2"])
         y = _combine(ret.reshape(e, cap, dm), flat_e, slot, keep, gate)
     y = y.reshape(b, s_loc, dm).to(x.dtype)
     if "shared" in p:

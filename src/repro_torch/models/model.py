@@ -24,10 +24,31 @@ at tp>1 they run as one rank of the TP group, on that rank's
 ``reference_tree`` / ``named_leaves`` map the port's named leaves to the
 reference's tree (periods stacked ``[reps, ...]``) and back, each leaf's
 dtype and device kept: the checkpointer's layout and ``convert``'s.
+
+On a mesh (``launch.mesh.make_mesh``) a leaf is split along each of its
+dims over the mesh axes ``mesh_specs`` names (the reference's
+PartitionSpec on the unstacked leaf): the TP split over "model"; the
+routed experts over their EP group ("model", a dedicated "ep" axis, or
+``("data", "model")`` under ``ep_over_dp``); and with ``zero3`` each
+layer leaf of two or more dims whose dim 0 is free and divisible by dp
+(``zero3_flags``) over "data" as well.  ``mesh_shard`` cuts a mesh
+rank's copy from the global weights, ``mesh_join`` / ``mesh_cut`` join
+the ranks' leaves into the global ones and cut them again.  A ZeRO-3
+layer all-gathers its flagged leaves over the data group right before
+it runs (``overlap.zero3_gather``, a seam on the rank's ``SeamTape``:
+its backward is the summing reduce-scatter, so a flagged leaf's grad is
+the sum over the data ranks, dp x the data mean, as the reference's);
+the gathered copies' storage is freed once the next layer starts and
+gathered again in the backward before the layer's backward reads them
+(``overlap.zero3_release``), so between its forward and its backward a
+layer holds only its shards (the last layer keeps its copies: its
+backward follows at once).  A checkpointed block gathers again when it
+is recomputed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, FrozenSet, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,16 +59,12 @@ from repro_torch.core import overlap
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models import init_utils as iu
-from repro_torch.parallel.sharding import (EP_NOT_PORTED, TPContext,
-                                           pad_vocab)
+from repro_torch.parallel.sharding import TPContext, pad_vocab
 
 # (mixer, ffn) layer kinds the port runs, at any tp
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
                           (MLA, MOE_FFN)})
 REMAT_MODES = ("none", "selective", "full")
-ZERO3_NOT_PORTED = ("ZeRO-3 (the per-layer weight gather over the data "
-                    "axis, recorded on the SeamTape in the backward) is not "
-                    "ported: moments are ZeRO-1 (ROADMAP queue 1 item 10)")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
 
@@ -197,8 +214,6 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
     layer, the MTP head's (mixer, ffn, proj) or None), drawn in that
     order; on the meta device, their shapes alone.  ``proj`` is
     normal(0, 1/sqrt(2D)), as the reference draws it."""
-    if par.ep != 1:
-        raise NotImplementedError(EP_NOT_PORTED)
     check_ported(cfg)
     v_pad = pad_vocab(cfg.vocab_size, par.tp)
     embed = iu.zero_pad_rows(
@@ -339,12 +354,218 @@ def _leaf_dims(cfg: ModelConfig, params: Model) -> Dict[str, Optional[int]]:
     return out
 
 
-def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
+def replicated_leaves(cfg: ModelConfig, params: Model,
+                      par: Optional[ParallelConfig] = None
+                      ) -> Dict[str, bool]:
     """``{name: True}`` for each model-replicated leaf (``param_specs`` dim
-    None), keyed as ``params.named_parameters()``: the leaves whose grads
-    the trainer sums over the TP ranks and whose squared sums the grad
-    norm weighs by 1/tp."""
+    None; with ``par``, no "model" in its ``mesh_specs``: under a
+    dedicated ep axis the routed experts too), keyed as
+    ``params.named_parameters()``: the leaves whose grads the trainer
+    sums over the TP ranks and whose squared sums the grad norm weighs by
+    1/tp."""
+    if par is not None:
+        return {n: "model" not in spec_axes(sp)
+                for n, sp in mesh_specs(cfg, par).items()}
     return {n: dim is None for n, dim in _leaf_dims(cfg, params).items()}
+
+
+# ---------------------------------------------------------------------------
+# The mesh layout: the reference's PartitionSpecs, leaf by leaf
+# ---------------------------------------------------------------------------
+def ep_axes(cfg: ModelConfig, par: ParallelConfig) -> Tuple[str, ...]:
+    """The mesh axes the routed experts split over (the reference's
+    ``_ep_axes``): a dedicated "ep" axis, ("data", "model") under
+    ``ep_over_dp``, else "model"; () without MoE."""
+    if cfg.moe is None:
+        return ()
+    if par.ep > 1:
+        return ("ep",)
+    return ("data", "model") if par.ep_over_dp else ("model",)
+
+
+def spec_axes(spec: Tuple) -> FrozenSet[str]:
+    """Every mesh axis a leaf's spec names."""
+    return frozenset(a for axes in spec if axes for a in axes)
+
+
+def _zero3_leaf_flag(spec: Tuple, shape: Tuple[int, ...], dp: int) -> bool:
+    """True when a layer leaf is ZeRO-3 dim0-sharded over "data" (the
+    reference's rule): two or more dims, dim 0 free in its spec and
+    divisible by dp."""
+    if len(shape) < 2 or shape[0] % max(dp, 1) or shape[0] < dp:
+        return False
+    return spec[0] is None
+
+
+def _is_expert(cfg: ModelConfig, name: str) -> bool:
+    """A routed expert's leaf (w1, w3, w2 of an MoE layer, not shared)."""
+    parts = name.split(".")
+    return (parts[0] == "layers" and parts[2] == "ffn" and len(parts) == 4
+            and parts[3] in ("w1", "w3", "w2")
+            and expanded_pattern(cfg)[int(parts[1])][1] == MOE_FFN)
+
+
+@functools.lru_cache(maxsize=64)
+def _mesh_specs(cfg: ModelConfig, tp: int, dp: int, ep: int,
+                ep_over_dp: bool, zero3: bool, fuse_w13: bool
+                ) -> Tuple[Tuple[str, Tuple], ...]:
+    par = ParallelConfig(tp=tp, dp=dp, ep=ep, ep_over_dp=ep_over_dp,
+                         zero3=zero3, fuse_w13=fuse_w13)
+    embed, final_norm, layers_, mtp = _init_leaves(
+        cfg, par, torch.Generator(), torch.bfloat16, torch.device("meta"))
+    like = Model(embed, final_norm, [Block(m, f) for m, f in layers_],
+                 False, None if mtp is None else MTPBlock(*mtp))
+    dims = _leaf_dims(cfg, like)
+    eaxes = ep_axes(cfg, par)
+    out = []
+    for n, t in like.named_parameters():
+        spec = [None] * t.dim()
+        if _is_expert(cfg, n):
+            spec[0] = eaxes
+        elif dims[n] is not None:
+            spec[dims[n]] = ("model",)
+        if (zero3 and n.startswith("layers.")
+                and _zero3_leaf_flag(tuple(spec), tuple(t.shape), dp)):
+            spec[0] = ("data",)
+        out.append((n, tuple(spec)))
+    return tuple(out)
+
+
+def mesh_specs(cfg: ModelConfig, par: ParallelConfig) -> Dict[str, Tuple]:
+    """Each leaf's spec, keyed as ``named_parameters()``: one entry a dim,
+    None (whole) or the tuple of mesh axes the dim is split over,
+    axis-major (the reference's PartitionSpec on the unstacked leaf; the
+    module docstring)."""
+    return dict(_mesh_specs(cfg, par.tp, par.dp, par.ep, par.ep_over_dp,
+                            par.zero3, par.fuse_w13))
+
+
+def zero3_leaves(cfg: ModelConfig, par: ParallelConfig) -> FrozenSet[str]:
+    """The names of the ZeRO-3 leaves (split over "data"); empty without
+    ``zero3``."""
+    return frozenset(n for n, sp in mesh_specs(cfg, par).items()
+                     if "data" in (sp[0] or ()) and not _is_expert(cfg, n))
+
+
+def _nest(named: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The leaves under ``prefix`` as a nested dict (the inverse of
+    ``_flat_names``)."""
+    out: Dict[str, Any] = {}
+    for key, t in named.items():
+        if not key.startswith(prefix):
+            continue
+        parts = key[len(prefix):].split(".")
+        node = out
+        for q in parts[:-1]:
+            node = node.setdefault(q, {})
+        node[parts[-1]] = t
+    return out
+
+
+def zero3_flags(cfg: ModelConfig, par: ParallelConfig) -> Dict[str, Any]:
+    """The reference's ``zero3_flags``: ``{"lead": [a bool tree a leading
+    layer], "periods": [a bool tree a pattern position]}`` marking the
+    ZeRO-3 leaves, both None without ``zero3``."""
+    if not par.zero3:
+        return {"lead": None, "periods": None}
+    z3 = zero3_leaves(cfg, par)
+    flags = {n: n in z3 for n in mesh_specs(cfg, par)}
+    lead = cfg.leading_dense_layers
+
+    def layer(i):
+        return {part: _nest(flags, f"layers.{i}.{part}.")
+                for part in ("mixer", "ffn")}
+    return {"lead": [layer(i) for i in range(lead)],
+            "periods": [layer(lead + pos) for pos in range(len(cfg.pattern))]}
+
+
+def mesh_sizes(par: ParallelConfig) -> Dict[str, int]:
+    """The size of each mesh axis a spec may name."""
+    return {"pod": par.pods, "ep": par.ep, "data": par.dp, "model": par.tp}
+
+
+def _piece(axes: Optional[Tuple], coords: Dict[str, int],
+           sizes: Dict[str, int]) -> Tuple[int, int]:
+    """(index, count) of a rank's piece of a dim split over ``axes``,
+    axis-major."""
+    idx, n = 0, 1
+    for a in axes or ():
+        idx = idx * sizes[a] + coords.get(a, 0)
+        n *= sizes[a]
+    return idx, n
+
+
+def mesh_cut(named: Dict[str, torch.Tensor], cfg: ModelConfig,
+             par: ParallelConfig, coords: Dict[str, int]
+             ) -> Dict[str, torch.Tensor]:
+    """A mesh rank's pieces (views) of the global leaves ``named``: each
+    dim split over its ``mesh_specs`` axes, the rank's block taken
+    (``coords``: the rank's index on each mesh axis, 0 where absent)."""
+    specs, sizes = mesh_specs(cfg, par), mesh_sizes(par)
+    out = {}
+    for n, t in named.items():
+        for d, axes in enumerate(specs[n]):
+            idx, k = _piece(axes, coords, sizes)
+            if k > 1:
+                if t.shape[d] % k:
+                    raise ValueError(f"{n}: dim {d} of {tuple(t.shape)} "
+                                     f"does not split over {axes} ({k})")
+                t = t.chunk(k, d)[idx]
+        out[n] = t
+    return out
+
+
+def mesh_join(per_rank: List[Dict[str, torch.Tensor]],
+              coords: List[Dict[str, int]], cfg: ModelConfig,
+              par: ParallelConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of ``mesh_cut``: the mesh ranks' leaves (``coords[r]``
+    rank r's coordinates) joined into the global ones; a leaf whole on
+    every rank is the first rank's."""
+    specs, sizes = mesh_specs(cfg, par), mesh_sizes(par)
+    out = {}
+    for n in per_rank[0]:
+        first = per_rank[0][n]
+        pieces = [_piece(axes, coords[0], sizes)[1] for axes in specs[n]]
+        if all(k == 1 for k in pieces):
+            out[n] = first
+            continue
+        full = first.new_empty([s * k for s, k in zip(first.shape, pieces)])
+        seen = set()
+        for leaves, c in zip(per_rank, coords):
+            at = tuple(_piece(axes, c, sizes)[0] for axes in specs[n])
+            if at in seen:
+                continue
+            seen.add(at)
+            full[tuple(slice(i * s, (i + 1) * s)
+                       for i, s in zip(at, first.shape))] = leaves[n]
+        out[n] = full
+    return out
+
+
+def rebuild(like: Model, named: Dict[str, torch.Tensor]) -> Model:
+    """A ``Model`` of ``like``'s structure holding ``named``'s leaves,
+    trainable as ``like`` is."""
+    blocks = [Block(_nest(named, f"layers.{i}.mixer."),
+                    _nest(named, f"layers.{i}.ffn."))
+              for i in range(len(like.layers))]
+    mtp = None
+    if like.mtp is not None:
+        mtp = MTPBlock(_nest(named, "mtp.mixer."), _nest(named, "mtp.ffn."),
+                       named["mtp.proj"])
+    return Model(named["embed"], named["final_norm"], blocks, like.trainable,
+                 mtp)
+
+
+def mesh_shard(params: Model, cfg: ModelConfig, par: ParallelConfig,
+               coords: Dict[str, int]) -> Model:
+    """A mesh rank's copy of the global weights (``init_model`` at this
+    tp): its pieces of every leaf (``mesh_cut``), each a copy of its own;
+    trainable as ``params`` is.  At dp=1 without ``zero3`` or an ep axis
+    it is ``shard_params``' copy of TP rank ``coords["model"]``."""
+    named = mesh_cut({n: t.detach() for n, t in params.named_parameters()},
+                     cfg, par, coords)
+    return rebuild(params, {n: t.clone(memory_format=torch.contiguous_format)
+                            for n, t in named.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -352,36 +573,71 @@ def replicated_leaves(cfg: ModelConfig, params: Model) -> Dict[str, bool]:
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
     """Raise unless the model trains in the port: ported layer kinds
-    (``check_ported``), ep=1 without ``ep_over_dp``, no ``zero3``, a
-    ``remat`` of ``REMAT_MODES``."""
-    if par.ep != 1 or par.ep_over_dp:
-        raise NotImplementedError(EP_NOT_PORTED)
-    if par.zero3:
-        raise NotImplementedError(ZERO3_NOT_PORTED)
+    (``check_ported``), a ``remat`` of ``REMAT_MODES``."""
     check_ported(cfg)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
                          f"{REMAT_MODES}")
 
 
+class _Zero3:
+    """A layer's ZeRO-3 weights: ``gather`` all-gathers its flagged
+    leaves (``names``, relative to the layer: "mixer.wqkv", "ffn.shared.w1")
+    over the data group on the rank's tape and returns the layer's leaves
+    with the gathered ones in their place; ``release`` frees the copies
+    the last recorded gather made (``overlap.zero3_release``)."""
+
+    def __init__(self, names: FrozenSet[str], group):
+        self.names, self.group = names, group
+        self.held = None
+
+    def gather(self, blk: Block) -> Tuple[Dict, Dict]:
+        named = {f"{part}.{n}": t for part in ("mixer", "ffn")
+                 for n, t in getattr(blk, part).named_parameters()}
+        keys = [k for k in named if k in self.names]
+        shards = [named[k] for k in keys]
+        full = overlap.zero3_gather(shards, self.group)
+        if full and full[0].requires_grad and not overlap.recomputing():
+            self.held = (full, shards)
+        named.update(zip(keys, full))
+        return _nest(named, "mixer."), _nest(named, "ffn.")
+
+    def release(self) -> None:
+        if self.held is not None:
+            overlap.zero3_release(*self.held, self.group)
+            self.held = None
+
+
 def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
-           kinds: Tuple[str, str]) -> Tuple[torch.Tensor, torch.Tensor]:
+           kinds: Tuple[str, str], z3: Optional[_Zero3] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of ``kinds`` (mixer, ffn): pre-norm attention (GQA or
     MLA), then the pre-norm FFN (dense or MoE), each added to the residual
     stream, which is cut on the seam tape before each sub-block
-    (``overlap.cut``), so the backward walks each segment once.  Returns
-    (x, the layer's aux loss: the MoE's, else 0)."""
+    (``overlap.cut``), so the backward walks each segment once.  With
+    ``z3`` the layer's ZeRO-3 leaves are gathered first.  Returns (x, the
+    layer's aux loss: the MoE's, else 0)."""
     mixer_kind, ffn_kind = kinds
     mixer = attention.mla_train if mixer_kind == MLA else attention.gqa_train
     x = overlap.cut(x, ctx.tape_axis)
-    x = x + mixer(blk.mixer, x, ctx, cfg)
+    mixer_p, ffn_p = (blk.mixer, blk.ffn) if z3 is None else z3.gather(blk)
+    x = x + mixer(mixer_p, x, ctx, cfg)
     x = overlap.cut(x, ctx.tape_axis)
     if ffn_kind == MOE_FFN:
-        y, aux = ffn.moe_train(blk.ffn, x, ctx, cfg, cfg.norm_eps)
+        y, aux = ffn.moe_train(ffn_p, x, ctx, cfg, cfg.norm_eps)
     else:
-        y = ffn.ffn_train(blk.ffn, x, ctx, cfg.norm_eps)
+        y = ffn.ffn_train(ffn_p, x, ctx, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
+
+
+def _zero3_of(cfg: ModelConfig, par: ParallelConfig, ctx: TPContext,
+              i: int) -> Optional[_Zero3]:
+    """Layer i's ``_Zero3`` (None without ZeRO-3 leaves in it)."""
+    prefix = f"layers.{i}."
+    names = frozenset(n[len(prefix):] for n in zero3_leaves(cfg, par)
+                      if n.startswith(prefix))
+    return _Zero3(names, ctx.data_group) if names else None
 
 
 def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
@@ -393,19 +649,31 @@ def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
     ``par.remat`` other than "none" every block after the leading dense
     layers is checkpointed (``overlap.remat``), its aux loss carried out
     beside its output, as the reference checkpoints its scanned
-    blocks."""
+    blocks.  With ``par.zero3`` each layer gathers its ZeRO-3 leaves over
+    the data group (``_Zero3``); once the next layer's input is cut on
+    the tape, the previous layer's gathered copies are released (module
+    docstring)."""
     check_trainable(cfg, par)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    prev = None
     for i, (blk, kinds) in enumerate(zip(params.layers,
                                          expanded_pattern(cfg))):
         # per-layer plan overrides resolve here
         lctx = ctx.with_layer(layer_slot(cfg, i))
+        z3 = _zero3_of(cfg, par, ctx, i) if par.zero3 else None
+        if prev is not None:
+            # the previous layer's tail reads its weights until this cut
+            x = overlap.cut(x, ctx.tape_axis)
+            prev.release()
         if par.remat == "none" or i < cfg.leading_dense_layers:
-            x, aux = _block(blk, x, lctx, cfg, kinds)
+            x, aux = _block(blk, x, lctx, cfg, kinds, z3)
+            prev = z3
         else:
             x, aux = overlap.remat(
-                lambda v, b=blk, c=lctx, k=kinds: _block(b, v, c, cfg, k),
+                lambda v, b=blk, c=lctx, k=kinds, z=z3: _block(
+                    b, v, c, cfg, k, z),
                 x, ctx.tape_axis, list(blk.parameters()))
+            prev = None
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -488,16 +756,6 @@ def gather_rank_leaves(per_rank: List[Dict[str, torch.Tensor]],
     return {n: per_rank[0][n] if dims[n] is None
             else torch.cat([r[n] for r in per_rank], dim=dims[n])
             for n in per_rank[0]}
-
-
-def cut_rank_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
-                    params: Model, tp: int) -> List[Dict[str, torch.Tensor]]:
-    """The inverse of ``gather_rank_leaves``: the global tp-packed leaves
-    -> one dict a rank, each sharded leaf's contiguous 1/tp block along its
-    ``param_specs`` dim (a view), each replicated leaf whole."""
-    dims = _leaf_dims(cfg, params)
-    return [{n: t if dims[n] is None else t.chunk(tp, dims[n])[r]
-             for n, t in named.items()} for r in range(tp)]
 
 
 # ---------------------------------------------------------------------------

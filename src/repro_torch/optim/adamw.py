@@ -5,8 +5,14 @@ Runs as one rank (inside ``spmd`` at tp>1 or dp>1) on that rank's leaves,
 keyed by name (``Model.named_parameters()``).  ``group`` is the rank's TP
 group, ``data`` and ``pod`` its data-parallel sub-groups of the mesh
 (``dist.RankMesh``; None or a group of one rank when there is no such
-axis).  Every leaf is replicated over data and pod (no ZeRO-3, no
-experts over data), so the reference's "rep" branch is the only one.
+axis), ``ep`` its dedicated expert-parallel sub-group.  A leaf is either
+replicated over data (the reference's "rep" branch: ZeRO-1 below) or
+split over data in the model itself (``Zero1Leaf.sharded``: a ZeRO-3
+leaf, or a routed expert under ``ep_over_dp``): autodiff of its gather
+(or the ``a2a`` backward) already summed the data ranks' grads of a
+data rank's piece, so it is synced over no data rank (the reference
+takes no data mean of it: its grad is dp x the data mean), counted once
+a data rank in the norm, and updated where it lies.
 
 How the data ranks split a leaf is the reference's, on its layout
 (``zero1_plan``): the reference stacks a repeated-pattern layer's leaves
@@ -28,10 +34,11 @@ compressed sync gives its values too.
     block-quantized piece gathered and the dequantized sum divided by the
     pod count.  One exchange a phase carries every leaf.
   phase 2 — global grad-norm clip: each piece's squared sum, weighted by
-    1/dp for a leaf held whole on every data rank and by 1/tp for a
-    model-replicated leaf, is summed over the TP group, then over data
-    (never pod: the grads are pod-identical after the sync), so every
-    element counts once.
+    1/dp for a leaf held whole on every data rank, by 1/tp for a
+    model-replicated leaf and by 1/ep for a leaf replicated over a
+    dedicated ep axis (the trainer has averaged those over ep), is summed
+    over the TP group, then over data, then over ep (never pod: the grads
+    are pod-identical after the sync), so every element counts once.
   phase 3 — AdamW in fp32 on the owned pieces (moments in
     ``moment_dtype``, only for those pieces; the new values cast back to
     the parameter's and the moments' dtypes and written in place: the
@@ -80,13 +87,16 @@ def _sharddable(p: torch.Tensor, n: int) -> bool:
 class Zero1Leaf:
     """How the data ranks split one leaf (``zero1_plan``): ``rows`` — each
     owns its dim-0 shard; ``owner`` — that data rank owns the whole leaf
-    (a layer of the reference's stacked leaf); neither — every data rank
-    holds it whole.  ``stack``: the reference leaf whose local piece the
-    int8 pod codec quantizes in one piece (the leaf's own name when it is
-    not stacked)."""
+    (a layer of the reference's stacked leaf); ``sharded`` — the model
+    itself splits it over data (ZeRO-3, experts under ``ep_over_dp``):
+    each data rank holds its own piece; none — every data rank holds it
+    whole.  ``stack``: the reference leaf whose local piece the int8 pod
+    codec quantizes in one piece (the leaf's own name when it is not
+    stacked)."""
     stack: str
     rows: bool = False
     owner: Optional[int] = None
+    sharded: bool = False
 
     def holds(self, data_rank: int) -> bool:
         """Does this data rank update (and keep moments of) the leaf?"""
@@ -94,17 +104,21 @@ class Zero1Leaf:
 
 
 def zero1_plan(params: Dict[str, torch.Tensor], dp: int,
-               stacked: Dict[str, Tuple[str, int, int]]
-               ) -> Dict[str, Zero1Leaf]:
+               stacked: Dict[str, Tuple[str, int, int]],
+               sharded: frozenset = frozenset()) -> Dict[str, Zero1Leaf]:
     """Each leaf's split over ``dp`` data ranks, the reference's
-    ``opt_state_specs`` on its layout: a leaf of ``stacked`` (name ->
-    (stacked key, repetition, repetitions); ``models.model.
-    stacked_leaves``) is owned by data rank ``rep // (reps / dp)`` when dp
-    divides the repetitions, else held whole; any other leaf is split
-    along its dim 0 when dp divides it."""
+    ``opt_state_specs`` on its layout: a leaf of ``sharded`` (split over
+    data by the model) stays so; a leaf of ``stacked`` (name -> (stacked
+    key, repetition, repetitions); ``models.model.stacked_leaves``) is
+    owned by data rank ``rep // (reps / dp)`` when dp divides the
+    repetitions, else held whole; any other leaf is split along its dim 0
+    when dp divides it."""
     plan = {}
     for n, p in params.items():
-        if n in stacked:
+        if n in sharded:
+            plan[n] = Zero1Leaf(stack=stacked[n][0] if n in stacked else n,
+                                sharded=True)
+        elif n in stacked:
             key, rep, reps = stacked[n]
             owner = (rep // (reps // dp) if dp > 1 and _sharddable_n(reps, dp)
                      else None)
@@ -134,6 +148,11 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
     multiply by its reciprocal, which rounds differently from the CPU's
     (and XLA's) divide."""
     return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
+def div_(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``_div`` in place."""
+    return x.div_(torch.full((), float(n), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -228,18 +247,23 @@ def sync_grads(grads: Dict[str, torch.Tensor],
                pod=None, compress: bool = False) -> Dict[str, torch.Tensor]:
     """Phase 1: the fp32 grads of the pieces a rank holds under ``plan``:
     an owned piece (a row shard, a layer on its owner) reduce-scattered
-    over ``data`` and divided by dp, a whole leaf's pmean over ``data``;
-    then ``pod_allreduce`` of each reference leaf's piece.  One exchange
-    over data, and one over the pods, carries every leaf."""
+    over ``data`` and divided by dp, a whole leaf's pmean over ``data``,
+    a ``sharded`` leaf as it is; then ``pod_allreduce`` of each reference
+    leaf's piece.  One exchange over data, and one over the pods, carries
+    every leaf."""
     dp = _size(data)
     out = {n: g.float() for n, g in grads.items()}
     if dp > 1:
-        names = list(out)
-        parts = data.exchange(tuple(out[n] for n in names), "zero1_grads")
+        names = [n for n in out if not plan[n].sharded]
+        parts = dict(zip(names, zip(*data.exchange(
+            tuple(out[n] for n in names), "zero1_grads"))))
         me = data.rank()
         synced = {}
-        for i, n in enumerate(names):
+        for n in out:
             z = plan[n]
+            if z.sharded:
+                synced[n] = out[n]
+                continue
             if not z.holds(me):
                 continue
             rows = slice(None)
@@ -247,8 +271,8 @@ def sync_grads(grads: Dict[str, torch.Tensor],
                 sh = out[n].shape[0] // dp
                 rows = slice(me * sh, (me + 1) * sh)
             acc = None
-            for p in parts:
-                acc = p[i][rows] if acc is None else acc + p[i][rows]
+            for piece in parts[n]:
+                acc = piece[rows] if acc is None else acc + piece[rows]
             synced[n] = _div(acc, dp)
         out = synced
     return pod_allreduce(out, pod, compress, None if plan is None else
@@ -257,23 +281,29 @@ def sync_grads(grads: Dict[str, torch.Tensor],
 
 def grad_norm(grads: Dict[str, torch.Tensor], replicated: Dict[str, bool],
               group=None, data=None,
-              plan: Optional[Dict[str, Zero1Leaf]] = None) -> torch.Tensor:
+              plan: Optional[Dict[str, Zero1Leaf]] = None, ep=None,
+              ep_replicated: Optional[Dict[str, bool]] = None
+              ) -> torch.Tensor:
     """Phase 2: the global L2 norm of the synced grads.  A piece's squared
-    sum counts 1/dp when every data rank holds the leaf whole (``plan``)
-    and 1/tp when it is model-replicated; the sum runs over the TP group,
-    then over data.  A leaf is summed ``UPDATE_CHUNK`` elements at a time
-    (small fp32 temporaries)."""
-    tp, dp = _size(group), _size(data)
+    sum counts 1/dp when every data rank holds the leaf whole (``plan``),
+    1/tp when it is model-replicated and 1/ep when it is replicated over
+    the ``ep`` group (``ep_replicated``); the sum runs over the TP group,
+    then over data, then over ep.  A leaf is summed ``UPDATE_CHUNK``
+    elements at a time (small fp32 temporaries)."""
+    tp, dp, epn = _size(group), _size(data), _size(ep)
     total = None
     for n, g in grads.items():
         s = sum(torch.sum(torch.square(c.float()))
                 for c in g.reshape(-1).split(UPDATE_CHUNK))
-        if dp > 1 and not plan[n].rows and plan[n].owner is None:
+        z = plan[n]
+        if dp > 1 and not (z.rows or z.sharded) and z.owner is None:
             s = s / dp
         if replicated[n] and tp > 1:
             s = s / tp
+        if epn > 1 and ep_replicated[n]:
+            s = s / epn
         total = s if total is None else total + s
-    for axis in (group, data):
+    for axis in (group, data, ep):
         total = overlap.psum(total, axis)
     return torch.sqrt(total)
 
@@ -308,13 +338,16 @@ def adamw_update(params: Dict[str, torch.Tensor],
                  cfg: AdamWConfig, lr, *, replicated: Dict[str, bool],
                  group=None, data=None, pod=None,
                  plan: Optional[Dict[str, Zero1Leaf]] = None,
-                 grad_compress: bool = False) -> Tuple[Dict, Dict]:
+                 grad_compress: bool = False, ep=None,
+                 ep_replicated: Optional[Dict[str, bool]] = None
+                 ) -> Tuple[Dict, Dict]:
     """One AdamW step on ``params`` and the moments (both updated in
     place) with ``grads``; returns (params, new optimizer state).
     ``replicated[name]`` is True for a model-replicated leaf
     (``model.param_specs`` dim None).  ``data`` / ``pod``: the rank's
     data-parallel groups; ``plan``: ``zero1_plan`` at dp (needed at
-    dp>1; module docstring)."""
+    dp>1; module docstring); ``ep`` / ``ep_replicated``: the dedicated
+    expert-parallel group and the leaves replicated over it."""
     dp = _size(data)
     if plan is None:
         if dp > 1:
@@ -322,7 +355,8 @@ def adamw_update(params: Dict[str, torch.Tensor],
         plan = {n: Zero1Leaf(stack=n) for n in params}
     me = data.rank() if dp > 1 else 0
     gsync = sync_grads(grads, plan, data, pod, grad_compress)
-    gnorm = grad_norm(gsync, replicated, group, data, plan)
+    gnorm = grad_norm(gsync, replicated, group, data, plan, ep,
+                      ep_replicated)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
     count = opt["count"] + 1
     cnt = torch.tensor(float(count), dtype=torch.float32)

@@ -11,20 +11,23 @@ or replicated (decode, the chunked prefill, the prefill under
 ``ctx.with_layout(False)``, and training with ``scatter_axis="hidden"``);
 the seams' backward runs in both.
 
-Expert parallelism runs over the TP ranks, as the reference's does when
-no dedicated EP axis is given (``ctx.ep_axes or (ctx.axis,)``): the EP
-group is the TP group (``axis``), a rank's EP index is its TP index,
-and rank r holds experts ``[r * E / tp, (r + 1) * E / tp)``.  The
-``moe_a2a`` seam's op runs over that group; at tp=1 it is the local
-expert FFN.  A dedicated ``ep`` axis (``ParallelConfig.ep > 1``, which
-also carries batch) raises.
+Expert parallelism runs, as the reference's does, over the TP ranks
+when no other group is given (``ctx.ep_axes or (ctx.axis,)``): the EP
+group is the TP group (``axis``), a rank's EP index is its TP index, and
+rank r holds experts ``[r * E / tp, (r + 1) * E / tp)``.  A dedicated
+``ep`` axis (``ParallelConfig.ep > 1``: the mesh's "ep" sub-group, which
+also carries batch) or experts over ``("data", "model")``
+(``ep_over_dp``: the mesh's view over both axes, axis-major) is the
+context's ``ep_group`` instead; ``ep_axis`` is the group the
+``moe_a2a`` seam runs over either way, and at one rank it is the local
+expert FFN.
 
-Data parallelism (dp>1, pods>1) runs each rank as one thread of a
+Data parallelism (dp>1, pods>1, ep>1) runs each rank as one thread of a
 ``dist.RankMesh`` (``launch.mesh.make_mesh``): the context holds the
 rank's "model" sub-group (``group``, at tp>1) and its data-parallel
-sub-groups (``dp_groups``: pod, then data, the reference's ``dp_axes``),
-over which the MoE aux loss sums its statistics and the trainer and
-``optim.adamw`` sync the grads.
+sub-groups (``dp_groups``: pod, then ep, then data, the reference's
+``dp_axes``), over which the MoE aux loss sums its statistics and the
+trainer and ``optim.adamw`` sync the grads.
 """
 from __future__ import annotations
 
@@ -41,13 +44,14 @@ from repro_torch.tuning.plans import (SEAM_KINDS, PlanSet, SeamPlan,
 TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
                   "dist.RankGroup of size tp inside group.spmd: pass "
                   "group= (ROADMAP queue 1 item 2)")
-EP_NOT_PORTED = ("a dedicated expert-parallel axis (ep>1, which also "
-                 "carries batch) and experts over (data, model) "
-                 "(ep_over_dp) are not ported: MoE runs expert parallelism "
-                 "over the tp ranks (ROADMAP queue 1 item 10)")
+EP_NEEDS_MESH = ("a dedicated expert-parallel axis (ep>1) runs over the "
+                 "\"ep\" axis of a dist.RankMesh: training passes mesh= "
+                 "(launch.mesh.make_mesh(..., ep=)); serving at ep>1 is not "
+                 "ported (ROADMAP queue 1 item 10, with the serve CLI's "
+                 "--dp)")
 DP_NEEDS_MESH = ("data parallelism (dp>1 or pods>1) runs the ranks of a "
-                 "dist.RankMesh of shape (pods, dp, tp) inside mesh.spmd: "
-                 "pass mesh= (launch.mesh.make_mesh)")
+                 "dist.RankMesh of shape (pods, ep, dp, tp) inside "
+                 "mesh.spmd: pass mesh= (launch.mesh.make_mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +59,8 @@ class TPContext:
     """How the current region is parallelized.
 
     tp          : tensor-parallel degree; tp>1 needs ``group``
-    ep          : the degree of a dedicated expert-parallel axis; only 1
-                  (experts over the TP ranks: ``axis``), ep>1 raises
+    ep          : the degree of a dedicated expert-parallel axis (1: none;
+                  ep>1 needs ``ep_group``)
     use_kernels : route hot paths through the hand-written kernels
                   (``gqa_train``'s attention -> flash kernel; MLA decode
                   attention -> MLA-decode kernel)
@@ -65,8 +69,12 @@ class TPContext:
                   and chunked prefill always run, and training runs with
                   ``ParallelConfig.scatter_axis="hidden"``)
     group       : the ``dist.RankGroup`` of the tp ranks (None at tp=1)
-    dp_groups   : this rank's data-parallel sub-groups of its mesh, pod
-                  then data (empty without a mesh)
+    dp_groups   : this rank's data-parallel sub-groups of its mesh, pod,
+                  ep, then data (empty without a mesh)
+    dp_axes     : the mesh axes of ``dp_groups``, in their order
+    ep_group    : the group the experts split over when it is not the TP
+                  group: the mesh's "ep" sub-group, or its ("data",
+                  "model") view under ``ep_over_dp`` (None: the TP group)
     mode        : the transport of seams without a plan
                   (``overlap.VALID_MODES``)
     comm_chunks : the ring sub-chunking of seams without a plan
@@ -81,6 +89,8 @@ class TPContext:
     seq_sharded: bool = True
     group: Optional[object] = None
     dp_groups: Tuple = ()
+    dp_axes: Tuple[str, ...] = ()
+    ep_group: Optional[object] = None
     mode: str = "decomposed"
     comm_chunks: int = 0
     plans: Optional[PlanSet] = None
@@ -89,8 +99,9 @@ class TPContext:
     def __post_init__(self):
         if self.tp != 1 and (self.group is None or self.group.n != self.tp):
             raise ValueError(TP_NEEDS_GROUP)
-        if self.ep != 1:
-            raise NotImplementedError(EP_NOT_PORTED)
+        if self.ep != 1 and (self.ep_group is None
+                             or self.ep_group.n != self.ep):
+            raise NotImplementedError(EP_NEEDS_MESH)
         if self.mode not in overlap.VALID_MODES:
             raise ValueError(f"invalid overlap mode {self.mode!r}")
 
@@ -98,6 +109,30 @@ class TPContext:
     def axis(self):
         """The TP group seams run over (None at tp=1)."""
         return self.group if self.tp > 1 else None
+
+    @property
+    def ep_axis(self):
+        """The group the experts split over and the ``moe_a2a`` seam runs
+        over: ``ep_group``, else the TP group (None at one rank)."""
+        return self.ep_group if self.ep_group is not None else self.axis
+
+    @property
+    def ep_size(self) -> int:
+        """The number of ranks the experts split over."""
+        return 1 if self.ep_axis is None else self.ep_axis.n
+
+    def dp_group(self, axis: str):
+        """This rank's sub-group of the data-parallel mesh axis ``axis``
+        (None when the mesh has no such axis)."""
+        if axis not in self.dp_axes:
+            return None
+        return self.dp_groups[self.dp_axes.index(axis)]
+
+    @property
+    def data_group(self):
+        """This rank's "data" sub-group (None without a mesh): the ZeRO-1
+        sync and ZeRO-3's weight gather run over it."""
+        return self.dp_group("data")
 
     @property
     def tape_axis(self):
@@ -145,8 +180,9 @@ class TPContext:
         scatter_axis = None
         if kind in ("ag", "rs"):
             scatter_axis = "seq" if self.seq_sharded else "hidden"
+        # the EP exchange runs over the experts' group, not the TP group
         return self.plan(seam).op(
-            kind, self.axis,
+            kind, self.ep_axis if kind == "a2a" else self.axis,
             epilogue=epilogue if epilogue is not None else Epilogue(),
             n_weights=n_weights, scatter_axis=scatter_axis)
 
@@ -201,21 +237,27 @@ def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
     group's device, the layout stamped by ``par.scatter_axis`` unless
     "auto") unless ``plans`` is given, and the residual layout from the
     plans (``PlanSet.residual_layout``).  With ``mesh`` (a
-    ``dist.RankMesh`` of shape ``(pods, dp, tp)``; needed at dp>1 or
-    pods>1) the context of mesh rank ``rank`` (default: the calling rank
-    thread's): its "model" sub-group at tp>1 and its pod and data
-    sub-groups."""
-    dp_groups = ()
+    ``dist.RankMesh`` of shape ``(pods, ep, dp, tp)``; needed at dp>1,
+    pods>1 or ep>1) the context of mesh rank ``rank`` (default: the
+    calling rank thread's): its "model" sub-group at tp>1, its pod, ep
+    and data sub-groups, and the experts' group: the "ep" sub-group at
+    ep>1, the ("data", "model") view under ``ep_over_dp``."""
+    dp_groups, axes = (), ()
+    ep_group = None
     if mesh is not None:
-        from repro_torch.launch.mesh import dp_axes
-        want = (par.pods, par.dp, par.tp) if par.pods > 1 else (par.dp,
-                                                                 par.tp)
+        from repro_torch.launch.mesh import dp_axes, mesh_shape
+        want = mesh_shape(par)
         if tuple(mesh.shape) != want:
             raise ValueError(f"mesh {mesh.shape} {mesh.axes} is not the "
-                             f"(pods, dp, tp) = {want} of the config")
+                             f"(pods, ep, dp, tp) = {want} of the config")
         rank = mesh.rank() if rank is None else rank
         group = mesh.group("model", rank) if par.tp > 1 else None
-        dp_groups = tuple(mesh.group(a, rank) for a in dp_axes(mesh))
+        axes = dp_axes(mesh)
+        dp_groups = tuple(mesh.group(a, rank) for a in axes)
+        if par.ep > 1:
+            ep_group = mesh.group("ep", rank)
+        elif par.ep_over_dp:
+            ep_group = mesh.group(("data", "model"), rank)
     elif par.dp * par.pods != 1:
         raise ValueError(DP_NEEDS_MESH)
     axis = getattr(par, "scatter_axis", "auto")
@@ -227,7 +269,8 @@ def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
             par, _backend(group if mesh is None else mesh))
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
                      seq_sharded=plans.residual_layout() == "seq",
-                     group=group, dp_groups=dp_groups,
+                     group=group, dp_groups=dp_groups, dp_axes=axes,
+                     ep_group=ep_group,
                      mode=par.overlap_mode, comm_chunks=par.comm_chunks,
                      plans=plans)
 

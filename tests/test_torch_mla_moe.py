@@ -135,13 +135,19 @@ def test_check_ported_kinds():
 
 
 def test_ep_gt_1_raises_naming_roadmap():
+    """A context at ep>1 needs the "ep" axis of a mesh (the trainer's):
+    without one it raises, naming serving's item; ``init_model`` at ep=2
+    draws the same global weights as at ep=1 (a mesh rank takes its
+    experts with ``model.mesh_shard``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TPContext(ep=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_ctx(ParallelConfig(ep=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_model(get_smoke_config(ARCH), ParallelConfig(ep=2),
+    a = TM.init_model(get_smoke_config(ARCH), ParallelConfig(ep=2),
                       device="cpu")
+    b = TM.init_model(get_smoke_config(ARCH), ParallelConfig(), device="cpu")
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), n
 
 
 # ---------------------------------------------------------------------------

@@ -264,16 +264,26 @@ def _set_bias(p1, full, bias, cfg):
 
 
 def test_tp_paths_that_raise_name_roadmap():
-    """What still raises at tp>1: a dedicated expert-parallel axis (item
-    10).  MLA and MoE layers train at tp>1
-    (``tests/test_torch_train_mla_moe.py``).  The replicated layout
-    trains: its loss and grads equal the seq layout's."""
+    """A dedicated expert-parallel axis (item 10) no longer raises: at
+    ep=2 ``init_model`` draws the global experts and a mesh rank's copy
+    holds E / ep of them, whole over the TP ranks
+    (``tests/test_torch_zero3_ep.py`` trains it).  MLA and MoE layers
+    train at tp>1 (``tests/test_torch_train_mla_moe.py``).  The
+    replicated layout trains: its loss and grads equal the seq
+    layout's."""
     cfg = _cfg("minicpm_2b")
     group = RankGroup(TP, "cpu")
     ctx = TPContext(tp=TP, group=group)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        TM.init_model(get_smoke_config("deepseek_v3_671b"),
-                      ParallelConfig(tp=TP, ep=2), device="cpu")
+    ds = get_smoke_config("deepseek_v3_671b")
+    ep_par = ParallelConfig(tp=TP, ep=2)
+    ep_full = TM.init_model(ds, ep_par, device="cpu")
+    n_exp = ds.moe.num_experts
+    assert ep_full.layers[1].ffn["w1"].shape[0] == n_exp
+    for e in range(2):
+        rank = TM.mesh_shard(ep_full, ds, ep_par, {"ep": e, "model": 1})
+        w1 = rank.layers[1].ffn["w1"]
+        assert w1.shape[0] == n_exp // 2
+        assert torch.equal(w1, ep_full.layers[1].ffn["w1"].chunk(2)[e])
     assert TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
                               ParallelConfig(tp=TP)) is None
     full = TM.init_model(cfg, ParallelConfig(tp=TP), seed=0,

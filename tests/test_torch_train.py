@@ -381,19 +381,20 @@ def test_training_paths_not_ported_raise(tmp_path):
     assert tr.ckpt is not None and tr.ckpt.latest_step() is None
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--zero3"], "item 10"), (["--ep", "2"], "item 10"),
-    (["--arch", "deepseek_v3_671b", "--dp", "2"], "item 10")])
-def test_train_cli_flags_not_ported_raise(flag, item):
-    """``--zero3`` and ``--ep`` raise as they parse; ``--dp`` > 1 on an MoE
-    config of more than 16 experts raises where the run's
-    ``ParallelConfig`` is built (the reference would shard the experts
-    over (data, model))."""
+@pytest.mark.parametrize("flag,field,value", [
+    (["--zero3"], "zero3", True), (["--ep", "2"], "ep", 2),
+    (["--arch", "deepseek_v3_671b", "--dp", "2"], "ep_over_dp", True)])
+def test_train_cli_flags_not_ported_raise(flag, field, value):
+    """The three flags that raised until ZeRO-3 and expert parallelism
+    were ported: ``--zero3`` and ``--ep`` reach their ``ParallelConfig``
+    fields, and ``--dp`` > 1 on an MoE config of more than 16 experts
+    turns on ``ep_over_dp`` where the reference's launcher does."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as LT
-    with pytest.raises(NotImplementedError, match=item):
-        args = LT.parse_args(["--arch", "minicpm_2b", *flag])
-        LT.parallel_config(args, get_config(args.arch))
+    args = LT.parse_args(["--arch", "minicpm_2b", *flag])
+    par = LT.parallel_config(args, get_config(args.arch))
+    assert getattr(par, field) == value
+    assert par.ep_over_dp == (args.arch == "deepseek_v3_671b")
 
 
 @pytest.mark.parametrize("flag,field,value", [
