@@ -137,6 +137,18 @@ a checkout of this repository.  Phases, one JSON object per line each:
              ``Trainer`` step there with ``grad_compress``; 3 ``Trainer``
              steps at dp=2 x tp=2 (losses, step ms, each rank's ZeRO-1
              moment bytes against dp=1's, peak memory, a profiled step);
+   mesh_serve_lane — serving on the rank mesh, llama4_scout_17b_a16e at
+             full width cut to 2 of 48 layers (16 experts top-1 and a
+             shared expert, drop-free capacity): the tp=1 anchor (a flash
+             prefill of 4 x 1024 tokens, 8 decode steps); the batched
+             prefill at dp=2 x tp=2 under ZeRO-3 in flux with the kernels
+             (the launches its PlanSet implies for two TP groups) and 8
+             decode steps teacher-forced on tp=1's tokens; the prefill at
+             ep=2 x tp=2 (experts over the ep axis); the paged Server at
+             dp=2 x tp=2 under ZeRO-3 (concurrent = isolated, prefix
+             reuse, every rank agreeing, first-token logits against the
+             tp=1 Server's); ``launch.serve --dp 2 --tp 2``; each against
+             tp=1 within TP_LANE_RTOL, tokens under the near-tie rule;
 14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
              at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
              each Hopper tile and ring direction forced at the lane's seam
@@ -318,6 +330,23 @@ EP_LANE_LAYOUTS = (("dp2_tp2", {"dp": 2}), ("ep2_tp2", {"ep": 2}),
 # (5 and 3 until the dp lane came: the script stays inside its time
 # budget; host-clock times here move far more than these repeats settle)
 TP_LANE_REPEATS = 2
+# the mesh serve lane: llama4_scout_17b_a16e at full width cut to 2 of its 48
+# layers (10.9 GB of bf16 weights: 2 x 2.2 B layer parameters and the 1.03 B
+# embedding), a 4 x 1024 prefill with the rows' lengths below and 8 decode
+# steps; its Server's and its CLI's requests (4 and 4, 4 new tokens each,
+# until the whole script took 1157.6 s on an H100 80GB HBM3 at 700 W: the
+# Server part 9.3 s and the CLI 2.8 s of the lane's 14.6)
+MESH_SERVE_LAYERS = 2
+MESH_SERVE_LENGTHS = [1024, 777, 512, 256]
+MESH_SERVE_DECODE = 8
+MESH_SERVE_PROMPTS = [40, 57, 73]
+MESH_SERVE_NEW = 2
+MESH_SERVE_CLI_REQUESTS = 2
+MESH_SERVE_ARGV = ["--arch", "llama4_scout_17b_a16e", "--layers",
+                   str(MESH_SERVE_LAYERS), "--requests",
+                   str(MESH_SERVE_CLI_REQUESTS), "--prompt-len", "40",
+                   "--max-new", str(MESH_SERVE_NEW), "--max-batch", "4",
+                   "--prefill-chunk", "64"]
 # the train lane: minicpm_2b at full width cut to its first 8 of 40 layers,
 # batch 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
 TRAIN_LAYERS = 8
@@ -2698,16 +2727,16 @@ def serve_lane(torch, phase, argv, tp, ties_ok=False):
 
 def first_logits(torch, server, prompts):
     """{rid: the float logits [vocab] of each prompt's first generated
-    token}, from a fresh Server on ``server``'s params, group and serve
-    config, through the chunked prefill that ``Server.prefill_chunk``
-    runs (``prefill_chunk_logits``: its argmax is the first token); at
-    tp>1 the ranks' vocab shards side by side."""
+    token}, from a fresh Server on ``server``'s params, group or mesh and
+    serve config, through the chunked prefill that
+    ``Server.prefill_chunk`` runs (``prefill_chunk_logits``: its argmax is
+    the first token); at tp>1 the TP ranks' vocab shards side by side."""
     import numpy as np
     from repro_torch.models import serve as S
     from repro_torch.runtime.server import Request, Server
 
     srv = Server(server.cfg, server.par, server.params, server.sc,
-                 group=server.group)
+                 group=server.group, mesh=server.mesh)
     c = srv.sc.prefill_chunk
     out = {}
     for rid, prompt in prompts.items():
@@ -2721,14 +2750,11 @@ def first_logits(torch, server, prompts):
             toks[0, :clen] = prompt[job.off:job.off + clen]
             toks = srv._tensor(toks)
 
-            def chunk(p, cache, off=job.off, clen=clen, toks=toks):
+            def chunk(p, cache, ctx, off=job.off, clen=clen, toks=toks):
                 return S.prefill_chunk_logits(p, cache, toks, bt, off, clen,
-                                              srv.ctx, srv.cfg)[0]
-            if srv.group is None:
-                logits = chunk(srv.params, srv.caches[0])
-            else:
-                logits = torch.cat(srv.group.spmd(
-                    chunk, list(zip(srv.params, srv.caches))), -1)
+                                              ctx, srv.cfg)[0]
+            # the first TP group's vocab shards (a mesh's replicas agree)
+            logits = torch.cat(srv.run_ranks(chunk)[:srv.par.tp], -1)
             job.off += clen
         out[rid] = logits[0, :srv.cfg.vocab_size].float()
     del srv
@@ -4197,6 +4223,369 @@ def phase_pipeline_lane(torch):
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return counts["flash_attention"]
+
+
+def mesh_serve_cfg():
+    """The mesh serve lane's model: llama4_scout_17b_a16e at full width, its
+    first MESH_SERVE_LAYERS layers, at the drop-free capacity (splitting
+    the batch over data or ep changes which tokens a saturated expert
+    evicts)."""
+    from repro_torch.configs.base import get_config
+    return drop_free(dataclasses.replace(
+        get_config("llama4_scout_17b_a16e"), num_layers=MESH_SERVE_LAYERS))
+
+
+def _flips(torch, got_tokens, want_tokens, got_logits, want_logits):
+    """{row: ...} of the rows whose token differs from tp=1's, each with
+    tp=1's top-2 margin and the largest logit difference there."""
+    flips = {}
+    for row, (g, w) in enumerate(zip(got_tokens, want_tokens)):
+        if g == w:
+            continue
+        top2 = torch.topk(want_logits[row], 2).values
+        flips[row] = {"tp1": w, "tp": g,
+                      "margin": (top2[0] - top2[1]).item(),
+                      "max_abs_diff": (got_logits[row] - want_logits[row]
+                                       ).abs().max().item()}
+    return flips
+
+
+def _near_ties_only(what, flips):
+    """The near-tie rule of ``serve_lane``: a token may differ from tp=1's
+    only where tp=1's top-2 margin is at most twice the largest logit
+    difference."""
+    wide = [k for k, f in flips.items() if f["margin"] > 2 * f["max_abs_diff"]]
+    check(not wide, f"{what}: tokens differ from tp=1's at {wide}, where "
+          "tp=1's top-2 margin exceeds twice the logits' largest difference")
+
+
+def phase_mesh_serve_lane(torch):
+    """Serving on the rank mesh (``mesh_serve_cfg``: Scout at full width, 2
+    of 48 layers, drop-free), held to a tp=1 anchor drawn from seed 0: its
+    flash prefill of 4 x 1024 tokens (``MESH_SERVE_LENGTHS``) and 8 decode
+    steps.  (a) dp=2 x tp=2 under ZeRO-3 in flux with the kernels: the
+    batched prefill, each data rank on its 2 rows, the counts set to 0
+    just before and read just after (the launches its PlanSet implies for
+    two TP groups of 2), then 8 decode steps teacher-forced on tp=1's
+    tokens (no kernel), the last one again under the profiler (its
+    device time and busy share); each rank's ZeRO-3 leaf bytes half of
+    dp=1 x tp=2's.  (c) The paged Server on that mesh and those ranks: the
+    MESH_SERVE_PROMPTS requests together, one at a time, then again
+    (prefix reuse); every
+    rank's tokens agree (the Server checks each call); first-token logits
+    against the tp=1 Server's on the anchor, and bit for bit the same from
+    Servers with one more slot (mesh and tp=1).  (b) ep=2 x tp=2: the same
+    prefill with the 16 experts over the ep axis (8 a rank, whole over
+    "model").  (d) ``launch.serve --dp 2 --tp 2`` (the config's own
+    capacity), its first-token logits against the tp=1 Server's.  Logits
+    within TP_LANE_RTOL of tp=1's, tokens under the near-tie rule, no MoE
+    assignment dropped where the capacity is drop-free.  Returns the
+    prefills' kernel launches."""
+    import numpy as np
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_mesh, mesh_coords
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    t_phase = time.perf_counter()
+    cfg = mesh_serve_cfg()
+    bf16, tp, vocab = torch.bfloat16, 2, cfg.vocab_size
+    b, s = len(MESH_SERVE_LENGTHS), max(MESH_SERVE_LENGTHS)
+    res = {"phase": "mesh_serve_lane", "arch": cfg.name,
+           "layers": f"{MESH_SERVE_LAYERS} of 48 (cut in depth)",
+           "batch": b, "lengths": MESH_SERVE_LENGTHS,
+           "decode_steps": MESH_SERVE_DECODE, "tp": tp,
+           "capacity_factor": cfg.moe.capacity_factor, "rtol": TP_LANE_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    lengths = torch.tensor(MESH_SERVE_LENGTHS, device="cuda")
+    s_max = s + MESH_SERVE_DECODE + 1
+    par1 = ParallelConfig(fuse_w13=True)
+
+    # the anchor: tp=1, the flash prefill, 8 greedy decode steps
+    t0 = time.perf_counter()
+    one = M.init_model(cfg, par1, seed=0, dtype=bf16, device="cuda")
+    ctx1 = make_ctx(dataclasses.replace(par1, kernel_decode=True))
+    ffn.dropped.clear()
+    with torch.no_grad():
+        lg, caches = S.prefill_logits(one, {"tokens": tokens}, ctx1, cfg,
+                                      lengths)
+        anchor = {"logits": [lg[:, :vocab].float()],
+                  "tokens": [S.vocab_parallel_argmax(lg, vocab)[:, None]]}
+        caches = _dense_caches(torch, caches, s_max)
+        for step in range(MESH_SERVE_DECODE):
+            lg, caches = S.decode_logits(one, caches, anchor["tokens"][-1],
+                                         lengths + step, ctx1, cfg)
+            anchor["logits"].append(lg[:, :vocab].float())
+            anchor["tokens"].append(S.vocab_parallel_argmax(lg, vocab)[:,
+                                                                      None])
+    del caches, lg
+    check(ffn.drop_totals() == [0], f"the tp=1 anchor dropped "
+          f"{ffn.drop_totals()} MoE assignments")
+    torch.cuda.synchronize()
+    res["anchor_s"] = time.perf_counter() - t0
+
+    def ranks_of(par):
+        """Seed 0's weights drawn at tp=2 (the same canonical weights) and
+        cut into each rank of ``par``'s mesh; the global copy dropped."""
+        full = M.init_model(cfg, par, seed=0, dtype=bf16, device="cuda")
+        mesh = make_mesh(par.pods, par.dp, par.tp, "cuda", ep=par.ep)
+        ranks = [M.mesh_shard(full, cfg, par, mesh_coords(mesh, r))
+                 for r in range(mesh.size)]
+        del full
+        torch.cuda.empty_cache()
+        return mesh, ranks
+
+    def rows(mesh, r, par):
+        return S.dp_rows(par, b, mesh_coords(mesh, r))
+
+    def joined(outs, mesh, par):
+        """[B, vocab] fp32 from the ranks' rows and vocab shards."""
+        parts = {}
+        for r, o in enumerate(outs):
+            parts.setdefault(rows(mesh, r, par).start, []).append(o)
+        return torch.cat([torch.cat(parts[i], -1) for i in sorted(parts)]
+                         )[:, :vocab].float()
+
+    def prefill(name, par, mesh, ranks):
+        """The batched prefill on every rank, counted; its gates against
+        the anchor.  Returns (each rank's caches, the launches)."""
+        ctxs = [make_ctx(par, mesh=mesh, rank=r) for r in range(mesh.size)]
+
+        def body(p, ctx, r):
+            sl = rows(mesh, r, par)
+            return S.prefill_logits(p, {"tokens": tokens[sl]}, ctx, cfg,
+                                    lengths[sl])
+
+        ffn.dropped.clear()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = mesh.spmd(body, [(p, c, r) for r, (p, c) in
+                                enumerate(zip(ranks, ctxs))])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        groups = mesh.size // tp
+        want = {k: groups * v for k, v in prefill_launches(
+            ctxs[0].plans, cfg, tp, 1, True).items()}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"mesh serve {name}: launches {got}, its PlanSet "
+              f"implies {want} for {groups} TP groups")
+        drops = ffn.drop_totals(tp)
+        check(drops == [0] * tp, f"mesh serve {name} dropped {drops}")
+        lg = joined([o[0] for o in outs], mesh, par)
+        rel = _rel_l2(lg, anchor["logits"][0])
+        flips = _flips(torch, lg.argmax(-1).tolist(),
+                       anchor["tokens"][0][:, 0].tolist(), lg,
+                       anchor["logits"][0])
+        res[name] = {"mesh": dict(zip(mesh.axes, mesh.shape)),
+                     "prefill_launches": got, "prefill_host_ms": host_ms,
+                     "prefill_logits_rel_l2_vs_tp1": rel,
+                     "prefill_token_flips": flips,
+                     "weights_gb_a_rank": [
+                         sum(t.numel() * t.element_size()
+                             for t in p.parameters()) / 1e9 for p in ranks]}
+        check(rel <= TP_LANE_RTOL, f"mesh serve {name}: prefill logits "
+              f"{rel:.4g} relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+        _near_ties_only(f"mesh serve {name} prefill", flips)
+        return [o[1] for o in outs], ctxs, got
+
+    # (a) dp=2 x tp=2, ZeRO-3, flux, kernels on
+    t0 = time.perf_counter()
+    par = ParallelConfig(tp=tp, dp=2, zero3=True, fuse_w13=True,
+                         kernel_decode=True, overlap_mode="flux")
+    mesh, ranks = ranks_of(par)
+    z3 = M.zero3_leaves(cfg, par)
+    tp2 = ParallelConfig(tp=tp, fuse_w13=True)
+    dp1 = dict(M.mesh_shard(M.meta_model(cfg, tp2), cfg, tp2,
+                            {}).named_parameters())
+    want_b = sum(dp1[n].numel() * dp1[n].element_size() for n in z3)
+    z3_b = [sum(t.numel() * t.element_size()
+                for n, t in p.named_parameters() if n in z3) for p in ranks]
+    check(z3 and all(2 * x == want_b for x in z3_b),
+          f"ZeRO-3 leaf bytes a rank {z3_b}, dp=1 x tp=2's {want_b}")
+    caches, ctxs, launches_a = prefill("dp2_tp2_zero3", par, mesh, ranks)
+    res["dp2_tp2_zero3"].update(zero3_leaves=len(z3),
+                                zero3_bytes_a_rank=z3_b,
+                                zero3_bytes_dp1_tp2=want_b)
+    caches = [_dense_caches(torch, c, s_max) for c in caches]
+    rels, flips, step_ms = [], {}, []
+    zero_counts()
+    for step in range(MESH_SERVE_DECODE):
+        def body(p, c, ctx, r, step=step):
+            sl = rows(mesh, r, par)
+            return S.decode_logits(p, c, anchor["tokens"][step][sl],
+                                   lengths[sl] + step, ctx, cfg)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = mesh.spmd(body, [(p, c, x, r) for r, (p, c, x) in
+                                enumerate(zip(ranks, caches, ctxs))])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        lg = joined(outs, mesh, par)
+        want = anchor["logits"][step + 1]
+        rels.append(_rel_l2(lg, want))
+        for row, f in _flips(torch, lg.argmax(-1).tolist(),
+                             anchor["tokens"][step + 1][:, 0].tolist(), lg,
+                             want).items():
+            flips[f"{step}/{row}"] = f
+    counts = read_counts()
+    # the last step once more under the profiler: its device time and
+    # busy share (it rewrites the same cache rows with the same values)
+    prof = device_profile(torch, lambda: mesh.spmd(
+        body, [(p, c, x, r) for r, (p, c, x) in
+               enumerate(zip(ranks, caches, ctxs))]))
+    res["dp2_tp2_zero3"].update(
+        decode_logits_rel_l2_vs_tp1=rels, decode_token_flips=flips,
+        decode_step_host_ms=step_ms,
+        decode_step_profile={k: prof[k] for k in (
+            "profiled_wall_ms", "device_ms", "device_busy_ms",
+            "device_busy_share")},
+        decode_launches={k: counts[k] for k in ("ag_gemm", "gemm_rs",
+                                                "flash_attention")},
+        phase_s=time.perf_counter() - t0)
+    check(max(rels) <= TP_LANE_RTOL, f"mesh serve decode logits {rels} "
+          f"relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    check(not any(res["dp2_tp2_zero3"]["decode_launches"].values()),
+          "the replicated-layout decode launched a kernel: "
+          f"{res['dp2_tp2_zero3']['decode_launches']}")
+    _near_ties_only("mesh serve decode", flips)
+    del caches
+
+    # (c) the paged Server on that mesh and those ranks
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+               for n in MESH_SERVE_PROMPTS]
+    prompts[2][:32] = prompts[1][:32]             # a shared prefix
+    sc = ServeConfig(max_batch=len(prompts), max_seq=256, eos_token=-1,
+                     max_new_tokens=MESH_SERVE_NEW, block_size=16,
+                     prefill_chunk=64)
+
+    def serve(srv, which):
+        done = srv.serve([Request(rid=i, prompt=prompts[i]) for i in which])
+        check(all(r.done and r.error is None
+                  and len(r.output) == MESH_SERVE_NEW for r in done),
+              "a mesh Server request did not finish")
+        return {r.rid: r.output for r in done}
+
+    zero_counts()
+    srv = Server(cfg, par, ranks, sc, mesh=mesh)
+    concurrent = serve(srv, range(len(prompts)))
+    agree = sum(int(serve(Server(cfg, par, ranks, sc, mesh=mesh), [i])[i]
+                    == concurrent[i]) for i in concurrent)
+    hits = srv.pool.reuse_hits
+    check(serve(srv, range(len(prompts))) == concurrent,
+          "the mesh Server's reuse pass gave other tokens")
+    reuse = srv.pool.reuse_hits - hits
+    counts = read_counts()
+    srv1 = Server(cfg, par1, one, sc)
+    tp1 = serve(srv1, range(len(prompts)))
+    pdict = dict(enumerate(prompts))
+    got, want = first_logits(torch, srv, pdict), first_logits(torch, srv1,
+                                                              pdict)
+    rel = {i: _rel_l2(got[i], want[i]) for i in pdict}
+    # the pool's size (max_batch) changes no arithmetic: the same first
+    # logits, bit for bit, from Servers with one more slot
+    sc_more = dataclasses.replace(sc, max_batch=sc.max_batch + 1)
+    more = {"mesh": (got, Server(cfg, par, ranks, sc_more, mesh=mesh)),
+            "tp1": (want, Server(cfg, par1, one, sc_more))}
+    same = {}
+    for k, (base, other) in more.items():
+        again = first_logits(torch, other, pdict)
+        same[k] = all(torch.equal(base[i], again[i]) for i in pdict)
+    del more, other
+    flips = _flips(torch, [concurrent[i][0] for i in pdict],
+                   [tp1[i][0] for i in pdict],
+                   [got[i] for i in pdict], [want[i] for i in pdict])
+    res["server"] = {
+        "mesh": dict(zip(mesh.axes, mesh.shape)), "ranks": srv.n_ranks,
+        "prompt_lens": MESH_SERVE_PROMPTS, "new_tokens": MESH_SERVE_NEW,
+        "concurrent_equals_isolated": f"{agree}/{len(prompts)}",
+        "reuse_hits": reuse, "every_rank_agrees": True,
+        "prefill_calls": srv.prefill_dispatches,
+        "decode_calls": srv.decode_dispatches,
+        "kernel_launches": {k: counts[k] for k in ("ag_gemm", "gemm_rs",
+                                                   "flash_attention")},
+        "shared_prefix": "prompt 2's first 32 tokens are prompt 1's",
+        "first_logits_rel_l2_vs_tp1": rel, "first_token_flips": flips,
+        "first_tokens_equal_tp1": sum(int(concurrent[i][0] == tp1[i][0])
+                                      for i in pdict),
+        f"first_logits_bit_equal_at_max_batch_{sc_more.max_batch}": same,
+        "phase_s": time.perf_counter() - t0}
+    check(agree == len(prompts), f"mesh Server concurrent vs isolated: "
+          f"{agree}/{len(prompts)}")
+    check(reuse > 0, "the mesh Server's reuse pass reused no prompt block")
+    check(all(same.values()), f"first-token logits at max_batch "
+          f"{sc_more.max_batch} differ from max_batch {sc.max_batch}'s: "
+          f"{same}")
+    check(max(rel.values()) <= TP_LANE_RTOL, f"mesh Server first-token "
+          f"logits {rel} relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    _near_ties_only("mesh Server first tokens", flips)
+    mesh.free_symmetric()
+    del srv, srv1, ranks, mesh, ctxs
+    torch.cuda.empty_cache()
+
+    # (b) ep=2 x tp=2: the experts over the ep axis
+    t0 = time.perf_counter()
+    par_ep = ParallelConfig(tp=tp, ep=2, fuse_w13=True, kernel_decode=True,
+                            overlap_mode="flux")
+    mesh, ranks = ranks_of(par_ep)
+    n_exp = ranks[0].layers[0].ffn["w1"].shape[0]
+    check(n_exp == cfg.moe.num_experts // 2, f"ep=2: {n_exp} experts a rank")
+    _, _, launches_b = prefill("ep2_tp2", par_ep, mesh, ranks)
+    res["ep2_tp2"].update(experts_a_rank=n_exp,
+                          phase_s=time.perf_counter() - t0)
+    mesh.free_symmetric()
+    del ranks, mesh
+    torch.cuda.empty_cache()
+
+    # (d) the serve CLI at --dp 2 --tp 2
+    t0 = time.perf_counter()
+    cli, done = launch_serve.main(MESH_SERVE_ARGV + ["--dp", "2", "--tp",
+                                                     str(tp), "--mode",
+                                                     "flux"])
+    check(cli.mesh is not None and cli.mesh.shape == (2, tp)
+          and len(done) == MESH_SERVE_CLI_REQUESTS and all(
+              r.done and len(r.output) == MESH_SERVE_NEW
+              and all(0 <= t < vocab for t in r.output) for r in done),
+          "launch.serve --dp 2 --tp 2 did not serve its requests")
+    pdict = {r.rid: r.prompt for r in done}
+    srv1 = Server(cli.cfg, par1, one, cli.sc)
+    got, want = first_logits(torch, cli, pdict), first_logits(torch, srv1,
+                                                              pdict)
+    rel = {i: _rel_l2(got[i], want[i]) for i in pdict}
+    firsts = {r.rid: r.output[0] for r in done}
+    flips = _flips(torch, [firsts[i] for i in pdict],
+                   [int(want[i].argmax()) for i in pdict],
+                   [got[i] for i in pdict], [want[i] for i in pdict])
+    check(all(int(got[i].argmax()) == firsts[i] for i in pdict),
+          "the CLI's first tokens are not the argmax of its first logits")
+    res["cli"] = {"argv": MESH_SERVE_ARGV + ["--dp", "2", "--tp", str(tp),
+                                             "--mode", "flux"],
+                  "capacity_factor": cli.cfg.moe.capacity_factor,
+                  "tokens": {r.rid: r.output for r in done},
+                  "first_logits_rel_l2_vs_tp1": rel,
+                  "first_token_flips": flips,
+                  "phase_s": time.perf_counter() - t0}
+    check(max(rel.values()) <= TP_LANE_RTOL, f"the CLI's first-token logits "
+          f"{rel} relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    _near_ties_only("the CLI's first tokens", flips)
+    cli.mesh.free_symmetric()
+    del cli, srv1, one, anchor
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return {k: {"dp2_tp2_zero3": launches_a[k], "ep2_tp2": launches_b[k]}
+            for k in ("flash_attention", "ag_gemm", "gemm_rs")}
 
 
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
@@ -5845,6 +6234,7 @@ def main():
     dp_counts = timed("dp_lane", phase_dp_lane, torch,
                       train_counts.pop("losses"))
     pipe_flash = timed("pipeline_lane", phase_pipeline_lane, torch)
+    mesh_serve = timed("mesh_serve_lane", phase_mesh_serve_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -5865,7 +6255,8 @@ def main():
          "library_ms": flash_case["library_ms"],
          "paper_launches": paper_launches(paper, "flash_attention"),
          "wire_launches": wire_counts["flash_attention"],
-         "pipeline_launches": pipe_flash},
+         "pipeline_launches": pipe_flash,
+         "mesh_serve_launches": mesh_serve["flash_attention"]},
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
@@ -5913,6 +6304,7 @@ def main():
                          for k, v in ep_counts.items()},
          "paper_launches": paper_launches(paper, "ag_gemm"),
          "wire_launches": wire_counts["ag_gemm"],
+         "mesh_serve_launches": mesh_serve["ag_gemm"],
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
          "train_mla_cases": mla_seam_cases(ag_train_mla),
@@ -5945,6 +6337,7 @@ def main():
          "paper_launches": paper_launches(paper, "gemm_rs"),
          "wire_launches": {"gemm_rs": wire_counts["gemm_rs"],
                            "reduce": wire_counts["gemm_rs_reduce"]},
+         "mesh_serve_launches": mesh_serve["gemm_rs"],
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),
          "train_mla_cases": mla_seam_cases(rs_train_mla),

@@ -4,9 +4,11 @@ Every architecture the port runs gets a module ``repro_torch/configs/<id>.py``
 exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``; ``ARCH_IDS`` and
 ``PAPER_ARCH_IDS`` list them.  Field names and
 defaults match the reference so a config means the same model on both
-sides; the port runs the (ATTN, DENSE_FFN), (MLA, DENSE_FFN) and
-(MLA, MOE_FFN) layer kinds so far (``models.model.check_ported`` rejects
-the rest).
+sides; the port runs the (ATTN, DENSE_FFN), (ATTN, MOE_FFN),
+(MLA, DENSE_FFN) and (MLA, MOE_FFN) layer kinds so far
+(``models.model.check_ported`` rejects the rest).  ``SHAPES`` and
+``shape_applicable`` are the reference's dry-run cells
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ class ParallelConfig:
     TP ranks; 1: no such axis, the reference's 0), ``ep_over_dp`` splits
     the experts over ("data", "model") instead, and ``zero3`` also splits
     the layers' weights over "data", gathered a layer at a time
-    (``models.model``; training only: serving at dp>1 is not ported).
+    (``models.model``), in training and in the serve steps.
     The reference's ``pp`` (the pod axis read as pipeline stages,
     ``parallel.pipeline``) and ``seq_shard_attn`` are not carried.
     ``remat`` ("none" | "selective" | "full")
@@ -136,9 +138,33 @@ class ParallelConfig:
     max_logit_rmse: Optional[float] = None
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only runs for sub-quadratic archs (SSM / hybrid)."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False
+    return True
+
+
 # The archs the port has a config module for (the reference's ``ARCH_IDS``
 # lists more: its other families are not ported yet, ROADMAP queue 1 item 8)
 ARCH_IDS: List[str] = [
+    "llama4_scout_17b_a16e",
     "deepseek_v3_671b",
     "codeqwen15_7b",
     "phi4_mini_38b",

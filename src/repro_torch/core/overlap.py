@@ -735,8 +735,7 @@ class _Zero3ReleaseSeam:
         self.nbytes = [t.untyped_storage().nbytes() for t in full]
 
     def forward(self):
-        for t in self.full:
-            t.untyped_storage().resize_(0)
+        zero3_free(self.full)
         return (), None
 
     def backward(self, saved, gouts):
@@ -746,6 +745,13 @@ class _Zero3ReleaseSeam:
             t.untyped_storage().resize_(nb)
             torch.cat([p[i] for p in parts], out=t.data)
         return ()
+
+
+def zero3_free(full: Sequence[torch.Tensor]) -> None:
+    """Free the storage of ``zero3_gather``'s copies ``full`` (the serve
+    steps' release: no backward refills them)."""
+    for t in full:
+        t.untyped_storage().resize_(0)
 
 
 def zero3_release(full: Sequence[torch.Tensor],

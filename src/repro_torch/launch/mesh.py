@@ -13,7 +13,7 @@ of its members) and dp shrinks to what still forms full groups.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.dist import RankMesh
 
@@ -42,6 +42,13 @@ def mesh_shape(par) -> Tuple[int, ...]:
 def dp_axes(mesh: RankMesh) -> Tuple[str, ...]:
     """The axes that carry data parallelism (batch): pod, ep, data."""
     return tuple(a for a in DP_AXES if a in mesh.axes)
+
+
+def mesh_coords(mesh: Optional[RankMesh], r: int) -> Dict[str, int]:
+    """Mesh rank r's index on each mesh axis (0 on an absent one): the
+    ``coords`` of ``models.model.mesh_shard``."""
+    return {a: mesh.coord(a, r) if mesh is not None and a in mesh.axes
+            else 0 for a in ("pod", "ep", "data", "model")}
 
 
 def elastic_remesh(surviving_ranks: int, tp: int, device=None) -> RankMesh:

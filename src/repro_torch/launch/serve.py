@@ -9,6 +9,8 @@ a seeded random-init model.
       --tp 4 --mode flux --autotune     # tune (decode at --max-batch), serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
       --tp 4 --mode decomposed --wire-dtype int8   # quantized forward wire
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
+      --dp 2 --tp 2 --mode flux     # two replicas of two TP ranks
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the ranks are the
@@ -20,7 +22,12 @@ decode seam at ``--max-batch`` rows, and writes the profile as the train
 CLI's does.  ``--wire-dtype`` quantizes the seams' forward wire (serving
 has no backward, so this is the whole of it; flux seams keep the fp
 wire) and ``--max-logit-rmse`` gates ``--autotune``'s wire sweep, as in
-the train CLI.
+the train CLI.  At ``--dp`` > 1 the ranks are those of
+``launch.mesh.make_mesh(1, dp, tp)`` (a ``dist.RankMesh``), each with its
+``model.mesh_shard`` copy, and every replica serves the same requests, as
+the reference's Server on its (data, model) mesh.  ZeRO-3 and expert
+parallelism in serving are reached through ``ParallelConfig`` (the
+``Server``), as in the reference, whose serve CLI has neither flag.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config)
 from repro_torch.core.overlap import VALID_MODES
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh, mesh_coords
 from repro_torch.launch.train import add_wire_args, autotune
 from repro_torch.models import model as M
 from repro_torch.runtime.server import Request, ServeConfig, Server
@@ -47,6 +55,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the model's first N layers (0: all)")
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas of the tp ranks (a "
+                         "(dp, tp) rank mesh; each serves every request)")
     ap.add_argument("--mode", default="decomposed", choices=list(VALID_MODES),
                     help="the TP seams' transport")
     ap.add_argument("--requests", type=int, default=4)
@@ -88,7 +99,7 @@ def main(argv: Optional[List[str]] = None
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    par = ParallelConfig(tp=args.tp, overlap_mode=args.mode,
+    par = ParallelConfig(tp=args.tp, dp=args.dp, overlap_mode=args.mode,
                          plan_profile=args.plan_profile,
                          wire_dtype=args.wire_dtype,
                          max_logit_rmse=args.max_logit_rmse)
@@ -97,14 +108,19 @@ def main(argv: Optional[List[str]] = None
         par = autotune(args, cfg, par, 2048, decode_batch=args.max_batch)
     dtype = getattr(torch, cfg.compute_dtype)
     params = M.init_model(cfg, par, seed=0, dtype=dtype, device=device)
-    if args.tp > 1:
+    mesh = None
+    if args.dp > 1:
+        mesh = make_mesh(1, args.dp, args.tp, device)
+        params = [M.mesh_shard(params, cfg, par, mesh_coords(mesh, r))
+                  for r in range(mesh.size)]
+    elif args.tp > 1:
         params = [M.shard_params(params, r, args.tp, cfg)
                   for r in range(args.tp)]
     sc = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                      eos_token=args.eos, max_new_tokens=args.max_new,
                      block_size=args.block_size,
                      prefill_chunk=args.prefill_chunk)
-    server = Server(cfg, par, params, sc)
+    server = Server(cfg, par, params, sc, mesh=mesh)
     done = server.serve(make_requests(cfg.vocab_size, args.requests,
                                       args.prompt_len))
     for r in sorted(done, key=lambda x: x.rid):

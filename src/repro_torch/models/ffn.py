@@ -17,18 +17,20 @@ batched expert SwiGLU, the exchange back.  Under the replicated layout
 each buckets them in one global order, runs its local experts only, and a
 psum over the group combines the ranks' contributions.  ``moe_decode``
 does the same with the statistical decode capacity.  The EP group is
-``ctx.ep_axis``: the TP group, or in training on a mesh a dedicated "ep"
-sub-group or the ("data", "model") view under ``ep_over_dp``; rank r of
-it holds experts ``[r * E_loc, (r + 1) * E_loc)``.  The replicated
-layout's local-experts path runs over the TP group only: with experts
-over another group it raises, as the reference's does (each rank's
-experts would see every data shard's tokens, which breaks the
-per-shard grads).  Which tokens a saturated expert evicts depends on the
-layout (per shard under "seq", one global order otherwise); drop-free, the
-layouts agree.  A shared expert, when configured, is a dense FFN on the
-same pre-norm.  The reference's ``segment_sum`` combine is a sum over each
-token's k contiguous assignments here (deterministic on the card, where
-an atomic ``index_add_`` would not be).
+``ctx.ep_axis``: the TP group, or on a mesh a dedicated "ep" sub-group
+or the ("data", "model") view under ``ep_over_dp``; rank r of it holds
+experts ``[r * E_loc, (r + 1) * E_loc)``.  With experts over another
+group the replicated layout's local-experts path first brings in the
+other data ranks' tokens (``_ep_blocks``) and hands each rank its own
+rows of the psum: serving (decode, the chunked prefill) runs it; under
+grad it raises, as the reference's does (each rank's experts would see
+every data shard's tokens, which breaks the per-shard grads).  Which
+tokens a saturated expert evicts depends on the layout (per shard under
+"seq", one global order otherwise); drop-free, the layouts agree.  A
+shared expert, when configured, is a dense FFN on the same pre-norm.  The
+reference's ``segment_sum`` combine is a sum over each token's k
+contiguous assignments here (deterministic on the card, where an atomic
+``index_add_`` would not be).
 
 ``dropped`` counts the assignments capacity evicted, keyed by the rank
 whose experts lost them, for the lanes that must show none: zero it with
@@ -233,21 +235,56 @@ def _combine(out: torch.Tensor, flat_e, slot, keep, gate: torch.Tensor
 def _local(ctx: TPContext, flat_e: torch.Tensor, e_loc: int):
     """(this rank's expert index of each assignment, clamped; is it one of
     this rank's experts)."""
-    local = flat_e - ctx.tp_index() * e_loc
+    local = flat_e - ctx.ep_index() * e_loc
     is_local = (local >= 0) & (local < e_loc)
     return local.clamp(0, e_loc - 1), is_local
 
 
-def _local_experts(p, ht: torch.Tensor, local_e, slot, keep, gate,
-                   e_loc: int, cap: int, top_k: int,
-                   ctx: TPContext) -> torch.Tensor:
-    """This rank's experts on its kept assignments of a token set every
-    rank holds, then the psum of the ranks' contributions over the EP
-    group: [t, D] fp32."""
-    disp = _dispatch(ht, local_e, slot, keep, e_loc, cap, top_k)
-    out = overlap._expert_fn(_SWIGLU, disp, p["w1"], p["w3"], p["w2"])
-    y = _combine(out, local_e, slot, keep, gate)
-    return overlap.psum(y, ctx.axis)
+def _ep_blocks(ctx: TPContext, ht: torch.Tensor,
+               counted: Optional[torch.Tensor]):
+    """The token blocks the experts' group serves in the replicated
+    layout, and this rank's index among them: its own tokens when the
+    experts split over the TP group (whose ranks hold the same tokens);
+    over a dedicated ep axis every member's, and under ``ep_over_dp``
+    each data rank's (its TP ranks hold the same), in the group's order
+    (the reference's all-gather over the group's data axes).  Each block
+    is (tokens [t, D], its counted mask or None)."""
+    g = ctx.ep_group
+    if g is None or g.n == 1:
+        return [(ht, counted)], 0
+    same = 1 if ctx.ep > 1 else ctx.tp     # ranks holding the same tokens
+    parts = g.exchange(ht if counted is None else (ht, counted), "moe_tokens")
+    blocks = [(q, None) if counted is None else q for q in parts[::same]]
+    return blocks, g.rank() // same
+
+
+def _replicated_experts(p, ht: torch.Tensor, ctx: TPContext, mc: MoEConfig,
+                        cap_of, counted: Optional[torch.Tensor] = None,
+                        routed=None) -> torch.Tensor:
+    """The experts of the replicated layout (every TP rank holds the same
+    tokens): for each of ``_ep_blocks``' token blocks, this rank's experts
+    on the block's kept assignments, bucketed alone with capacity
+    ``cap_of(t)`` (so a block's result is what one replica would
+    compute), then the psum over the experts' group of the ranks'
+    contributions and this rank's block: [t, D] fp32.  ``routed`` is this
+    rank's (gate, eidx) when already routed; ``counted`` [t * k] keeps
+    pad assignments out of capacity."""
+    e_loc = _expert_split(mc.num_experts, ctx)
+    blocks, me = _ep_blocks(ctx, ht, counted)
+    ys = []
+    for j, (hs, cs) in enumerate(blocks):
+        gate, eidx = (routed if j == me and routed is not None
+                      else _route(p, hs, mc)[1:])
+        local_e, is_local = _local(ctx, eidx.reshape(-1), e_loc)
+        mask = is_local if cs is None else is_local & cs.bool()
+        cap = cap_of(hs.shape[0])
+        slot, keep = _bucket(local_e, e_loc, cap, mask)
+        _count_drops(ctx, keep, mask)
+        disp = _dispatch(hs, local_e, slot, keep, e_loc, cap, mc.top_k)
+        out = overlap._expert_fn(_SWIGLU, disp, p["w1"], p["w3"], p["w2"])
+        ys.append(_combine(out, local_e, slot, keep, gate))
+    t = ht.shape[0]
+    return overlap.psum(torch.cat(ys), ctx.ep_axis)[me * t:(me + 1) * t]
 
 
 _SWIGLU = overlap.Epilogue(activation="silu", gate="pair")
@@ -315,20 +352,18 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     cnt = torch.clamp(sums[-1], min=1.0)
     aux = e * torch.sum((me / cnt) * (ce / cnt))
 
-    cap = _capacity(t, mc)
     flat_e = eidx.reshape(-1)
     counted = (None if valid_t is None
                else valid_t.repeat_interleave(mc.top_k))
-    slot, keep = _bucket(flat_e, e, cap, counted)
     if ctx.ep_size > 1 and not ctx.seq_sharded:
-        if ctx.ep_group is not None:
+        if ctx.ep_group is not None and probs.requires_grad:
             raise NotImplementedError(EP_REPLICATED_LAYOUT)
-        local_e, is_local = _local(ctx, flat_e, e_loc)
-        _count_drops(ctx, keep, is_local if counted is None
-                     else is_local & counted)
-        y = _local_experts(p, ht, local_e, slot, keep & is_local, gate,
-                           e_loc, cap, mc.top_k, ctx)
+        y = _replicated_experts(p, ht, ctx, mc,
+                                lambda n: _capacity(n, mc), counted,
+                                (gate, eidx))
     else:
+        cap = _capacity(t, mc)
+        slot, keep = _bucket(flat_e, e, cap, counted)
         _count_drops(ctx, keep, counted)
         disp = _dispatch(ht, flat_e, slot, keep, e, cap, mc.top_k)
         # dim 0 of the [ep, E_loc, cap, D] buffer is the destination EP
@@ -345,22 +380,21 @@ def moe_train(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
 
 def moe_decode(p, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
                eps: float = 1e-5) -> torch.Tensor:
-    """x: [B, 1, D] -> [B, 1, D], replicated over the ranks.  Each rank
+    """x: [B, 1, D] -> [B, 1, D], replicated over the TP ranks.  Each rank
     buckets the assignments to its own experts with the statistical
     decode capacity ``min(t*k, max(32, 8*t*k/E))`` (overflow drops), runs
-    them, and a psum over the EP group combines the ranks' outputs."""
+    them, and a psum over the EP group combines the ranks' outputs.  With
+    experts over a dedicated ep axis or ``ep_over_dp`` the other data
+    ranks' tokens come in first (``_ep_blocks``), each block bucketed
+    alone (the reference buckets the gathered tokens in one order: the
+    two agree while no assignment drops, as at these batch sizes)."""
     mc = cfg.moe
     b, dm = x.shape[0], x.shape[-1]
     e, k = mc.num_experts, mc.top_k
-    e_loc = _expert_split(e, ctx)
     h = layers.rms_norm(x, p["norm"], eps)
     ht = h.reshape(b, dm)
-    _, gate, eidx = _route(p, ht, mc)
-    cap = int(min(b * k, max(32, (b * k * 8) // e)))
-    local_e, is_local = _local(ctx, eidx.reshape(-1), e_loc)
-    slot, keep = _bucket(local_e, e_loc, cap, is_local)
-    _count_drops(ctx, keep, is_local)
-    y = _local_experts(p, ht, local_e, slot, keep, gate, e_loc, cap, k, ctx)
+    y = _replicated_experts(
+        p, ht, ctx, mc, lambda t: int(min(t * k, max(32, (t * k * 8) // e))))
     y = y.reshape(b, 1, dm).to(x.dtype)
     if "shared" in p:
         y = y + ffn_decode(_shared(p), x, ctx, eps)

@@ -62,8 +62,8 @@ from repro_torch.models import init_utils as iu
 from repro_torch.parallel.sharding import TPContext, pad_vocab
 
 # (mixer, ffn) layer kinds the port runs, at any tp
-PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (MLA, DENSE_FFN),
-                          (MLA, MOE_FFN)})
+PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (ATTN, MOE_FFN),
+                          (MLA, DENSE_FFN), (MLA, MOE_FFN)})
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
@@ -117,9 +117,9 @@ def check_ported(cfg: ModelConfig) -> None:
     other = set(expanded_pattern(cfg)) - PORTED_KINDS
     if other:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(other)} are not ported; the "
-            f"port runs {sorted(PORTED_KINDS)} (ROADMAP 'Modules still to "
-            "port', the other families)")
+            f"{cfg.name}: layer kinds {sorted(other)} are not ported (the "
+            "Mamba and RWKV-6 families: ROADMAP queue 1 item 8); the port "
+            f"runs {sorted(PORTED_KINDS)}")
 
 
 def _param_dict(params: Dict) -> nn.ParameterDict:
@@ -250,10 +250,7 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
     its ``w1`` and ``w3``.  DeepSeek-V3's MTP head counts, as the
     reference counts it."""
     par = par or ParallelConfig(tp=1)
-    meta = torch.device("meta")
-    gen = torch.Generator()
-    embed, final_norm, layers_, mtp = _init_leaves(cfg, par, gen,
-                                                   torch.bfloat16, meta)
+    embed, final_norm, layers_, mtp = _meta_leaves(cfg, par.tp, par.fuse_w13)
     total = embed.numel() + final_norm.numel()
     blocks = [(m, f, kind == MOE_FFN)
               for (m, f), (_, kind) in zip(layers_, expanded_pattern(cfg))]
@@ -405,16 +402,30 @@ def _is_expert(cfg: ModelConfig, name: str) -> bool:
             and expanded_pattern(cfg)[int(parts[1])][1] == MOE_FFN)
 
 
+@functools.lru_cache(maxsize=16)
+def _meta_leaves(cfg: ModelConfig, tp: int, fuse_w13: bool):
+    """``_init_leaves`` on the meta device (shapes only; they depend on
+    ``par.tp`` and ``par.fuse_w13`` alone)."""
+    return _init_leaves(cfg, ParallelConfig(tp=tp, fuse_w13=fuse_w13),
+                        torch.Generator(), torch.bfloat16,
+                        torch.device("meta"))
+
+
+def meta_model(cfg: ModelConfig, par: ParallelConfig) -> Model:
+    """``init_model``'s global weights at ``par`` on the meta device: their
+    shapes and dtypes, nothing allocated."""
+    embed, final_norm, layers_, mtp = _meta_leaves(cfg, par.tp, par.fuse_w13)
+    return Model(embed, final_norm, [Block(m, f) for m, f in layers_],
+                 False, None if mtp is None else MTPBlock(*mtp))
+
+
 @functools.lru_cache(maxsize=64)
 def _mesh_specs(cfg: ModelConfig, tp: int, dp: int, ep: int,
                 ep_over_dp: bool, zero3: bool, fuse_w13: bool
                 ) -> Tuple[Tuple[str, Tuple], ...]:
     par = ParallelConfig(tp=tp, dp=dp, ep=ep, ep_over_dp=ep_over_dp,
                          zero3=zero3, fuse_w13=fuse_w13)
-    embed, final_norm, layers_, mtp = _init_leaves(
-        cfg, par, torch.Generator(), torch.bfloat16, torch.device("meta"))
-    like = Model(embed, final_norm, [Block(m, f) for m, f in layers_],
-                 False, None if mtp is None else MTPBlock(*mtp))
+    like = meta_model(cfg, par)
     dims = _leaf_dims(cfg, like)
     eaxes = ep_axes(cfg, par)
     out = []
@@ -583,12 +594,15 @@ def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
 class _Zero3:
     """A layer's ZeRO-3 weights: ``gather`` all-gathers its flagged
     leaves (``names``, relative to the layer: "mixer.wqkv", "ffn.shared.w1")
-    over the data group on the rank's tape and returns the layer's leaves
-    with the gathered ones in their place; ``release`` frees the copies
-    the last recorded gather made (``overlap.zero3_release``)."""
+    over the data group (on the rank's tape under grad) and returns the
+    layer's leaves with the gathered ones in their place; ``release``
+    frees the copies the last gather made: in training the last recorded
+    one's, through ``overlap.zero3_release``, which records their refill
+    for the backward; with ``serve`` (the serve steps, off the tape) the
+    last one's, through ``overlap.zero3_free``."""
 
-    def __init__(self, names: FrozenSet[str], group):
-        self.names, self.group = names, group
+    def __init__(self, names: FrozenSet[str], group, serve: bool = False):
+        self.names, self.group, self.serve = names, group, serve
         self.held = None
 
     def gather(self, blk: Block) -> Tuple[Dict, Dict]:
@@ -597,15 +611,24 @@ class _Zero3:
         keys = [k for k in named if k in self.names]
         shards = [named[k] for k in keys]
         full = overlap.zero3_gather(shards, self.group)
-        if full and full[0].requires_grad and not overlap.recomputing():
+        if self.serve:
+            # a group of one rank hands back the shards themselves
+            if full and full[0] is not shards[0]:
+                self.held = (full, None)
+        elif full and full[0].requires_grad and not overlap.recomputing():
             self.held = (full, shards)
         named.update(zip(keys, full))
         return _nest(named, "mixer."), _nest(named, "ffn.")
 
     def release(self) -> None:
-        if self.held is not None:
-            overlap.zero3_release(*self.held, self.group)
-            self.held = None
+        if self.held is None:
+            return
+        full, shards = self.held
+        if shards is None:
+            overlap.zero3_free(full)
+        else:
+            overlap.zero3_release(full, shards, self.group)
+        self.held = None
 
 
 def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
@@ -632,12 +655,26 @@ def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
 
 
 def _zero3_of(cfg: ModelConfig, par: ParallelConfig, ctx: TPContext,
-              i: int) -> Optional[_Zero3]:
-    """Layer i's ``_Zero3`` (None without ZeRO-3 leaves in it)."""
+              i: int, serve: bool = False) -> Optional[_Zero3]:
+    """Layer i's ``_Zero3`` over the context's data group (None without
+    ZeRO-3 leaves in it)."""
     prefix = f"layers.{i}."
     names = frozenset(n[len(prefix):] for n in zero3_leaves(cfg, par)
                       if n.startswith(prefix))
-    return _Zero3(names, ctx.data_group) if names else None
+    return _Zero3(names, ctx.data_group, serve) if names else None
+
+
+def zero3_layers(cfg: ModelConfig, ctx: TPContext
+                 ) -> List[Optional[_Zero3]]:
+    """Each layer's ``_Zero3`` for the serve steps, from the context's
+    ``zero3`` config (all None without one): a serve step gathers a
+    layer's ZeRO-3 leaves right before the layer runs and frees the
+    copies right after, so at most one layer's gathered weights are
+    live."""
+    if ctx.zero3 is None:
+        return [None] * cfg.num_layers
+    return [_zero3_of(cfg, ctx.zero3, ctx, i, serve=True)
+            for i in range(cfg.num_layers)]
 
 
 def backbone(params: Model, x: torch.Tensor, ctx: TPContext,

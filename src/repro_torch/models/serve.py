@@ -3,6 +3,12 @@ paged single-token decode, and the paged chunked prefill.  At tp>1 each runs
 as one rank of a ``dist.RankGroup`` (one call per rank inside
 ``group.spmd``) on that rank's ``model.shard_params`` copy and its own
 caches of its local KV heads, and every rank returns the same next tokens.
+On a ``dist.RankMesh`` (dp, pods or ep > 1: ``make_ctx(par, mesh=)``) each
+rank runs its rows of the batch (``dp_rows``) on its ``model.mesh_shard``
+copy; under ZeRO-3 (the context's ``zero3``) each layer gathers its
+ZeRO-3 leaves right before it runs and frees them right after, and the
+MoE layers reach experts over a dedicated ep axis or ``ep_over_dp``
+through the context's ``ep_group``.
 Prefill runs the context's layout (sequence-sharded, or replicated under
 ``ctx.with_layout(False)``); decode and the chunked prefill always run the
 replicated layout, whose row-parallel seams are AllReduces (``kind="ar"``).
@@ -31,6 +37,7 @@ Contracts kept from the reference:
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,7 +46,7 @@ from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
                                       ParallelConfig)
 from repro_torch.models import attention, ffn, layers
 from repro_torch.models.model import (Model, check_ported, expanded_pattern,
-                                      layer_slot)
+                                      layer_slot, zero3_layers)
 from repro_torch.parallel.sharding import TPContext, gather_ranks
 
 Caches = List[Dict[str, torch.Tensor]]
@@ -60,15 +67,46 @@ def _mixer_cache_shapes(kind: str, cfg: ModelConfig, tp: int, rows: int,
     raise ValueError(kind)
 
 
+# the mesh axes the batched serve steps split their batch over, outermost
+# first (``launch.mesh.dp_axes``'s order)
+DP_AXES = ("pod", "ep", "data")
+
+
+def _dp_sizes(par: ParallelConfig) -> Dict[str, int]:
+    return {"pod": par.pods, "ep": par.ep, "data": par.dp}
+
+
+def dp_rows(par: ParallelConfig, batch: int, coords: Dict[str, int]
+            ) -> slice:
+    """The rows of a ``batch``-row batch that the mesh rank at ``coords``
+    (``launch.mesh.mesh_coords``) runs: the batch split over
+    ``DP_AXES``, outermost first."""
+    sizes = _dp_sizes(par)
+    i, n = 0, 1
+    for a in DP_AXES:
+        i, n = i * sizes[a] + coords.get(a, 0), n * sizes[a]
+    if batch % n:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{n} data-parallel ranks")
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
 def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
-                pool: Optional[Tuple[int, int]] = None
+                pool: Optional[Tuple[int, int]] = None,
+                dp_axes: Tuple[str, ...] = DP_AXES
                 ) -> List[Dict[str, TensorSpec]]:
-    """Per-layer cache specs (GQA ``{"k", "v"}``, MLA ``{"c", "kr"}``):
-    dense [batch, s_max, ...], or with ``pool=(num_blocks, block_size)``
+    """One rank's per-layer cache specs (GQA ``{"k", "v"}`` of its local KV
+    heads, MLA ``{"c", "kr"}``): dense [rows, s_max, ...], the rows its
+    piece of ``batch`` split over ``dp_axes`` (the reference's
+    ``cache_specs(dp_axes=)``), or with ``pool=(num_blocks, block_size)``
     shared [num_blocks, block_size, ...] pools addressed through per-slot
     block tables.  bf16 whatever the compute dtype."""
     check_ported(cfg)
-    rows, width = pool if pool is not None else (batch, s_max)
+    ranks = math.prod(_dp_sizes(par)[a] for a in dp_axes)
+    if pool is None and batch % ranks:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{dp_axes} ({ranks} ranks)")
+    rows, width = pool if pool is not None else (batch // ranks, s_max)
     return [{n: TensorSpec(shape, torch.bfloat16) for n, shape in
              _mixer_cache_shapes(mk, cfg, par.tp, rows, width).items()}
             for mk, _ in expanded_pattern(cfg)]
@@ -77,8 +115,11 @@ def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
 def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
                       block_size: int, max_batch: int
                       ) -> List[Dict[str, TensorSpec]]:
-    """Cache specs for the paged serving runtime (see ``cache_specs``)."""
-    return cache_specs(cfg, par, max_batch, 0, pool=(num_blocks, block_size))
+    """Cache specs for the paged serving runtime (see ``cache_specs``):
+    per replica, with no dp axis (each replica's pools hold every slot;
+    the Server's replicas serve the same requests)."""
+    return cache_specs(cfg, par, max_batch, 0, pool=(num_blocks, block_size),
+                       dp_axes=())
 
 
 def zeros_from_specs(specs: List[Dict[str, TensorSpec]],
@@ -142,19 +183,25 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     back.  Replicated: the embedding's psum gives every rank [B, S, D],
     the column-parallel GEMMs are local and the row-parallel ones
     AllReduce.  The logits are this rank's vocab shard and the caches its
-    KV heads."""
+    KV heads.  On a mesh (``make_ctx(par, mesh=)``) each rank runs its
+    rows of the batch (``dp_rows``); under the context's ``zero3`` each
+    layer's ZeRO-3 leaves are gathered over the data group right before
+    it and freed right after (``model.zero3_layers``)."""
     check_ported(cfg)
     x = layers.embed_lookup(params.embed, batch["tokens"], ctx)
     x = x.to(_compute_dtype(cfg))
     if lengths is not None:
         lengths = lengths.to(x.device)
     caches: Caches = []
-    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
-                                            params.layers)):
+    for i, ((mk, fk), blk, z3) in enumerate(zip(
+            expanded_pattern(cfg), params.layers,
+            zero3_layers(cfg, ctx))):
         lctx = ctx.with_layer(layer_slot(cfg, i))
-        dy, mc = _mixer_prefill(mk, blk.mixer, x, lctx, cfg)
+        mixer, ffn_p = _weights(blk, z3)
+        dy, mc = _mixer_prefill(mk, mixer, x, lctx, cfg)
         x = x + dy
-        x = x + _ffn_full(fk, blk.ffn, x, lctx, cfg, lengths)
+        x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lengths)
+        _release(z3)
         caches.append(mc)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # only each row's LAST true position feeds the next token
@@ -175,6 +222,16 @@ def prefill_step(params: Model, batch: Dict[str, torch.Tensor],
     see ``prefill_logits``: every rank returns the same next tokens."""
     logits, caches = prefill_logits(params, batch, ctx, cfg, lengths)
     return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches
+
+
+def _weights(blk, z3) -> Tuple:
+    """A layer's (mixer, ffn) leaves, its ZeRO-3 leaves gathered."""
+    return (blk.mixer, blk.ffn) if z3 is None else z3.gather(blk)
+
+
+def _release(z3) -> None:
+    if z3 is not None:
+        z3.release()
 
 
 def _mixer_decode(kind: str, p, x, cache, pos, ctx: TPContext,
@@ -208,20 +265,23 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     inactive = None
     if active is not None and block_tables is None:
         inactive = ~torch.as_tensor(active, device=dev).reshape(-1).bool()
-    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
-                                            params.layers)):
+    for i, ((mk, fk), blk, z3) in enumerate(zip(
+            expanded_pattern(cfg), params.layers,
+            zero3_layers(cfg, ctx))):
         lc = caches[i]
         lctx = ctx.with_layer(layer_slot(cfg, i))
+        mixer, ffn_p = _weights(blk, z3)
         saved = _rows_at(lc, pos) if inactive is not None else None
-        dy, _ = _mixer_decode(mk, blk.mixer, x, lc, pos, lctx, cfg,
+        dy, _ = _mixer_decode(mk, mixer, x, lc, pos, lctx, cfg,
                               block_tables)
         if saved is not None:
             _restore_rows(lc, pos, saved, inactive)
         x = x + dy
         if fk == DENSE_FFN:
-            x = x + ffn.ffn_decode(blk.ffn, x, lctx, cfg.norm_eps)
+            x = x + ffn.ffn_decode(ffn_p, x, lctx, cfg.norm_eps)
         else:
-            x = x + ffn.moe_decode(blk.ffn, x, lctx, cfg, cfg.norm_eps)
+            x = x + ffn.moe_decode(ffn_p, x, lctx, cfg, cfg.norm_eps)
+        _release(z3)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # this rank's vocab shard of the logits
     return torch.matmul(h[:, -1], params.embed.T), caches
@@ -238,8 +298,8 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     attention is the MLA-decode kernel.  At tp>1 each rank (inside
     ``group.spmd``) embeds through the vocab-parallel psum, attends over
     its local heads and writes its KV heads; every rank returns the same
-    tokens.  Returns (next_token [B, 1], caches), the caches updated in
-    place."""
+    tokens.  ZeRO-3 as in ``prefill_logits``.  Returns (next_token [B,
+    1], caches), the caches updated in place."""
     logits, caches = decode_logits(params, caches, tokens, pos, ctx, cfg,
                                    block_tables, active)
     return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches
@@ -276,16 +336,19 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
     x = layers.embed_lookup(params.embed, tokens, ctx)
     x = x.to(_compute_dtype(cfg))
     lenv = torch.full((x.shape[0],), chunk_len, device=x.device)
-    for i, ((mk, fk), blk) in enumerate(zip(expanded_pattern(cfg),
-                                            params.layers)):
+    for i, ((mk, fk), blk, z3) in enumerate(zip(
+            expanded_pattern(cfg), params.layers,
+            zero3_layers(cfg, ctx))):
         lctx = ctx.with_layer(layer_slot(cfg, i))
+        mixer, ffn_p = _weights(blk, z3)
         chunk = (attention.gqa_prefill_chunk if mk == ATTN
                  else attention.mla_prefill_chunk)
-        dy, _ = chunk(blk.mixer, x, caches[i], block_tables, off, chunk_len,
+        dy, _ = chunk(mixer, x, caches[i], block_tables, off, chunk_len,
                       lctx, cfg)
         x = x + dy
         # MoE: rows past chunk_len are padding, kept out of expert capacity
-        x = x + _ffn_full(fk, blk.ffn, x, lctx, cfg, lenv)
+        x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lenv)
+        _release(z3)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
     return torch.matmul(layers.take_rows(h, last), params.embed.T), caches

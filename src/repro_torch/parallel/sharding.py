@@ -27,7 +27,10 @@ Data parallelism (dp>1, pods>1, ep>1) runs each rank as one thread of a
 rank's "model" sub-group (``group``, at tp>1) and its data-parallel
 sub-groups (``dp_groups``: pod, then ep, then data, the reference's
 ``dp_axes``), over which the MoE aux loss sums its statistics and the
-trainer and ``optim.adamw`` sync the grads.
+trainer and ``optim.adamw`` sync the grads.  The serve steps
+(``models.serve``) and the paged Server take the same context; under
+ZeRO-3 it carries the config whose ZeRO-3 leaves each serve step's layer
+gathers over the "data" sub-group (``zero3``).
 """
 from __future__ import annotations
 
@@ -45,10 +48,9 @@ TP_NEEDS_GROUP = ("tensor parallelism (tp>1) runs the ranks of a "
                   "dist.RankGroup of size tp inside group.spmd: pass "
                   "group= (ROADMAP queue 1 item 2)")
 EP_NEEDS_MESH = ("a dedicated expert-parallel axis (ep>1) runs over the "
-                 "\"ep\" axis of a dist.RankMesh: training passes mesh= "
-                 "(launch.mesh.make_mesh(..., ep=)); serving at ep>1 is not "
-                 "ported (ROADMAP queue 1 item 10, with the serve CLI's "
-                 "--dp)")
+                 "\"ep\" axis of a dist.RankMesh: pass mesh= "
+                 "(launch.mesh.make_mesh(..., ep=)) to make_ctx, the "
+                 "Trainer or the Server")
 DP_NEEDS_MESH = ("data parallelism (dp>1 or pods>1) runs the ranks of a "
                  "dist.RankMesh of shape (pods, ep, dp, tp) inside "
                  "mesh.spmd: pass mesh= (launch.mesh.make_mesh)")
@@ -75,6 +77,10 @@ class TPContext:
     ep_group    : the group the experts split over when it is not the TP
                   group: the mesh's "ep" sub-group, or its ("data",
                   "model") view under ``ep_over_dp`` (None: the TP group)
+    zero3       : under ZeRO-3 on a mesh, the ``ParallelConfig`` whose
+                  ZeRO-3 leaves (``model.zero3_leaves``) the serve steps
+                  gather over ``data_group`` a layer at a time (None: the
+                  layers' leaves are whole)
     mode        : the transport of seams without a plan
                   (``overlap.VALID_MODES``)
     comm_chunks : the ring sub-chunking of seams without a plan
@@ -91,6 +97,7 @@ class TPContext:
     dp_groups: Tuple = ()
     dp_axes: Tuple[str, ...] = ()
     ep_group: Optional[object] = None
+    zero3: Optional[object] = None
     mode: str = "decomposed"
     comm_chunks: int = 0
     plans: Optional[PlanSet] = None
@@ -101,7 +108,7 @@ class TPContext:
             raise ValueError(TP_NEEDS_GROUP)
         if self.ep != 1 and (self.ep_group is None
                              or self.ep_group.n != self.ep):
-            raise NotImplementedError(EP_NEEDS_MESH)
+            raise ValueError(EP_NEEDS_MESH)
         if self.mode not in overlap.VALID_MODES:
             raise ValueError(f"invalid overlap mode {self.mode!r}")
 
@@ -133,6 +140,11 @@ class TPContext:
         """This rank's "data" sub-group (None without a mesh): the ZeRO-1
         sync and ZeRO-3's weight gather run over it."""
         return self.dp_group("data")
+
+    def ep_index(self) -> int:
+        """This rank's index in the experts' group (0 at one rank): it
+        holds experts ``[ep_index * E_loc, (ep_index + 1) * E_loc)``."""
+        return self.ep_axis.rank() if self.ep_size > 1 else 0
 
     @property
     def tape_axis(self):
@@ -241,9 +253,10 @@ def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
     pods>1 or ep>1) the context of mesh rank ``rank`` (default: the
     calling rank thread's): its "model" sub-group at tp>1, its pod, ep
     and data sub-groups, and the experts' group: the "ep" sub-group at
-    ep>1, the ("data", "model") view under ``ep_over_dp``."""
+    ep>1, the ("data", "model") view under ``ep_over_dp``, and under
+    ``par.zero3`` ``par`` as ``zero3``."""
     dp_groups, axes = (), ()
-    ep_group = None
+    ep_group = zero3 = None
     if mesh is not None:
         from repro_torch.launch.mesh import dp_axes, mesh_shape
         want = mesh_shape(par)
@@ -258,6 +271,8 @@ def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
             ep_group = mesh.group("ep", rank)
         elif par.ep_over_dp:
             ep_group = mesh.group(("data", "model"), rank)
+        if par.zero3:
+            zero3 = par
     elif par.dp * par.pods != 1:
         raise ValueError(DP_NEEDS_MESH)
     axis = getattr(par, "scatter_axis", "auto")
@@ -270,7 +285,7 @@ def make_ctx(par, group=None, plans: Optional[PlanSet] = None, *,
     return TPContext(tp=par.tp, ep=par.ep, use_kernels=par.kernel_decode,
                      seq_sharded=plans.residual_layout() == "seq",
                      group=group, dp_groups=dp_groups, dp_axes=axes,
-                     ep_group=ep_group,
+                     ep_group=ep_group, zero3=zero3,
                      mode=par.overlap_mode, comm_chunks=par.comm_chunks,
                      plans=plans)
 

@@ -27,6 +27,19 @@ a ``dist.RankGroup`` keeps its own ``model.shard_params`` copy and its own
 pools of its local KV heads; every model call runs all ranks through
 ``group.spmd`` (the reference's ``shard_map``) and takes rank 0's tokens
 after checking that every rank returned the same ones.
+
+On a mesh (dp, pods or ep > 1: a ``dist.RankMesh`` of
+``launch.mesh.make_mesh``) the host keeps the same one pool, scheduler
+and set of tables; each mesh rank keeps its ``model.mesh_shard`` copy
+(its TP block, its experts, under ZeRO-3 its data shard of the layers'
+leaves) and its own pools, and every model call runs through
+``mesh.spmd``, each rank under its ``make_ctx(par, mesh=)`` context (under
+ZeRO-3 each layer gathers its leaves over the data group).  Every replica
+serves the same requests, as the reference's (its tokens are replicated
+over data), and every rank of the mesh must return the same tokens.  The
+contexts keep their dp axes, unlike the reference's: serving reads only
+their data group (the ZeRO-3 gather) and the MoE aux loss's psum over
+them, whose sums the serve steps drop.
 """
 from __future__ import annotations
 
@@ -39,10 +52,11 @@ import torch
 
 from repro_torch.configs.base import (ATTN, MLA, RWKV, ModelConfig,
                                       ParallelConfig)
-from repro_torch.dist import RankGroup
+from repro_torch.dist import RankGroup, RankMesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import serve as S
 from repro_torch.models.model import Model, check_ported, expanded_pattern
-from repro_torch.parallel.sharding import TPContext
+from repro_torch.parallel.sharding import TPContext, make_ctx
 from repro_torch.runtime.kvpool import BlockTable, KVPool
 from repro_torch.tuning.plans import plan_set_from_parallel
 
@@ -106,20 +120,38 @@ def _arch_supports_reuse(cfg: ModelConfig) -> bool:
 
 
 class Server:
-    """The paged server.  ``params`` is the model at tp=1, or at tp>1 the
-    tp ranks' ``model.shard_params`` copies, run by ``group`` (a
+    """The paged server.  ``params`` is the model at tp=1; at tp>1 the tp
+    ranks' ``model.shard_params`` copies, run by ``group`` (a
     ``dist.RankGroup`` of size tp; made on the weights' device when not
-    given)."""
+    given); on a mesh (``mesh`` given, or dp, pods or ep > 1) the mesh
+    ranks' ``model.mesh_shard`` copies in rank order, run by ``mesh``
+    (``launch.mesh.make_mesh``'s for ``par``, made on the weights' device
+    when not given)."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  params: Union[Model, Sequence[Model]], sc: ServeConfig,
-                 group: Optional[RankGroup] = None):
+                 group: Optional[RankGroup] = None,
+                 mesh: Optional[RankMesh] = None):
         check_ported(cfg)
         self.cfg = cfg
         self.par = par
         self.sc = sc
         self.params = params
-        if par.tp > 1:
+        self.mesh = None
+        self.ctxs: List[TPContext] = []
+        if mesh is not None or par.dp * par.pods * par.ep > 1:
+            self.device = params[0].embed.device
+            self.mesh = (mesh if mesh is not None else make_mesh(
+                par.pods, par.dp, par.tp, self.device, ep=par.ep))
+            if len(params) != self.mesh.size:
+                raise ValueError(f"a mesh of {self.mesh.size} ranks needs "
+                                 f"as many ranks' params, got {len(params)}")
+            self.group = None
+            plans = plan_set_from_parallel(par, self.device.type)
+            self.ctxs = [make_ctx(par, plans=plans, mesh=self.mesh, rank=r)
+                         for r in range(self.mesh.size)]
+            self.ctx = self.ctxs[0]
+        elif par.tp > 1:
             if len(params) != par.tp:
                 raise ValueError(f"tp={par.tp} needs {par.tp} ranks' params, "
                                  f"got {len(params)}")
@@ -129,15 +161,16 @@ class Server:
         else:
             self.device = params.embed.device
             self.group = None
-        # both model calls force the replicated layout themselves; the
-        # seams' plans are the uniform overlap_mode overlaid with
-        # par.plan_profile when it is fresh for this device (the
-        # reference's plan_set_from_parallel)
-        self.ctx = TPContext(tp=par.tp, ep=par.ep, group=self.group,
-                             mode=par.overlap_mode,
-                             comm_chunks=par.comm_chunks,
-                             plans=plan_set_from_parallel(
-                                 par, self.device.type))
+        if self.mesh is None:
+            # both model calls force the replicated layout themselves; the
+            # seams' plans are the uniform overlap_mode overlaid with
+            # par.plan_profile when it is fresh for this device (the
+            # reference's plan_set_from_parallel)
+            self.ctx = TPContext(tp=par.tp, ep=par.ep, group=self.group,
+                                 mode=par.overlap_mode,
+                                 comm_chunks=par.comm_chunks,
+                                 plans=plan_set_from_parallel(
+                                     par, self.device.type))
         self.pages = -(-sc.max_seq // sc.block_size)   # table width
         nb = sc.num_blocks or (sc.max_batch * self.pages + 1)
         self.pool = KVPool(nb, sc.block_size)
@@ -146,7 +179,7 @@ class Server:
                                     sc.max_batch)
         # one pool set per rank, of its local KV heads
         self.caches = [S.zeros_from_specs(specs, self.device)
-                       for _ in range(par.tp)]
+                       for _ in range(self.n_ranks)]
         self.positions = np.zeros((sc.max_batch,), np.int32)
         self.slots: List[Optional[Request]] = [None] * sc.max_batch
         self.ready: List[bool] = [False] * sc.max_batch  # prefill complete
@@ -155,17 +188,31 @@ class Server:
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
 
+    @property
+    def n_ranks(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.size
+        return 1 if self.group is None else self.group.n
+
+    def run_ranks(self, fn: Callable) -> List:
+        """``fn(params, caches, ctx)`` on every rank (inside ``spmd`` on a
+        group or a mesh), each on its params, pools and context; the
+        ranks' results in rank order."""
+        if self.mesh is not None:
+            return self.mesh.spmd(fn, list(zip(self.params, self.caches,
+                                               self.ctxs)))
+        if self.group is None:
+            return [fn(self.params, self.caches[0], self.ctx)]
+        return self.group.spmd(lambda p, c: fn(p, c, self.ctx),
+                               list(zip(self.params, self.caches)))
+
     def _run(self, fn: Callable, *args, **kw) -> torch.Tensor:
         """``fn(params, caches, *args, ctx, cfg, **kw)`` (a model call that
         returns (next_token, caches), the caches updated in place) on every
-        rank; returns the next tokens, rank 0's at tp>1, after checking that
-        every rank returned the same."""
-        if self.group is None:
-            return fn(self.params, self.caches[0], *args, self.ctx, self.cfg,
-                      **kw)[0]
-        outs = self.group.spmd(
-            lambda p, c: fn(p, c, *args, self.ctx, self.cfg, **kw)[0],
-            list(zip(self.params, self.caches)))
+        rank; returns the next tokens, rank 0's, after checking that every
+        rank returned the same."""
+        outs = self.run_ranks(lambda p, c, ctx: fn(p, c, *args, ctx, self.cfg,
+                                                   **kw)[0])
         for r, o in enumerate(outs[1:], 1):
             if not torch.equal(o, outs[0]):
                 raise RuntimeError(f"rank {r}'s next tokens "

@@ -51,7 +51,7 @@ from repro_torch.core import overlap
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.device import resolve_device
 from repro_torch.dist import RankGroup, RankMesh
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, mesh_coords
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.optim import schedule as sched
@@ -274,12 +274,6 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig,
                              "grad_count": opt["count"]}
 
     return step_fn
-
-
-def mesh_coords(mesh: Optional[RankMesh], r: int) -> Dict[str, int]:
-    """Mesh rank r's index on each mesh axis (0 on an absent one)."""
-    return {a: mesh.coord(a, r) if mesh is not None and a in mesh.axes
-            else 0 for a in ("pod", "ep", "data", "model")}
 
 
 def data_peers(mesh: Optional[RankMesh], r: int) -> List[int]:

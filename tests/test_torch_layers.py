@@ -105,8 +105,9 @@ def test_multi_weight_identity_returns_tuple():
 
 
 def test_tp_gt_1_raises_naming_roadmap():
-    """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 is not
-    ported.  The replicated (decode) layout's ``decode_ar`` seam under grad
+    """tp>1 runs only as the ranks of a RankGroup of size tp; ep>1 only on
+    the "ep" axis of a RankMesh.  The replicated (decode) layout's
+    ``decode_ar`` seam under grad
     needs the rank's SeamTape, like every seam; on one its backward runs
     (the cotangent's psum, then the local GEMMs)."""
     from repro_torch.core.overlap import SeamTape
@@ -117,7 +118,7 @@ def test_tp_gt_1_raises_naming_roadmap():
     group = RankGroup(4, "cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
         TPContext(tp=2, group=group)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="RankMesh"):
         TPContext(tp=4, ep=2, group=group)
     ctx = TPContext(tp=4, group=group).with_layout(False)
     assert ctx.op("mlp_ag").scatter_axis == "hidden"

@@ -135,14 +135,20 @@ def test_check_ported_kinds():
 
 
 def test_ep_gt_1_raises_naming_roadmap():
-    """A context at ep>1 needs the "ep" axis of a mesh (the trainer's):
-    without one it raises, naming serving's item; ``init_model`` at ep=2
+    """A context at ep>1 needs the "ep" axis of a mesh (the trainer's or
+    the Server's): without one it raises, naming the mesh (serving at
+    ep>1 is ported: ``tests/test_torch_mesh_serve.py``); with one, its
+    experts' group is the mesh's "ep" sub-group.  ``init_model`` at ep=2
     draws the same global weights as at ep=1 (a mesh rank takes its
     experts with ``model.mesh_shard``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="make_mesh"):
         TPContext(ep=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="make_mesh"):
         make_ctx(ParallelConfig(ep=4))
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(1, 1, 1, "cpu", ep=2)
+    ctx = make_ctx(ParallelConfig(ep=2), mesh=mesh, rank=1)
+    assert ctx.ep_axis is mesh.group("ep", 1) and ctx.ep_size == 2
     a = TM.init_model(get_smoke_config(ARCH), ParallelConfig(ep=2),
                       device="cpu")
     b = TM.init_model(get_smoke_config(ARCH), ParallelConfig(), device="cpu")
