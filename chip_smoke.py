@@ -19,14 +19,16 @@ a checkout of this repository.  Phases, one JSON object per line each:
              tp lane's 32 heads a rank) and a few edge cases, with its time, the plain
              version's, the library call's and the bound; the MLA kernel
              also with its split count and its combine's time;
-4. kernel_lane — full-width minicpm_2b (seeded random weights): batched
-             prefill through ``prefill_step`` with ``kernel_decode=True``
-             (one flash-kernel launch per layer), checked against the same
+4. kernel_lane — full-width minicpm_2b cut to its first LANE_LAYERS (8)
+             of 40 layers (seeded random weights): batched prefill
+             through ``prefill_step`` with ``kernel_decode=True`` (one
+             flash-kernel launch per layer), checked against the same
              prefill with plain attention, then 16 dense decode steps
              (``decode_step``'s halves, their logits kept for tp_decode);
 5. server_lane — ``repro_torch.launch.serve`` answering 8 requests through
-             the paged ``Server`` at full width, and the same requests
-             served one at a time: a smoke check of the runtime (short
+             the paged ``Server`` at full width over the kernel lane's
+             layers, and the same requests served one at a time: a
+             smoke check of the runtime (short
              prompts), not a serving workload;
 6. mla_lane — deepseek_v3_671b's first four layers at full width (three
              MLA + dense-FFN layers, one MLA + MoE layer; seeded random
@@ -74,11 +76,11 @@ a checkout of this repository.  Phases, one JSON object per line each:
 11. tp_op_level_lane — ``launch.op_level`` at TP 8: 2 seams x 6 m x 3
              modes = 36 rows through ``FusedOp``, the fused kernels'
              launches counted, then every row against the plain version;
-12. tp_lane — full-width minicpm_2b at tp=4 (4 ranks on the one card,
-             seeded weights drawn as at tp=1, w1|w3 packed, cut per
-             rank): one flux prefill with the kernels (320 AG-GEMM, 320
-             GEMM-RS and 160 flash launches), then xla and decomposed;
-             last-position logits
+12. tp_lane — full-width minicpm_2b over the kernel lane's layers at
+             tp=4 (4 ranks on the one card, seeded weights drawn as at
+             tp=1, w1|w3 packed, cut per rank): one flux prefill with the
+             kernels (64 AG-GEMM, 64 GEMM-RS and 32 flash launches), then
+             xla and decomposed; last-position logits
              against the tp=1 kernel lane's and flux against xla.  The
              ranks share the card, so no ECT or overlap efficiency comes
              from these times;
@@ -93,11 +95,11 @@ a checkout of this repository.  Phases, one JSON object per line each:
              time, a profiled step, and one ``ar`` op's host time per
              mode;
    tp_server_lane — the paged ``Server`` at tp=4 in flux through
-             ``launch.serve`` (minicpm_2b at full width, its first 8
-             layers): 8 requests together, one at a time and again
-             (prefix reuse), first tokens against the tp=1 Server's
+             ``launch.serve`` (minicpm_2b at full width, its first 2
+             layers): 8 requests together, every second one alone and
+             all again (prefix reuse), first tokens against the tp=1 Server's
              and their logits within TP_LANE_RTOL of tp=1's;
-13. train_lane — full-width minicpm_2b cut to its first 8 layers, trained
+13. train_lane — full-width minicpm_2b cut to its first 4 layers, trained
              through ``runtime.trainer`` (bf16 weights, fp32 moments, wsd,
              batch 4 x 1024): 3 steps at tp=1, then at tp=4 in flux mode
              on the one card, whose forward and backward seams run the
@@ -149,6 +151,26 @@ a checkout of this repository.  Phases, one JSON object per line each:
              reuse, every rank agreeing, first-token logits against the
              tp=1 Server's); ``launch.serve --dp 2 --tp 2``; each against
              tp=1 within TP_LANE_RTOL, tokens under the near-tie rule;
+   jamba_lane — Jamba's Mamba layers served: jamba_v01_52b at full width
+             cut to one period of 8 of its 32 layers (7 Mamba, 1 GQA, 4
+             dense and 4 MoE FFNs, drop-free), its weights drawn once:
+             the tp=1 anchor with the flash kernel (a 4 x 1024 prefill;
+             other pad tokens change no state, bit for bit; each row
+             alone at the batch's shape, bit for bit, and at its own
+             length: its Mamba states and its logits; 8 decode steps, the
+             8th against a fresh prefill over the prompt and the fed
+             tokens), each comparison with the MoE routing replayed
+             (``replay_routes``: bf16 noise sends tokens to other experts
+             at near ties, every one held to the near-tie rule of
+             ``_routing_vs``); the paged Server at tp=1
+             (a prompt's chunks interleaved with the others' decode
+             steps, concurrent = isolated, the pool below its dense
+             equivalent, no prefix reuse); the prefill at tp=2 in flux
+             (the launches its PlanSet implies: the Mamba in-projections'
+             shared AG-GEMM, ``w_out``'s GEMM-RS) and 8 decode steps
+             against tp=1; ``launch.serve --arch jamba_v01_52b --layers
+             8``.  The kernel phases hold the flash, AG-GEMM and GEMM-RS
+             kernels at the lane's shapes;
 14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
              at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
              each Hopper tile and ring direction forced at the lane's seam
@@ -159,8 +181,9 @@ a checkout of this repository.  Phases, one JSON object per line each:
              the train lane's cut from the tuned profile and under a fixed
              heterogeneous PlanSet against the uniform flux step, with the
              launches their PlanSets imply; then the Trainer, ``launch.
-             train`` (full depth, 2 steps) and ``launch.serve`` (tp=4, 8
-             layers, first tokens against tp=1's) from the profile;
+             train`` (full depth, 2 steps) and ``launch.serve`` (tp=4, the
+             tp server lane's layers, first tokens against tp=1's) from the
+             profile;
    wire_lane — wire precision (``FusedOp.wire_dtype``) at tp=4 on the
              one card: ``wire_encode`` on the card against the CPU (bytes
              and scales bit-equal; a zero block, width 200, int4 at width
@@ -168,18 +191,20 @@ a checkout of this repository.  Phases, one JSON object per line each:
              alone at the tp lane's seam shapes, the decode ``ar`` and the
              ``moe_a2a`` cell, every mode that carries a wire under int8,
              fp8_e4m3 and int4 beside the fp wire (grads equal to the fp
-             wire's, no encode in the backward); minicpm_2b's 40-layer
-             prefill logits under each wire against the fp wire
+             wire's, no encode in the backward); minicpm_2b's prefill
+             logits over its first WIRE_PREFILL_LAYERS (16) layers under
+             each wire against the fp wire
              (``error_budget.model_logit_rmse``, decomposed; int8 within
              0.05) and the flux control (a wired ``ParallelConfig`` keeps
-             flux's fp wire: bit-equal logits, 320 / 320 / 160 launches);
+             flux's fp wire: bit-equal logits, 128 / 128 / 64 launches);
              step 0 of the train lane's cut in decomposed under int8 (the
              encodes its plans imply, none in the backward); the measured
              and the analytic wire sweep (``autotune_model`` with
              ``WIRE_DTYPE_SWEEP`` under a 0.05 budget: no winner out of
              budget); ``launch.serve --mode decomposed --wire-dtype int8``
-             over the tp server lane's 8 layers and requests against the
-             fp wire (first-token logits within 0.05);
+             over minicpm_2b's first 4 layers and the tp server lane's
+             requests against the fp wire (first-token logits within
+             0.05);
 15. train_remat — minicpm_2b at full width and all 40 layers, 3 trainer
              steps at tp=1 with ``remat="full"``: finite losses, step time
              and peak memory;
@@ -194,9 +219,9 @@ a checkout of this repository.  Phases, one JSON object per line each:
              at tp=8 on the one card (8 ranks, seeded bf16 weights drawn
              as at tp=1, w1|w3 packed, cut per rank), 8 x 2048 tokens with
              the last rows shorter:
-   paper_gpt3_prefill — GPT-3 175B, 4 of 96 layers: a tp=1 prefill and
+   paper_gpt3_prefill — GPT-3 175B, 2 of 96 layers: a tp=1 prefill and
              8 decode steps first (then freed); the flux prefill with the
-             kernels (64 AG-GEMM, 64 GEMM-RS, 32 flash launches: what its
+             kernels (32 AG-GEMM, 32 GEMM-RS, 16 flash launches: what its
              PlanSet implies), its logits against tp=1's and xla's, then
              xla and decomposed (no fused kernel), each mode's ms, profiled
              flux and xla prefills;
@@ -205,16 +230,15 @@ a checkout of this repository.  Phases, one JSON object per line each:
              the tp=1 decode;
    paper_gpt3_tune — the measured sweep at tp=8 (8 x 2048 tokens a seam,
              8 decode rows), the flux prefill from its profile against the
-             uniform one with the launches its PlanSet implies, then the
-             sweep again with 8 timed calls a candidate (the near-ties),
-             one ``paper_tune_cell`` line a cell;
+             uniform one with the launches its PlanSet implies, one
+             ``paper_tune_cell`` line a cell;
    paper_gpt3_train — GPT-3 175B, 1 layer, batch 2 x 2048: step 0 at tp=1
              and at tp=8 in flux (loss, canonical grads / 8, the launches
              its PlanSet implies) and xla, then 3 trainer steps;
-   paper_llama2_prefill — Llama-2 70B, 8 of 80 layers: as GPT-3's prefill
+   paper_llama2_prefill — Llama-2 70B, 4 of 80 layers: as GPT-3's prefill
              (the flash kernel over 8 query heads and 1 KV head a rank);
    paper_llama2_train — Llama-2 70B, 2 layers: step 0 as GPT-3's;
-   paper_llama2_serve — ``launch.serve --arch llama2_70b --layers 2 --tp 8
+   paper_llama2_serve — ``launch.serve --arch llama2_70b --layers 1 --tp 8
              --mode flux``: the tp server lane's requests and gates, in
              bf16; its first-token logits within TP_LANE_RTOL of tp=1's,
              and a first token may differ from tp=1's only where tp=1's
@@ -246,11 +270,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # bf16 kernel vs plain: output rounding to bf16 (8 bits of mantissa) of
 # values ~1; fp32: summation order only
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# the kernel lane, kernel prefill vs plain prefill over 40 bf16 layers:
-# relative L2 difference of the logits and of the last layer's K/V caches
-# (the inputs of layer 40 carry 39 layers of bf16 rounding of attention
-# outputs summed in another order)
+# the kernel lane, kernel prefill vs plain prefill over LANE_LAYERS bf16
+# layers: relative L2 difference of the logits and of the last layer's K/V
+# caches (the inputs of the last layer carry the earlier layers' bf16
+# rounding of attention outputs summed in another order)
 LANE_RTOL = 5e-2
+# minicpm_2b's first layers in the kernel lane, the server lane and the
+# tp lane (all 40 until the whole script neared its 1200 s limit; on an
+# H100 80GB HBM3 at 700 W the kernel vs plain logits were 2.05 % apart at
+# 40 layers and 1.66 % at 16, the tp=4 prefill's 2.08 % and 1.66 % and
+# its decode's up to 2.14 % and 1.74 % from tp=1's)
+LANE_LAYERS = 8
 # MLA decode kernel vs plain: fp32 sums in another order over up to 32k
 # positions of values ~1
 MLA_TOL = 1e-4
@@ -280,8 +310,8 @@ GEMM_F32_TOL = 1e-5
 # GEMM rule
 RS_PARTIAL_ULP = 2.0 ** -8
 # the tp lane: tp=4 prefill vs the tp=1 kernel lane's logits (same
-# canonical weights, reduce-scatter sums in another order over 40 bf16
-# layers), and flux vs xla: relative L2 of the last-position logits
+# canonical weights, reduce-scatter sums in another order over LANE_LAYERS
+# bf16 layers), and flux vs xla: relative L2 of the last-position logits
 TP_LANE_RTOL = 5e-2
 # the kernel lane's and the tp lane's dense decode steps (the tp lane's
 # teacher-forced on the kernel lane's tokens); their logits are held to the
@@ -311,8 +341,12 @@ MLA_TP_SERVER_ARGV = (["--arch", "deepseek_v3_671b", "--layers", "4"]
 MLA_TRAIN_LAYERS = 4
 MLA_TRAIN_EXPERTS = 16
 MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_STEPS = 2, 1024, 3
-# the tp server lane: minicpm_2b at full width, cut to its first 8 layers
-TP_SERVER_LAYERS = 8
+# the tp server lane: minicpm_2b at full width, cut to its first 2 layers
+# (8 until the jamba lane came, then 4 until the whole script neared its
+# 1200 s limit: both servers it compares, and the tune lane's,
+# run the same layers; the lane took 86.9 s at 8 layers and 37.8-53.2 s
+# at 4 on an H100 80GB HBM3 at 700 W)
+TP_SERVER_LAYERS = 2
 TP_OP_LEVEL = 8          # the paper's N_TP: the §5.1 rows' ranks
 TP_LANE = 4              # minicpm_2b prefill's and training's ranks
 DP_LANE = (2, 2)         # the dp lane's mesh: (tp, dp) = 2 x 2 ranks
@@ -320,8 +354,8 @@ DP_LANE = (2, 2)         # the dp lane's mesh: (tp, dp) = 2 x 2 ranks
 # of 4 ranks (experts over "model", a dedicated ep axis, experts over
 # (data, model))
 EP_LANE_TP = 2
-# the pipeline lane: GPipe over a 4-rank pod view, the dp lane's 8
-# minicpm_2b layers 2 a stage at tp=1 with the flash kernel, its 4 x 1024
+# the pipeline lane: GPipe over a 4-rank pod view, the dp lane's 4
+# minicpm_2b layers 1 a stage at tp=1 with the flash kernel, its 4 x 1024
 # tokens in 4 microbatches
 PIPE_STAGES, PIPE_MICRO = 4, 4
 EP_LANE_LAYOUTS = (("dp2_tp2", {"dp": 2}), ("ep2_tp2", {"ep": 2}),
@@ -347,16 +381,44 @@ MESH_SERVE_ARGV = ["--arch", "llama4_scout_17b_a16e", "--layers",
                    str(MESH_SERVE_CLI_REQUESTS), "--prompt-len", "40",
                    "--max-new", str(MESH_SERVE_NEW), "--max-batch", "4",
                    "--prefill-chunk", "64"]
-# the train lane: minicpm_2b at full width cut to its first 8 of 40 layers,
-# batch 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
-TRAIN_LAYERS = 8
+# the jamba lane: jamba_v01_52b at full width cut to its first 8 of 32
+# layers (one period of the pattern: 7 Mamba, 1 GQA, 4 dense and 4 MoE
+# FFNs; 13.0 B parameters, 26.1 GB of bf16), drop-free: a batched prefill
+# of 4 x 1024 tokens with the rows' lengths below and 8 decode steps at
+# tp=1 and at tp=JAMBA_TP; the paged Server's requests (the 73-token
+# prompt prefills over three 32-token chunks while the others decode) and
+# the CLI's.  Each row's prefill alone at the batch's shape (the other
+# rows one pad token each) gives the batch's Mamba states, logits and
+# experts bit for bit, as do other tokens at the pad positions (the
+# freeze).  Each row alone at its own length, the batch's MoE routing
+# replayed: the first Mamba layer's state (its input the embedding, which
+# another batch shape cannot move) within JAMBA_STATE_RTOL (relative L2),
+# every layer's within TP_LANE_RTOL: at another shape the GEMMs' bf16
+# sums differ, 0.9-1.6 % on the rows' logits, and a later layer's conv and
+# ssm states moved 0.2-2.1 % (1.2-10.0 % with free routing), on an H100
+# 80GB HBM3 at 700 W
+JAMBA_LAYERS = 8
+JAMBA_TP = 2
+JAMBA_LENGTHS = [1024, 777, 512, 256]
+JAMBA_DECODE = 8
+JAMBA_STATE_RTOL = 1e-2
+JAMBA_PROMPTS = [40, 57, 73]
+JAMBA_NEW = 4
+JAMBA_ARGV = ["--arch", "jamba_v01_52b", "--layers", str(JAMBA_LAYERS),
+              "--requests", "2", "--prompt-len", "40", "--max-new",
+              str(JAMBA_NEW), "--max-batch", "4", "--block-size", "16",
+              "--prefill-chunk", "32"]
+# the train lane: minicpm_2b at full width cut to its first 4 of 40 layers
+# (8 until the whole script neared its 1200 s limit), batch
+# 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
+TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 TAPE_DEPTHS = (8, 16)   # the seam tape's backward, timed at two depths
 CKPT_LAYERS = 2         # train_ckpt: about 0.4 B weights, 4 GB a checkpoint
 CKPT_STEPS = 4
 # step 0 at tp=4 against tp=1 (bf16 weights and activations; the seams sum
-# in another order over 8 layers): the loss within relative 1e-2, every
-# leaf's grad within relative L2 5e-2 in the canonical layout
+# in another order over TRAIN_LAYERS layers): the loss within relative
+# 1e-2, every leaf's grad within relative L2 5e-2 in the canonical layout
 # (model.canonical_leaves), the tp=4 grads divided by 4: each rank seeds its
 # replicated loss with 1, as in the reference, so a tp=4 grad is 4x the tp=1
 # grad; xla and decomposed against flux with the same tolerances
@@ -385,12 +447,24 @@ TUNE_ITERS, TUNE_WARMUP = 2, 1
 # elements carry the GEMM's bf16 rounding and up to three of the
 # epilogue's (2^-9 each); ring sums add n - 1 bf16 roundings of partials
 TUNE_WINNER_RTOL = 1e-2
+# the tp>1 server lanes (``serve_lane``) serve every second of their 8
+# requests alone against the batch's tokens (all 8 until the whole script
+# neared its 1200 s limit: alone, a request takes a host-bound decode step
+# a token at tp>1)
+SERVE_ALONE_STRIDE = 2
 # the tp server lane's requests (minicpm_2b, its first TP_SERVER_LAYERS
 # layers); the tune lane serves them again from the tuned profile
 TP_SERVER_ARGV = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
                   "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
                   "--max-new", "16", "--max-seq", "256", "--block-size", "16",
                   "--prefill-chunk", "32"]
+# the wire lane serves the same requests over the first 4 layers: its int8
+# serving check against the fp wire (WIRE_BUDGET) is held over 4 layers of
+# int8 seams (8 until the whole script neared its 1200 s limit; the
+# first-token logits' worst relative RMS 3.03-3.23 % at 8 layers,
+# 2.85-3.06 % at 4, on an H100 80GB HBM3 at 700 W)
+WIRE_SERVE_ARGV = (["--arch", "minicpm_2b", "--layers", "4"]
+                   + TP_SERVER_ARGV[4:])
 
 # the paper lane: the paper's §5 models at full width, cut in depth only,
 # tp=8 on the one card (8 ranks of a RankGroup), seeded random bf16
@@ -399,11 +473,13 @@ TP_SERVER_ARGV = ["--arch", "minicpm_2b", "--layers", str(TP_SERVER_LAYERS),
 PAPER_TP = 8
 PAPER_BATCH, PAPER_SEQ = 8, 2048
 PAPER_LENGTHS = [2048] * 6 + [1536, 1111]
-GPT3_PREFILL_LAYERS = 4     # of 96: 20.6 GB of weights, 3.2 GB of KV caches
+# (GPT-3's prefill at 4, Llama-2's at 8 and its server at 2 until the
+# whole script neared its 1200 s limit)
+GPT3_PREFILL_LAYERS = 2     # of 96: 10.3 GB of weights
 GPT3_TRAIN_LAYERS = 1
-LLAMA_PREFILL_LAYERS = 8    # of 80: 14.2 GB of weights
+LLAMA_PREFILL_LAYERS = 4    # of 80
 LLAMA_TRAIN_LAYERS = 2
-LLAMA_SERVE_LAYERS = 2
+LLAMA_SERVE_LAYERS = 1
 PAPER_DECODE = 8
 PAPER_DECODE_OTHER_MODES = 2
 # train step: 2 x 2048 (at 8 x 2048 one GPT-3 layer's fp32 moments and
@@ -412,10 +488,6 @@ PAPER_TRAIN_BATCH = 2
 PAPER_TRAIN_STEPS = 3
 PAPER_REPEATS = 3
 PAPER_TUNE_DECODE_BATCH = 8
-# the near-ties (ROADMAP queue 1 item 6.3): the same sweep again with more
-# timed calls a candidate (8 until the ep and pipeline lanes came: the
-# script stays inside its time budget; it gates nothing)
-PAPER_TUNE_ITERS_LONG = 4
 PAPER_SERVER_ARGV = (["--arch", "llama2_70b", "--layers",
                       str(LLAMA_SERVE_LAYERS)] + TP_SERVER_ARGV[4:])
 
@@ -712,11 +784,15 @@ def sass_check(libs):
               "mla_decode": "mla_wgmma_kernel",
               "matmul": "gemm_wgmma_kernel", "ag_gemm": "ag_gemm_wgmma_kernel",
               "gemm_rs": "gemm_rs_wgmma_kernel"}
+    # one cuobjdump a library, all started together
+    with ThreadPoolExecutor(len(wanted)) as ex:
+        texts = {name: ex.submit(
+            subprocess.run, [str(tool), "-sass", str(libs[name])],
+            capture_output=True, text=True, check=True) for name in wanted}
+        texts = {name: f.result().stdout for name, f in texts.items()}
     out = {}
     for name, kernel in wanted.items():
-        text = subprocess.run([str(tool), "-sass", str(libs[name])],
-                              capture_output=True, text=True,
-                              check=True).stdout
+        text = texts[name]
         counts, fn = {}, None
         for ln in text.splitlines():
             if "Function :" in ln:
@@ -743,7 +819,11 @@ def phase_kernel(torch):
 
     cases = [  # name, dtype, B, Hq, Hkv, Sq, Skv, D, causal, kv_offset
         ("minicpm_prefill", torch.bfloat16, 4, 36, 36, 1024, 1024, 64, True, 0),
+        # also the jamba lane's tp=1 prefill (32 query heads over 8 KV
+        # heads), and its tp=2 one a rank
         ("gqa_d128", torch.bfloat16, 4, 32, 8, 1024, 1024, 128, True, 0),
+        ("jamba_tp2_prefill", torch.bfloat16, 4, 16, 4, 1024, 1024, 128,
+         True, 0),
         ("tp_lane_prefill", torch.bfloat16, 4, 9, 9, 1024, 1024, 64, True, 0),
         # the paper lane's per-rank shapes at tp=8: GPT-3 175B (MHA) and
         # Llama-2 70B (8 query heads over 1 KV head)
@@ -935,7 +1015,8 @@ def phase_kernel_lane(torch):
     from repro_torch.models import serve as S
     from repro_torch.parallel.sharding import make_ctx
 
-    cfg = get_config("minicpm_2b")
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=LANE_LAYERS)
     par_k = ParallelConfig(kernel_decode=True)
     ctx_k, ctx_p = make_ctx(par_k), make_ctx(ParallelConfig())
     t0 = time.perf_counter()
@@ -1058,9 +1139,10 @@ def phase_server_lane(torch):
     from repro_torch.launch import serve as launch_serve
     from repro_torch.runtime.server import Request, Server
 
-    argv = ["--arch", "minicpm_2b", "--requests", "8", "--max-batch", "8",
-            "--prompt-len", "40", "--max-new", "16", "--max-seq", "256",
-            "--block-size", "16", "--prefill-chunk", "32"]
+    argv = ["--arch", "minicpm_2b", "--layers", str(LANE_LAYERS),
+            "--requests", "8", "--max-batch", "8", "--prompt-len", "40",
+            "--max-new", "16", "--max-seq", "256", "--block-size", "16",
+            "--prefill-chunk", "32"]
     # this path's counts: the paged runtime attends in plain code (as the
     # reference's Server does), so no kernel of this slice runs here
     fa.flash_attention.launches = 0
@@ -1108,11 +1190,14 @@ def phase_server_lane(torch):
 
 def _dense_caches(torch, caches, s_max):
     """Prefill caches [B, S, ...] glued into zero [B, s_max, ...] decode
-    caches."""
+    caches; a Mamba layer's state (no sequence dim) as it is."""
     out = []
     for layer in caches:
         dense = {}
         for n, t in layer.items():
+            if n in ("conv", "ssm"):
+                dense[n] = t
+                continue
             d = torch.zeros((t.shape[0], s_max, *t.shape[2:]), dtype=t.dtype,
                             device=t.device)
             d[:, :t.shape[1]] = t
@@ -1956,8 +2041,8 @@ def mla_train_seam_cases(which):
 
 
 def mla_seam_cases(cases):
-    """The kernels line's digest of ``phase_fused_kernel``'s mla lane
-    cases."""
+    """The kernels line's digest of ``phase_fused_kernel``'s mla (or
+    jamba) lane cases."""
     return {name: {k: r[k] for k in (
         "rank_rows", "K", "N", "max_abs_err", "fused_ms", "plain_ms",
         "bound_ms", "bound_by", "xla_ms")} for name, r in cases.items()}
@@ -1966,11 +2051,12 @@ def mla_seam_cases(cases):
 def phase_fused_kernel(torch, which):
     """The AG-GEMM (``which="ag"``) or GEMM-RS kernel against its plain
     version, n ranks of a RankGroup on the one card; returns the §5.1
-    m 8192 case, the mla tp lane's cases and the mla train lane's
-    backward cases by name.  Each case: every rank's error, the fused n-rank time,
-    the xla mode's (gather + torch.matmul, or torch.matmul + the slots'
-    sum), n x the GEMM kernel at one rank's shape, the plain version's
-    and the bound.  Then the dp lane's cases (``fused_mesh_cases``)."""
+    m 8192 case, the mla tp lane's cases, the mla train lane's backward
+    cases and the jamba lane's cases by name.  Each case: every rank's
+    error, the fused n-rank time, the xla mode's (gather + torch.matmul,
+    or torch.matmul + the slots' sum), n x the GEMM kernel at one rank's
+    shape, the plain version's and the bound.  Then the dp lane's cases
+    (``fused_mesh_cases``)."""
     from repro_torch.core.overlap import Epilogue, FusedOp
     from repro_torch.dist import RankGroup
     from repro_torch.kernels import ag_gemm as AG
@@ -2023,9 +2109,14 @@ def phase_fused_kernel(torch, which):
     train_mla = mla_train_seam_cases(which)
     cases += [(name, MLA_TP, bf16, rows, k, nn, None, False, False)
               for name, rows, k, nn in train_mla]
+    # the jamba lane's tp=2 flux prefill, at its shapes
+    jamba = jamba_seam_cases(which)
+    cases += [(name, JAMBA_TP, bf16, rows, k, nn, None, False, False)
+              for name, rows, k, nn in jamba]
     operands = {c[0]: c[4] for c in train}
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
-    groups = {n: RankGroup(n, "cuda", timeout_s=60) for n in (4, 8)}
+    groups = {n: RankGroup(n, "cuda", timeout_s=60)
+              for n in (JAMBA_TP, 4, 8)}
     gen = torch.Generator(device="cuda")
     ptxas = ptxas_report("ag_gemm" if which == "ag" else "gemm_rs")
     results = {}
@@ -2123,7 +2214,8 @@ def phase_fused_kernel(torch, which):
     emit({"phase": results[f"{which}_m8192"]["phase"], "ptxas": ptxas})
     return (results[f"{which}_m8192"],
             {c[0]: results[c[0]] for c in mla_cases},
-            {c[0]: results[c[0]] for c in train_mla})
+            {c[0]: results[c[0]] for c in train_mla},
+            {c[0]: results[c[0]] for c in jamba})
 
 
 def mesh_seam_cases(which):
@@ -2344,7 +2436,8 @@ def phase_tp_lane(torch, tp1_logits, tp1_decode):
     from repro_torch.models import serve as S
     from repro_torch.parallel.sharding import make_ctx
 
-    cfg = get_config("minicpm_2b")
+    cfg = dataclasses.replace(get_config("minicpm_2b"),
+                              num_layers=LANE_LAYERS)
     tp = TP_LANE
     group = RankGroup(tp, "cuda", timeout_s=120)
     torch.cuda.reset_peak_memory_stats()
@@ -2595,10 +2688,11 @@ def phase_tp_server_lane(torch):
 
 def serve_lane(torch, phase, argv, tp, ties_ok=False):
     """``launch.serve`` at ``tp`` in flux with ``argv``: 8 requests served
-    together, then one at a time, then again on the same server (prefix
-    reuse); then the tp=1 Server over the same layers and seed.  Each
-    request's first-token logits are taken again from both servers'
-    chunked prefill (``first_logits``): the tp server's must lie within
+    together, then every SERVE_ALONE_STRIDE-th of them one at a time, then
+    all again on the same server (prefix reuse); then the tp=1 Server
+    over the same layers and seed.  Each request's first-token logits are
+    taken again from both servers' chunked prefill (``first_logits``):
+    the tp server's must lie within
     ``TP_LANE_RTOL`` of tp=1's, and each server's first tokens must be
     their argmax.  The first tokens must equal tp=1's; with ``ties_ok`` a
     request may differ where tp=1's top-2 margin is at most twice the
@@ -2641,12 +2735,14 @@ def serve_lane(torch, phase, argv, tp, ties_ok=False):
     peak = server.pool.peak_blocks_in_use
 
     agree = 0
-    for r in sorted(done, key=lambda x: x.rid):
+    alone_reqs = sorted(done, key=lambda x: x.rid)[::SERVE_ALONE_STRIDE]
+    for r in alone_reqs:
         alone = Server(cfg, server.par, server.params, server.sc,
                        group=server.group)
         agree += int(alone.serve([Request(rid=r.rid, prompt=r.prompt)])[0]
                      .output == concurrent[r.rid])
-    check(agree == len(done), f"concurrent vs isolated: {agree}/{len(done)}")
+    check(agree == len(alone_reqs),
+          f"concurrent vs isolated: {agree}/{len(alone_reqs)}")
     hits = server.pool.reuse_hits
     again = server.serve([Request(rid=r.rid, prompt=r.prompt) for r in done])
     reused = {r.rid: r.output for r in again}
@@ -2699,7 +2795,8 @@ def serve_lane(torch, phase, argv, tp, ties_ok=False):
           "pool_blocks": server.pool.num_blocks - 1,
           "prefill_calls": server.prefill_dispatches,
           "decode_calls": server.decode_dispatches,
-          "concurrent_equals_isolated": f"{agree}/{len(done)}",
+          "concurrent_equals_isolated": f"{agree}/{len(alone_reqs)}",
+          "isolated_rids": [r.rid for r in alone_reqs],
           "reuse_hits": server.pool.reuse_hits - hits,
           "first_tokens_equal_tp1": f"{first}/{len(tp1)}",
           "later_tokens_agree_tp1": f"{later}/{15 * len(tp1)}",
@@ -2730,7 +2827,8 @@ def first_logits(torch, server, prompts):
     token}, from a fresh Server on ``server``'s params, group or mesh and
     serve config, through the chunked prefill that
     ``Server.prefill_chunk`` runs (``prefill_chunk_logits``: its argmax is
-    the first token); at tp>1 the TP ranks' vocab shards side by side."""
+    the first token; a Mamba layer's state threads through the job's
+    slot); at tp>1 the TP ranks' vocab shards side by side."""
     import numpy as np
     from repro_torch.models import serve as S
     from repro_torch.runtime.server import Request, Server
@@ -2752,7 +2850,8 @@ def first_logits(torch, server, prompts):
 
             def chunk(p, cache, ctx, off=job.off, clen=clen, toks=toks):
                 return S.prefill_chunk_logits(p, cache, toks, bt, off, clen,
-                                              ctx, srv.cfg)[0]
+                                              ctx, srv.cfg,
+                                              slot=job.slot)[0]
             # the first TP group's vocab shards (a mesh's replicas agree)
             logits = torch.cat(srv.run_ranks(chunk)[:srv.par.tp], -1)
             job.off += clen
@@ -4588,18 +4687,626 @@ def phase_mesh_serve_lane(torch):
             for k in ("flash_attention", "ag_gemm", "gemm_rs")}
 
 
+class replay_routes(capture_routes):
+    """``capture_routes`` that also routes every MoE token to the experts
+    that ``plan(n, rank)`` names for the n-th router call on this thread:
+    (the reference side's probabilities [t, E], its top-k [t, k]; a row of
+    -1 leaves the token its own choice and out of the comparison), the
+    gates this call's own router probabilities at those experts,
+    renormalised: the MoE analogue of teacher-forcing the tokens, so that
+    two runs whose bf16 sums differ send every token to the same experts.
+    ``calls`` records (rank, probs, the experts routed to, the call's own
+    top-k, the plan's probs, the plan's top-k) a call, for
+    ``_routing_vs``."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def __enter__(self):
+        import threading
+
+        import torch
+        from repro_torch.models import ffn
+        self.calls, self._route = [], ffn._route
+        seen, lock = {}, threading.Lock()
+
+        def route(p, ht, mc, axis=None):
+            probs, _, own = self._route(p, ht, mc, axis)
+            with lock:
+                n = seen.get(threading.get_ident(), 0)
+                seen[threading.get_ident()] = n + 1
+            rank = -1 if axis is None else axis.rank()
+            want_p, want = self.plan(n, rank)
+            eidx = torch.where(want.to(own.device) >= 0,
+                               want.to(own.device), own)
+            gate = probs.gather(-1, eidx)
+            gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+            self.calls.append((rank, probs.detach().float().cpu(),
+                               eidx.detach().cpu(), own.detach().cpu(),
+                               want_p.float().cpu(), want.cpu()))
+            return probs, gate, eidx
+        ffn._route = route
+        return self
+
+
+def _layer_routes(torch, calls, b, s):
+    """A prefill's router calls over [b, s] tokens (each rank's calls in
+    order, one a MoE layer; at tp>1 in the sequence-sharded layout a rank
+    routes its sequence shard) -> [(probs [b, s, E], eidx [b, s, k]) a
+    MoE layer]."""
+    ranks = sorted({c[0] for c in calls})
+    mine = {r: [c for c in calls if c[0] == r] for r in ranks}
+    return [tuple(torch.cat([mine[r][i][j].reshape(b, s // len(ranks), -1)
+                             for r in ranks], dim=1) for j in (1, 2))
+            for i in range(len(mine[ranks[0]]))]
+
+
+def _routing_vs(torch, pairs):
+    """The tokens routed elsewhere than on the reference side, and whether
+    each is a near tie.  ``pairs``: (probs [t, E], top-k [t, k]) of the
+    compared run and of the reference a router call, the reference's top-k
+    -1 on tokens left out (pad positions).
+
+    A token's top-k set can change only if the reference's k-th and
+    (k+1)-th probabilities (their margin m) move toward each other by m,
+    so a changed token always has m <= 2 x its own largest probability
+    difference: that test cannot fail.  The noise is measured instead on
+    the tokens that kept their experts: ``noise_max`` is their largest
+    probability difference, and a changed token whose margin exceeds twice
+    it is not a near tie (``changed_not_near_tie``)."""
+    changed, delta, margin = [], [], []
+    for pg, eg, pw, ew in pairs:
+        valid = (ew >= 0).all(-1)
+        k = ew.shape[-1]
+        top = pw.sort(-1, descending=True).values
+        changed.append(((eg.sort(-1).values != ew.sort(-1).values).any(-1)
+                        )[valid])
+        delta.append((pg - pw).abs().amax(-1)[valid])
+        margin.append((top[..., k - 1] - top[..., k])[valid])
+    changed, delta, margin = (torch.cat(v) for v in (changed, delta, margin))
+    noise = float(delta[~changed].max()) if (~changed).any() else 0.0
+    return {"tokens": int(changed.numel()),
+            "tokens_routed_elsewhere": int(changed.sum()),
+            "noise_max": noise,
+            "changed_margin_max": (float(margin[changed].max())
+                                   if changed.any() else 0.0),
+            "changed_not_near_tie": int((changed & (margin > 2 * noise)
+                                         ).sum())}
+
+
+def _replayed(torch, calls):
+    """``_routing_vs`` of a ``replay_routes`` run: each call's own top-k
+    (what it would have routed to) against the plan it was given."""
+    return _routing_vs(torch, [(c[1], c[3], c[4], c[5]) for c in calls])
+
+
+def jamba_cfg():
+    """The jamba lane's model: jamba_v01_52b at full width, its first
+    JAMBA_LAYERS layers (one period of the pattern), at the drop-free
+    capacity (a row alone, the batch and the tp=2 layout would otherwise
+    evict other MoE assignments)."""
+    from repro_torch.configs.base import get_config
+    return drop_free(dataclasses.replace(get_config("jamba_v01_52b"),
+                                         num_layers=JAMBA_LAYERS))
+
+
+def jamba_seam_cases(which):
+    """(name, rows, K, N) of one rank's AG-GEMM (``which="ag"``: rows its
+    sequence shard) or GEMM-RS (rows M, K its shard) operands at the flux
+    seams of the jamba lane's tp=JAMBA_TP prefill over
+    len(JAMBA_LENGTHS) prompts padded to the longest: a Mamba layer's
+    in-projections (``w_in_x`` and ``w_in_z``, one launch over both
+    weights' columns) and ``w_out``, the GQA layer's QKV and ``wo``, the
+    dense FFN's w1 and w3 (one launch) and w2."""
+    from repro_torch.models.attention import AttnDims
+    from repro_torch.models.mamba import _dims
+    from repro_torch.parallel.sharding import pad_ff
+
+    cfg, tp = jamba_cfg(), JAMBA_TP
+    m = len(JAMBA_LENGTHS) * max(JAMBA_LENGTHS)
+    d, d_in = cfg.d_model, _dims(cfg, tp)[0]
+    att = AttnDims.of(cfg, tp)
+    ffp = pad_ff(cfg.d_ff, tp)
+    if which == "ag":
+        return [("ag_jamba_mamba_in", m // tp, d, 2 * d_in // tp),
+                ("ag_jamba_qkv", m // tp, d,
+                 (att.h_pad + 2 * att.hkv_pad) * att.dh // tp),
+                ("ag_jamba_mlp", m // tp, d, 2 * ffp // tp)]
+    return [("rs_jamba_mamba_out", m, d_in // tp, d),
+            ("rs_jamba_attn_out", m, att.h_pad * att.dh // tp, d),
+            ("rs_jamba_mlp", m, ffp // tp, d)]
+
+
+def phase_jamba_lane(torch):
+    """Jamba's Mamba layers served (``jamba_cfg``: jamba_v01_52b at full
+    width, one period of 8 layers, drop-free).  The weights are drawn once,
+    seed 0's global copy packed for tp=2; its canonical leaves are the
+    tp=1 model (at this width tp=2 pads nothing: only the QKV columns
+    unpack), which shares every other leaf with it.
+
+    Two bf16 runs of this model send some tokens to other experts at a
+    router's near tie (random routers, top-2 of 16, over 4 MoE layers),
+    and a token routed elsewhere gets another FFN output: its row's later
+    state and logits move far more than the sums' rounding does.  So each
+    comparison below runs the compared side with the reference side's
+    expert choices replayed (``replay_routes``, as the decode steps are
+    teacher-forced on tp=1's tokens), and every comparison's routing,
+    free and replayed, is held to the near-tie rule of ``_routing_vs``:
+    each token a run would route elsewhere on its own has a margin within
+    twice the probability noise of the tokens that kept their experts.
+
+    (a) The tp=1 anchor with the flash kernel: the batched prefill of 4 x
+    1024 tokens (JAMBA_LENGTHS); the dt = 0 freeze (the batch with other
+    tokens at the pad positions gives the same states and logits, bit for
+    bit); each row alone at the batch's shape (the other rows one pad
+    token each): the batch's states, logits and experts bit for bit; each
+    row alone at its own length, its routing replayed: the first Mamba
+    layer's conv and ssm state within JAMBA_STATE_RTOL of the batched
+    prefill's, every layer's and the logits within TP_LANE_RTOL (the
+    constants' comment); 8 greedy decode
+    steps; the 8th step's logits against one fresh prefill over each
+    prompt and the 8 fed tokens (decode's state update against the
+    chunked scan), the anchor's routing replayed, within TP_LANE_RTOL.
+    (c) The paged Server at tp=1: the JAMBA_PROMPTS requests together (the
+    73-token prompt's chunks interleaved with the others' decode steps),
+    each alone: concurrent = isolated, the pool's peak below the dense
+    equivalent, no reuse hit (reuse is off for recurrent state).  (b) tp=2
+    in flux with the kernels, the ranks cut from the global copy (the
+    tp=1 model freed): the prefill, the counts set to 0 just before and
+    read just after (the launches its PlanSet implies), its routing
+    against tp=1's; the prefill again with tp=1's routing and 8 decode
+    steps teacher-forced on tp=1's tokens and routing (no kernel): logits
+    within TP_LANE_RTOL of tp=1's, tokens under the near-tie rule.  (d)
+    ``launch.serve --arch jamba_v01_52b --layers 8`` once: its requests
+    served, its first tokens the argmax of its first-token logits.
+    Returns the prefills' kernel launches."""
+    import numpy as np
+    from repro_torch.configs.base import ATTN, MAMBA, ParallelConfig
+    from repro_torch.dist import RankGroup
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    t_phase = time.perf_counter()
+    cfg = jamba_cfg()
+    bf16, tp, vocab = torch.bfloat16, JAMBA_TP, cfg.vocab_size
+    b, s = len(JAMBA_LENGTHS), max(JAMBA_LENGTHS)
+    kinds = M.expanded_pattern(cfg)
+    mamba_layers = [i for i, (mk, _) in enumerate(kinds) if mk == MAMBA]
+    n_attn = sum(mk == ATTN for mk, _ in kinds)
+    res = {"phase": "jamba_lane", "arch": cfg.name,
+           "layers": f"{JAMBA_LAYERS} of 32 (cut in depth: one period)",
+           "pattern": ["+".join(k) for k in kinds], "batch": b,
+           "lengths": JAMBA_LENGTHS, "decode_steps": JAMBA_DECODE, "tp": tp,
+           "capacity_factor": cfg.moe.capacity_factor, "rtol": TP_LANE_RTOL,
+           "state_rtol": JAMBA_STATE_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    lengths = torch.tensor(JAMBA_LENGTHS, device="cuda")
+    s_max = s + JAMBA_DECODE + 1
+    par1 = ParallelConfig()
+
+    t0 = time.perf_counter()
+    full = M.init_model(cfg, ParallelConfig(tp=tp), seed=0, dtype=bf16,
+                        device="cuda")
+    one = M.rebuild(M.meta_model(cfg, par1), M.canonical_leaves(
+        {n: t.detach() for n, t in full.named_parameters()}, cfg, tp))
+    like = dict(M.meta_model(cfg, par1).named_parameters())
+    check(all(t.shape == like[n].shape and t.dtype == like[n].dtype
+              for n, t in one.named_parameters()),
+          "the canonical leaves of the tp=2 weights are not the tp=1 model")
+    torch.cuda.synchronize()
+    res.update(params=sum(t.numel() for t in full.parameters()),
+               weights_gb=sum(t.numel() * t.element_size()
+                              for t in full.parameters()) / 1e9,
+               init_s=time.perf_counter() - t0)
+
+    # (a) the tp=1 anchor
+    t0 = time.perf_counter()
+    ctx1 = make_ctx(dataclasses.replace(par1, kernel_decode=True))
+    ffn.dropped.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    with capture_routes() as rt:
+        lg, caches = S.prefill_logits(one, {"tokens": tokens}, ctx1, cfg,
+                                      lengths)
+        torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    tp1_launches = {k: counts[k] for k in ("ag_gemm", "gemm_rs",
+                                           "flash_attention")}
+    check(tp1_launches == {"ag_gemm": 0, "gemm_rs": 0,
+                           "flash_attention": n_attn},
+          f"the tp=1 prefill launched {tp1_launches}: one flash launch a "
+          f"GQA layer ({n_attn})")
+    # the anchor's routes, the pad positions left out (they route freely)
+    valid1 = (torch.arange(s)[None] < lengths.cpu()[:, None])[..., None]
+    routes1 = [(p, torch.where(valid1, e, -1))
+               for p, e in _layer_routes(torch, rt.calls, b, s)]
+    anchor = {"logits": [lg[:, :vocab].float()],
+              "tokens": [S.vocab_parallel_argmax(lg, vocab)[:, None]]}
+    # the dt = 0 freeze: other tokens at the pad positions leave every
+    # Mamba state and every row's logits as they were, bit for bit
+    noise = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    pad = torch.arange(s, device="cuda")[None] >= lengths[:, None]
+    lg_pad, c_pad = S.prefill_logits(
+        one, {"tokens": torch.where(pad, noise, tokens)}, ctx1, cfg, lengths)
+    frozen = torch.equal(lg_pad, lg) and all(
+        torch.equal(c_pad[i][k], caches[i][k])
+        for i in mamba_layers for k in ("conv", "ssm"))
+    del lg_pad, c_pad, noise
+    check(frozen, "jamba: other tokens at the pad positions moved the "
+          "batched prefill's Mamba state or logits")
+    # each row alone: at its own length (free, then the batch's routing
+    # replayed), and at the batch's shape (the other rows one pad token
+    # each: every GEMM, the attention and the scan at the batch's shapes)
+    state_rel, alone_rel, alone_free, shape_rel, shape_lg = ({}, {}, {}, {},
+                                                             {})
+    free_pairs, alone_calls, shape_pairs = [], [], []
+    shape_equal = True
+    for r, n in enumerate(JAMBA_LENGTHS):
+        one_row = {"tokens": tokens[r:r + 1, :n]}
+        with capture_routes() as rt:
+            lga, _ = S.prefill_logits(one, one_row, ctx1, cfg)
+        free_pairs += [(c[1], c[2], p1[r, :n], e1[r, :n])
+                       for c, (p1, e1) in zip(rt.calls, routes1)]
+        alone_free[r] = _rel_l2(lga[0, :vocab].float(), anchor["logits"][0][r])
+        with replay_routes(lambda i, rank, r=r, n=n: (
+                routes1[i][0][r, :n], routes1[i][1][r, :n])) as rr:
+            lga, alone = S.prefill_logits(one, one_row, ctx1, cfg)
+        alone_calls += rr.calls
+        alone_rel[r] = _rel_l2(lga[0, :vocab].float(), anchor["logits"][0][r])
+        for i in mamba_layers:
+            for k in ("conv", "ssm"):
+                state_rel[f"row{r}/layer{i}/{k}"] = _rel_l2(
+                    caches[i][k][r], alone[i][k][0])
+        del alone, lga
+        solo = torch.zeros_like(tokens)
+        solo[r] = tokens[r]
+        solo_len = torch.ones_like(lengths)
+        solo_len[r] = n
+        with capture_routes() as rt:
+            lga, at = S.prefill_logits(one, {"tokens": solo}, ctx1, cfg,
+                                       solo_len)
+        shape_pairs += [(c[1].reshape(b, s, -1)[r, :n],
+                         c[2].reshape(b, s, -1)[r, :n], p1[r, :n], e1[r, :n])
+                        for c, (p1, e1) in zip(rt.calls, routes1)]
+        shape_lg[r] = _rel_l2(lga[r, :vocab].float(), anchor["logits"][0][r])
+        shape_equal &= torch.equal(lga[r], lg[r])
+        for i in mamba_layers:
+            for k in ("conv", "ssm"):
+                shape_rel[f"row{r}/layer{i}/{k}"] = _rel_l2(
+                    caches[i][k][r], at[i][k][r])
+                shape_equal &= torch.equal(caches[i][k][r], at[i][k][r])
+        del at, lga, solo
+    alone_routing = {"free": _routing_vs(torch, free_pairs),
+                     "replayed": _replayed(torch, alone_calls)}
+    shape_routing = _routing_vs(torch, shape_pairs)
+    del free_pairs, alone_calls, shape_pairs
+    first = {k: v for k, v in state_rel.items()
+             if k.split("/")[1] == f"layer{mamba_layers[0]}"}
+    worst = max(state_rel, key=state_rel.get)
+    check(max(first.values()) <= JAMBA_STATE_RTOL, f"jamba: the first "
+          f"Mamba layer's state after the batched prefill {first} relative "
+          f"L2 from each row's prefill alone (rtol {JAMBA_STATE_RTOL})")
+    check(state_rel[worst] <= TP_LANE_RTOL, f"jamba: {worst}'s state after "
+          f"the batched prefill {state_rel[worst]:.4g} relative L2 from the "
+          f"row's prefill alone, its routing replayed (rtol {TP_LANE_RTOL})")
+    check(max(alone_rel.values()) <= TP_LANE_RTOL, f"jamba: each row's "
+          f"logits alone {alone_rel} relative L2 from the batched prefill's "
+          f"(rtol {TP_LANE_RTOL})")
+    shape_worst = max(shape_rel, key=shape_rel.get)
+    check(shape_equal and shape_routing["tokens_routed_elsewhere"] == 0,
+          f"jamba: each row alone at the batch's shape is not the batched "
+          f"prefill's bit for bit: {shape_worst}'s state "
+          f"{shape_rel[shape_worst]:.4g}, the logits {shape_lg} relative "
+          f"L2, routing {shape_routing}")
+    for what, rt_ in (("each row alone, free", alone_routing["free"]),
+                      ("each row alone, replayed", alone_routing["replayed"]),
+                      ("each row at the batch's shape", shape_routing)):
+        check(rt_["changed_not_near_tie"] == 0, f"jamba: {what}: tokens "
+              f"routed elsewhere than in the batch without a near tie: {rt_}")
+    check(ffn.drop_totals() == [0], f"the tp=1 anchor dropped "
+          f"{ffn.drop_totals()} MoE assignments")
+    caches = _dense_caches(torch, caches, s_max)
+    zero_counts()
+    step_ms, routes_dec = [], []
+    for step in range(JAMBA_DECODE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with capture_routes() as rt:
+            lg, caches = S.decode_logits(one, caches, anchor["tokens"][-1],
+                                         lengths + step, ctx1, cfg)
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        routes_dec.append([(p, e) for _, p, e in rt.calls])
+        anchor["logits"].append(lg[:, :vocab].float())
+        anchor["tokens"].append(S.vocab_parallel_argmax(lg, vocab)[:, None])
+    counts = read_counts()
+    check(not any(counts.values()), f"the tp=1 decode launched {counts}")
+    del caches
+    # the 8th step against one prefill over each prompt and the 8 tokens
+    # fed to the decode steps (padded to a whole number of scan chunks),
+    # the anchor's routing replayed (the pad positions route freely)
+    fed = torch.cat(anchor["tokens"][:JAMBA_DECODE], 1)
+    width = -(-(s + JAMBA_DECODE) // 256) * 256
+    ext = torch.zeros((b, width), dtype=tokens.dtype, device="cuda")
+    plan = []
+    for i, (p1, e1) in enumerate(routes1):
+        e = torch.full((b, width, e1.shape[-1]), -1, dtype=e1.dtype)
+        p = torch.zeros((b, width, p1.shape[-1]))
+        for r, n in enumerate(JAMBA_LENGTHS):
+            e[r, :n], p[r, :n] = e1[r, :n], p1[r, :n]
+            for j in range(JAMBA_DECODE):
+                p[r, n + j], e[r, n + j] = (t[r] for t in routes_dec[j][i])
+        plan.append((p.reshape(b * width, -1), e.reshape(b * width, -1)))
+    for r, n in enumerate(JAMBA_LENGTHS):
+        ext[r, :n] = tokens[r, :n]
+        ext[r, n:n + JAMBA_DECODE] = fed[r]
+    with capture_routes() as rt:
+        lg, _ = S.prefill_logits(one, {"tokens": ext}, ctx1, cfg,
+                                 lengths + JAMBA_DECODE)
+    fresh_free = _rel_l2(lg[:, :vocab].float(), anchor["logits"][-1])
+    fresh_routing = {"free": _routing_vs(torch, [
+        (c[1], c[2], *plan[i]) for i, c in enumerate(rt.calls)])}
+    with replay_routes(lambda i, rank: plan[i]) as rr:
+        lg, _ = S.prefill_logits(one, {"tokens": ext}, ctx1, cfg,
+                                 lengths + JAMBA_DECODE)
+    fresh_routing["replayed"] = _replayed(torch, rr.calls)
+    fresh = _rel_l2(lg[:, :vocab].float(), anchor["logits"][-1])
+    del lg, plan, rt, rr
+    res["tp1"] = {
+        "prefill_host_ms": prefill_ms, "prefill_launches": tp1_launches,
+        "pad_tokens_change_nothing": frozen,
+        "first_layer_state_rel_l2_vs_row_alone": first,
+        "state_rel_l2_vs_row_alone_max": state_rel[worst],
+        "state_rel_l2_worst": worst,
+        "state_rel_l2_vs_row_alone": state_rel,
+        "logits_rel_l2_vs_row_alone": alone_rel,
+        "logits_rel_l2_vs_row_alone_free_routing": alone_free,
+        "routing_vs_batch_row_alone": alone_routing,
+        "at_batch_shape_bit_equal": shape_equal,
+        "at_batch_shape_state_rel_l2_max": shape_rel[shape_worst],
+        "at_batch_shape_logits_rel_l2": shape_lg,
+        "at_batch_shape_routing_vs_batch": shape_routing,
+        "decode_step_host_ms": step_ms,
+        "decode8_logits_rel_l2_vs_fresh_prefill": fresh,
+        "decode8_vs_fresh_prefill_free_routing": fresh_free,
+        "fresh_prefill_routing_vs_decode": fresh_routing,
+        "phase_s": time.perf_counter() - t0}
+    check(fresh <= TP_LANE_RTOL, f"jamba: the 8th decode step's logits "
+          f"{fresh:.4g} relative L2 from a fresh prefill's (rtol "
+          f"{TP_LANE_RTOL})")
+    for how, rt_ in fresh_routing.items():
+        check(rt_["changed_not_near_tie"] == 0, f"jamba: the fresh prefill "
+              f"({how}) routed tokens elsewhere than the prefill and decode "
+              f"steps without a near tie: {rt_}")
+
+    # (c) the paged Server at tp=1
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+               for n in JAMBA_PROMPTS]
+    sc = ServeConfig(max_batch=4, max_seq=256, eos_token=-1,
+                     max_new_tokens=JAMBA_NEW, block_size=16,
+                     prefill_chunk=32)
+
+    def serve(srv, which):
+        done = srv.serve([Request(rid=i, prompt=prompts[i]) for i in which])
+        check(all(r.done and r.error is None and len(r.output) == JAMBA_NEW
+                  and all(0 <= t < vocab for t in r.output) for r in done),
+              "a jamba Server request did not finish")
+        return {r.rid: r.output for r in done}
+
+    srv = Server(cfg, par1, one, sc)
+    events = []
+    chunk_fn, step_fn = srv.prefill_chunk, srv.step
+
+    def chunk(job):
+        events.append(("chunk", job.req.rid))
+        return chunk_fn(job)
+
+    def step():
+        events.append(("decode", sum(srv.ready)))
+        return step_fn()
+    srv.prefill_chunk, srv.step = chunk, step
+    zero_counts()
+    t1 = time.perf_counter()
+    concurrent = serve(srv, range(len(prompts)))
+    serve_s = time.perf_counter() - t1
+    # the wrappers hold srv's bound methods: while they live, srv and the
+    # weights it holds live on in a reference cycle
+    del srv.prefill_chunk, srv.step, chunk, step, chunk_fn, step_fn
+    long_rid = JAMBA_PROMPTS.index(max(JAMBA_PROMPTS))
+    at = [i for i, e in enumerate(events) if e == ("chunk", long_rid)]
+    between = [e for e in events[at[0]:at[-1]] if e[0] == "decode" and e[1]]
+    agree = sum(int(serve(Server(cfg, par1, one, sc), [i])[i]
+                    == concurrent[i]) for i in concurrent)
+    counts = read_counts()
+    res["server"] = {
+        "prompt_lens": JAMBA_PROMPTS, "new_tokens": JAMBA_NEW,
+        "max_batch": sc.max_batch, "prefill_chunk": sc.prefill_chunk,
+        "block_size": sc.block_size, "tokens": concurrent,
+        "concurrent_equals_isolated": f"{agree}/{len(prompts)}",
+        "long_prompt_chunks": len(at),
+        "decodes_between_its_chunks": len(between),
+        "pool_peak_blocks": srv.pool.peak_blocks_in_use,
+        "dense_equiv_blocks": srv.dense_equiv_blocks,
+        "reuse_hits": srv.pool.reuse_hits, "prefix_reuse": srv._reuse_ok,
+        "prefill_calls": srv.prefill_dispatches,
+        "decode_calls": srv.decode_dispatches,
+        "serve_wall_s": serve_s,
+        "kernel_launches": {k: counts[k] for k in (
+            "ag_gemm", "gemm_rs", "flash_attention")},
+        "phase_s": time.perf_counter() - t0}
+    check(agree == len(prompts), f"jamba Server concurrent vs isolated: "
+          f"{agree}/{len(prompts)}")
+    check(len(at) == 3 and between, f"jamba Server: the {max(JAMBA_PROMPTS)}"
+          f"-token prompt ran {len(at)} chunks with {len(between)} decode "
+          "steps of other requests between them")
+    check(srv.pool.peak_blocks_in_use < srv.dense_equiv_blocks,
+          f"jamba Server pool peak {srv.pool.peak_blocks_in_use} blocks, "
+          f"dense equivalent {srv.dense_equiv_blocks}")
+    check(srv.pool.reuse_hits == 0 and not srv._reuse_ok,
+          "jamba Server reused prompt blocks: its Mamba state is not paged")
+    del srv, one
+    torch.cuda.empty_cache()
+
+    # (b) tp=2 in flux with the kernels
+    t0 = time.perf_counter()
+    ranks = [M.shard_params(full, r, tp, cfg) for r in range(tp)]
+    del full
+    torch.cuda.empty_cache()
+    group = RankGroup(tp, "cuda")
+    par = ParallelConfig(tp=tp, overlap_mode="flux", kernel_decode=True)
+    ctx = make_ctx(par, group)
+
+    def prefill(p):
+        return S.prefill_logits(p, {"tokens": tokens}, ctx, cfg, lengths)
+
+    ffn.dropped.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    with capture_routes() as rt:
+        outs = group.spmd(prefill, [(p,) for p in ranks])
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    want = prefill_launches(ctx.plans, cfg, tp, 2, True)
+    got = {k: counts[k] for k in want}
+    check(got == want, f"jamba tp={tp} prefill launches {got}, its PlanSet "
+          f"implies {want}")
+    drops = ffn.drop_totals(tp)
+    check(drops == [0] * tp, f"jamba tp={tp} prefill dropped {drops}")
+    routing = {"free": _routing_vs(torch, [
+        (pg.reshape(-1, pg.shape[-1]), eg.reshape(-1, eg.shape[-1]),
+         pw.reshape(-1, pw.shape[-1]), ew.reshape(-1, ew.shape[-1]))
+        for (pg, eg), (pw, ew) in zip(_layer_routes(torch, rt.calls, b, s),
+                                      routes1)])}
+    free = _rel_l2(torch.cat([o[0] for o in outs], -1)[:, :vocab].float(),
+                   anchor["logits"][0])
+    del outs
+    # the prefill again with tp=1's routing, each rank its sequence shard
+    half = s // tp
+    with replay_routes(lambda i, rank: tuple(
+            t[:, rank * half:(rank + 1) * half].reshape(b * half, -1)
+            for t in routes1[i])) as rr:
+        outs = group.spmd(prefill, [(p,) for p in ranks])
+    routing["replayed"] = _replayed(torch, rr.calls)
+    del rr
+    lg = torch.cat([o[0] for o in outs], -1)[:, :vocab].float()
+    rel = _rel_l2(lg, anchor["logits"][0])
+    flips = _flips(torch, lg.argmax(-1).tolist(),
+                   anchor["tokens"][0][:, 0].tolist(), lg,
+                   anchor["logits"][0])
+    check(rel <= TP_LANE_RTOL, f"jamba tp={tp}: prefill logits {rel:.4g} "
+          f"relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    _near_ties_only(f"jamba tp={tp} prefill", flips)
+    caches = [_dense_caches(torch, o[1], s_max) for o in outs]
+    del outs
+    rels, dflips, step_ms, dec_calls = [], {}, [], []
+    zero_counts()
+    for step in range(JAMBA_DECODE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with replay_routes(lambda i, rank, step=step:
+                           routes_dec[step][i]) as rr:
+            outs = group.spmd(
+                lambda p, c, step=step: S.decode_logits(
+                    p, c, anchor["tokens"][step], lengths + step, ctx,
+                    cfg)[0],
+                list(zip(ranks, caches)))
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        dec_calls += rr.calls
+        lg = torch.cat(outs, -1)[:, :vocab].float()
+        want_lg = anchor["logits"][step + 1]
+        rels.append(_rel_l2(lg, want_lg))
+        for row, f in _flips(torch, lg.argmax(-1).tolist(),
+                             anchor["tokens"][step + 1][:, 0].tolist(), lg,
+                             want_lg).items():
+            dflips[f"{step}/{row}"] = f
+    counts = read_counts()
+    decode_launches = {k: counts[k] for k in ("ag_gemm", "gemm_rs",
+                                              "flash_attention")}
+    routing_dec = _replayed(torch, dec_calls)
+    del dec_calls, rr
+    res[f"tp{tp}_flux"] = {
+        "prefill_launches": got, "prefill_launches_planset": want,
+        "prefill_host_ms": host_ms, "prefill_routing_vs_tp1": routing,
+        "prefill_logits_rel_l2_vs_tp1_free_routing": free,
+        "prefill_logits_rel_l2_vs_tp1": rel, "prefill_token_flips": flips,
+        "decode_logits_rel_l2_vs_tp1": rels, "decode_token_flips": dflips,
+        "decode_routing_vs_tp1": routing_dec,
+        "decode_step_host_ms": step_ms, "decode_launches": decode_launches,
+        "phase_s": time.perf_counter() - t0}
+    check(max(rels) <= TP_LANE_RTOL, f"jamba tp={tp} decode logits {rels} "
+          f"relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    for what, rt_ in (("prefill, free", routing["free"]),
+                      ("prefill, replayed", routing["replayed"]),
+                      ("decode, replayed", routing_dec)):
+        check(rt_["changed_not_near_tie"] == 0, f"jamba tp={tp} {what}: "
+              f"tokens routed elsewhere than at tp=1 without a near tie: "
+              f"{rt_}")
+    check(not any(decode_launches.values()), "jamba's replicated-layout "
+          f"decode launched a kernel: {decode_launches}")
+    _near_ties_only(f"jamba tp={tp} decode", dflips)
+    group.free_symmetric()
+    del caches, ranks, group, outs, lg
+    torch.cuda.empty_cache()
+
+    # (d) the serve CLI
+    t0 = time.perf_counter()
+    cli, done = launch_serve.main(JAMBA_ARGV)
+    check(len(done) == 2 and all(
+        r.done and r.error is None and len(r.output) == JAMBA_NEW
+        and all(0 <= t < vocab for t in r.output) for r in done),
+        "launch.serve --arch jamba_v01_52b did not serve its requests")
+    firsts = first_logits(torch, cli, {r.rid: r.prompt for r in done})
+    check(all(int(firsts[r.rid].argmax()) == r.output[0] for r in done),
+          "the jamba CLI's first tokens are not the argmax of its "
+          "first-token logits")
+    res["cli"] = {"argv": JAMBA_ARGV, "tokens": {r.rid: r.output
+                                                 for r in done},
+                  "reuse_hits": cli.pool.reuse_hits,
+                  "phase_s": time.perf_counter() - t0}
+    del cli, anchor, firsts
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["left_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    check(res["left_mem_gb"] < res["baseline_mem_gb"] + 0.5, f"the jamba "
+          f"lane left {res['left_mem_gb']:.3f} GB allocated (it started at "
+          f"{res['baseline_mem_gb']:.3f} GB)")
+    return {"flash_attention": {"tp1_prefill": tp1_launches[
+        "flash_attention"], f"tp{tp}_prefill": got["flash_attention"]},
+            "ag_gemm": {f"tp{tp}_prefill": got["ag_gemm"]},
+            "gemm_rs": {f"tp{tp}_prefill": got["gemm_rs"]}}
+
+
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
     """The kernels one prefill launches at ``tp``, read off a ``PlanSet``:
     a rank's flux seam in the sequence-sharded layout launches one AG-GEMM
     (an ag seam: one a weight when its gather is not shared) or one
     GEMM-RS and its reduce (an rs seam); the head gathers its rows plainly
-    and launches none; with ``use_kernels`` every layer's attention is one
-    flash launch a rank.  Every rank's, summed."""
+    and launches none; with ``use_kernels`` every GQA layer's attention is
+    one flash launch a rank.  Every rank's, summed."""
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models import model as M
     fwd, _ = plan_launches(plans, cfg, tp, mlp_weights)
     if plans.residual_layout() == "seq" and plans.resolve(
             "head_ag", None).mode == "flux":
         fwd["ag_gemm"] -= tp          # the train step's head_ag seam
-    fwd["flash_attention"] = cfg.num_layers * tp if use_kernels else 0
+    n_attn = sum(mk == ATTN for mk, _ in M.expanded_pattern(cfg))
+    fwd["flash_attention"] = n_attn * tp if use_kernels else 0
     return fwd
 
 
@@ -4611,13 +5318,17 @@ def plan_launches(plans, cfg, tp, mlp_weights):
     forward (one a weight when its gather is not shared) and one GEMM-RS
     backward (its dX over all weights); an rs seam one GEMM-RS forward and
     one AG-GEMM backward.  An MLA layer's ``attn_ag`` runs twice (the q
-    and the kv up-projections, distinct inputs); an MoE layer's
+    and the kv up-projections, distinct inputs); a Mamba layer's
+    ``attn_ag`` carries its in-projections as ``mlp_weights`` weights
+    (``w_in_x`` and ``w_in_z``, or the packed ``w_in_xz``: ``fuse_w13``
+    packs both pairs) and its ``decode_ar`` x-projection launches none;
+    an MoE layer's
     ``mlp_ag`` / ``mlp_rs`` are its shared expert's (its ``moe_a2a``
     launches none); the MTP head, when the config has one, is one more
     block at the default plan and a second ``head_ag``.  Each layer
     resolves at its reference layer id (``model.layer_slot``); the
     replicated layout launches none."""
-    from repro_torch.configs.base import MLA, MOE_FFN
+    from repro_torch.configs.base import MAMBA, MLA, MOE_FFN
     from repro_torch.models import model as M
     fwd = {"ag_gemm": 0, "gemm_rs": 0}
     bwd = {"ag_gemm": 0, "gemm_rs": 0}
@@ -4635,7 +5346,9 @@ def plan_launches(plans, cfg, tp, mlp_weights):
                 bwd["ag_gemm"] += times
 
         def block(layer, kinds):
-            add("attn_ag", layer, times=2 if kinds[0] == MLA else 1)
+            add("attn_ag", layer,
+                mlp_weights if kinds[0] == MAMBA else 1,
+                times=2 if kinds[0] == MLA else 1)
             add("attn_rs", layer)
             if kinds[1] != MOE_FFN or cfg.moe.num_shared_experts:
                 add("mlp_ag", layer, mlp_weights)
@@ -4718,7 +5431,8 @@ def phase_tune_lane(torch, tp1_tokens):
     5. the entry points from the profile: the Trainer 2 steps at the
        8-layer cut; ``launch.train`` at full depth, 2 steps, its launches
        from the PlanSet; ``launch.serve`` at tp=4 over the tp server
-       lane's 8 layers, first tokens equal to its tp=1 run's.
+       lane's TP_SERVER_LAYERS layers, first tokens equal to its tp=1
+       run's.
     The tuned and the uniform step's host ms are printed side by side: a
     finding, not a gate (both are host-bound on one card)."""
     import shutil
@@ -4997,6 +5711,10 @@ WIRE_CODEC_SHAPE = (4, 256, 2304)
 # test_minicpm_int8_end_to_end_4dev): int8 prefill logits within the
 # default budget, relative RMS over the valid vocab
 WIRE_BUDGET = 0.05
+# the prefill's layers under each wire (40 until the whole script neared
+# its 1200 s limit: the int8 logits were 4.02 % from the fp wire's there,
+# on an H100 80GB HBM3 at 700 W)
+WIRE_PREFILL_LAYERS = 16
 # the wired ops alone: the tp lane's five seam shapes (kind, m, n, k) at
 # 4 x 1024 tokens and tp=4 (tests/test_torch_plan_plumbing.py's GPU_SHAPES)
 # and the decode ar at the tune lane's 8 rows
@@ -5273,7 +5991,7 @@ def phase_wire_lane(torch):
 
     # ---- 3. prefill: the logits' deviation, and the flux control ----------
     t0 = time.perf_counter()
-    cfg = get_config("minicpm_2b")
+    cfg = dc.replace(get_config("minicpm_2b"), num_layers=WIRE_PREFILL_LAYERS)
     par = ParallelConfig(tp=tp, fuse_w13=True, kernel_decode=True)
     full = M.init_model(cfg, par, seed=0, dtype=torch.bfloat16,
                         device="cuda")
@@ -5391,13 +6109,14 @@ def phase_wire_lane(torch):
 
     # ---- 5. the wire sweep, measured and analytic ---------------------------
     t0 = time.perf_counter()
+    scfg = get_config("minicpm_2b")
     spar = ParallelConfig(tp=tp, overlap_mode="flux")
     sweeps = {}
     for measured in (True, False):
         results = []
         zero_counts()
         plans = AT.autotune_model(
-            cfg, spar, hw=ect.H100_SXM, group=group,
+            scfg, spar, hw=ect.H100_SXM, group=group,
             tokens_per_dp=TUNE_TOKENS, decode_batch=TUNE_DECODE_BATCH,
             measure=measured, iters=WIRE_SWEEP_ITERS, warmup=1,
             results=results, wire_dtypes=AT.WIRE_DTYPE_SWEEP,
@@ -5406,7 +6125,7 @@ def phase_wire_lane(torch):
         c = read_counts()
         add(c)
         if measured:
-            want = sweep_launches(results, cfg, spar,
+            want = sweep_launches(results, scfg, spar,
                                   (1 + WIRE_SWEEP_ITERS) * tp)
             check(c == want, f"the wire sweep launched {c}, its flux rows "
                   f"call for {want}")
@@ -5446,8 +6165,8 @@ def phase_wire_lane(torch):
 
     # ---- 6. serving under int8 ---------------------------------------------
     t0 = time.perf_counter()
-    argv = TP_SERVER_ARGV + ["--tp", str(tp), "--mode", "decomposed",
-                             "--max-new", str(WIRE_SERVE_NEW)]
+    argv = WIRE_SERVE_ARGV + ["--tp", str(tp), "--mode", "decomposed",
+                              "--max-new", str(WIRE_SERVE_NEW)]
     served = {}
     for wire in (None, "int8"):
         zero_counts()
@@ -5861,10 +6580,8 @@ def paper_tune(torch, cfg, group, ranks, batch, lengths, lf_uniform):
     PAPER_TUNE_DECODE_BATCH decode rows, w1|w3 packed as the ranks hold
     them), its launches equal to its flux rows' calls; the flux prefill
     with the kernels from its profile against the uniform flux prefill's
-    logits, with the launches its PlanSet implies; then the same sweep
-    with PAPER_TUNE_ITERS_LONG timed calls a candidate instead of
-    TUNE_ITERS (the near-ties, a measurement: the tuner's defaults stay),
-    each cell's winners side by side."""
+    logits, with the launches its PlanSet implies; one line a cell, with
+    its table and its winner's lead over the next candidate."""
     import shutil
     import tempfile
 
@@ -5946,60 +6663,33 @@ def paper_tune(torch, cfg, group, ranks, batch, lengths, lf_uniform):
                                           ctx_t.plans.seams.items()}}
         group.free_symmetric()
         torch.cuda.empty_cache()
-
-        # the near-ties: every cell again with more timed calls
-        long_results, long_s, long_counts = sweep(PAPER_TUNE_ITERS_LONG,
-                                                  None, None)
-        res["sweep_long"] = {"iters": PAPER_TUNE_ITERS_LONG,
-                             "warmup": TUNE_WARMUP, "seconds": long_s,
-                             "launches": long_counts}
     finally:
         shutil.rmtree(tdir, ignore_errors=True)
-
-    def key(row):
-        return (row["mode"], row["comm_chunks"], row["reverse"],
-                str(row["blocks"]), row["shared_gather"],
-                row["fuse_epilogue"])
 
     def plan_key(p):
         return (p.mode, p.comm_chunks, p.reverse, str(p.blocks),
                 p.shared_gather, p.fuse_epilogue)
 
-    changed = []
-    long_by = {r.seam: r for r in long_results}
     for r in results:
-        lr = long_by[r.seam]
-        long_ms = {key(x): x["measured_s"] * 1e3 for x in lr.table}
         best = sorted(r.table, key=lambda x: x["measured_s"])
         lead = ((best[1]["measured_s"] - best[0]["measured_s"]) * 1e3
                 if len(best) > 1 else None)
-        same = plan_key(r.plan) == plan_key(lr.plan)
-        if not same:
-            changed.append(r.seam)
         emit({"phase": "paper_tune_cell", "seam": r.seam, "kind": r.kind,
               "mkn": [r.m, r.n, r.k], "pruned": r.pruned,
               "rows_fields": ["mode", "comm_chunks", "reverse", "blocks",
                               "shared_gather", "fuse_epilogue",
                               f"measured_ms_iters{TUNE_ITERS}",
-                              f"measured_ms_iters{PAPER_TUNE_ITERS_LONG}",
                               "predicted_ms"],
               "rows": [[x["mode"], x["comm_chunks"], x["reverse"],
                         x["blocks"], x["shared_gather"], x["fuse_epilogue"],
-                        x["measured_s"] * 1e3, long_ms.get(key(x)),
-                        x["predicted_s"] * 1e3] for x in r.table],
+                        x["measured_s"] * 1e3, x["predicted_s"] * 1e3]
+                       for x in r.table],
               "winner": dict(zip(("mode", "comm_chunks", "reverse",
                                   "blocks", "shared_gather",
                                   "fuse_epilogue"), plan_key(r.plan)),
                              measured_ms=r.plan.measured_s * 1e3,
                              predicted_ms=r.plan.predicted_s * 1e3),
-              "lead_over_next_ms": lead,
-              f"winner_iters{PAPER_TUNE_ITERS_LONG}": dict(
-                  zip(("mode", "comm_chunks", "reverse", "blocks",
-                       "shared_gather", "fuse_epilogue"),
-                      plan_key(lr.plan)),
-                  measured_ms=lr.plan.measured_s * 1e3),
-              "winner_unchanged": same})
-    res["winners_changed_with_more_iters"] = changed
+              "lead_over_next_ms": lead})
     emit(res)
     return {"tune_sweep": sweep_counts, "tuned_prefill": c_t}
 
@@ -6218,10 +6908,10 @@ def main():
     timed("mla_tp_server_lane", phase_mla_tp_server_lane, torch)
     matmul_case = timed("matmul_kernel", phase_matmul_kernel, torch)
     matmul_launches, _ = timed("op_level_lane", phase_op_level_lane, torch)
-    ag_case, ag_mla, ag_train_mla = timed("ag_gemm_kernel",
-                                          phase_fused_kernel, torch, "ag")
-    rs_case, rs_mla, rs_train_mla = timed("gemm_rs_kernel",
-                                          phase_fused_kernel, torch, "rs")
+    ag_case, ag_mla, ag_train_mla, ag_jamba = timed(
+        "ag_gemm_kernel", phase_fused_kernel, torch, "ag")
+    rs_case, rs_mla, rs_train_mla, rs_jamba = timed(
+        "gemm_rs_kernel", phase_fused_kernel, torch, "rs")
     tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
     timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
     del tp1_logits, tp1_decode
@@ -6235,6 +6925,8 @@ def main():
                       train_counts.pop("losses"))
     pipe_flash = timed("pipeline_lane", phase_pipeline_lane, torch)
     mesh_serve = timed("mesh_serve_lane", phase_mesh_serve_lane, torch)
+    # after Scout's weights are freed
+    jamba = timed("jamba_lane", phase_jamba_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -6256,7 +6948,8 @@ def main():
          "paper_launches": paper_launches(paper, "flash_attention"),
          "wire_launches": wire_counts["flash_attention"],
          "pipeline_launches": pipe_flash,
-         "mesh_serve_launches": mesh_serve["flash_attention"]},
+         "mesh_serve_launches": mesh_serve["flash_attention"],
+         "jamba_launches": jamba["flash_attention"]},
         {"name": "mla_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/mla_decode.cu",
          "replaces": "src/repro/kernels/mla_decode.py:28",
@@ -6305,6 +6998,8 @@ def main():
          "paper_launches": paper_launches(paper, "ag_gemm"),
          "wire_launches": wire_counts["ag_gemm"],
          "mesh_serve_launches": mesh_serve["ag_gemm"],
+         "jamba_launches": jamba["ag_gemm"],
+         "jamba_cases": mla_seam_cases(ag_jamba),
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
          "train_mla_cases": mla_seam_cases(ag_train_mla),
@@ -6338,6 +7033,8 @@ def main():
          "wire_launches": {"gemm_rs": wire_counts["gemm_rs"],
                            "reduce": wire_counts["gemm_rs_reduce"]},
          "mesh_serve_launches": mesh_serve["gemm_rs"],
+         "jamba_launches": jamba["gemm_rs"],
+         "jamba_cases": mla_seam_cases(rs_jamba),
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),
          "train_mla_cases": mla_seam_cases(rs_train_mla),

@@ -5,9 +5,9 @@ exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``; ``ARCH_IDS`` and
 ``PAPER_ARCH_IDS`` list them.  Field names and
 defaults match the reference so a config means the same model on both
 sides; the port runs the (ATTN, DENSE_FFN), (ATTN, MOE_FFN),
-(MLA, DENSE_FFN) and (MLA, MOE_FFN) layer kinds so far
-(``models.model.check_ported`` rejects the rest).  ``SHAPES`` and
-``shape_applicable`` are the reference's dry-run cells
+(MLA, DENSE_FFN), (MLA, MOE_FFN), (MAMBA, DENSE_FFN) and (MAMBA, MOE_FFN)
+layer kinds so far (``models.model.check_ported`` rejects the rest).
+``SHAPES`` and ``shape_applicable`` are the reference's dry-run cells
 (``launch.dryrun``).
 """
 from __future__ import annotations
@@ -37,6 +37,14 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 -> max(d_model // 16, 8)
+
+
+@dataclass(frozen=True)
 class MLAConfig:
     q_lora_rank: int = 1536
     kv_lora_rank: int = 512
@@ -60,6 +68,7 @@ class ModelConfig:
     leading_dense_layers: int = 0
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
     rope_theta: float = 10000.0
     rope_style: str = "rope"         # rope | none (mrope not ported)
     qkv_bias: bool = False
@@ -164,6 +173,7 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> bool:
 # The archs the port has a config module for (the reference's ``ARCH_IDS``
 # lists more: its other families are not ported yet, ROADMAP queue 1 item 8)
 ARCH_IDS: List[str] = [
+    "jamba_v01_52b",
     "llama4_scout_17b_a16e",
     "deepseek_v3_671b",
     "codeqwen15_7b",
@@ -229,5 +239,7 @@ def shrink(cfg: ModelConfig, **overrides: Any) -> ModelConfig:
         small["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                                  qk_nope_head_dim=32, qk_rope_head_dim=16,
                                  v_head_dim=32)
+    if cfg.mamba is not None:
+        small["mamba"] = MambaConfig(d_state=8, d_conv=4, expand=2)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

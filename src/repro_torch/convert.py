@@ -6,7 +6,8 @@ The reference's parameter tree is ``{"embed", "final_norm", "lead": [...],
 ``shared`` expert does); its caches mirror it under ``{"lead", "periods":
 [{"mixer": {"k", "v"} or {"c", "kr"}, "ffn": {}}]}``.  Layer ``i`` of the
 expanded pattern is ``lead[i]`` for the leading layers and
-``periods[pos][rep]`` after them (``i = lead + rep * period + pos``).  The
+``periods[pos][rep]`` after them (``i = lead + rep * period + pos``); a
+Mamba layer's state ``{"conv", "ssm"}`` rides the same tree.  The
 multi-token-prediction head ``{"mixer", "ffn", "proj"}`` becomes the
 ``Model``'s ``mtp`` when the tree holds it.  Arrays cross as numpy: bf16
 leaves go as float32 and are cast back, which is exact.
@@ -45,7 +46,8 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def _params(leaves: Dict[str, Any], dtype: torch.dtype,
             device: torch.device) -> Dict:
     """A (nested) leaf dict as tensors: ``dtype``, except the leaves the
-    reference keeps in fp32 whatever its dtype (the MoE router)."""
+    reference keeps in fp32 whatever its dtype (``ffn.FP32_PARAMS``: the
+    MoE router, a Mamba mixer's ``a_log`` and ``d_skip``)."""
     return {n: _params(a, dtype, device) if isinstance(a, dict)
             else _tensor(a, torch.float32 if n in FP32_PARAMS else dtype,
                          device)
@@ -57,7 +59,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None,
                     trainable: bool = False) -> Model:
     """The reference's parameter tree (leaves as numpy arrays) -> ``Model``
-    with ``dtype`` leaves (the router stays fp32, as in the reference)."""
+    with ``dtype`` leaves (``ffn.FP32_PARAMS`` stay fp32, as in the
+    reference)."""
     check_ported(cfg)
     dev = resolve_device(device)
     blocks = [Block(_params(layer["mixer"], dtype, dev),
@@ -101,12 +104,18 @@ def to_jax_tree(named: Dict[str, torch.Tensor],
     return np32(reference_tree(named, cfg))
 
 
+# cache leaves kept in fp32: a Mamba layer's SSM state
+FP32_CACHES = ("ssm",)
+
+
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> List[Dict[str, torch.Tensor]]:
-    """The reference's attention caches (leaves as numpy) -> the port's
-    per-layer list of ``{"k", "v"}`` (GQA) or ``{"c", "kr"}`` (MLA), bf16."""
+    """The reference's caches (leaves as numpy) -> the port's per-layer
+    list of ``{"k", "v"}`` (GQA), ``{"c", "kr"}`` (MLA) or ``{"conv",
+    "ssm"}`` (Mamba): bf16, the SSM state fp32 (``FP32_CACHES``)."""
     dev = resolve_device(device)
-    return [{n: _tensor(a, torch.bfloat16, dev)
+    return [{n: _tensor(a, torch.float32 if n in FP32_CACHES
+                        else torch.bfloat16, dev)
              for n, a in layer["mixer"].items()}
             for layer in layer_trees(tree, cfg)]

@@ -11,23 +11,27 @@ a seeded random-init model.
       --tp 4 --mode decomposed --wire-dtype int8   # quantized forward wire
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
       --dp 2 --tp 2 --mode flux     # two replicas of two TP ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \
+      --layers 8                    # Mamba + attention hybrid, one period
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
-path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the ranks are the
-threads of one ``dist.RankGroup`` on the one device, each with its
+path (use ``--smoke`` sizes there).  Every arch of ``configs.ARCH_IDS``
+serves at any ``--tp`` / ``--dp``: Jamba's Mamba layers keep a dense conv /
+SSM state per slot (no prefix reuse for it).  At ``--tp`` > 1 the ranks are
+the threads of one ``dist.RankGroup`` on the one device, each with its
 ``model.shard_params`` copy of the same seeded weights, so the tokens equal
 the tp=1 run's up to the sums' rounding.  ``--plan-profile`` serves from a
 tuned per-seam profile; ``--autotune`` (tp > 1) tunes first, with the
 decode seam at ``--max-batch`` rows, and writes the profile as the train
 CLI's does.  ``--wire-dtype`` quantizes the seams' forward wire (serving
-has no backward, so this is the whole of it; flux seams keep the fp
-wire) and ``--max-logit-rmse`` gates ``--autotune``'s wire sweep, as in
-the train CLI.  At ``--dp`` > 1 the ranks are those of
-``launch.mesh.make_mesh(1, dp, tp)`` (a ``dist.RankMesh``), each with its
-``model.mesh_shard`` copy, and every replica serves the same requests, as
-the reference's Server on its (data, model) mesh.  ZeRO-3 and expert
-parallelism in serving are reached through ``ParallelConfig`` (the
-``Server``), as in the reference, whose serve CLI has neither flag.
+has no backward, so this is the whole of it; flux seams keep the fp wire)
+and ``--max-logit-rmse`` gates ``--autotune``'s wire sweep, as in the train
+CLI.  At ``--dp`` > 1 the ranks are those of ``launch.mesh.make_mesh(1, dp,
+tp)`` (a ``dist.RankMesh``), each with its ``model.mesh_shard`` copy, and
+every replica serves the same requests, as the reference's Server on its
+(data, model) mesh.  ZeRO-3 and expert parallelism in serving are reached
+through ``ParallelConfig`` (the ``Server``), as in the reference, whose
+serve CLI has neither flag.
 """
 from __future__ import annotations
 

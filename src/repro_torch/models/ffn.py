@@ -116,8 +116,9 @@ def ffn_decode(p, x: torch.Tensor, ctx: TPContext,
 # ---------------------------------------------------------------------------
 # Mixture of Experts
 # ---------------------------------------------------------------------------
-# leaves the reference keeps in fp32 whatever the model's dtype
-FP32_PARAMS = ("router",)
+# leaves the reference keeps in fp32 whatever the model's dtype: the MoE
+# router, a Mamba mixer's a_log and d_skip
+FP32_PARAMS = ("router", "a_log", "d_skip")
 
 
 def _normal_stack(gen: torch.Generator, shape, std: float, dtype: torch.dtype,

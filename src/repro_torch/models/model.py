@@ -5,8 +5,10 @@ dense layers.  The port holds the weights in ``Model`` (an ``nn.Module``):
 the tied ``embed`` table [V_pad, D], ``final_norm`` [D], one ``Block``
 per layer in expanded-pattern order, whose ``mixer`` / ``ffn`` parameter
 dicts carry the reference's leaf names and packed layouts (nested for the
-MoE's ``shared`` expert), and, for a config with ``mtp_depth``
-(DeepSeek-V3), the multi-token-prediction head ``mtp``: a block of the
+MoE's ``shared`` expert; a Mamba mixer's ``w_in_x`` / ``w_in_z`` packed
+into ``w_in_xz`` with ``fuse_w13``, as the reference's ``fuse_xz``), and,
+for a config with ``mtp_depth`` (DeepSeek-V3), the
+multi-token-prediction head ``mtp``: a block of the
 pattern's last mixer kind with a dense FFN, and ``proj`` [2D, D],
 replicated.  (The reference stacks a period's layers ``[reps, ...]`` for
 ``lax.scan``; an eager loop needs no stacking — ``convert.params_from_jax``
@@ -15,7 +17,8 @@ reads ``mtp``.
 
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
-``forward_loss`` are the training forward of every ported kind, with the
+``forward_loss`` are the training forward of every ported kind but Mamba
+(``check_trainable`` raises for a Mamba layer: it is served only), with the
 MoE's aux loss and the MTP loss, in either residual layout
 (``TPContext.seq_sharded``) and with or without ``ParallelConfig.remat``;
 at tp>1 they run as one rank of the TP group, on that rank's
@@ -53,17 +56,18 @@ from typing import Any, Dict, FrozenSet, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, MOE_FFN,
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MAMBA, MLA, MOE_FFN,
                                       ModelConfig, ParallelConfig)
 from repro_torch.core import overlap
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ffn, layers
+from repro_torch.models import attention, ffn, layers, mamba
 from repro_torch.models import init_utils as iu
 from repro_torch.parallel.sharding import TPContext, pad_vocab
 
 # (mixer, ffn) layer kinds the port runs, at any tp
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (ATTN, MOE_FFN),
-                          (MLA, DENSE_FFN), (MLA, MOE_FFN)})
+                          (MLA, DENSE_FFN), (MLA, MOE_FFN),
+                          (MAMBA, DENSE_FFN), (MAMBA, MOE_FFN)})
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
@@ -72,13 +76,18 @@ EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
 # the reference's PartitionSpecs (model.py:83-125), on the port's
 # unstacked per-layer leaves.  MLA: the head up-projections column-cut,
 # the output row-cut, the latent down-projections and norms replicated.
+# Mamba: the in-projections, the conv, w_dt and the per-channel leaves cut
+# on their channel dim, w_x and w_out row-cut, the norm replicated.
 # MoE: the routed experts cut on their expert dim over the EP group (the
 # TP ranks), the router and norm replicated, the shared expert cut as a
 # dense FFN.
 _MIXER_SPECS = {
     ATTN: {"wqkv": 1, "wo": 0, "norm": None, "bqkv": 0},
     MLA: {"w_dq": None, "w_uq": 1, "w_dkv": None, "w_ukv": 1, "w_o": 0,
-          "q_norm": None, "kv_norm": None, "norm": None}}
+          "q_norm": None, "kv_norm": None, "norm": None},
+    MAMBA: {"w_in_x": 1, "w_in_z": 1, "w_in_xz": 1, "conv": 1, "conv_b": 0,
+            "w_x": 0, "w_dt": 1, "dt_bias": 0, "a_log": 0, "d_skip": 0,
+            "w_out": 0, "norm": None}}
 _DENSE_SPECS = {"w1": 1, "w3": 1, "w13": 1, "w2": 0, "norm": None}
 _FFN_SPECS = {DENSE_FFN: _DENSE_SPECS,
               MOE_FFN: {"router": None, "w1": 0, "w3": 0, "w2": 0,
@@ -118,8 +127,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(other)} are not ported (the "
-            "Mamba and RWKV-6 families: ROADMAP queue 1 item 8); the port "
-            f"runs {sorted(PORTED_KINDS)}")
+            "RWKV-6 family: ROADMAP queue 1 item 8); the port runs "
+            f"{sorted(PORTED_KINDS)}")
 
 
 def _param_dict(params: Dict) -> nn.ParameterDict:
@@ -131,9 +140,10 @@ def _param_dict(params: Dict) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One layer: ``mixer`` (GQA: wqkv, wo, norm[, bqkv]; MLA: w_dq, w_uq,
-    w_dkv, w_ukv, w_o, q_norm, kv_norm, norm) and ``ffn`` (dense: w1, w3 |
-    w13, w2, norm; MoE: router, w1, w3, w2, norm[, shared]) parameter
-    dicts."""
+    w_dkv, w_ukv, w_o, q_norm, kv_norm, norm; Mamba: w_in_x, w_in_z |
+    w_in_xz, conv, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out, norm)
+    and ``ffn`` (dense: w1, w3 | w13, w2, norm; MoE: router, w1, w3, w2,
+    norm[, shared]) parameter dicts."""
 
     def __init__(self, mixer: Dict, ffn_params: Dict):
         super().__init__()
@@ -199,9 +209,12 @@ def init_model(cfg: ModelConfig, par: ParallelConfig, seed: int = 0,
 
 
 def _init_mixer(kind: str, gen: torch.Generator, cfg: ModelConfig, tp: int,
-                dtype: torch.dtype, dev: torch.device) -> Dict:
+                dtype: torch.dtype, dev: torch.device,
+                fuse13: bool = False) -> Dict:
     if kind == MLA:
         return attention.init_mla(gen, cfg, tp, dtype, dev)
+    if kind == MAMBA:
+        return mamba.init_mamba(gen, cfg, tp, dtype, dev, fuse_xz=fuse13)
     return attention.init_gqa(gen, cfg, tp, dtype, dev)
 
 
@@ -221,7 +234,8 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
         * cfg.d_model ** -0.5, v_pad).to(dtype)
     out = []
     for mixer_kind, ffn_kind in expanded_pattern(cfg):
-        mixer = _init_mixer(mixer_kind, gen, cfg, par.tp, dtype, dev)
+        mixer = _init_mixer(mixer_kind, gen, cfg, par.tp, dtype, dev,
+                            par.fuse_w13)
         if ffn_kind == MOE_FFN:
             f = ffn.init_moe(gen, cfg, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
@@ -232,7 +246,8 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
     mtp = None
     if cfg.mtp_depth:
         d2 = 2 * cfg.d_model
-        mtp = (_init_mixer(cfg.pattern[-1][0], gen, cfg, par.tp, dtype, dev),
+        mtp = (_init_mixer(cfg.pattern[-1][0], gen, cfg, par.tp, dtype, dev,
+                           par.fuse_w13),
                ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
                             fuse13=par.fuse_w13),
                (torch.randn((d2, cfg.d_model), generator=gen, device=dev)
@@ -248,12 +263,17 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
     ``active_only`` scales routed-expert weights by top_k / num_experts
     (MODEL_FLOPS = 6 * N_active * D for MoE).  A packed ``w13`` counts as
     its ``w1`` and ``w3``.  DeepSeek-V3's MTP head counts, as the
-    reference counts it."""
+    reference counts it.  The reference scales every FFN ``w1`` / ``w2``
+    / ``w3`` leaf of three or more dims of a config with MoE: its routed
+    experts, and also the dense FFNs of the repeated pattern, whose leaves
+    it stacks ``[reps, ...]`` (Jamba's); the port counts as it does."""
     par = par or ParallelConfig(tp=1)
     embed, final_norm, layers_, mtp = _meta_leaves(cfg, par.tp, par.fuse_w13)
     total = embed.numel() + final_norm.numel()
-    blocks = [(m, f, kind == MOE_FFN)
-              for (m, f), (_, kind) in zip(layers_, expanded_pattern(cfg))]
+    lead = cfg.leading_dense_layers
+    blocks = [(m, f, kind == MOE_FFN or (cfg.moe is not None and j >= lead))
+              for j, ((m, f), (_, kind)) in enumerate(
+                  zip(layers_, expanded_pattern(cfg)))]
     if mtp is not None:
         total += mtp[2].numel()
         blocks.append((mtp[0], mtp[1], False))
@@ -584,8 +604,12 @@ def mesh_shard(params: Model, cfg: ModelConfig, par: ParallelConfig,
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
     """Raise unless the model trains in the port: ported layer kinds
-    (``check_ported``), a ``remat`` of ``REMAT_MODES``."""
+    (``check_ported``) other than Mamba, which is served only
+    (``mamba.MAMBA_BWD_NOT_PORTED``), a ``remat`` of ``REMAT_MODES``."""
     check_ported(cfg)
+    if any(mk == MAMBA for mk, _ in expanded_pattern(cfg)):
+        raise NotImplementedError(f"{cfg.name}: "
+                                  + mamba.MAMBA_BWD_NOT_PORTED)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
                          f"{REMAT_MODES}")
@@ -634,14 +658,16 @@ class _Zero3:
 def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
            kinds: Tuple[str, str], z3: Optional[_Zero3] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer of ``kinds`` (mixer, ffn): pre-norm attention (GQA or
-    MLA), then the pre-norm FFN (dense or MoE), each added to the residual
-    stream, which is cut on the seam tape before each sub-block
+    """One layer of ``kinds`` (mixer, ffn): the pre-norm mixer (GQA, MLA or
+    Mamba, whose forward raises under grad), then the pre-norm FFN (dense
+    or MoE), each added to the residual stream, which is cut on the seam
+    tape before each sub-block
     (``overlap.cut``), so the backward walks each segment once.  With
     ``z3`` the layer's ZeRO-3 leaves are gathered first.  Returns (x, the
     layer's aux loss: the MoE's, else 0)."""
     mixer_kind, ffn_kind = kinds
-    mixer = attention.mla_train if mixer_kind == MLA else attention.gqa_train
+    mixer = {MLA: attention.mla_train,
+             MAMBA: mamba.mamba_train}.get(mixer_kind, attention.gqa_train)
     x = overlap.cut(x, ctx.tape_axis)
     mixer_p, ffn_p = (blk.mixer, blk.ffn) if z3 is None else z3.gather(blk)
     x = x + mixer(mixer_p, x, ctx, cfg)
@@ -939,8 +965,9 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
     columns and w1|w3 unpacked (``w13`` -> ``w1`` and ``w3``), a replicated
     KV head taken once (``grads``: summed over its replicas); MLA's padded
     heads cut off; routed experts as they are (their width is not padded),
-    the shared expert cut to its width.  Two tp degrees of one model
-    compare leaf by leaf in this layout."""
+    the shared expert cut to its width; a Mamba mixer's padded channels
+    cut off and ``w_in_xz`` unpacked (-> ``w_in_x`` and ``w_in_z``).  Two
+    tp degrees of one model compare leaf by leaf in this layout."""
     d = attention.AttnDims.of(cfg, tp)
     dh = d.dh
     kinds = expanded_pattern(cfg)
@@ -977,6 +1004,16 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
                         "w_ukv": m.qk_nope_head_dim + m.v_head_dim,
                         "w_o": m.v_head_dim}[leaf] * cfg.num_heads
             out[n] = t[:per_head] if leaf == "w_o" else t[..., :per_head]
+        elif _MIXER_SPECS[MAMBA].get(leaf) is not None:
+            # the sharded dim of a Mamba leaf is its channel dim, padded to
+            # tp * 128 channels
+            c = cfg.mamba.expand * cfg.d_model
+            if leaf == "w_in_xz":
+                wx, wz = _blocks(t, tp, [t.shape[-1] // (2 * tp)] * 2)
+                out[base + "w_in_x"] = wx[..., :c]
+                out[base + "w_in_z"] = wz[..., :c]
+            else:
+                out[n] = t.narrow(_MIXER_SPECS[MAMBA][leaf], 0, c)
         elif leaf == "w13":
             w1, w3 = _blocks(t, tp, [t.shape[-1] // (2 * tp)] * 2)
             out[base + "w1"] = w1[..., :width]

@@ -16,8 +16,11 @@ replicated layout, whose row-parallel seams are AllReduces (``kind="ar"``).
 Caches are a list with one dict per layer (expanded-pattern order): GQA
 ``{"k", "v"}`` shaped [B, S_max, Hkv, Dh] by ``cache_specs`` or
 [N_blocks, block_size, Hkv, Dh] by ``paged_cache_specs``; MLA's latent
-``{"c", "kr"}`` shaped [B, S_max, R] / [B, S_max, Dr] or their pools;
-always bf16.
+``{"c", "kr"}`` shaped [B, S_max, R] / [B, S_max, Dr] or their pools; both
+bf16.  A Mamba layer's recurrent state ``{"conv", "ssm"}`` (bf16 [B,
+d_conv - 1, C_loc] and fp32 [B, C_loc, N], ``mamba.mamba_cache_shapes``)
+has no sequence dim: it stays dense per slot, [max_batch, ...], in the
+paged caches too.
 ``decode_step`` and ``prefill_chunk_step`` write their caches IN PLACE and
 return them — the reference's server donates the cache buffers to
 ``jit`` for the same reuse.
@@ -26,12 +29,21 @@ Contracts kept from the reference:
 
 * ``decode_step`` takes ``pos: [B]`` — each row RoPE-rotates at, masks to
   and writes at its own position (a scalar broadcasts).  ``active: [B]``
-  keeps inactive rows of DENSE caches unchanged; paged pools need no mask
-  (inactive slots pass all-zero table rows, which write the null block).
+  keeps inactive rows of DENSE caches unchanged: a dense KV cache's row at
+  its position, and a Mamba layer's whole state rows, whether or not the
+  KV caches are paged (the reference's ``_freeze_inactive``: a slot
+  between chunks of its chunked prefill must not see the interleaved
+  decodes advance its state); paged pools need no mask (inactive slots
+  pass all-zero table rows, which write the null block).
 * ``prefill_step`` takes optional ``lengths: [B]`` — true prompt lengths of
   a right-padded batch: attention is pad-safe by causality, MoE routing
-  keeps pad tokens out of expert capacity, and the next token is read at
-  ``lengths - 1`` per row.
+  keeps pad tokens out of expert capacity, a Mamba layer freezes its state
+  at each row's length (dt = 0 on pad positions), and the next token is
+  read at ``lengths - 1`` per row.
+* ``prefill_chunk_step`` takes the request's ``slot``: a Mamba layer
+  reads the slot's state row (zeroed on the first chunk, ``off == 0``, so
+  a freed slot's state never leaks into the next request), runs the chunk
+  with chunk-relative lengths and writes the row back.
 * the next token is the first maximum of the logits against the tied
   ``embed`` table, with the padded vocab columns masked to -inf.
 """
@@ -42,9 +54,9 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, MLA, ModelConfig,
-                                      ParallelConfig)
-from repro_torch.models import attention, ffn, layers
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MAMBA, MLA,
+                                      ModelConfig, ParallelConfig)
+from repro_torch.models import attention, ffn, layers, mamba
 from repro_torch.models.model import (Model, check_ported, expanded_pattern,
                                       layer_slot, zero3_layers)
 from repro_torch.parallel.sharding import TPContext, gather_ranks
@@ -57,14 +69,26 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def _mixer_cache_shapes(kind: str, cfg: ModelConfig, tp: int, rows: int,
-                        width: int) -> Dict[str, Tuple[int, ...]]:
+def _mixer_cache_specs(kind: str, cfg: ModelConfig, tp: int, rows: int,
+                       pool: Optional[Tuple[int, int]], s_max: int
+                       ) -> Dict[str, TensorSpec]:
+    """One layer's cache specs: the attention families' (bf16) dense
+    [rows, s_max, ...] or, with ``pool``, [num_blocks, block_size, ...];
+    a Mamba layer's state [rows, ...] either way, each leaf its own
+    dtype."""
+    if kind == MAMBA:
+        return {n: TensorSpec(shape, dtype) for n, (shape, dtype) in
+                mamba.mamba_cache_shapes(cfg, tp, rows).items()}
+    n_rows, width = pool if pool is not None else (rows, s_max)
     if kind == ATTN:
-        shape = attention.gqa_cache_shape(cfg, tp, rows, width)
-        return {"k": shape, "v": shape}
-    if kind == MLA:
-        return attention.mla_cache_shapes(cfg, rows, width)
-    raise ValueError(kind)
+        shape = attention.gqa_cache_shape(cfg, tp, n_rows, width)
+        shapes = {"k": shape, "v": shape}
+    elif kind == MLA:
+        shapes = attention.mla_cache_shapes(cfg, n_rows, width)
+    else:
+        raise ValueError(kind)
+    return {n: TensorSpec(shape, torch.bfloat16)
+            for n, shape in shapes.items()}
 
 
 # the mesh axes the batched serve steps split their batch over, outermost
@@ -96,19 +120,20 @@ def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
                 dp_axes: Tuple[str, ...] = DP_AXES
                 ) -> List[Dict[str, TensorSpec]]:
     """One rank's per-layer cache specs (GQA ``{"k", "v"}`` of its local KV
-    heads, MLA ``{"c", "kr"}``): dense [rows, s_max, ...], the rows its
-    piece of ``batch`` split over ``dp_axes`` (the reference's
-    ``cache_specs(dp_axes=)``), or with ``pool=(num_blocks, block_size)``
-    shared [num_blocks, block_size, ...] pools addressed through per-slot
-    block tables.  bf16 whatever the compute dtype."""
+    heads, MLA ``{"c", "kr"}``, Mamba ``{"conv", "ssm"}`` of its channels):
+    dense [rows, s_max, ...], the rows its piece of ``batch`` split over
+    ``dp_axes`` (the reference's ``cache_specs(dp_axes=)``), or with
+    ``pool=(num_blocks, block_size)`` the attention families' shared
+    [num_blocks, block_size, ...] pools addressed through per-slot block
+    tables.  The attention caches are bf16 whatever the compute dtype; a
+    Mamba layer's state is per row in both layouts, conv bf16 and ssm
+    fp32."""
     check_ported(cfg)
     ranks = math.prod(_dp_sizes(par)[a] for a in dp_axes)
-    if pool is None and batch % ranks:
+    if batch % ranks:
         raise ValueError(f"a batch of {batch} rows does not split over "
                          f"{dp_axes} ({ranks} ranks)")
-    rows, width = pool if pool is not None else (batch // ranks, s_max)
-    return [{n: TensorSpec(shape, torch.bfloat16) for n, shape in
-             _mixer_cache_shapes(mk, cfg, par.tp, rows, width).items()}
+    return [_mixer_cache_specs(mk, cfg, par.tp, batch // ranks, pool, s_max)
             for mk, _ in expanded_pattern(cfg)]
 
 
@@ -117,7 +142,8 @@ def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
                       ) -> List[Dict[str, TensorSpec]]:
     """Cache specs for the paged serving runtime (see ``cache_specs``):
     per replica, with no dp axis (each replica's pools hold every slot;
-    the Server's replicas serve the same requests)."""
+    the Server's replicas serve the same requests); a Mamba layer's state
+    is dense [max_batch, ...], nothing of it paged."""
     return cache_specs(cfg, par, max_batch, 0, pool=(num_blocks, block_size),
                        dp_axes=())
 
@@ -154,9 +180,14 @@ def vocab_parallel_argmax(logits: torch.Tensor, vocab_real: int,
     return torch.gather(idxs, -1, best[:, None])[:, 0]
 
 
-def _mixer_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig):
+def _mixer_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig,
+                   lengths: Optional[torch.Tensor]):
     if kind == ATTN:
+        # the causal mask keeps rows < length independent of the padding
         return attention.gqa_train(p, x, ctx, cfg, with_cache=True)
+    if kind == MAMBA:
+        return mamba.mamba_train(p, x, ctx, cfg, with_cache=True,
+                                 lengths=lengths)
     return attention.mla_train(p, x, ctx, cfg, with_cache=True)
 
 
@@ -177,7 +208,9 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
     """Full-sequence prefill up to the logits of each row's last true
     position: returns (logits [B, V_pad / TP], caches).  At tp>1 it runs
     as one rank of ``ctx.group`` (inside ``group.spmd``) on that rank's
-    ``model.shard_params`` copy, in ``ctx``'s layout.  Sequence-sharded:
+    ``model.shard_params`` copy, in ``ctx``'s layout (a Mamba layer's
+    conv and scan see the whole sequence, gathered by its in-projection's
+    seam).  Sequence-sharded:
     the embedding's ReduceScatter produces [B, S/TP, D], every seam runs
     on each seam's plan transport, and ``gather_seq`` brings the last rows
     back.  Replicated: the embedding's psum gives every rank [B, S, D],
@@ -198,7 +231,7 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
             zero3_layers(cfg, ctx))):
         lctx = ctx.with_layer(layer_slot(cfg, i))
         mixer, ffn_p = _weights(blk, z3)
-        dy, mc = _mixer_prefill(mk, mixer, x, lctx, cfg)
+        dy, mc = _mixer_prefill(mk, mixer, x, lctx, cfg, lengths)
         x = x + dy
         x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lengths)
         _release(z3)
@@ -262,20 +295,29 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     ctx = ctx.with_layout(False)
     x = layers.embed_lookup(params.embed, tokens, ctx)
     x = x.to(_compute_dtype(cfg))
-    inactive = None
-    if active is not None and block_tables is None:
-        inactive = ~torch.as_tensor(active, device=dev).reshape(-1).bool()
+    if active is not None:
+        active = torch.as_tensor(active, device=dev).reshape(-1).bool()
+    # a dense KV cache restores an inactive row's entry at its position;
+    # paged pools need nothing (the null block)
+    inactive = (~active if active is not None and block_tables is None
+                else None)
     for i, ((mk, fk), blk, z3) in enumerate(zip(
             expanded_pattern(cfg), params.layers,
             zero3_layers(cfg, ctx))):
         lc = caches[i]
         lctx = ctx.with_layer(layer_slot(cfg, i))
         mixer, ffn_p = _weights(blk, z3)
-        saved = _rows_at(lc, pos) if inactive is not None else None
-        dy, _ = _mixer_decode(mk, mixer, x, lc, pos, lctx, cfg,
-                              block_tables)
-        if saved is not None:
-            _restore_rows(lc, pos, saved, inactive)
+        if mk == MAMBA:
+            # the state rows of inactive slots stay as they were, paged or
+            # not (the reference's _freeze_inactive)
+            dy, new = mamba.mamba_decode(mixer, x, lc, pos, lctx, cfg)
+            _store_state(lc, new, active)
+        else:
+            saved = _rows_at(lc, pos) if inactive is not None else None
+            dy, _ = _mixer_decode(mk, mixer, x, lc, pos, lctx, cfg,
+                                  block_tables)
+            if saved is not None:
+                _restore_rows(lc, pos, saved, inactive)
         x = x + dy
         if fk == DENSE_FFN:
             x = x + ffn.ffn_decode(ffn_p, x, lctx, cfg.norm_eps)
@@ -294,7 +336,9 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
                 ) -> Tuple[torch.Tensor, Caches]:
     """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
     positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
-    caches are paged pools.  With ``ctx.use_kernels`` every MLA layer's
+    caches are paged pools.  ``active`` [B] (optional) marks the
+    generating rows: the others' dense cache entries and Mamba state rows
+    are left as they were.  With ``ctx.use_kernels`` every MLA layer's
     attention is the MLA-decode kernel.  At tp>1 each rank (inside
     ``group.spmd``) embeds through the vocab-parallel psum, attends over
     its local heads and writes its KV heads; every rank returns the same
@@ -321,15 +365,50 @@ def _restore_rows(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
         t[rows, pos[inactive].clamp(0, t.shape[1] - 1)] = saved[n][inactive]
 
 
+def _store_state(cache: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor],
+                 active: Optional[torch.Tensor]) -> None:
+    """Write a Mamba layer's new state into its cache rows in place: every
+    row, or with ``active`` the active rows only (whole rows: the state
+    has no position)."""
+    for n, t in cache.items():
+        v = new[n].to(t.dtype)
+        if active is not None:
+            v = torch.where(active.reshape(-1, *([1] * (t.dim() - 1))), v, t)
+        t.copy_(v)
+
+
+def _chunk_state(mixer, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 slot: Optional[int], first: bool, lenv: torch.Tensor,
+                 ctx: TPContext, cfg: ModelConfig) -> torch.Tensor:
+    """A Mamba layer's chunk of the chunked prefill: the slot's state row
+    (zeros on the request's first chunk), the chunk at its chunk-relative
+    length (rows past it freeze the state as padding does), the new state
+    written back into the row."""
+    if slot is None:
+        raise ValueError("a Mamba layer's chunked prefill needs the "
+                         "request's slot (its dense state row)")
+    row = slice(slot, slot + 1)
+    st = {n: torch.zeros_like(t[row]) if first else t[row]
+          for n, t in cache.items()}
+    dy, new = mamba.mamba_train(mixer, x, ctx, cfg, with_cache=True,
+                                lengths=lenv, cache=st)
+    for n, t in cache.items():
+        t[row] = new[n].to(t.dtype)
+    return dy
+
+
 @torch.no_grad()
 def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
                          block_tables: torch.Tensor, off: int, chunk_len: int,
-                         ctx: TPContext, cfg: ModelConfig
+                         ctx: TPContext, cfg: ModelConfig,
+                         slot: Optional[int] = None
                          ) -> Tuple[torch.Tensor, Caches]:
     """One chunk of the paged prefill up to the logits of its row
     ``chunk_len - 1``: returns (logits [1, V_pad / TP], caches), the
     caches updated in place (see ``prefill_chunk_step``)."""
     check_ported(cfg)
+    first = off == 0
     # the chunked prefill always runs the replicated layout: a bounded
     # chunk has no sequence-parallel residency to win
     ctx = ctx.with_layout(False)
@@ -341,10 +420,14 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
             zero3_layers(cfg, ctx))):
         lctx = ctx.with_layer(layer_slot(cfg, i))
         mixer, ffn_p = _weights(blk, z3)
-        chunk = (attention.gqa_prefill_chunk if mk == ATTN
-                 else attention.mla_prefill_chunk)
-        dy, _ = chunk(mixer, x, caches[i], block_tables, off, chunk_len,
-                      lctx, cfg)
+        if mk == MAMBA:
+            dy = _chunk_state(mixer, x, caches[i], slot, first, lenv, lctx,
+                              cfg)
+        else:
+            chunk = (attention.gqa_prefill_chunk if mk == ATTN
+                     else attention.mla_prefill_chunk)
+            dy, _ = chunk(mixer, x, caches[i], block_tables, off, chunk_len,
+                          lctx, cfg)
         x = x + dy
         # MoE: rows past chunk_len are padding, kept out of expert capacity
         x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lenv)
@@ -356,16 +439,19 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
 
 def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
                        block_tables: torch.Tensor, off: int, chunk_len: int,
-                       ctx: TPContext, cfg: ModelConfig
+                       ctx: TPContext, cfg: ModelConfig,
+                       slot: Optional[int] = None
                        ) -> Tuple[torch.Tensor, Caches]:
     """One fixed-shape chunk of an incremental paged prefill: tokens [1, C]
     (right-padded past ``chunk_len``), written at logical offset ``off``
-    through ``block_tables`` [1, pages].  (The reference also takes the
-    slot, for the dense per-slot state of recurrent families; attention-
-    only models have none.)  At tp>1 it runs as one rank, as
-    ``decode_step`` does.  Returns (next_token [1, 1] — meaningful on the
-    final chunk only — and the caches, updated in place)."""
+    through ``block_tables`` [1, pages].  A Mamba layer threads the
+    request's dense state row ``slot`` across its chunks: zeroed on the
+    first chunk (``off == 0``), read, and written back (attention-only
+    models need no slot).  At tp>1 it runs
+    as one rank, as ``decode_step`` does.  Returns (next_token [1, 1] —
+    meaningful on the final chunk only — and the caches, updated in
+    place)."""
     logits, caches = prefill_chunk_logits(params, caches, tokens,
                                           block_tables, off, chunk_len, ctx,
-                                          cfg)
+                                          cfg, slot)
     return vocab_parallel_argmax(logits, cfg.vocab_size, ctx)[:, None], caches

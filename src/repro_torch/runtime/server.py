@@ -10,7 +10,9 @@ Two model calls serve everything, as in the reference:
 * **Chunked prefill** — admission reserves a slot plus pool blocks for the
   whole request horizon, then the prompt streams through
   ``prefill_chunk_step`` in fixed ``[1, C]`` chunks, interleaved with decode
-  by the ``ChunkScheduler``.
+  by the ``ChunkScheduler``; a Mamba layer threads the slot's dense state
+  row across the chunks, and the interleaved decodes leave it alone (their
+  ``active`` mask).
 
 Prefix reuse: full prompt blocks register in the pool's hash-chain cache;
 a later admission sharing the prefix acquires them and starts prefilling
@@ -272,7 +274,7 @@ class Server:
         toks[0, :clen] = req.prompt[job.off:job.off + clen]
         bt = job.table.as_array(self.pages)[None]
         nxt = self._run(S.prefill_chunk_step, self._tensor(toks),
-                        self._tensor(bt), job.off, clen)
+                        self._tensor(bt), job.off, clen, slot=slot)
         self.prefill_dispatches += 1
         job.off += clen
         if job.off < n:

@@ -7,9 +7,11 @@ are model-level (what the layer is doing), not collective-level:
 
   mlp_ag    FFN up-projection AllGather-GEMM (w1/w3/w13)
   mlp_rs    FFN down-projection GEMM-ReduceScatter (w2)
-  attn_ag   mixer input projection AllGather-GEMM (QKV / MLA up)
-  attn_rs   mixer output projection GEMM-ReduceScatter (wo / w_o)
-  decode_ar row-parallel GEMM + AllReduce seams (the decode paths)
+  attn_ag   mixer input projection AllGather-GEMM (QKV / MLA up / mamba
+            in: w_in_x and w_in_z over one shared gather)
+  attn_rs   mixer output projection GEMM-ReduceScatter (wo / w_o / w_out)
+  decode_ar row-parallel GEMM + AllReduce seams (the decode paths of every
+            mixer and FFN, plus mamba's train-path x-projection AR)
   head_ag   LM-head AllGather-GEMM (the biggest single GEMM)
   moe_a2a   MoE expert-parallel token exchange
 

@@ -32,7 +32,8 @@ from repro.models import ffn as jf
 from repro.models import model as JM
 from repro.parallel.sharding import TPContext as JaxCtx
 from repro_torch import convert
-from repro_torch.configs.base import MAMBA, ParallelConfig, get_smoke_config
+from repro_torch.configs.base import (MAMBA, RWKV, ParallelConfig,
+                                      get_smoke_config)
 from repro_torch.core import overlap as tov
 from repro_torch.kernels import mla_decode as md
 from repro_torch.models import attention as ta
@@ -128,10 +129,14 @@ def test_port_init_has_the_converted_layout(model):
 
 def test_check_ported_kinds():
     TM.check_ported(get_smoke_config(ARCH))
+    # Mamba is ported (served); RWKV-6 is not yet
     hybrid = dataclasses.replace(get_smoke_config("minicpm_2b"),
                                  pattern=(("attn", "ffn"), (MAMBA, "ffn")))
+    TM.check_ported(hybrid)
+    rwkv = dataclasses.replace(hybrid, pattern=(("attn", "ffn"),
+                                                (RWKV, "ffn")))
     with pytest.raises(NotImplementedError, match="not ported"):
-        TM.check_ported(hybrid)
+        TM.check_ported(rwkv)
 
 
 def test_ep_gt_1_raises_naming_roadmap():
