@@ -21,6 +21,8 @@
       --smoke --steps 3 --dp 2 --tp 2 --zero3 --device cpu   # ZeRO-3
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v3_671b \
       --smoke --steps 3 --ep 2 --tp 2 --device cpu   # a dedicated ep axis
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba_v01_52b \
+      --smoke --steps 3 --dp 2 --tp 2 --zero3 --device cpu   # its preset
 
 Runs on the CUDA card by default (bf16 weights); ``--device cpu`` runs the
 plain PyTorch path (use ``--smoke`` sizes there).  At ``--tp`` > 1 the
@@ -30,9 +32,11 @@ dp, tp)`` mesh (``launch.mesh.make_mesh``): ZeRO-1 moments over the data
 ranks, the batch split over pods · ep · dp shards, and
 ``--grad-compress`` quantizes the pod all-reduce of the grads to int8
 blocks.  ``--zero3`` also shards the layers' weights over the data ranks
-and gathers each layer's before it runs; ``--ep`` > 1 is a dedicated
-expert-parallel axis (experts split over it, replicated over the TP
-ranks); without it an MoE config of more than 16 experts at ``--dp`` > 1
+and gathers each layer's before it runs; on the big archs
+(``launch.presets.BIG``) it also recomputes each block in the backward
+(remat "full"), the two making their production preset; ``--ep`` > 1 is
+a dedicated expert-parallel axis (experts split over it, replicated over
+the TP ranks); without it an MoE config of more than 16 experts at ``--dp`` > 1
 splits its experts over (data, model) (``ep_over_dp``), as the
 reference's launcher does.  The
 schedule is per arch, as in the reference (``configs.base.train_schedule``:
@@ -68,7 +72,7 @@ import torch
 from repro_torch.configs.base import (ParallelConfig, get_config,
                                       get_smoke_config, train_schedule)
 from repro_torch.core.overlap import VALID_MODES
-from repro_torch.launch.presets import EP_OVER_DP_EXPERTS
+from repro_torch.launch.presets import BIG, EP_OVER_DP_EXPERTS
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime import trainer as T
 
@@ -180,9 +184,12 @@ def autotune(args: argparse.Namespace, cfg, par: ParallelConfig,
 def parallel_config(args: argparse.Namespace, cfg) -> ParallelConfig:
     """The run's ``ParallelConfig``, as the reference's launcher builds
     it: ``ep_over_dp`` without a dedicated ep axis on an MoE config of
-    more than 16 experts."""
+    more than 16 experts, and full remat with ZeRO-3 on the big archs, as
+    their production preset pairs them."""
     return ParallelConfig(tp=args.tp, dp=args.dp, pods=args.pods,
                           ep=max(args.ep, 1), zero3=args.zero3,
+                          remat=("full" if args.zero3 and cfg.name in BIG
+                                 else "none"),
                           ep_over_dp=(args.ep <= 1 and cfg.moe is not None
                                       and cfg.moe.num_experts
                                       > EP_OVER_DP_EXPERTS),

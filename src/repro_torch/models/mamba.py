@@ -18,11 +18,20 @@ state, and the chunk's [B, L, C_loc, N] tensors are freed before the next
 chunk.  The reference computes it in ``jnp`` outside any Pallas kernel, so
 it is plain PyTorch here on both devices.
 
-``mamba_train`` is the prefill (and the chunked prefill, from a carried-in
-``cache``) and runs forward only: under grad it raises, since a log-depth
-scan under autograd keeps every round's tensors (ROADMAP queue 1 item
-8.4's training half: a scan whose backward recomputes).  ``mamba_decode``
-is the O(1) single-token state update.  The recurrent state is
+Under grad the scan is an autograd Function (``_SelectiveScan``) that
+keeps no per-position state: it saves its inputs and the state carried
+into each chunk, and its backward walks the chunks last first, re-runs
+each chunk's forward from its carried state and runs the adjoint
+recurrence (the same linear recurrence, reversed) in log-depth rounds.
+Autograd through the log-depth scan itself would keep every round's
+[B, L, C_loc, N] tensors (about three a round, 8 rounds a 256-position
+chunk: 26 GB a layer by that count at Jamba's full width and 2 x 1024
+tokens); the reference lets XLA's ``lax.scan`` save what it chooses.
+
+``mamba_train`` is the training forward and the prefill (and the chunked
+prefill, from a carried-in ``cache``).  ``mamba_decode`` is the O(1)
+single-token state update, forward only (the reference's serving
+path).  The recurrent state is
 ``{"conv": [B, d_conv - 1, C_loc] bf16, "ssm": [B, C_loc, N] fp32}``
 (``mamba_cache_shapes``, the serving caches' specs): the conv tail holds
 the last d_conv - 1 pre-conv projected inputs.  ``mamba_train`` returns
@@ -37,15 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import overlap
 from repro_torch.models import init_utils as iu
 from repro_torch.models import layers
 from repro_torch.parallel.sharding import TPContext, ceil_mult
 
-MAMBA_BWD_NOT_PORTED = (
-    "training through the Mamba mixer needs a selective scan whose "
-    "backward recomputes (ROADMAP queue 1 item 8.4, its training half): "
-    "the log-depth scan under autograd would keep every round's "
-    "[B, L, C, N] tensors; the port serves Mamba layers only")
+DECODE_NO_GRAD = (
+    "mamba_decode is the serving step and runs forward only, as the "
+    "reference's; train through mamba_train")
 CONV_DTYPE = torch.bfloat16          # the conv tail's cache dtype
 
 
@@ -100,6 +108,29 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, tp: int,
     }
 
 
+def _scan_rounds(coef: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
+    """The linear recurrence h_t = coef_t h_{t-1} + inp_t over dim 1 from
+    h0, every position's h, in log-depth rounds in place (``coef`` and
+    ``inp`` are consumed; the result lives in ``coef``'s storage).  The
+    inclusive scan of the pairs (coef, inp) under the reference's
+    combine (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2): round d folds in
+    the element d back, reading the values of the previous round.  With
+    ``reverse`` the recurrence runs last position first (h_t = coef_t
+    h_{t+1} + inp_t): the rounds of the flipped sequence, run right to
+    left so nothing is copied."""
+    n, d = coef.shape[1], 1
+    while d < n:
+        if reverse:
+            inp[:, :-d] += inp[:, d:] * coef[:, :-d]
+            coef[:, :-d] = coef[:, d:] * coef[:, :-d]
+        else:
+            inp[:, d:] += inp[:, :-d] * coef[:, d:]
+            coef[:, d:] = coef[:, :-d] * coef[:, d:]
+        d *= 2
+    return coef.mul_(h0[:, None]).add_(inp)
+
+
 def _scan_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,18 +138,92 @@ def _scan_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     (fp32).  Returns (y [B, L, C], the state after the chunk)."""
     decay = torch.exp(dt[..., None] * a)                  # [B, L, C, N]
     inp = (dt * x)[..., None] * b[:, :, None, :]          # dt * x * B
-    # inclusive scan of the pairs (decay, inp) under the reference's
-    # combine (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2): round d folds in
-    # the element d back, reading the values of the previous round
-    n, d = x.shape[1], 1
-    while d < n:
-        inp[:, d:] += inp[:, :-d] * decay[:, d:]
-        decay[:, d:] = decay[:, :-d] * decay[:, d:]
-        d *= 2
-    h = decay.mul_(h0[:, None]).add_(inp)                 # [B, L, C, N]
+    h = _scan_rounds(decay, inp, h0)                      # [B, L, C, N]
     del inp
     y = torch.matmul(h, c[..., None])[..., 0]             # sum over N
     return y, h[:, -1].clone()
+
+
+def _chunk_len(s: int, chunk: int) -> int:
+    """The reference's rule: the chunk halves until it divides S."""
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    return chunk
+
+
+def _chunk_backward(x, dt, b, c, a, h_in, dy, g_next):
+    """One chunk's gradients from the state carried into it (``h_in``) and
+    the cotangent of the state after it (``g_next``, the next chunk's
+    ``dh_in``, or the final state's).  Re-runs the chunk's forward for
+    every h_t, then the adjoint recurrence g_t = C_t dy_t + exp(dt_{t+1}
+    a) g_{t+1} (g_{L-1} = C dy + g_next) in reversed log-depth rounds.
+    Returns (dx, ddt, db, dc, da, dh_in)."""
+    decay = torch.exp(dt[..., None] * a)                  # [B, L, C, N]
+    dtx = dt * x
+    inp = dtx[..., None] * b[:, :, None, :]
+    h = _scan_rounds(decay.clone(), inp, h_in)            # every h_t
+    del inp
+    dc = torch.matmul(dy[:, :, None, :], h)[:, :, 0]      # sum over C
+    # the adjoint: coef_t = exp(dt_{t+1} a), and 1 at the chunk's end,
+    # where g_next enters
+    coef = torch.empty_like(decay)
+    coef[:, :-1] = decay[:, 1:]
+    coef[:, -1] = 1.0
+    u = dy[..., None] * c[:, :, None, :]                  # C_t dy_t
+    g = _scan_rounds(coef, u, g_next, reverse=True)
+    del u
+    dh_in = decay[:, 0] * g[:, 0]
+    db = torch.matmul(dtx[:, :, None, :], g)[:, :, 0]     # sum over C
+    d_dtx = torch.matmul(g, b[..., None])[..., 0]         # sum over N
+    # g_t exp(dt_t a) h_{t-1}: the state's part in d(dt_t a)
+    q = g.mul_(decay)
+    del decay
+    q[:, 1:] *= h[:, :-1]
+    q[:, 0] *= h_in
+    del h
+    da = torch.einsum("blcn,blc->cn", q, dt)
+    ddt = d_dtx * x + torch.einsum("blcn,cn->blc", q, a)
+    return d_dtx * dt, ddt, db, dc, da, dh_in
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The chunked scan whose backward recomputes each chunk.  The forward
+    is the serving scan (the same chunk loop under no grad); it saves its
+    inputs and the fp32 state carried into each chunk, [n_chunks, B, C,
+    N], and no per-position state.  The backward walks the chunks last
+    first, each from its carried state (``_chunk_backward``), so it holds
+    one chunk's [B, L, C, N] tensors at a time."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, h0, chunk: int):
+        s = x.shape[1]
+        chunk = _chunk_len(s, chunk)
+        ys, states, h = [], [], h0
+        for i in range(0, s, chunk):
+            sl = slice(i, i + chunk)
+            states.append(h)
+            y, h = _scan_chunk(x[:, sl], dt[:, sl], b[:, sl], c[:, sl], a,
+                               h)
+            ys.append(y)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, b, c, a, h0, torch.stack(states))
+        return torch.cat(ys, dim=1), h
+
+    @staticmethod
+    def backward(ctx, dy, dh_fin):
+        x, dt, b, c, a, h0, states = ctx.saved_tensors
+        chunk = ctx.chunk
+        dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+        db, dc = torch.empty_like(b), torch.empty_like(c)
+        da, g = torch.zeros_like(a), dh_fin
+        for k in reversed(range(states.shape[0])):
+            sl = slice(k * chunk, (k + 1) * chunk)
+            (dx[:, sl], ddt[:, sl], db[:, sl], dc[:, sl], da_k,
+             g) = _chunk_backward(x[:, sl], dt[:, sl], b[:, sl], c[:, sl],
+                                  a, states[k], dy[:, sl], g)
+            da += da_k
+        return dx, ddt, db, dc, da, g, None
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -127,23 +232,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """The chunked selective scan: h_t = exp(dt_t a) h_{t-1} + dt_t x_t
     B_t, y_t = h_t . C_t.  x, dt [B, S, C]; b, c [B, S, N]; a [C, N]; h0
     [B, C, N]; all fp32.  The chunk halves until it divides S (the
-    reference's rule).  Returns (y [B, S, C], the final state)."""
-    s = x.shape[1]
-    chunk = min(chunk, s)
-    while s % chunk:
-        chunk //= 2
-    ys, h = [], h0
-    for i in range(0, s, chunk):
-        sl = slice(i, i + chunk)
-        y, h = _scan_chunk(x[:, sl], dt[:, sl], b[:, sl], c[:, sl], a, h)
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+    reference's rule).  Returns (y [B, S, C], the final state); under
+    grad its backward recomputes each chunk (``_SelectiveScan``)."""
+    return _SelectiveScan.apply(x, dt, b, c, a, h0, chunk)
 
 
 def _refuse_grad(p: Dict, x: torch.Tensor) -> None:
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in p.values())):
-        raise NotImplementedError(MAMBA_BWD_NOT_PORTED)
+        raise NotImplementedError(DECODE_NO_GRAD)
 
 
 def _in_proj(p: Dict, h: torch.Tensor, ctx: TPContext
@@ -181,8 +278,8 @@ def mamba_train(p: Dict, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
 
     ``cache`` ({conv, ssm}, optional): the state at position 0, which
     seeds a chunk of the chunked prefill (the replicated layout only: the
-    chunk is sequence-local).  Forward only (module docstring)."""
-    _refuse_grad(p, x)
+    chunk is sequence-local).  Under grad this is the training forward:
+    the scan's backward recomputes each chunk (``selective_scan``)."""
     d_in, dt_rank, d_state, d_conv = _dims(cfg, ctx.tp)
     b, s_loc, _ = x.shape
     s = s_loc * ctx.seq_factor
@@ -200,7 +297,9 @@ def mamba_train(p: Dict, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     else:
         xpad = torch.cat([cache["conv"].to(xs_raw.dtype), xs_raw], dim=1)
     conv = sum(xpad[:, i:i + s] * p["conv"][i] for i in range(d_conv))
-    xs = F.silu(conv + p["conv_b"])
+    # the conv's output feeds the x_proj seam and the scan: cut on the
+    # seam tape, so the backward walks the conv's segment once
+    xs = overlap.cut(F.silu(conv + p["conv_b"]), ctx.tape_axis)
 
     # x_proj: row-parallel GEMM + AllReduce (B, C, dt shared by the shards)
     xdb = ctx.op("decode_ar")(xs, p["w_x"])

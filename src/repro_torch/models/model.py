@@ -17,9 +17,9 @@ reads ``mtp``.
 
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
-``forward_loss`` are the training forward of every ported kind but Mamba
-(``check_trainable`` raises for a Mamba layer: it is served only), with the
-MoE's aux loss and the MTP loss, in either residual layout
+``forward_loss`` are the training forward of every ported kind (Mamba's
+scan recomputes each chunk in its backward, ``mamba.selective_scan``), with
+the MoE's aux loss and the MTP loss, in either residual layout
 (``TPContext.seq_sharded``) and with or without ``ParallelConfig.remat``;
 at tp>1 they run as one rank of the TP group, on that rank's
 ``shard_params`` copy.
@@ -604,12 +604,10 @@ def mesh_shard(params: Model, cfg: ModelConfig, par: ParallelConfig,
 # ---------------------------------------------------------------------------
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
     """Raise unless the model trains in the port: ported layer kinds
-    (``check_ported``) other than Mamba, which is served only
-    (``mamba.MAMBA_BWD_NOT_PORTED``), a ``remat`` of ``REMAT_MODES``."""
+    (``check_ported``; every one of them trains, Mamba's through the
+    scan whose backward recomputes) and a ``remat`` of
+    ``REMAT_MODES``."""
     check_ported(cfg)
-    if any(mk == MAMBA for mk, _ in expanded_pattern(cfg)):
-        raise NotImplementedError(f"{cfg.name}: "
-                                  + mamba.MAMBA_BWD_NOT_PORTED)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
                          f"{REMAT_MODES}")
@@ -659,9 +657,8 @@ def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
            kinds: Tuple[str, str], z3: Optional[_Zero3] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of ``kinds`` (mixer, ffn): the pre-norm mixer (GQA, MLA or
-    Mamba, whose forward raises under grad), then the pre-norm FFN (dense
-    or MoE), each added to the residual stream, which is cut on the seam
-    tape before each sub-block
+    Mamba), then the pre-norm FFN (dense or MoE), each added to the
+    residual stream, which is cut on the seam tape before each sub-block
     (``overlap.cut``), so the backward walks each segment once.  With
     ``z3`` the layer's ZeRO-3 leaves are gathered first.  Returns (x, the
     layer's aux loss: the MoE's, else 0)."""

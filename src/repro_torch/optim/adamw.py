@@ -245,14 +245,17 @@ def init_opt_state(params: Dict[str, torch.Tensor],
 def sync_grads(grads: Dict[str, torch.Tensor],
                plan: Optional[Dict[str, Zero1Leaf]] = None, data=None,
                pod=None, compress: bool = False) -> Dict[str, torch.Tensor]:
-    """Phase 1: the fp32 grads of the pieces a rank holds under ``plan``:
-    an owned piece (a row shard, a layer on its owner) reduce-scattered
-    over ``data`` and divided by dp, a whole leaf's pmean over ``data``,
-    a ``sharded`` leaf as it is; then ``pod_allreduce`` of each reference
-    leaf's piece.  One exchange over data, and one over the pods, carries
-    every leaf."""
+    """Phase 1: the grads of the pieces a rank holds under ``plan``: an
+    owned piece (a row shard, a layer on its owner) reduce-scattered over
+    ``data`` and divided by dp, a whole leaf's pmean over ``data`` (each
+    summed in fp32), a ``sharded`` leaf as it is; then ``pod_allreduce``
+    of each reference leaf's piece, in fp32.  One exchange over data, and
+    one over the pods, carries every leaf.  The grads cross as they are
+    and each piece is summed in fp32 as it is read, so no fp32 copy of
+    every grad is made at once; a leaf no exchange touches keeps its
+    dtype (the update reads it in fp32: the same values)."""
     dp = _size(data)
-    out = {n: g.float() for n, g in grads.items()}
+    out = dict(grads)
     if dp > 1:
         names = [n for n in out if not plan[n].sharded]
         parts = dict(zip(names, zip(*data.exchange(
@@ -272,9 +275,14 @@ def sync_grads(grads: Dict[str, torch.Tensor],
                 rows = slice(me * sh, (me + 1) * sh)
             acc = None
             for piece in parts[n]:
-                acc = piece[rows] if acc is None else acc + piece[rows]
+                if acc is None:
+                    acc = piece[rows].to(torch.float32, copy=True)
+                else:
+                    acc += piece[rows]
             synced[n] = _div(acc, dp)
         out = synced
+    if _size(pod) > 1:
+        out = {n: g.float() for n, g in out.items()}
     return pod_allreduce(out, pod, compress, None if plan is None else
                          {n: z.stack for n, z in plan.items()})
 

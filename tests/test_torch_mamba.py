@@ -303,14 +303,6 @@ def test_init_matches_reference_layout():
                 assert str(t.dtype)[6:] == str(want[k].dtype), (tp, k)
 
 
-def test_mamba_train_refuses_grad():
-    cfg = _cfg()
-    _, mixer = _weights(False, "float32")
-    x = torch.zeros(1, 4, cfg.d_model, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="8.4"):
-        TMB.mamba_train(mixer, x, TPContext(), cfg)
-
-
 def test_cache_shapes():
     cfg = get_smoke_config(ARCH)
     shapes = TMB.mamba_cache_shapes(cfg, 2, 3)

@@ -372,6 +372,9 @@ def test_training_paths_not_ported_raise(tmp_path):
     # MLA, MoE and the MTP head train (tests/test_torch_train_mla_moe.py)
     assert TM.check_trainable(get_smoke_config("deepseek_v3_671b"),
                               par) is None
+    # so do Jamba's Mamba layers (tests/test_torch_jamba_train.py)
+    assert TM.check_trainable(get_smoke_config("jamba_v01_52b"),
+                              par) is None
     # data parallelism runs on a rank mesh: without one it raises
     with pytest.raises(ValueError, match="RankMesh"):
         TT.make_ctx(cfg, ParallelConfig(dp=2))
