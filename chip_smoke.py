@@ -186,6 +186,24 @@ a checkout of this repository.  Phases, one JSON object per line each:
              recompute's, step ms, peak memory, a profiled step).  The
              AG-GEMM and GEMM-RS phases hold the kernels at two of its
              backward operands;
+   rwkv_lane — RWKV-6 served: rwkv6_3b at full width, bf16: at tp=1 over
+             all 32 layers a 4 x 1024 prefill (no kernel: local GEMMs and
+             the plain chunked wkv; other pad tokens change no state, bit
+             for bit; each row alone at the batch's shape, bit for bit,
+             and at its own length: every layer's wkv state, both
+             token-shift rows and its logits), 8 decode steps and the
+             first against a prefill of N + 1; the paged Server (a
+             prompt's chunks interleaved with the others' decode steps,
+             concurrent = isolated, the requests again in the freed
+             slots, no prefix reuse); the prefill at tp=2 in flux over 8
+             layers (the launches its PlanSet implies: one AG-GEMM over
+             the time-mix's five projections, one with the channel-mix's
+             squared-ReLU epilogue, two GEMM-RS a layer a rank; the
+             logits and each rank's heads of the state against tp=1's)
+             and 8 decode steps; ``launch.serve --arch rwkv6_3b --layers
+             8``.  The AG-GEMM and GEMM-RS phases hold the kernels at the
+             lane's four seam shapes (the squared-ReLU epilogue's first
+             case on the card);
 14. tune_lane — the seam plans and the tuner, minicpm_2b at full width
              at tp=4 on the one card: the AG-GEMM and GEMM-RS kernels with
              each Hopper tile and ring direction forced at the lane's seam
@@ -461,6 +479,39 @@ JAMBA_BF16_MODES_RTOL = 1e-2
 # round, 8 rounds a chunk, 4 chunks a layer (about 26 GB by that count)
 JAMBA_SCAN_CHECK = (1, 128, 32)
 JAMBA_SCAN_MEM_GB = 2.2
+# the rwkv lane: rwkv6_3b at full width, bf16, weights from seed 0 (2.91 B
+# parameters: 2.74 B in the 32 layers, 0.17 B in the tied embedding; 5.8
+# GB), served at full depth at tp=1: a batched prefill of 4 x 1024 tokens
+# with the rows' lengths below, 8 decode steps, the paged Server's
+# requests (the 73-token prompt prefills over three 32-token chunks while
+# the others decode) and the CLI's.  Each row's prefill alone at the
+# batch's shape (the other rows one pad token each) gives the batch's wkv
+# state, both token-shift rows and its logits bit for bit, as do other
+# tokens at the pad positions (the freeze: k = 0, logw = 0).  Each row
+# alone at its own length (every layer's state and the logits) and a
+# prefill of N then one decode step against a prefill of N + 1 (decode
+# mixes h and prev before its GEMMs, the prefill folds mu into the
+# weights) compute the same numbers two ways: held to TP_LANE_RTOL in fp32
+# on the same draw (the decode step also read in bf16).  This random model
+# amplifies a difference about 1.28x a layer: in fp32 a row alone moved
+# 1e-5 at layer 3 and 1.13 % at layer 31 (the logits 0.04-0.51 %), in
+# bf16 0.28 % a layer to 8.9 % at layer 31 (the logits 8.4-8.9 %), past
+# TP_LANE_RTOL by rounding alone (scripts/torch_rwkv_depth_noise.py on an
+# NVIDIA H100 80GB HBM3 at 700 W).  tp=RWKV_TP in flux over the first
+# RWKV_TP_LAYERS layers (a depth cut set by the script's time budget)
+# against tp=1 at the same depth on the same weights: 40 heads and d_ff
+# 8960 divide at tp=2, so the tp=2 draw pads nothing and packs nothing,
+# and its global weights are the tp=1 model's, leaf for leaf
+RWKV_TP = 2
+RWKV_TP_LAYERS = 8
+RWKV_LENGTHS = [1024, 777, 512, 256]
+RWKV_DECODE = 8
+RWKV_PROMPTS = [40, 57, 73]
+RWKV_NEW = 4
+RWKV_ARGV = ["--arch", "rwkv6_3b", "--layers", str(RWKV_TP_LAYERS),
+             "--requests", "2", "--prompt-len", "40", "--max-new",
+             str(RWKV_NEW), "--max-batch", "4", "--block-size", "16",
+             "--prefill-chunk", "32"]
 # the train lane: minicpm_2b at full width cut to its first 4 of 40 layers
 # (8 until the whole script neared its 1200 s limit), batch
 # 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
@@ -1241,14 +1292,20 @@ def phase_server_lane(torch):
           "concurrent_equals_isolated": f"{agree}/{len(done)}"})
 
 
+# the recurrent layers' cache leaves (no sequence dim): a Mamba layer's,
+# an RWKV layer's time-mix and channel-mix state (``models.serve``)
+STATE_LEAVES = ("conv", "ssm", "state", "last", "ffn.last")
+
+
 def _dense_caches(torch, caches, s_max):
     """Prefill caches [B, S, ...] glued into zero [B, s_max, ...] decode
-    caches; a Mamba layer's state (no sequence dim) as it is."""
+    caches; a recurrent layer's state (``STATE_LEAVES``: no sequence dim)
+    as it is."""
     out = []
     for layer in caches:
         dense = {}
         for n, t in layer.items():
-            if n in ("conv", "ssm"):
+            if n in STATE_LEAVES:
                 dense[n] = t
                 continue
             d = torch.zeros((t.shape[0], s_max, *t.shape[2:]), dtype=t.dtype,
@@ -2095,21 +2152,22 @@ def mla_train_seam_cases(which):
 
 def mla_seam_cases(cases):
     """The kernels line's digest of ``phase_fused_kernel``'s mla (or
-    jamba) lane cases."""
+    jamba, or rwkv) lane cases."""
     return {name: {k: r[k] for k in (
-        "rank_rows", "K", "N", "max_abs_err", "fused_ms", "plain_ms",
-        "bound_ms", "bound_by", "xla_ms")} for name, r in cases.items()}
+        "rank_rows", "K", "N", "activation", "max_abs_err", "fused_ms",
+        "plain_ms", "bound_ms", "bound_by", "xla_ms")}
+        for name, r in cases.items()}
 
 
 def phase_fused_kernel(torch, which):
     """The AG-GEMM (``which="ag"``) or GEMM-RS kernel against its plain
     version, n ranks of a RankGroup on the one card; returns the §5.1
     m 8192 case, the mla tp lane's cases, the mla train lane's backward
-    cases and the jamba lanes' cases (the jamba train lane's backward
-    operands among them) by name.  Each case: every rank's
-    error, the fused n-rank time, the xla mode's (gather + torch.matmul,
-    or torch.matmul + the slots' sum), n x the GEMM kernel at one rank's
-    shape, the plain version's and the bound.  Then the dp lane's cases
+    cases, the jamba lanes' cases (the jamba train lane's backward
+    operands among them) and the rwkv lane's cases by name.  Each case:
+    every rank's error, the fused n-rank time, the xla mode's (gather +
+    torch.matmul, or torch.matmul + the slots' sum), n x the GEMM kernel
+    at one rank's shape, the plain version's and the bound.  Then the dp lane's cases
     (``fused_mesh_cases``)."""
     from repro_torch.core.overlap import Epilogue, FusedOp
     from repro_torch.dist import RankGroup
@@ -2168,10 +2226,15 @@ def phase_fused_kernel(torch, which):
     jamba = jamba_seam_cases(which) + jamba_train_seam_cases(which)
     cases += [(name, JAMBA_TP, bf16, rows, k, nn, None, False, False)
               for name, rows, k, nn in jamba]
+    # the rwkv lane's tp=2 flux prefill seams, at their shapes (the
+    # channel-mix's AG-GEMM with its squared-ReLU epilogue)
+    rwkv = rwkv_seam_cases(which)
+    cases += [(name, RWKV_TP, bf16, rows, k, nn, act, False, False)
+              for name, rows, k, nn, act in rwkv]
     operands = {c[0]: c[4] for c in train}
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     groups = {n: RankGroup(n, "cuda", timeout_s=60)
-              for n in (JAMBA_TP, 4, 8)}
+              for n in {JAMBA_TP, RWKV_TP, 4, 8}}
     gen = torch.Generator(device="cuda")
     ptxas = ptxas_report("ag_gemm" if which == "ag" else "gemm_rs")
     results = {}
@@ -2270,7 +2333,8 @@ def phase_fused_kernel(torch, which):
     return (results[f"{which}_m8192"],
             {c[0]: results[c[0]] for c in mla_cases},
             {c[0]: results[c[0]] for c in train_mla},
-            {c[0]: results[c[0]] for c in jamba})
+            {c[0]: results[c[0]] for c in jamba},
+            {c[0]: results[c[0]] for c in rwkv})
 
 
 def mesh_seam_cases(which):
@@ -2708,7 +2772,7 @@ def tp_decode(torch, group, ranks, cfg, lengths, prefill_caches,
     emit(res)
 
 
-def ar_op_host_ms(torch, group, cfg, batch, calls=50):
+def ar_op_host_ms(torch, group, cfg, batch, calls=10):
     """Host-clock ms of one decode ``ar`` op (the FFN's w2 seam: y [B, 1,
     F/tp] x w [F/tp, D], bf16, all ranks), per mode: ``calls`` ops inside
     one ``spmd`` run to completion on the card, divided by ``calls``."""
@@ -2882,8 +2946,9 @@ def first_logits(torch, server, prompts):
     token}, from a fresh Server on ``server``'s params, group or mesh and
     serve config, through the chunked prefill that
     ``Server.prefill_chunk`` runs (``prefill_chunk_logits``: its argmax is
-    the first token; a Mamba layer's state threads through the job's
-    slot); at tp>1 the TP ranks' vocab shards side by side."""
+    the first token; a recurrent layer's state, Mamba's or RWKV's,
+    threads through the job's slot); at tp>1 the TP ranks' vocab shards
+    side by side."""
     import numpy as np
     from repro_torch.models import serve as S
     from repro_torch.runtime.server import Request, Server
@@ -5766,6 +5831,470 @@ def phase_jamba_train_lane(torch):
             for kern in ("ag_gemm", "gemm_rs")}
 
 
+def rwkv_cfg(layers=None):
+    """The rwkv lane's model: rwkv6_3b at full width, all 32 layers, or
+    its first ``layers``."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("rwkv6_3b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def rwkv_seam_cases(which):
+    """(name, rows, K, N, activation) of one rank's AG-GEMM (``which=
+    "ag"``: rows its sequence shard) or GEMM-RS (rows M, K its shard)
+    operands at the flux seams of the rwkv lane's tp=RWKV_TP prefill over
+    len(RWKV_LENGTHS) prompts padded to the longest: the time-mix's
+    ``attn_ag`` (one launch over the five token-shift projections side by
+    side: [h | prev] x the r, k, v, g column shards and the replicated
+    w_dec1, a ragged N) and ``w_o``, the channel-mix's ``w_k`` with its
+    squared-ReLU epilogue and ``w_v``."""
+    from repro_torch.models.rwkv import _dims
+    from repro_torch.parallel.sharding import ceil_mult
+
+    cfg, tp = rwkv_cfg(), RWKV_TP
+    m = len(RWKV_LENGTHS) * max(RWKV_LENGTHS)
+    d, d_attn = cfg.d_model, _dims(cfg, tp)[2]
+    ffp = ceil_mult(cfg.d_ff, tp * 128)
+    if which == "ag":
+        return [("ag_rwkv_time_mix", m // tp, 2 * d,
+                 4 * d_attn // tp + cfg.rwkv.decay_lora, None),
+                ("ag_rwkv_channel_mix", m // tp, d, ffp // tp, "sqrelu")]
+    return [("rs_rwkv_time_out", m, d_attn // tp, d, None),
+            ("rs_rwkv_channel_out", m, ffp // tp, d, None)]
+
+
+def _rwkv_two_ways(torch, S, model, cfg, ctx, tokens, lengths,
+                   rows_alone=True):
+    """Two ways to the same numbers on ``model``: one decode step after
+    the batched prefill against one prefill over each prompt and its
+    first token (N + 1, padded to a whole number of 64-position chunks),
+    and with ``rows_alone`` each row's prefill alone at its own length
+    against the batched prefill's (every layer's wkv state and both
+    token-shift rows, the logits; a row of 777 tokens runs the
+    reference's chunk rule down to chunks of 1).  Returns the readings
+    (relative L2): the decode step's, and the worst row's a layer and
+    leaf, the worst of all, the logits' a row."""
+    vocab, layers = cfg.vocab_size, range(cfg.num_layers)
+    lg, caches = S.prefill_logits(model, {"tokens": tokens}, ctx, cfg,
+                                  lengths)
+    state, logits = {}, {}
+    for r, n in enumerate(lengths.tolist() if rows_alone else ()):
+        lga, alone = S.prefill_logits(model, {"tokens": tokens[r:r + 1, :n]},
+                                      ctx, cfg)
+        logits[r] = _rel_l2(lga[0, :vocab], lg[r, :vocab])
+        for i in layers:
+            for k in ("state", "last", "ffn.last"):
+                state[f"row{r}/layer{i}/{k}"] = _rel_l2(alone[i][k][0],
+                                                        caches[i][k][r])
+        del lga, alone
+    first = S.vocab_parallel_argmax(lg, vocab)[:, None]
+    step, _ = S.decode_logits(model, caches, first, lengths, ctx, cfg)
+    b, s = tokens.shape
+    ext = torch.zeros((b, -(-(s + 1) // 64) * 64), dtype=tokens.dtype,
+                      device=tokens.device)
+    for r, n in enumerate(lengths.tolist()):
+        ext[r, :n] = tokens[r, :n]
+        ext[r, n] = first[r, 0]
+    lge, _ = S.prefill_logits(model, {"tokens": ext}, ctx, cfg, lengths + 1)
+    out = {"decode1_rel_l2": _rel_l2(step[:, :vocab], lge[:, :vocab])}
+    if state:
+        worst = max(state, key=state.get)
+        out.update(
+            state_rel_l2_by_layer={
+                k: [max(state[f"row{r}/layer{i}/{k}"] for r in range(b))
+                    for i in layers] for k in ("state", "last", "ffn.last")},
+            state_rel_l2_max=state[worst], state_rel_l2_worst=worst,
+            logits_rel_l2=logits)
+    return out
+
+
+def phase_rwkv_lane(torch):
+    """RWKV-6 served (``rwkv_cfg``: rwkv6_3b at full width, bf16, seed 0;
+    the constants' comment).  The weights are drawn once, packed for
+    tp=2, which pads and packs nothing at this width: they are the tp=1
+    model (checked leaf for leaf against their canonical leaves).
+
+    (a) The tp=1 anchor over all 32 layers: the batched prefill of 4 x
+    1024 tokens (RWKV_LENGTHS), which launches no kernel (the GEMMs are
+    local, the wkv is plain PyTorch, as the reference computes it outside
+    any Pallas kernel); the freeze (other tokens at the pad positions give
+    the same states and logits, bit for bit); each row alone at the
+    batch's shape (the other rows one pad token each): the batch's states
+    and logits bit for bit; 8 greedy decode steps (no kernel); then two
+    ways to the same numbers (``_rwkv_two_ways``: each row alone at its
+    own length, every layer's state and the logits; the first decode step
+    against one prefill over each prompt and its first token, N + 1), held
+    to TP_LANE_RTOL in fp32 on the same draw, the decode step also read in
+    bf16 (the constants' comment).  (c)
+    The paged Server at tp=1 over all 32 layers: the RWKV_PROMPTS requests
+    together (the 73-token prompt's chunks interleaved with the others'
+    decode steps), each alone: concurrent = isolated; all three again on
+    the same server, in its freed slots (whose state the first chunk
+    zeroes): the same tokens; no reuse hit.  (b) tp=RWKV_TP in flux with
+    the kernels over the first RWKV_TP_LAYERS layers against tp=1 at that
+    depth: the prefill, the counts set to 0 just before and read just
+    after (the launches its PlanSet implies: one AG-GEMM over the
+    time-mix's five weights, one with the channel-mix's squared-ReLU
+    epilogue and two GEMM-RS a layer a rank); its logits and each rank's
+    heads of the wkv state within TP_LANE_RTOL of tp=1's, its first
+    tokens tp=1's but at a near tie; 8 decode steps teacher-forced on
+    tp=1's tokens (no kernel), their logits within TP_LANE_RTOL.  (d)
+    ``launch.serve --arch rwkv6_3b --layers RWKV_TP_LAYERS`` once: its
+    requests served, its first tokens the argmax of its first-token
+    logits.  Returns the tp=2 prefill's kernel launches."""
+    import numpy as np
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.dist import RankGroup
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    t_phase = time.perf_counter()
+    cfg = rwkv_cfg()
+    bf16, tp, vocab = torch.bfloat16, RWKV_TP, cfg.vocab_size
+    b, s = len(RWKV_LENGTHS), max(RWKV_LENGTHS)
+    n_layers = cfg.num_layers
+    res = {"phase": "rwkv_lane", "arch": cfg.name,
+           "layers": f"{n_layers} of {n_layers} at tp=1, {RWKV_TP_LAYERS} "
+                     f"at tp={tp} (cut in depth)",
+           "batch": b, "lengths": RWKV_LENGTHS, "decode_steps": RWKV_DECODE,
+           "tp": tp, "rtol": TP_LANE_RTOL,
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    lengths = torch.tensor(RWKV_LENGTHS, device="cuda")
+    par1 = ParallelConfig()
+
+    t0 = time.perf_counter()
+    one = M.init_model(cfg, ParallelConfig(tp=tp), seed=0, dtype=bf16,
+                       device="cuda")
+    named = {n: t.detach() for n, t in one.named_parameters()}
+    canon = M.canonical_leaves(named, cfg, tp)
+    like = dict(M.meta_model(cfg, par1).named_parameters())
+    check(sorted(canon) == sorted(like) and all(
+        torch.equal(canon[n], t) and t.shape == like[n].shape
+        for n, t in named.items()),
+        "rwkv: the tp=2 weights are not the tp=1 model leaf for leaf")
+    del canon, named, like
+    torch.cuda.synchronize()
+    res.update(params=sum(t.numel() for t in one.parameters()),
+               weights_gb=sum(t.numel() * t.element_size()
+                              for t in one.parameters()) / 1e9,
+               init_s=time.perf_counter() - t0)
+    check(res["params"] == M.count_params_analytic(cfg),
+          f"rwkv: {res['params']} weights, count_params_analytic "
+          f"{M.count_params_analytic(cfg)}")
+
+    # (a) the tp=1 anchor, all layers
+    t0 = time.perf_counter()
+    ctx1 = make_ctx(par1)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    lg, caches = S.prefill_logits(one, {"tokens": tokens}, ctx1, cfg,
+                                  lengths)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    check(not any(counts.values()), f"the rwkv tp=1 prefill launched "
+          f"{counts}: its GEMMs are local and its wkv plain")
+    check(bool(torch.isfinite(lg[:, :vocab]).all()),
+          "rwkv: non-finite prefill logits")
+    anchor = {"logits": [lg[:, :vocab].float()],
+              "tokens": [S.vocab_parallel_argmax(lg, vocab)[:, None]]}
+    layers = range(n_layers)
+    # the freeze: other tokens at the pad positions leave every state and
+    # every row's logits as they were, bit for bit
+    noise = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    pad = torch.arange(s, device="cuda")[None] >= lengths[:, None]
+    lg_pad, c_pad = S.prefill_logits(
+        one, {"tokens": torch.where(pad, noise, tokens)}, ctx1, cfg, lengths)
+    frozen = torch.equal(lg_pad, lg) and all(
+        torch.equal(c_pad[i][k], caches[i][k]) for i in layers
+        for k in caches[i])
+    del lg_pad, c_pad, noise
+    check(frozen, "rwkv: other tokens at the pad positions moved the "
+          "batched prefill's state or logits")
+    # each row alone at the batch's shape (the other rows one pad token
+    # each: every GEMM and the wkv at the batch's shapes)
+    shape_lg = {}
+    shape_equal = True
+    for r, n in enumerate(RWKV_LENGTHS):
+        solo = torch.zeros_like(tokens)
+        solo[r] = tokens[r]
+        solo_len = torch.ones_like(lengths)
+        solo_len[r] = n
+        lga, at = S.prefill_logits(one, {"tokens": solo}, ctx1, cfg,
+                                   solo_len)
+        shape_lg[r] = _rel_l2(lga[r, :vocab].float(), anchor["logits"][0][r])
+        shape_equal &= torch.equal(lga[r], lg[r]) and all(
+            torch.equal(at[i][k][r], caches[i][k][r]) for i in layers
+            for k in caches[i])
+        del at, lga, solo
+    check(shape_equal, f"rwkv: each row alone at the batch's shape is not "
+          f"the batched prefill's bit for bit (logits {shape_lg} relative "
+          "L2)")
+    # 8 decode steps from the prefill's caches (no sequence dim: the
+    # serving layout as they are)
+    zero_counts()
+    step_ms = []
+    for step in range(RWKV_DECODE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, caches = S.decode_logits(one, caches, anchor["tokens"][-1],
+                                     lengths + step, ctx1, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        anchor["logits"].append(lg[:, :vocab].float())
+        anchor["tokens"].append(S.vocab_parallel_argmax(lg, vocab)[:, None])
+    counts = read_counts()
+    check(not any(counts.values()), f"the rwkv tp=1 decode launched {counts}")
+    check(all(bool(torch.isfinite(x).all()) for x in anchor["logits"]),
+          "rwkv: non-finite decode logits")
+    del caches, lg
+    # two ways to the same numbers (each row alone at its own length; one
+    # decode step against a prefill of N + 1): held to TP_LANE_RTOL in fp32
+    # (the same draw, not rounded); in bf16 the decode step is read (the
+    # rows alone, which bf16 rounding alone moves past TP_LANE_RTOL at
+    # this depth, are read by the constants' comment's script)
+    t1 = time.perf_counter()
+    two = {"bfloat16": _rwkv_two_ways(torch, S, one, cfg, ctx1, tokens,
+                                      lengths, rows_alone=False)}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one32 = M.init_model(cfg32, ParallelConfig(tp=tp), seed=0,
+                         dtype=torch.float32, device="cuda")
+    two["float32"] = _rwkv_two_ways(torch, S, one32, cfg32, ctx1, tokens,
+                                    lengths)
+    del one32
+    torch.cuda.empty_cache()
+    two_s = time.perf_counter() - t1
+    f32 = two["float32"]
+    res["tp1"] = {
+        "layers": n_layers, "prefill_host_ms": prefill_ms,
+        "prefill_launches": {k: 0 for k in ("ag_gemm", "gemm_rs")},
+        "pad_tokens_change_nothing": frozen,
+        "at_batch_shape_bit_equal": shape_equal,
+        "at_batch_shape_logits_rel_l2": shape_lg,
+        "decode_step_host_ms": step_ms,
+        "two_ways": two, "two_ways_s": two_s,
+        "phase_s": time.perf_counter() - t0}
+    check(f32["state_rel_l2_max"] <= TP_LANE_RTOL, f"rwkv fp32: "
+          f"{f32['state_rel_l2_worst']} after the batched prefill "
+          f"{f32['state_rel_l2_max']:.4g} relative L2 from the row's "
+          f"prefill alone (rtol {TP_LANE_RTOL})")
+    check(max(f32["logits_rel_l2"].values()) <= TP_LANE_RTOL, f"rwkv fp32: "
+          f"each row's logits alone {f32['logits_rel_l2']} relative L2 from "
+          f"the batched prefill's (rtol {TP_LANE_RTOL})")
+    check(f32["decode1_rel_l2"] <= TP_LANE_RTOL, f"rwkv fp32: the first "
+          f"decode step's logits {f32['decode1_rel_l2']:.4g} relative L2 "
+          f"from a prefill of N + 1 (rtol {TP_LANE_RTOL})")
+
+    # (c) the paged Server at tp=1, all layers
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+               for n in RWKV_PROMPTS]
+    sc = ServeConfig(max_batch=4, max_seq=256, eos_token=-1,
+                     max_new_tokens=RWKV_NEW, block_size=16,
+                     prefill_chunk=32)
+
+    def serve(srv, which):
+        done = srv.serve([Request(rid=i, prompt=prompts[i]) for i in which])
+        check(all(r.done and r.error is None and len(r.output) == RWKV_NEW
+                  and all(0 <= t < vocab for t in r.output) for r in done),
+              "an rwkv Server request did not finish")
+        return {r.rid: r.output for r in done}
+
+    srv = Server(cfg, par1, one, sc)
+    events = []
+    chunk_fn, step_fn = srv.prefill_chunk, srv.step
+
+    def chunk(job):
+        events.append(("chunk", job.req.rid))
+        return chunk_fn(job)
+
+    def step():
+        events.append(("decode", sum(srv.ready)))
+        return step_fn()
+    srv.prefill_chunk, srv.step = chunk, step
+    zero_counts()
+    t1 = time.perf_counter()
+    concurrent = serve(srv, range(len(prompts)))
+    serve_s = time.perf_counter() - t1
+    # the wrappers hold srv's bound methods: while they live, srv and the
+    # weights it holds live on in a reference cycle
+    del srv.prefill_chunk, srv.step, chunk, step, chunk_fn, step_fn
+    long_rid = RWKV_PROMPTS.index(max(RWKV_PROMPTS))
+    at = [i for i, e in enumerate(events) if e == ("chunk", long_rid)]
+    between = [e for e in events[at[0]:at[-1]] if e[0] == "decode" and e[1]]
+    again = serve(srv, range(len(prompts)))      # in the freed slots
+    agree = sum(int(serve(Server(cfg, par1, one, sc), [i])[i]
+                    == concurrent[i]) for i in concurrent)
+    counts = read_counts()
+    res["server"] = {
+        "prompt_lens": RWKV_PROMPTS, "new_tokens": RWKV_NEW,
+        "max_batch": sc.max_batch, "prefill_chunk": sc.prefill_chunk,
+        "block_size": sc.block_size, "tokens": concurrent,
+        "concurrent_equals_isolated": f"{agree}/{len(prompts)}",
+        "recycled_slots_equal": again == concurrent,
+        "long_prompt_chunks": len(at),
+        "decodes_between_its_chunks": len(between),
+        "pool_peak_blocks": srv.pool.peak_blocks_in_use,
+        "dense_equiv_blocks": srv.dense_equiv_blocks,
+        "reuse_hits": srv.pool.reuse_hits, "prefix_reuse": srv._reuse_ok,
+        "prefill_calls": srv.prefill_dispatches,
+        "decode_calls": srv.decode_dispatches,
+        "serve_wall_s": serve_s,
+        "kernel_launches": {k: counts[k] for k in ("ag_gemm", "gemm_rs")},
+        "phase_s": time.perf_counter() - t0}
+    check(agree == len(prompts), f"rwkv Server concurrent vs isolated: "
+          f"{agree}/{len(prompts)}")
+    check(again == concurrent, f"rwkv Server: the requests again in the "
+          f"freed slots gave {again}, first {concurrent}")
+    check(len(at) == 3 and between, f"rwkv Server: the {max(RWKV_PROMPTS)}"
+          f"-token prompt ran {len(at)} chunks with {len(between)} decode "
+          "steps of other requests between them")
+    check(srv.pool.reuse_hits == 0 and not srv._reuse_ok,
+          "rwkv Server reused prompt blocks: its state is not paged")
+    check(not any(counts.values()), f"the rwkv Server launched {counts}")
+    del srv
+
+    # (b) tp=2 in flux with the kernels, at RWKV_TP_LAYERS layers, against
+    # tp=1 at that depth
+    t0 = time.perf_counter()
+    cut = rwkv_cfg(RWKV_TP_LAYERS)
+    part = M.Model(one.embed, one.final_norm,
+                   list(one.layers[:RWKV_TP_LAYERS]))
+    del one
+    torch.cuda.empty_cache()
+    lg1, c1 = S.prefill_logits(part, {"tokens": tokens}, ctx1, cut, lengths)
+    want = {"logits": [lg1[:, :vocab].float()],
+            "tokens": [S.vocab_parallel_argmax(lg1, vocab)[:, None]]}
+    # decode writes its caches in place: from a copy, c1 is compared below
+    cl = [{k: v.clone() for k, v in c.items()} for c in c1]
+    for step in range(RWKV_DECODE):
+        lg1, cl = S.decode_logits(part, cl, want["tokens"][-1],
+                                  lengths + step, ctx1, cut)
+        want["logits"].append(lg1[:, :vocab].float())
+        want["tokens"].append(S.vocab_parallel_argmax(lg1, vocab)[:, None])
+    del cl, lg1
+    ranks = [M.shard_params(part, r, tp, cut) for r in range(tp)]
+    del part
+    torch.cuda.empty_cache()
+    group = RankGroup(tp, "cuda")
+    par = ParallelConfig(tp=tp, overlap_mode="flux")
+    ctx = make_ctx(par, group)
+
+    def prefill(p):
+        return S.prefill_logits(p, {"tokens": tokens}, ctx, cut, lengths)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    outs = group.spmd(prefill, [(p,) for p in ranks])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    plan = prefill_launches(ctx.plans, cut, tp, 1, False)
+    got = {k: counts[k] for k in plan}
+    check(got == plan, f"rwkv tp={tp} prefill launches {got}, its PlanSet "
+          f"implies {plan}")
+    lg = torch.cat([o[0] for o in outs], -1)[:, :vocab].float()
+    rel = _rel_l2(lg, want["logits"][0])
+    kept = []
+    flips = _flips(torch, lg.argmax(-1).tolist(),
+                   want["tokens"][0][:, 0].tolist(), lg, want["logits"][0],
+                   kept)
+    hl = ranks[0].layers[0].mixer["u_bonus"].numel() // cfg.rwkv.head_dim
+    state_rel = {}
+    for r, o in enumerate(outs):
+        for i in range(RWKV_TP_LAYERS):
+            state_rel[f"rank{r}/layer{i}"] = _rel_l2(
+                o[1][i]["state"], c1[i]["state"][:, r * hl:(r + 1) * hl])
+    worst_state = max(state_rel, key=state_rel.get)
+    check(rel <= TP_LANE_RTOL, f"rwkv tp={tp}: prefill logits {rel:.4g} "
+          f"relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    check(state_rel[worst_state] <= TP_LANE_RTOL, f"rwkv tp={tp}: "
+          f"{worst_state}'s wkv state {state_rel[worst_state]:.4g} relative "
+          f"L2 from tp=1's heads (rtol {TP_LANE_RTOL})")
+    _near_ties_only(f"rwkv tp={tp} prefill", flips, kept)
+    caches = [o[1] for o in outs]
+    del outs, c1
+    rels, dflips, dkept, dstep_ms = [], {}, [], []
+    zero_counts()
+    for step in range(RWKV_DECODE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = group.spmd(
+            lambda p, c, step=step: S.decode_logits(
+                p, c, want["tokens"][step], lengths + step, ctx, cut)[0],
+            list(zip(ranks, caches)))
+        torch.cuda.synchronize()
+        dstep_ms.append((time.perf_counter() - t1) * 1e3)
+        lg = torch.cat(outs, -1)[:, :vocab].float()
+        want_lg = want["logits"][step + 1]
+        rels.append(_rel_l2(lg, want_lg))
+        for row, f in _flips(torch, lg.argmax(-1).tolist(),
+                             want["tokens"][step + 1][:, 0].tolist(), lg,
+                             want_lg, dkept).items():
+            dflips[f"{step}/{row}"] = f
+    counts = read_counts()
+    decode_launches = {k: counts[k] for k in ("ag_gemm", "gemm_rs")}
+    res[f"tp{tp}_flux"] = {
+        "layers": RWKV_TP_LAYERS,
+        "prefill_launches": got, "prefill_launches_planset": plan,
+        "prefill_host_ms": host_ms, "prefill_logits_rel_l2_vs_tp1": rel,
+        "prefill_token_flips": flips,
+        "state_rel_l2_vs_tp1_max": state_rel[worst_state],
+        "state_rel_l2_worst": worst_state,
+        "state_rel_l2_vs_tp1_first_last_layer": {
+            k: v for k, v in state_rel.items()
+            if k.split("/")[1] in ("layer0",
+                                   f"layer{RWKV_TP_LAYERS - 1}")},
+        "decode_logits_rel_l2_vs_tp1": rels, "decode_token_flips": dflips,
+        "decode_step_host_ms": dstep_ms, "decode_launches": decode_launches,
+        "phase_s": time.perf_counter() - t0}
+    check(max(rels) <= TP_LANE_RTOL, f"rwkv tp={tp} decode logits {rels} "
+          f"relative L2 from tp=1's (rtol {TP_LANE_RTOL})")
+    check(not any(decode_launches.values()), "rwkv's replicated-layout "
+          f"decode launched a kernel: {decode_launches}")
+    _near_ties_only(f"rwkv tp={tp} decode", dflips, dkept)
+    group.free_symmetric()
+    del caches, ranks, group, outs, lg, want
+    torch.cuda.empty_cache()
+
+    # (d) the serve CLI
+    t0 = time.perf_counter()
+    cli, done = launch_serve.main(RWKV_ARGV)
+    check(len(done) == 2 and all(
+        r.done and r.error is None and len(r.output) == RWKV_NEW
+        and all(0 <= t < vocab for t in r.output) for r in done),
+        "launch.serve --arch rwkv6_3b did not serve its requests")
+    firsts = first_logits(torch, cli, {r.rid: r.prompt for r in done})
+    check(all(int(firsts[r.rid].argmax()) == r.output[0] for r in done),
+          "the rwkv CLI's first tokens are not the argmax of its "
+          "first-token logits")
+    res["cli"] = {"argv": RWKV_ARGV, "tokens": {r.rid: r.output
+                                                for r in done},
+                  "reuse_hits": cli.pool.reuse_hits,
+                  "phase_s": time.perf_counter() - t0}
+    del cli, anchor, firsts
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["left_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    check(res["left_mem_gb"] < res["baseline_mem_gb"] + 0.5, f"the rwkv "
+          f"lane left {res['left_mem_gb']:.3f} GB allocated (it started at "
+          f"{res['baseline_mem_gb']:.3f} GB)")
+    return {"ag_gemm": {f"tp{tp}_prefill": got["ag_gemm"]},
+            "gemm_rs": {f"tp{tp}_prefill": got["gemm_rs"]}}
+
+
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
     """The kernels one prefill launches at ``tp``, read off a ``PlanSet``:
     a rank's flux seam in the sequence-sharded layout launches one AG-GEMM
@@ -5796,13 +6325,15 @@ def plan_launches(plans, cfg, tp, mlp_weights):
     ``attn_ag`` carries its in-projections as ``mlp_weights`` weights
     (``w_in_x`` and ``w_in_z``, or the packed ``w_in_xz``: ``fuse_w13``
     packs both pairs) and its ``decode_ar`` x-projection launches none;
+    an RWKV layer's ``attn_ag`` carries its five token-shift projections
+    (r, k, v, g, w_dec1) and its channel-mix's ``mlp_ag`` the one ``w_k``;
     an MoE layer's
     ``mlp_ag`` / ``mlp_rs`` are its shared expert's (its ``moe_a2a``
     launches none); the MTP head, when the config has one, is one more
     block at the default plan and a second ``head_ag``.  Each layer
     resolves at its reference layer id (``model.layer_slot``); the
     replicated layout launches none."""
-    from repro_torch.configs.base import MAMBA, MLA, MOE_FFN
+    from repro_torch.configs.base import MAMBA, MLA, MOE_FFN, RWKV
     from repro_torch.models import model as M
     fwd = {"ag_gemm": 0, "gemm_rs": 0}
     bwd = {"ag_gemm": 0, "gemm_rs": 0}
@@ -5821,11 +6352,11 @@ def plan_launches(plans, cfg, tp, mlp_weights):
 
         def block(layer, kinds):
             add("attn_ag", layer,
-                mlp_weights if kinds[0] == MAMBA else 1,
+                {MAMBA: mlp_weights, RWKV: 5}.get(kinds[0], 1),
                 times=2 if kinds[0] == MLA else 1)
             add("attn_rs", layer)
             if kinds[1] != MOE_FFN or cfg.moe.num_shared_experts:
-                add("mlp_ag", layer, mlp_weights)
+                add("mlp_ag", layer, 1 if kinds[1] == RWKV else mlp_weights)
                 add("mlp_rs", layer)
         for j, kinds in enumerate(M.expanded_pattern(cfg)):
             block(M.layer_slot(cfg, j), kinds)
@@ -7388,9 +7919,9 @@ def main():
     timed("mla_tp_server_lane", phase_mla_tp_server_lane, torch)
     matmul_case = timed("matmul_kernel", phase_matmul_kernel, torch)
     matmul_launches, _ = timed("op_level_lane", phase_op_level_lane, torch)
-    ag_case, ag_mla, ag_train_mla, ag_jamba = timed(
+    ag_case, ag_mla, ag_train_mla, ag_jamba, ag_rwkv = timed(
         "ag_gemm_kernel", phase_fused_kernel, torch, "ag")
-    rs_case, rs_mla, rs_train_mla, rs_jamba = timed(
+    rs_case, rs_mla, rs_train_mla, rs_jamba, rs_rwkv = timed(
         "gemm_rs_kernel", phase_fused_kernel, torch, "rs")
     tp_counts = timed("tp_op_level_lane", phase_tp_op_level_lane, torch)
     timed("tp_lane", phase_tp_lane, torch, tp1_logits, tp1_decode)
@@ -7408,6 +7939,7 @@ def main():
     # after Scout's weights are freed
     jamba = timed("jamba_lane", phase_jamba_lane, torch)
     jamba_train = timed("jamba_train_lane", phase_jamba_train_lane, torch)
+    rwkv = timed("rwkv_lane", phase_rwkv_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -7482,6 +8014,8 @@ def main():
          "jamba_launches": jamba["ag_gemm"],
          "jamba_train_launches": jamba_train["ag_gemm"],
          "jamba_cases": mla_seam_cases(ag_jamba),
+         "rwkv_launches": rwkv["ag_gemm"],
+         "rwkv_cases": mla_seam_cases(ag_rwkv),
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
          "train_mla_cases": mla_seam_cases(ag_train_mla),
@@ -7518,6 +8052,8 @@ def main():
          "jamba_launches": jamba["gemm_rs"],
          "jamba_train_launches": jamba_train["gemm_rs"],
          "jamba_cases": mla_seam_cases(rs_jamba),
+         "rwkv_launches": rwkv["gemm_rs"],
+         "rwkv_cases": mla_seam_cases(rs_rwkv),
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),
          "train_mla_cases": mla_seam_cases(rs_train_mla),

@@ -4,9 +4,10 @@ Every architecture the port runs gets a module ``repro_torch/configs/<id>.py``
 exposing ``CONFIG: ModelConfig`` and ``SMOKE_CONFIG``; ``ARCH_IDS`` and
 ``PAPER_ARCH_IDS`` list them.  Field names and
 defaults match the reference so a config means the same model on both
-sides; the port runs the (ATTN, DENSE_FFN), (ATTN, MOE_FFN),
-(MLA, DENSE_FFN), (MLA, MOE_FFN), (MAMBA, DENSE_FFN) and (MAMBA, MOE_FFN)
-layer kinds so far (``models.model.check_ported`` rejects the rest).
+sides; the port runs every layer kind of the reference's patterns: (ATTN,
+DENSE_FFN), (ATTN, MOE_FFN), (MLA, DENSE_FFN), (MLA, MOE_FFN), (MAMBA,
+DENSE_FFN), (MAMBA, MOE_FFN) and (RWKV, RWKV), the RWKV-6 time-mix and
+channel-mix (``models.model.check_ported`` rejects the rest).
 ``SHAPES`` and ``shape_applicable`` are the reference's dry-run cells
 (``launch.dryrun``).
 """
@@ -45,6 +46,13 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64             # LoRA rank of the data-dependent decay
+    token_shift: bool = True
+
+
+@dataclass(frozen=True)
 class MLAConfig:
     q_lora_rank: int = 1536
     kv_lora_rank: int = 512
@@ -69,6 +77,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     rope_theta: float = 10000.0
     rope_style: str = "rope"         # rope | none (mrope not ported)
     qkv_bias: bool = False
@@ -171,7 +180,8 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> bool:
 
 
 # The archs the port has a config module for (the reference's ``ARCH_IDS``
-# lists more: its other families are not ported yet, ROADMAP queue 1 item 8)
+# lists more: its frontend-embedding families are not ported yet, ROADMAP
+# queue 1 item 8)
 ARCH_IDS: List[str] = [
     "jamba_v01_52b",
     "llama4_scout_17b_a16e",
@@ -180,6 +190,7 @@ ARCH_IDS: List[str] = [
     "phi4_mini_38b",
     "qwen15_110b",
     "minicpm_2b",
+    "rwkv6_3b",
 ]
 
 # the paper's own evaluation models (§5): GPT-3 175B, whose GEMMs give the
@@ -239,6 +250,8 @@ def shrink(cfg: ModelConfig, **overrides: Any) -> ModelConfig:
         small["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                                  qk_nope_head_dim=32, qk_rope_head_dim=16,
                                  v_head_dim=32)
+    if cfg.rwkv is not None:
+        small["rwkv"] = RWKVConfig(head_dim=32, decay_lora=16)
     if cfg.mamba is not None:
         small["mamba"] = MambaConfig(d_state=8, d_conv=4, expand=2)
     small.update(overrides)

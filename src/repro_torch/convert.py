@@ -7,7 +7,8 @@ The reference's parameter tree is ``{"embed", "final_norm", "lead": [...],
 [{"mixer": {"k", "v"} or {"c", "kr"}, "ffn": {}}]}``.  Layer ``i`` of the
 expanded pattern is ``lead[i]`` for the leading layers and
 ``periods[pos][rep]`` after them (``i = lead + rep * period + pos``); a
-Mamba layer's state ``{"conv", "ssm"}`` rides the same tree.  The
+Mamba layer's state ``{"conv", "ssm"}`` and an RWKV layer's (``mixer``
+``{"state", "last"}``, ``ffn`` ``{"last"}``) ride the same tree.  The
 multi-token-prediction head ``{"mixer", "ffn", "proj"}`` becomes the
 ``Model``'s ``mtp`` when the tree holds it.  Arrays cross as numpy: bf16
 leaves go as float32 and are cast back, which is exact.
@@ -36,6 +37,7 @@ from repro_torch.models.ffn import FP32_PARAMS
 from repro_torch.models.model import (Block, Model, MTPBlock,
                                       check_ported, layer_trees,
                                       reference_tree, shard_params)
+from repro_torch.models.serve import FFN_PREFIX
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -47,7 +49,8 @@ def _params(leaves: Dict[str, Any], dtype: torch.dtype,
             device: torch.device) -> Dict:
     """A (nested) leaf dict as tensors: ``dtype``, except the leaves the
     reference keeps in fp32 whatever its dtype (``ffn.FP32_PARAMS``: the
-    MoE router, a Mamba mixer's ``a_log`` and ``d_skip``)."""
+    MoE router, a Mamba mixer's ``a_log`` and ``d_skip``, an RWKV
+    time-mix's ``dec_base`` and ``u_bonus``)."""
     return {n: _params(a, dtype, device) if isinstance(a, dict)
             else _tensor(a, torch.float32 if n in FP32_PARAMS else dtype,
                          device)
@@ -104,18 +107,26 @@ def to_jax_tree(named: Dict[str, torch.Tensor],
     return np32(reference_tree(named, cfg))
 
 
-# cache leaves kept in fp32: a Mamba layer's SSM state
-FP32_CACHES = ("ssm",)
+# cache leaves kept in fp32: a Mamba layer's SSM state, an RWKV layer's
+# wkv state
+FP32_CACHES = ("ssm", "state")
 
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> List[Dict[str, torch.Tensor]]:
     """The reference's caches (leaves as numpy) -> the port's per-layer
-    list of ``{"k", "v"}`` (GQA), ``{"c", "kr"}`` (MLA) or ``{"conv",
-    "ssm"}`` (Mamba): bf16, the SSM state fp32 (``FP32_CACHES``)."""
+    list of flat dicts (``models.serve``'s layout): ``{"k", "v"}`` (GQA),
+    ``{"c", "kr"}`` (MLA), ``{"conv", "ssm"}`` (Mamba) or ``{"state",
+    "last", "ffn.last"}`` (RWKV: the reference's ``ffn`` leaves under
+    ``serve.FFN_PREFIX``): bf16, the SSM and wkv states fp32
+    (``FP32_CACHES``)."""
     dev = resolve_device(device)
-    return [{n: _tensor(a, torch.float32 if n in FP32_CACHES
-                        else torch.bfloat16, dev)
-             for n, a in layer["mixer"].items()}
+
+    def leaf(n, a):
+        return _tensor(a, torch.float32 if n in FP32_CACHES
+                       else torch.bfloat16, dev)
+    return [{**{n: leaf(n, a) for n, a in layer["mixer"].items()},
+             **{FFN_PREFIX + n: leaf(n, a)
+                for n, a in layer.get("ffn", {}).items()}}
             for layer in layer_trees(tree, cfg)]

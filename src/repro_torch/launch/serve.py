@@ -13,11 +13,14 @@ a seeded random-init model.
       --dp 2 --tp 2 --mode flux     # two replicas of two TP ranks
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \
       --layers 8                    # Mamba + attention hybrid, one period
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
+      --tp 2 --mode flux            # RWKV-6: time-mix + channel-mix
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 path (use ``--smoke`` sizes there).  Every arch of ``configs.ARCH_IDS``
 serves at any ``--tp`` / ``--dp``: Jamba's Mamba layers keep a dense conv /
-SSM state per slot (no prefix reuse for it).  At ``--tp`` > 1 the ranks are
+SSM state per slot, RWKV-6's layers a dense wkv state and two token-shift
+rows per slot (no prefix reuse for either).  At ``--tp`` > 1 the ranks are
 the threads of one ``dist.RankGroup`` on the one device, each with its
 ``model.shard_params`` copy of the same seeded weights, so the tokens equal
 the tp=1 run's up to the sums' rounding.  ``--plan-profile`` serves from a

@@ -117,8 +117,9 @@ def ffn_decode(p, x: torch.Tensor, ctx: TPContext,
 # Mixture of Experts
 # ---------------------------------------------------------------------------
 # leaves the reference keeps in fp32 whatever the model's dtype: the MoE
-# router, a Mamba mixer's a_log and d_skip
-FP32_PARAMS = ("router", "a_log", "d_skip")
+# router, a Mamba mixer's a_log and d_skip, an RWKV time-mix's dec_base and
+# u_bonus
+FP32_PARAMS = ("router", "a_log", "d_skip", "dec_base", "u_bonus")
 
 
 def _normal_stack(gen: torch.Generator, shape, std: float, dtype: torch.dtype,

@@ -6,7 +6,9 @@ the tied ``embed`` table [V_pad, D], ``final_norm`` [D], one ``Block``
 per layer in expanded-pattern order, whose ``mixer`` / ``ffn`` parameter
 dicts carry the reference's leaf names and packed layouts (nested for the
 MoE's ``shared`` expert; a Mamba mixer's ``w_in_x`` / ``w_in_z`` packed
-into ``w_in_xz`` with ``fuse_w13``, as the reference's ``fuse_xz``), and,
+into ``w_in_xz`` with ``fuse_w13``, as the reference's ``fuse_xz``; an
+RWKV layer's time-mix as its ``mixer`` and its channel-mix as its
+``ffn``), and,
 for a config with ``mtp_depth`` (DeepSeek-V3), the
 multi-token-prediction head ``mtp``: a block of the
 pattern's last mixer kind with a dense FFN, and ``proj`` [2D, D],
@@ -18,7 +20,8 @@ reads ``mtp``.
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
 ``forward_loss`` are the training forward of every ported kind (Mamba's
-scan recomputes each chunk in its backward, ``mamba.selective_scan``), with
+scan recomputes each chunk in its backward, ``mamba.selective_scan``;
+RWKV runs them forward only, under no grad: ``check_trainable``), with
 the MoE's aux loss and the MTP loss, in either residual layout
 (``TPContext.seq_sharded``) and with or without ``ParallelConfig.remat``;
 at tp>1 they run as one rank of the TP group, on that rank's
@@ -57,17 +60,20 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import (ATTN, DENSE_FFN, MAMBA, MLA, MOE_FFN,
-                                      ModelConfig, ParallelConfig)
+                                      RWKV, ModelConfig, ParallelConfig)
 from repro_torch.core import overlap
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ffn, layers, mamba
+from repro_torch.models import attention, ffn, layers, mamba, rwkv
 from repro_torch.models import init_utils as iu
 from repro_torch.parallel.sharding import TPContext, pad_vocab
 
 # (mixer, ffn) layer kinds the port runs, at any tp
 PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (ATTN, MOE_FFN),
                           (MLA, DENSE_FFN), (MLA, MOE_FFN),
-                          (MAMBA, DENSE_FFN), (MAMBA, MOE_FFN)})
+                          (MAMBA, DENSE_FFN), (MAMBA, MOE_FFN),
+                          (RWKV, RWKV)})
+# the kinds the port serves but does not train (``check_trainable``)
+UNTRAINED_KINDS = frozenset({RWKV})
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
@@ -78,6 +84,10 @@ EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
 # the output row-cut, the latent down-projections and norms replicated.
 # Mamba: the in-projections, the conv, w_dt and the per-channel leaves cut
 # on their channel dim, w_x and w_out row-cut, the norm replicated.
+# RWKV: the time-mix's r / k / v / g and w_dec2 column-cut on their heads,
+# dec_base and u_bonus cut on their head dim, w_o row-cut, w_dec1, mu and
+# the norms replicated; the channel-mix's w_k column-cut, w_v row-cut,
+# mu, the receptance w_r and the norm replicated.
 # MoE: the routed experts cut on their expert dim over the EP group (the
 # TP ranks), the router and norm replicated, the shared expert cut as a
 # dense FFN.
@@ -87,11 +97,16 @@ _MIXER_SPECS = {
           "q_norm": None, "kv_norm": None, "norm": None},
     MAMBA: {"w_in_x": 1, "w_in_z": 1, "w_in_xz": 1, "conv": 1, "conv_b": 0,
             "w_x": 0, "w_dt": 1, "dt_bias": 0, "a_log": 0, "d_skip": 0,
-            "w_out": 0, "norm": None}}
+            "w_out": 0, "norm": None},
+    RWKV: {"mu": None, "w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1,
+           "w_dec1": None, "w_dec2": 1, "dec_base": 0, "u_bonus": 0,
+           "w_o": 0, "ln_x": None, "norm": None}}
 _DENSE_SPECS = {"w1": 1, "w3": 1, "w13": 1, "w2": 0, "norm": None}
 _FFN_SPECS = {DENSE_FFN: _DENSE_SPECS,
               MOE_FFN: {"router": None, "w1": 0, "w3": 0, "w2": 0,
-                        "norm": None, "shared": _DENSE_SPECS}}
+                        "norm": None, "shared": _DENSE_SPECS},
+              RWKV: {"mu": None, "w_k": 1, "w_v": 0, "w_r": None,
+                     "norm": None}}
 
 
 def expanded_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -126,8 +141,8 @@ def check_ported(cfg: ModelConfig) -> None:
     other = set(expanded_pattern(cfg)) - PORTED_KINDS
     if other:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(other)} are not ported (the "
-            "RWKV-6 family: ROADMAP queue 1 item 8); the port runs "
+            f"{cfg.name}: layer kinds {sorted(other)} are not ported (no "
+            "reference pattern holds them); the port runs "
             f"{sorted(PORTED_KINDS)}")
 
 
@@ -215,6 +230,8 @@ def _init_mixer(kind: str, gen: torch.Generator, cfg: ModelConfig, tp: int,
         return attention.init_mla(gen, cfg, tp, dtype, dev)
     if kind == MAMBA:
         return mamba.init_mamba(gen, cfg, tp, dtype, dev, fuse_xz=fuse13)
+    if kind == RWKV:
+        return rwkv.init_rwkv_time(gen, cfg, tp, dtype, dev)
     return attention.init_gqa(gen, cfg, tp, dtype, dev)
 
 
@@ -239,6 +256,8 @@ def _init_leaves(cfg: ModelConfig, par: ParallelConfig,
         if ffn_kind == MOE_FFN:
             f = ffn.init_moe(gen, cfg, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
+        elif ffn_kind == RWKV:          # the channel-mix plays the FFN
+            f = rwkv.init_rwkv_channel(gen, cfg, par.tp, dtype, dev)
         else:
             f = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, par.tp, dtype, dev,
                              fuse13=par.fuse_w13)
@@ -602,15 +621,34 @@ def mesh_shard(params: Model, cfg: ModelConfig, par: ParallelConfig,
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
-def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
-    """Raise unless the model trains in the port: ported layer kinds
-    (``check_ported``; every one of them trains, Mamba's through the
-    scan whose backward recomputes) and a ``remat`` of
-    ``REMAT_MODES``."""
+def check_forward(cfg: ModelConfig, par: ParallelConfig) -> None:
+    """Raise unless ``backbone`` / ``forward_loss`` run the model: ported
+    layer kinds (``check_ported``) and a ``remat`` of ``REMAT_MODES``."""
     check_ported(cfg)
     if par.remat not in REMAT_MODES:
         raise ValueError(f"invalid remat {par.remat!r}; one of "
                          f"{REMAT_MODES}")
+
+
+def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
+    """Raise unless the model trains in the port: ``check_forward``, and
+    no layer of ``UNTRAINED_KINDS`` (every other kind trains, Mamba's
+    through the scan whose backward recomputes).  An RWKV layer raises
+    ``NotImplementedError``: RWKV-6 is served, not trained (ROADMAP 8.5's
+    training half)."""
+    check_forward(cfg, par)
+    if any(k in UNTRAINED_KINDS for kinds in expanded_pattern(cfg)
+           for k in kinds):
+        raise NotImplementedError(f"{cfg.name}: {rwkv.NOT_TRAINED}")
+
+
+def _check_run(cfg: ModelConfig, par: ParallelConfig, params: Model) -> None:
+    """``check_trainable`` when the forward records grads (grad mode on
+    and trainable weights), else ``check_forward``."""
+    if torch.is_grad_enabled() and params.trainable:
+        check_trainable(cfg, par)
+    else:
+        check_forward(cfg, par)
 
 
 class _Zero3:
@@ -657,14 +695,15 @@ def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
            kinds: Tuple[str, str], z3: Optional[_Zero3] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of ``kinds`` (mixer, ffn): the pre-norm mixer (GQA, MLA or
-    Mamba), then the pre-norm FFN (dense or MoE), each added to the
+    Mamba or the RWKV time-mix), then the pre-norm FFN (dense, MoE or the
+    RWKV channel-mix), each added to the
     residual stream, which is cut on the seam tape before each sub-block
     (``overlap.cut``), so the backward walks each segment once.  With
     ``z3`` the layer's ZeRO-3 leaves are gathered first.  Returns (x, the
     layer's aux loss: the MoE's, else 0)."""
     mixer_kind, ffn_kind = kinds
-    mixer = {MLA: attention.mla_train,
-             MAMBA: mamba.mamba_train}.get(mixer_kind, attention.gqa_train)
+    mixer = {MLA: attention.mla_train, MAMBA: mamba.mamba_train,
+             RWKV: rwkv.rwkv_time_train}.get(mixer_kind, attention.gqa_train)
     x = overlap.cut(x, ctx.tape_axis)
     mixer_p, ffn_p = (blk.mixer, blk.ffn) if z3 is None else z3.gather(blk)
     x = x + mixer(mixer_p, x, ctx, cfg)
@@ -672,7 +711,8 @@ def _block(blk: Block, x: torch.Tensor, ctx: TPContext, cfg: ModelConfig,
     if ffn_kind == MOE_FFN:
         y, aux = ffn.moe_train(ffn_p, x, ctx, cfg, cfg.norm_eps)
     else:
-        y = ffn.ffn_train(ffn_p, x, ctx, cfg.norm_eps)
+        y = (rwkv.rwkv_channel_train(ffn_p, x, ctx, cfg) if ffn_kind == RWKV
+             else ffn.ffn_train(ffn_p, x, ctx, cfg.norm_eps))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
@@ -712,8 +752,8 @@ def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
     blocks.  With ``par.zero3`` each layer gathers its ZeRO-3 leaves over
     the data group (``_Zero3``); once the next layer's input is cut on
     the tape, the previous layer's gathered copies are released (module
-    docstring)."""
-    check_trainable(cfg, par)
+    docstring).  An RWKV model runs it forward only (``check_trainable``)."""
+    _check_run(cfg, par, params)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prev = None
     for i, (blk, kinds) in enumerate(zip(params.layers,
@@ -758,8 +798,9 @@ def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
     sequence-sharded layout, a psum to the replicated one), the LM head's
     ``head_ag`` seam the vocab-sharded logits.  At tp>1 every rank
     returns the same loss (its own replicated copy, as in the
-    reference)."""
-    check_trainable(cfg, par)
+    reference).  An RWKV model computes it forward only, under no grad or
+    with frozen weights (``check_trainable``)."""
+    _check_run(cfg, par, params)
     if "embeds" in batch:
         raise NotImplementedError(EMBEDS_NOT_PORTED)
     v_pad = pad_vocab(cfg.vocab_size, ctx.tp)
@@ -963,8 +1004,9 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
     KV head taken once (``grads``: summed over its replicas); MLA's padded
     heads cut off; routed experts as they are (their width is not padded),
     the shared expert cut to its width; a Mamba mixer's padded channels
-    cut off and ``w_in_xz`` unpacked (-> ``w_in_x`` and ``w_in_z``).  Two
-    tp degrees of one model compare leaf by leaf in this layout."""
+    cut off and ``w_in_xz`` unpacked (-> ``w_in_x`` and ``w_in_z``); an
+    RWKV time-mix's padded heads and channel-mix's padded d_ff cut off.
+    Two tp degrees of one model compare leaf by leaf in this layout."""
     d = attention.AttnDims.of(cfg, tp)
     dh = d.dh
     kinds = expanded_pattern(cfg)
@@ -974,7 +1016,18 @@ def canonical_leaves(named: Dict[str, torch.Tensor], cfg: ModelConfig,
         base = n[:len(n) - len(leaf)]
         width = cfg.d_ff               # a dense FFN's (the MTP head's too)
         if n.startswith("layers."):
-            ffn_kind = kinds[int(n.split(".")[1])][1]
+            mixer_kind, ffn_kind = kinds[int(n.split(".")[1])]
+            part = n.split(".")[2]
+            if mixer_kind == RWKV:
+                # an RWKV leaf's sharded dim is its head (time-mix) or
+                # hidden (channel-mix) dim, zero-padded past the canonical
+                # width; the replicated leaves carry no padding
+                dim = (_MIXER_SPECS if part == "mixer"
+                       else _FFN_SPECS)[RWKV][leaf]
+                out[n] = t if dim is None else t.narrow(dim, 0, (
+                    cfg.d_model // cfg.rwkv.head_dim * cfg.rwkv.head_dim
+                    if part == "mixer" else cfg.d_ff))
+                continue
             if ".ffn.shared." in n:
                 mc = cfg.moe
                 width = mc.shared_ffn * mc.num_shared_experts

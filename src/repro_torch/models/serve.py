@@ -19,8 +19,17 @@ Caches are a list with one dict per layer (expanded-pattern order): GQA
 ``{"c", "kr"}`` shaped [B, S_max, R] / [B, S_max, Dr] or their pools; both
 bf16.  A Mamba layer's recurrent state ``{"conv", "ssm"}`` (bf16 [B,
 d_conv - 1, C_loc] and fp32 [B, C_loc, N], ``mamba.mamba_cache_shapes``)
-has no sequence dim: it stays dense per slot, [max_batch, ...], in the
-paged caches too.
+and an RWKV layer's (the time-mix's ``{"state", "last"}``, fp32 [B, hl,
+dh, dh] and bf16 [B, D], and the channel-mix's ``last``,
+``rwkv.rwkv_cache_shapes``) have no sequence dim: they stay dense per
+slot, [max_batch, ...], in the paged caches too.
+
+A layer's cache is ONE flat dict for every family: its mixer's leaves
+under their own names and, for an FFN that carries state (the RWKV
+channel-mix), the FFN's leaves under ``"ffn." + name`` (``FFN_PREFIX``;
+the reference nests them as ``{"mixer": ..., "ffn": ...}``).  So an RWKV
+layer's cache is ``{"state", "last", "ffn.last"}``; a dense or MoE FFN
+adds nothing.
 ``decode_step`` and ``prefill_chunk_step`` write their caches IN PLACE and
 return them — the reference's server donates the cache buffers to
 ``jit`` for the same reuse.
@@ -30,20 +39,24 @@ Contracts kept from the reference:
 * ``decode_step`` takes ``pos: [B]`` — each row RoPE-rotates at, masks to
   and writes at its own position (a scalar broadcasts).  ``active: [B]``
   keeps inactive rows of DENSE caches unchanged: a dense KV cache's row at
-  its position, and a Mamba layer's whole state rows, whether or not the
-  KV caches are paged (the reference's ``_freeze_inactive``: a slot
+  its position, and a recurrent layer's whole state rows (Mamba's conv
+  and ssm; RWKV's state, last and ffn.last), whether or not the KV caches
+  are paged (the reference's ``_freeze_inactive``: a slot
   between chunks of its chunked prefill must not see the interleaved
   decodes advance its state); paged pools need no mask (inactive slots
   pass all-zero table rows, which write the null block).
 * ``prefill_step`` takes optional ``lengths: [B]`` — true prompt lengths of
   a right-padded batch: attention is pad-safe by causality, MoE routing
   keeps pad tokens out of expert capacity, a Mamba layer freezes its state
-  at each row's length (dt = 0 on pad positions), and the next token is
+  at each row's length (dt = 0 on pad positions), an RWKV layer its wkv
+  state (k = 0 and logw = 0 on pad positions) and both token-shift rows
+  (each row's last true token), and the next token is
   read at ``lengths - 1`` per row.
-* ``prefill_chunk_step`` takes the request's ``slot``: a Mamba layer
-  reads the slot's state row (zeroed on the first chunk, ``off == 0``, so
-  a freed slot's state never leaks into the next request), runs the chunk
-  with chunk-relative lengths and writes the row back.
+* ``prefill_chunk_step`` takes the request's ``slot``: a recurrent layer
+  (Mamba; RWKV's time-mix and channel-mix) reads the slot's state rows
+  (zeroed on the first chunk, ``off == 0``, so a freed slot's state never
+  leaks into the next request), runs the chunk with chunk-relative
+  lengths and writes the rows back.
 * the next token is the first maximum of the logits against the tied
   ``embed`` table, with the padded vocab columns masked to -inf.
 """
@@ -54,14 +67,16 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE_FFN, MAMBA, MLA,
-                                      ModelConfig, ParallelConfig)
-from repro_torch.models import attention, ffn, layers, mamba
+from repro_torch.configs.base import (ATTN, DENSE_FFN, MAMBA, MLA, MOE_FFN,
+                                      RWKV, ModelConfig, ParallelConfig)
+from repro_torch.models import attention, ffn, layers, mamba, rwkv
 from repro_torch.models.model import (Model, check_ported, expanded_pattern,
                                       layer_slot, zero3_layers)
 from repro_torch.parallel.sharding import TPContext, gather_ranks
 
 Caches = List[Dict[str, torch.Tensor]]
+# a layer cache's FFN leaves (the RWKV channel-mix's ``last``)
+FFN_PREFIX = "ffn."
 
 
 class TensorSpec(NamedTuple):
@@ -69,16 +84,26 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def _mixer_cache_specs(kind: str, cfg: ModelConfig, tp: int, rows: int,
-                       pool: Optional[Tuple[int, int]], s_max: int
-                       ) -> Dict[str, TensorSpec]:
-    """One layer's cache specs: the attention families' (bf16) dense
-    [rows, s_max, ...] or, with ``pool``, [num_blocks, block_size, ...];
-    a Mamba layer's state [rows, ...] either way, each leaf its own
-    dtype."""
+def _specs(shapes) -> Dict[str, TensorSpec]:
+    return {n: TensorSpec(shape, dtype) for n, (shape, dtype) in
+            shapes.items()}
+
+
+def _layer_cache_specs(kinds: Tuple[str, str], cfg: ModelConfig, tp: int,
+                       rows: int, pool: Optional[Tuple[int, int]],
+                       s_max: int) -> Dict[str, TensorSpec]:
+    """One layer's cache specs (the module docstring's flat layout): the
+    attention families' (bf16) dense [rows, s_max, ...] or, with
+    ``pool``, [num_blocks, block_size, ...]; a recurrent layer's state
+    [rows, ...] either way, each leaf its own dtype, an RWKV channel-mix's
+    under ``FFN_PREFIX``."""
+    kind = kinds[0]
     if kind == MAMBA:
-        return {n: TensorSpec(shape, dtype) for n, (shape, dtype) in
-                mamba.mamba_cache_shapes(cfg, tp, rows).items()}
+        return _specs(mamba.mamba_cache_shapes(cfg, tp, rows))
+    if kind == RWKV:       # its FFN is the channel-mix (``check_ported``)
+        time, channel = rwkv.rwkv_cache_shapes(cfg, tp, rows)
+        return {**_specs(time), **{FFN_PREFIX + n: s for n, s in
+                                   _specs(channel).items()}}
     n_rows, width = pool if pool is not None else (rows, s_max)
     if kind == ATTN:
         shape = attention.gqa_cache_shape(cfg, tp, n_rows, width)
@@ -120,21 +145,23 @@ def cache_specs(cfg: ModelConfig, par: ParallelConfig, batch: int, s_max: int,
                 dp_axes: Tuple[str, ...] = DP_AXES
                 ) -> List[Dict[str, TensorSpec]]:
     """One rank's per-layer cache specs (GQA ``{"k", "v"}`` of its local KV
-    heads, MLA ``{"c", "kr"}``, Mamba ``{"conv", "ssm"}`` of its channels):
+    heads, MLA ``{"c", "kr"}``, Mamba ``{"conv", "ssm"}`` of its channels,
+    RWKV ``{"state", "last", "ffn.last"}`` of its heads):
     dense [rows, s_max, ...], the rows its piece of ``batch`` split over
     ``dp_axes`` (the reference's ``cache_specs(dp_axes=)``), or with
     ``pool=(num_blocks, block_size)`` the attention families' shared
     [num_blocks, block_size, ...] pools addressed through per-slot block
     tables.  The attention caches are bf16 whatever the compute dtype; a
-    Mamba layer's state is per row in both layouts, conv bf16 and ssm
-    fp32."""
+    recurrent layer's state is per row in both layouts, Mamba's conv bf16
+    and ssm fp32, RWKV's state fp32 and both ``last`` rows bf16."""
     check_ported(cfg)
     ranks = math.prod(_dp_sizes(par)[a] for a in dp_axes)
     if batch % ranks:
         raise ValueError(f"a batch of {batch} rows does not split over "
                          f"{dp_axes} ({ranks} ranks)")
-    return [_mixer_cache_specs(mk, cfg, par.tp, batch // ranks, pool, s_max)
-            for mk, _ in expanded_pattern(cfg)]
+    return [_layer_cache_specs(kinds, cfg, par.tp, batch // ranks, pool,
+                               s_max)
+            for kinds in expanded_pattern(cfg)]
 
 
 def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
@@ -142,8 +169,8 @@ def paged_cache_specs(cfg: ModelConfig, par: ParallelConfig, num_blocks: int,
                       ) -> List[Dict[str, TensorSpec]]:
     """Cache specs for the paged serving runtime (see ``cache_specs``):
     per replica, with no dp axis (each replica's pools hold every slot;
-    the Server's replicas serve the same requests); a Mamba layer's state
-    is dense [max_batch, ...], nothing of it paged."""
+    the Server's replicas serve the same requests); a recurrent layer's
+    state is dense [max_batch, ...], nothing of it paged."""
     return cache_specs(cfg, par, max_batch, 0, pool=(num_blocks, block_size),
                        dp_axes=())
 
@@ -188,16 +215,44 @@ def _mixer_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig,
     if kind == MAMBA:
         return mamba.mamba_train(p, x, ctx, cfg, with_cache=True,
                                  lengths=lengths)
+    if kind == RWKV:
+        return rwkv.rwkv_time_train(p, x, ctx, cfg, with_cache=True,
+                                    lengths=lengths)
     return attention.mla_train(p, x, ctx, cfg, with_cache=True)
 
 
-def _ffn_full(kind: str, p, x, ctx: TPContext, cfg: ModelConfig,
-              lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """The FFN over a prefill batch or chunk; ``lengths`` keeps MoE pad
-    tokens out of expert capacity."""
+def _ffn_prefill(kind: str, p, x, ctx: TPContext, cfg: ModelConfig,
+                 lengths: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The FFN over a prefill batch: (its output, its state: the RWKV
+    channel-mix's ``{"last"}``, else empty); ``lengths`` keeps MoE pad
+    tokens out of expert capacity and gives each RWKV row its last
+    token."""
     if kind == DENSE_FFN:
-        return ffn.ffn_train(p, x, ctx, cfg.norm_eps)
-    return ffn.moe_train(p, x, ctx, cfg, cfg.norm_eps, lengths=lengths)[0]
+        return ffn.ffn_train(p, x, ctx, cfg.norm_eps), {}
+    if kind == RWKV:
+        return rwkv.rwkv_channel_train(p, x, ctx, cfg, with_cache=True,
+                                       lengths=lengths)
+    return ffn.moe_train(p, x, ctx, cfg, cfg.norm_eps,
+                         lengths=lengths)[0], {}
+
+
+def _mixer_part(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A layer cache's mixer leaves (the same tensors)."""
+    return {n: t for n, t in cache.items() if not n.startswith(FFN_PREFIX)}
+
+
+def _ffn_part(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A layer cache's FFN leaves by their own names (the same tensors)."""
+    return {n[len(FFN_PREFIX):]: t for n, t in cache.items()
+            if n.startswith(FFN_PREFIX)}
+
+
+def _layer_cache(mixer: Dict[str, torch.Tensor],
+                 ffn_state: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """One layer's flat cache from its mixer's and its FFN's leaves."""
+    return {**mixer, **{FFN_PREFIX + n: t for n, t in ffn_state.items()}}
 
 
 @torch.no_grad()
@@ -233,9 +288,10 @@ def prefill_logits(params: Model, batch: Dict[str, torch.Tensor],
         mixer, ffn_p = _weights(blk, z3)
         dy, mc = _mixer_prefill(mk, mixer, x, lctx, cfg, lengths)
         x = x + dy
-        x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lengths)
+        dy, fc = _ffn_prefill(fk, ffn_p, x, lctx, cfg, lengths)
+        x = x + dy
         _release(z3)
-        caches.append(mc)
+        caches.append(_layer_cache(mc, fc))
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # only each row's LAST true position feeds the next token
     if lengths is None:
@@ -307,11 +363,14 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
         lc = caches[i]
         lctx = ctx.with_layer(layer_slot(cfg, i))
         mixer, ffn_p = _weights(blk, z3)
-        if mk == MAMBA:
+        if mk in (MAMBA, RWKV):
             # the state rows of inactive slots stay as they were, paged or
             # not (the reference's _freeze_inactive)
-            dy, new = mamba.mamba_decode(mixer, x, lc, pos, lctx, cfg)
-            _store_state(lc, new, active)
+            state = _mixer_part(lc)
+            dy, new = (mamba.mamba_decode(mixer, x, state, pos, lctx, cfg)
+                       if mk == MAMBA else
+                       rwkv.rwkv_time_decode(mixer, x, state, lctx, cfg))
+            _store_state(state, new, active)
         else:
             saved = _rows_at(lc, pos) if inactive is not None else None
             dy, _ = _mixer_decode(mk, mixer, x, lc, pos, lctx, cfg,
@@ -321,8 +380,14 @@ def decode_logits(params: Model, caches: Caches, tokens: torch.Tensor, pos,
         x = x + dy
         if fk == DENSE_FFN:
             x = x + ffn.ffn_decode(ffn_p, x, lctx, cfg.norm_eps)
-        else:
+        elif fk == MOE_FFN:
             x = x + ffn.moe_decode(ffn_p, x, lctx, cfg, cfg.norm_eps)
+        else:
+            # the channel-mix's token-shift row, frozen as the mixer's
+            state = _ffn_part(lc)
+            dy, new = rwkv.rwkv_channel_decode(ffn_p, x, state, lctx, cfg)
+            _store_state(state, new, active)
+            x = x + dy
         _release(z3)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     # this rank's vocab shard of the logits
@@ -337,8 +402,9 @@ def decode_step(params: Model, caches: Caches, tokens: torch.Tensor, pos,
     """One greedy decode step.  tokens: [B, 1]; pos: [B] per-slot write
     positions (a scalar broadcasts).  With ``block_tables`` [B, pages] the
     caches are paged pools.  ``active`` [B] (optional) marks the
-    generating rows: the others' dense cache entries and Mamba state rows
-    are left as they were.  With ``ctx.use_kernels`` every MLA layer's
+    generating rows: the others' dense cache entries and recurrent state
+    rows (Mamba's, RWKV's time-mix and channel-mix) are left as they
+    were.  With ``ctx.use_kernels`` every MLA layer's
     attention is the MLA-decode kernel.  At tp>1 each rank (inside
     ``group.spmd``) embeds through the vocab-parallel psum, attends over
     its local heads and writes its KV heads; every rank returns the same
@@ -368,9 +434,10 @@ def _restore_rows(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
 def _store_state(cache: Dict[str, torch.Tensor],
                  new: Dict[str, torch.Tensor],
                  active: Optional[torch.Tensor]) -> None:
-    """Write a Mamba layer's new state into its cache rows in place: every
-    row, or with ``active`` the active rows only (whole rows: the state
-    has no position)."""
+    """Write a recurrent layer's new state (a Mamba mixer's, an RWKV
+    time-mix's or channel-mix's) into its cache rows in place: every row,
+    or with ``active`` the active rows only (whole rows: the state has no
+    position)."""
     for n, t in cache.items():
         v = new[n].to(t.dtype)
         if active is not None:
@@ -378,21 +445,22 @@ def _store_state(cache: Dict[str, torch.Tensor],
         t.copy_(v)
 
 
-def _chunk_state(mixer, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+def _chunk_state(fn, p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  slot: Optional[int], first: bool, lenv: torch.Tensor,
                  ctx: TPContext, cfg: ModelConfig) -> torch.Tensor:
-    """A Mamba layer's chunk of the chunked prefill: the slot's state row
-    (zeros on the request's first chunk), the chunk at its chunk-relative
-    length (rows past it freeze the state as padding does), the new state
-    written back into the row."""
+    """A recurrent block's chunk of the chunked prefill (``fn``: Mamba's
+    ``mamba_train``, RWKV's ``rwkv_time_train`` or
+    ``rwkv_channel_train``): the slot's state row (zeros on the request's
+    first chunk), the chunk at its chunk-relative length (rows past it
+    freeze the state as padding does), the new state written back into
+    the row."""
     if slot is None:
-        raise ValueError("a Mamba layer's chunked prefill needs the "
+        raise ValueError("a recurrent layer's chunked prefill needs the "
                          "request's slot (its dense state row)")
     row = slice(slot, slot + 1)
     st = {n: torch.zeros_like(t[row]) if first else t[row]
           for n, t in cache.items()}
-    dy, new = mamba.mamba_train(mixer, x, ctx, cfg, with_cache=True,
-                                lengths=lenv, cache=st)
+    dy, new = fn(p, x, ctx, cfg, with_cache=True, lengths=lenv, cache=st)
     for n, t in cache.items():
         t[row] = new[n].to(t.dtype)
     return dy
@@ -420,17 +488,25 @@ def prefill_chunk_logits(params: Model, caches: Caches, tokens: torch.Tensor,
             zero3_layers(cfg, ctx))):
         lctx = ctx.with_layer(layer_slot(cfg, i))
         mixer, ffn_p = _weights(blk, z3)
-        if mk == MAMBA:
-            dy = _chunk_state(mixer, x, caches[i], slot, first, lenv, lctx,
-                              cfg)
+        if mk in (MAMBA, RWKV):
+            fn = mamba.mamba_train if mk == MAMBA else rwkv.rwkv_time_train
+            dy = _chunk_state(fn, mixer, x, _mixer_part(caches[i]), slot,
+                              first, lenv, lctx, cfg)
         else:
             chunk = (attention.gqa_prefill_chunk if mk == ATTN
                      else attention.mla_prefill_chunk)
             dy, _ = chunk(mixer, x, caches[i], block_tables, off, chunk_len,
                           lctx, cfg)
         x = x + dy
-        # MoE: rows past chunk_len are padding, kept out of expert capacity
-        x = x + _ffn_full(fk, ffn_p, x, lctx, cfg, lenv)
+        if fk == RWKV:
+            dy = _chunk_state(rwkv.rwkv_channel_train, ffn_p, x,
+                              _ffn_part(caches[i]), slot, first, lenv, lctx,
+                              cfg)
+        else:
+            # MoE: rows past chunk_len are padding, kept out of expert
+            # capacity
+            dy = _ffn_prefill(fk, ffn_p, x, lctx, cfg, lenv)[0]
+        x = x + dy
         _release(z3)
     h = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     last = torch.full((h.shape[0],), chunk_len - 1, device=h.device)
@@ -444,11 +520,11 @@ def prefill_chunk_step(params: Model, caches: Caches, tokens: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Caches]:
     """One fixed-shape chunk of an incremental paged prefill: tokens [1, C]
     (right-padded past ``chunk_len``), written at logical offset ``off``
-    through ``block_tables`` [1, pages].  A Mamba layer threads the
-    request's dense state row ``slot`` across its chunks: zeroed on the
-    first chunk (``off == 0``), read, and written back (attention-only
-    models need no slot).  At tp>1 it runs
-    as one rank, as ``decode_step`` does.  Returns (next_token [1, 1] —
+    through ``block_tables`` [1, pages].  A recurrent layer (Mamba; RWKV's
+    time-mix and channel-mix) threads the request's dense state row
+    ``slot`` across its chunks: zeroed on the first chunk (``off == 0``),
+    read, and written back (attention-only models need no slot).  At tp>1
+    it runs as one rank, as ``decode_step`` does.  Returns (next_token [1, 1] —
     meaningful on the final chunk only — and the caches, updated in
     place)."""
     logits, caches = prefill_chunk_logits(params, caches, tokens,

@@ -10,9 +10,9 @@ Two model calls serve everything, as in the reference:
 * **Chunked prefill** — admission reserves a slot plus pool blocks for the
   whole request horizon, then the prompt streams through
   ``prefill_chunk_step`` in fixed ``[1, C]`` chunks, interleaved with decode
-  by the ``ChunkScheduler``; a Mamba layer threads the slot's dense state
-  row across the chunks, and the interleaved decodes leave it alone (their
-  ``active`` mask).
+  by the ``ChunkScheduler``; a recurrent layer (Mamba's, RWKV's time-mix
+  and channel-mix) threads the slot's dense state rows across the chunks,
+  and the interleaved decodes leave them alone (their ``active`` mask).
 
 Prefix reuse: full prompt blocks register in the pool's hash-chain cache;
 a later admission sharing the prefix acquires them and starts prefilling

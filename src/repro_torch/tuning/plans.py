@@ -5,13 +5,17 @@
 resolves its knobs through ``PlanSet.resolve(seam, layer)``.  Seam names
 are model-level (what the layer is doing), not collective-level:
 
-  mlp_ag    FFN up-projection AllGather-GEMM (w1/w3/w13)
-  mlp_rs    FFN down-projection GEMM-ReduceScatter (w2)
+  mlp_ag    FFN up-projection AllGather-GEMM (w1/w3/w13; the RWKV
+            channel-mix's w_k with its squared-ReLU epilogue)
+  mlp_rs    FFN down-projection GEMM-ReduceScatter (w2; RWKV's w_v)
   attn_ag   mixer input projection AllGather-GEMM (QKV / MLA up / mamba
-            in: w_in_x and w_in_z over one shared gather)
+            in: w_in_x and w_in_z over one shared gather / the RWKV
+            time-mix's five token-shift projections r, k, v, g and
+            w_dec1 over one shared gather of [h | prev])
   attn_rs   mixer output projection GEMM-ReduceScatter (wo / w_o / w_out)
   decode_ar row-parallel GEMM + AllReduce seams (the decode paths of every
-            mixer and FFN, plus mamba's train-path x-projection AR)
+            mixer and FFN, RWKV's w_o and channel w_v among them, plus
+            mamba's train-path x-projection AR)
   head_ag   LM-head AllGather-GEMM (the biggest single GEMM)
   moe_a2a   MoE expert-parallel token exchange
 

@@ -129,10 +129,12 @@ def test_port_init_has_the_converted_layout(model):
 
 def test_check_ported_kinds():
     TM.check_ported(get_smoke_config(ARCH))
-    # Mamba is ported (served); RWKV-6 is not yet
+    # Mamba is ported; so is RWKV-6 as the reference pairs it, its
+    # time-mix with its channel-mix, and no other way
     hybrid = dataclasses.replace(get_smoke_config("minicpm_2b"),
                                  pattern=(("attn", "ffn"), (MAMBA, "ffn")))
     TM.check_ported(hybrid)
+    TM.check_ported(dataclasses.replace(hybrid, pattern=((RWKV, RWKV),)))
     rwkv = dataclasses.replace(hybrid, pattern=(("attn", "ffn"),
                                                 (RWKV, "ffn")))
     with pytest.raises(NotImplementedError, match="not ported"):
