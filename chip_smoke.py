@@ -512,6 +512,36 @@ RWKV_ARGV = ["--arch", "rwkv6_3b", "--layers", str(RWKV_TP_LAYERS),
              "--requests", "2", "--prompt-len", "40", "--max-new",
              str(RWKV_NEW), "--max-batch", "4", "--block-size", "16",
              "--prefill-chunk", "32"]
+# the rwkv train lane: rwkv6_3b at full width, weights from seed 0, batch
+# 4 x 1024 from data/pipeline.py.  Step 0 at tp=RWKV_TP in flux over the
+# first RWKV_TP_LAYERS layers, in fp32 and in bf16, each with its launches
+# held to the PlanSet's; the same steps over the first RWKV_GATE_LAYERS
+# layers held against tp=1 in fp32 (the loss and every canonical grad /
+# tp within JAMBA_F32_RTOL) and in bf16 against xla, the seams' plain
+# version (each rank's loss and every grad within JAMBA_BF16_MODES_RTOL);
+# then the Trainer at tp=1 over all 32 layers in bf16 (fp32 moments) for
+# RWKV_TRAIN_STEPS steps with the training CLI's remat for this arch.
+# The gates hold at 1 layer, a depth cut of their scope: this random
+# model's grads are chaotic in depth.  One fp32 rounding of every weight,
+# w (1 + 2^-24 n), moves the step-0 grads by 2.2e-5 at 1 layer, 2.5e-4
+# at 2, 9.7e-3 at 4 and 55 % at 8 (the worst leaf a u_bonus; its grad
+# norm 98.5 at layer 0 against 0.0056 at layer 7), and tp=2 flux lies
+# within that from tp=1: 8.3e-5, 1.05e-3, 3.6e-3 and 39 %; in bf16 flux
+# against xla 0.88 % at 1 layer, 31 % at 2 and 234 % at 8; the fused
+# kernels' fp32 path at these seams lies within 1.6e-6 of the fp64
+# product, as cuBLAS's does (scripts/torch_rwkv_grad_noise.py on an
+# NVIDIA H100 80GB HBM3 at 700 W).  The lane reads the 8-layer pairs and,
+# beside them, the rounding floor (the perturbed tp=1 step)
+RWKV_GATE_LAYERS = 1
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 4, 1024, 3
+# the wkv's backward on the card: its grads against autograd through the
+# step-by-step WKV6 recurrence over (B, S, chunk) at the lane's 40 heads of
+# 64, fp32 (TOL); at the tp=1 shape [4, 40, 1024, 64] the memory its
+# backward adds: the four [4, 40, 1024, 64] fp32 input grads (168 MB) and
+# one chunk's re-run (about 20 of its [4, 40, 64, 64] fp32 tensors, 2.6 MB
+# each, and their grads): under RWKV_WKV_MEM_GB
+RWKV_WKV_CHECK = (1, 128, 32)
+RWKV_WKV_MEM_GB = 0.5
 # the train lane: minicpm_2b at full width cut to its first 4 of 40 layers
 # (8 until the whole script neared its 1200 s limit), batch
 # 4 x 1024 from data/pipeline.py, 3 steps each at tp=1 and tp=4
@@ -2227,11 +2257,22 @@ def phase_fused_kernel(torch, which):
     cases += [(name, JAMBA_TP, bf16, rows, k, nn, None, False, False)
               for name, rows, k, nn in jamba]
     # the rwkv lane's tp=2 flux prefill seams, at their shapes (the
-    # channel-mix's AG-GEMM with its squared-ReLU epilogue)
-    rwkv = rwkv_seam_cases(which)
+    # channel-mix's AG-GEMM with its squared-ReLU epilogue), and two
+    # backward launches of the rwkv train lane's step
+    rwkv_train = rwkv_train_seam_cases(which)
+    rwkv = rwkv_seam_cases(which) + rwkv_train
     cases += [(name, RWKV_TP, bf16, rows, k, nn, act, False, False)
               for name, rows, k, nn, act in rwkv]
     operands = {c[0]: c[4] for c in train}
+    operands.update({
+        "ag_rwkv_train_dy_w_o": "dY of w_o: the cotangent's shard x the "
+                                "rank's w_o rows transposed",
+        "rs_rwkv_train_dx_time_mix": "dX of the time-mix's attn_ag: the "
+                                     "five projections' cotangent x the "
+                                     "stacked weights transposed (one "
+                                     "layer, one backward)"})
+    check(set(operands) >= {c[0] for c in rwkv_train},
+          "an rwkv train case without its transposed operand")
     kern = AG.ag_gemm if which == "ag" else RS.gemm_rs
     groups = {n: RankGroup(n, "cuda", timeout_s=60)
               for n in {JAMBA_TP, RWKV_TP, 4, 8}}
@@ -5864,6 +5905,25 @@ def rwkv_seam_cases(which):
             ("rs_rwkv_channel_out", m, ffp // tp, d, None)]
 
 
+def rwkv_train_seam_cases(which):
+    """(name, rows, K, N, activation) of one rank's operands at two
+    backward launches of the rwkv train lane's tp=RWKV_TP flux step over
+    RWKV_TRAIN_BATCH x RWKV_TRAIN_SEQ tokens: ``w_o``'s dY, an AG-GEMM over
+    the cotangent's sequence shard and the rank's rows of ``w_o``
+    transposed (``which="ag"``: [M / tp, D] x [D, d_attn / tp]); the
+    time-mix's dX, a GEMM-RS over the five projections' cotangent and the
+    stacked weights transposed ([M, N_loc] x [N_loc, 2 D], N_loc = 4 d_attn
+    / tp + the decay LoRA's rank: the lane's largest RS operand)."""
+    from repro_torch.models.rwkv import _dims
+    cfg, tp = rwkv_cfg(), RWKV_TP
+    m, d = RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ, cfg.d_model
+    d_attn = _dims(cfg, tp)[2]
+    if which == "ag":
+        return [("ag_rwkv_train_dy_w_o", m // tp, d, d_attn // tp, None)]
+    return [("rs_rwkv_train_dx_time_mix", m,
+             4 * d_attn // tp + cfg.rwkv.decay_lora, 2 * d, None)]
+
+
 def _rwkv_two_ways(torch, S, model, cfg, ctx, tokens, lengths,
                    rows_alone=True):
     """Two ways to the same numbers on ``model``: one decode step after
@@ -6293,6 +6353,397 @@ def phase_rwkv_lane(torch):
           f"{res['baseline_mem_gb']:.3f} GB)")
     return {"ag_gemm": {f"tp{tp}_prefill": got["ag_gemm"]},
             "gemm_rs": {f"tp{tp}_prefill": got["gemm_rs"]}}
+
+
+def rwkv_wkv_checks(torch):
+    """The chunked wkv's backward on the card (``rwkv.wkv``: ``_WKV``,
+    plain PyTorch): its grads for r, k, v, logw, u and s0 against autograd
+    through the step-by-step WKV6 recurrence written from its definition
+    (S_t = diag(w_t) S_{t-1} + k_t v_t^T, y_t = r_t^T (S_{t-1} + diag(u)
+    k_t v_t^T)) at RWKV_WKV_CHECK, 40 heads of 64, fp32, within TOL; and at
+    the lane's tp=1 shape [4, 40, 1024, 64] (16 chunks of 64): the bytes
+    the forward saves (``saved_tensors_hooks``: its inputs and the state
+    carried into each chunk, exactly), beside what autograd through the
+    chunk loop itself saves and holds, and the memory the backward adds,
+    within RWKV_WKV_MEM_GB; each pass's host ms."""
+    from repro_torch.models import rwkv as RW
+    cfg = rwkv_cfg()
+    dh = cfg.rwkv.head_dim
+    h = cfg.d_model // dh
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def inputs(b, s):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        return [rnd(b, h, s, dh), rnd(b, h, s, dh), rnd(b, h, s, dh),
+                -torch.exp(rnd(b, h, s, dh, scale=0.5) - 3.0),
+                rnd(h, dh, scale=0.5), rnd(b, h, dh, dh)]
+
+    def stepwise(r, k, v, logw, u, st):
+        ys = []
+        for t in range(r.shape[2]):
+            kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+            ys.append(torch.matmul(r[:, :, t, None, :],
+                                   st + u[None, :, :, None] * kv)[:, :, 0])
+            st = torch.exp(logw[:, :, t])[..., None] * st + kv
+        return torch.stack(ys, 2), st
+
+    names = ("r", "k", "v", "logw", "u", "s0")
+    b, s, chunk = RWKV_WKV_CHECK
+    args = [t.requires_grad_() for t in inputs(b, s)]
+    wy = torch.randn((b, h, s, dh), generator=gen, device="cuda")
+    ws = torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda *a: RW.wkv(*a, chunk=chunk), stepwise):
+        y, st = fn(*args)
+        grads.append(torch.autograd.grad((y * wy).sum() + (st * ws).sum(),
+                                         args))
+    rels = {n: _rel_l2(got, want) for n, got, want in zip(names, *grads)}
+    del args, grads, y, st
+    worst = max(rels, key=rels.get)
+    check(rels[worst] <= TOL["float32"], f"the wkv's grad of {worst} on the "
+          f"card {rels[worst]:.3g} relative L2 from the step-by-step "
+          f"recurrence's (rtol {TOL['float32']})")
+
+    bl, sl = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ
+    args = [t.requires_grad_() for t in inputs(bl, sl)]
+    step = RW._chunk_len(sl, 64)
+    n_chunks = sl // step
+
+    def forward(fn):
+        """(outputs, bytes saved, allocated bytes the forward left, host
+        ms) of one forward under grad."""
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel() * t.element_size())
+            return t
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn()
+        torch.cuda.synchronize()
+        return (out, sum(saved), torch.cuda.memory_allocated() - before,
+                (time.perf_counter() - t0) * 1e3)
+
+    # autograd through the chunk loop itself, for the record
+    out, plain_saved, plain_held, plain_ms = forward(
+        lambda: RW._wkv_loop(*args, step))
+    del out
+    torch.cuda.empty_cache()
+    (y, _), saved, held, fwd_ms = forward(lambda: RW.wkv(*args))
+    dy = torch.randn_like(y)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    added = (torch.cuda.max_memory_allocated() - start) / 1e9
+    finite = all(bool(torch.isfinite(t).all()) for t in g)
+    states = n_chunks * bl * h * dh * dh * 4
+    inputs_b = sum(t.numel() * t.element_size() for t in args)
+    del args, y, dy, g
+    torch.cuda.empty_cache()
+    out = {"grad_check": {"shape": [b, h, s, dh], "chunk": chunk,
+                          "rel_l2_vs_stepwise": rels},
+           "shape": [bl, h, sl, dh], "chunks": n_chunks,
+           "saved_bytes": saved, "saved_input_bytes": inputs_b,
+           "saved_state_bytes": states, "forward_held_bytes": held,
+           "plain_autograd": {"saved_bytes": plain_saved,
+                              "forward_held_bytes": plain_held,
+                              "forward_host_ms": plain_ms},
+           "backward_added_gb": added, "backward_gb_limit": RWKV_WKV_MEM_GB,
+           "forward_host_ms": fwd_ms, "backward_host_ms": bwd_ms}
+    check(finite, "the wkv's grads at the lane's shape are not finite")
+    check(saved == inputs_b + states, f"the wkv saved {saved} bytes, its "
+          f"inputs {inputs_b} and the chunk states {states}")
+    check(added <= RWKV_WKV_MEM_GB, f"the wkv's backward added {added:.3f} "
+          f"GB at {out['shape']} (limit {RWKV_WKV_MEM_GB})")
+    return out
+
+
+def phase_rwkv_train_lane(torch):
+    """RWKV-6 trained (rwkv6_3b at full width, weights from seed 0, batch
+    RWKV_TRAIN_BATCH x RWKV_TRAIN_SEQ from data/pipeline.py; the
+    constants' comment).  (a) The wkv's backward (``rwkv_wkv_checks``).
+    (b) The main path: step 0 at tp=RWKV_TP in flux in the
+    sequence-sharded layout (the time-mix's AG-GEMM over its five weights,
+    the channel-mix's with the squared-ReLU epilogue, the GEMM-RS on
+    ``w_o`` and ``w_v`` forward, their interchanged kernels backward), in
+    fp32, over the first RWKV_TP_LAYERS layers and over the first
+    RWKV_GATE_LAYERS, each time with the counts set to 0 just before and
+    read just after (the launches its PlanSet implies), against step 0 at
+    tp=1 on the same leaves: at RWKV_GATE_LAYERS the loss and every
+    canonical grad / tp within JAMBA_F32_RTOL; at RWKV_TP_LAYERS read,
+    beside the rounding floor (tp=1 on the weights moved by one fp32
+    rounding).  (c) The same steps in bf16, flux then xla: at
+    RWKV_GATE_LAYERS each rank's loss and every grad within
+    JAMBA_BF16_MODES_RTOL, at RWKV_TP_LAYERS read, the flux loss against
+    tp=1's fp32 within TRAIN_LOSS_RTOL.  The weights are drawn packed for
+    tp=RWKV_TP, which pads and packs nothing at this width: they are the
+    tp=1 model (the rwkv lane checks it leaf for leaf).  (d) The Trainer
+    at tp=1 over all 32 layers, bf16 weights and fp32 moments,
+    RWKV_TRAIN_STEPS steps, with the training CLI's remat for this arch:
+    finite losses, step 0's loss against a separate ``forward_loss`` of
+    the same weights and batch, step ms, peak memory, a profiled step's
+    busy share.  Returns the fused launches of the RWKV_TP_LAYERS-layer
+    tp=2 steps 0 and of the trainer's steps (none at tp=1)."""
+    from repro_torch.configs.base import ParallelConfig, train_schedule
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.runtime import trainer as T
+
+    t_phase = time.perf_counter()
+    cfg = rwkv_cfg()
+    cut = rwkv_cfg(RWKV_TP_LAYERS)
+    tp, bf16, f32 = RWKV_TP, torch.bfloat16, torch.float32
+    bsz, seq = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ
+    tc = T.TrainConfig(total_steps=RWKV_TRAIN_STEPS, warmup_steps=0,
+                       base_lr=3e-4, schedule=train_schedule(cfg.name),
+                       log_every=RWKV_TRAIN_STEPS, max_retries=0)
+    res = {"phase": "rwkv_train_lane", "arch": cfg.name,
+           "reduced": {"num_layers": f"{RWKV_TP_LAYERS} of 32 in the tp=2 "
+                                     "steps 0 (the rwkv lane's tp cut), "
+                                     f"{RWKV_GATE_LAYERS} in their gates "
+                                     "(the constants' comment); all 32 in "
+                                     "the Trainer"},
+           "batch": bsz, "seq": seq, "steps": RWKV_TRAIN_STEPS,
+           "schedule": tc.schedule, "fp32_rtol": JAMBA_F32_RTOL,
+           "bf16_modes_rtol": JAMBA_BF16_MODES_RTOL,
+           "loss_rtol": TRAIN_LOSS_RTOL,
+           "ln_vocab": math.log(cfg.vocab_size),
+           "baseline_mem_gb": torch.cuda.memory_allocated() / 1e9}
+    t0 = time.perf_counter()
+    res["wkv"] = rwkv_wkv_checks(torch)
+    res["wkv"]["phase_s"] = time.perf_counter() - t0
+    batch0 = {n: torch.from_numpy(v).cuda() for n, v in batch_at(
+        DataConfig(cfg.vocab_size, seq, bsz), 0).items()}
+
+    # ---- (b) step 0 in fp32 at tp=2 in flux (the main path) against tp=1 --
+    t0 = time.perf_counter()
+    par1 = ParallelConfig()
+    par2 = ParallelConfig(tp=tp, overlap_mode="flux")
+    tr2 = T.Trainer(dataclasses.replace(cut, compute_dtype="float32"), par2,
+                    tc, device="cuda", dtype=f32)
+    mesh = tr2.group
+    plans = T.make_ctx(cut, par2, mesh=mesh, rank=0).plans
+    check(plans.residual_layout() == "seq",
+          "the rwkv tp=2 step is not sequence-sharded")
+
+    def first(model, layers):
+        """The model's first ``layers`` layers (the same leaves)."""
+        return M.Model(model.embed, model.final_norm,
+                       list(model.layers[:layers]), model.trainable)
+
+    def tp1_step(model, c):
+        c = dataclasses.replace(c, compute_dtype="float32")
+        loss, g = T.loss_and_grads(model, batch0, T.make_ctx(c, par1), c,
+                                   par1)
+        return loss.item(), M.canonical_leaves(g, c, 1, grads=True)
+
+    def tp2_step(model, c, dtype, mode="flux"):
+        """Step 0 at tp=2 on ``model``'s leaves in ``mode``: (every rank's
+        loss, every rank's grads, canonical grads / tp, launches forward
+        and backward, the launches its PlanSet implies, host figures)."""
+        c = dataclasses.replace(c, compute_dtype=str(dtype)[6:])
+        par = dataclasses.replace(par2, overlap_mode=mode)
+        ranks = [M.shard_params(model, r, tp, c) for r in range(tp)]
+        losses, grads, c_fwd, c_bwd, host = step0_grads(
+            torch, c, par, mesh, ranks, [batch0])
+        can = synced_canonical(torch, c, par, mesh, ranks, grads)
+        want = plan_launches(T.make_ctx(c, par, mesh=mesh, rank=0).plans, c,
+                             tp, 1)
+        return losses, grads, can, (c_fwd, c_bwd), want, host
+
+    def versus(can, ref):
+        rel = {n: _rel_l2(g, ref[n]) for n, g in can.items()}
+        check(set(rel) == set(ref), "rwkv tp=2 and tp=1 canonical leaves "
+              "differ")
+        worst = sorted(rel, key=rel.get, reverse=True)
+        return {"grad_rel_l2_max": rel[worst[0]], "grad_worst_leaf": worst[0],
+                "grad_rel_l2_worst_leaves": {n: rel[n] for n in worst[:6]}}
+
+    def launches_ok(what, got, want):
+        check(got == want, f"rwkv train {what} launches {got[0]} / {got[1]}, "
+              f"its PlanSet implies {want[0]} / {want[1]}")
+        return {"launches_forward": got[0], "launches_backward": got[1],
+                "launches_planset": {"forward": want[0],
+                                     "backward": want[1]}}
+
+    torch.cuda.reset_peak_memory_stats()
+    p32 = M.init_model(cut, par2, seed=0, dtype=f32, device="cuda",
+                       trainable=True)
+    gate = rwkv_cfg(RWKV_GATE_LAYERS)
+    out32 = {}
+    for layers, c in ((RWKV_TP_LAYERS, cut), (RWKV_GATE_LAYERS, gate)):
+        model = p32 if layers == RWKV_TP_LAYERS else first(p32, layers)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss1, g1 = tp1_step(model, c)
+        tp1_ms = (time.perf_counter() - t1) * 1e3
+        losses, grads, can, got, want, host = tp2_step(model, c, f32)
+        del grads
+        rel_loss = abs(losses[0] - loss1) / abs(loss1)
+        out32[layers] = {"layers": layers, "tp1_step0_loss": loss1,
+                         "tp1_step0_host_ms": tp1_ms,
+                         "step0_loss": losses[0], "loss_rel_vs_tp1": rel_loss,
+                         **versus(can, g1),
+                         **launches_ok(f"fp32 {layers}-layer flux", got,
+                                       want),
+                         "step0_host": host}
+        check(math.isfinite(loss1), f"rwkv tp=1 step-0 loss {loss1}")
+        del can
+        if layers == RWKV_TP_LAYERS:
+            # the rounding floor: tp=1 on the weights moved by one rounding
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            with torch.no_grad():
+                moved = M.Model(*(t * (1 + 2.0 ** -24 * torch.randn(
+                    t.shape, generator=gen, device="cuda"))
+                    for t in (p32.embed, p32.final_norm)),
+                    [M.Block(*({n: t * (1 + 2.0 ** -24 * torch.randn(
+                        t.shape, generator=gen, device="cuda"))
+                        for n, t in part.items()}
+                        for part in (blk.mixer, blk.ffn)))
+                     for blk in p32.layers], True)
+            loss_m, g_m = tp1_step(moved, c)
+            del moved
+            out32[layers]["rounding_floor"] = {
+                "loss_rel": abs(loss_m - loss1) / abs(loss1),
+                **versus(g_m, g1)}
+            del g_m
+            c_fwd, c_bwd = got
+        else:
+            check(rel_loss <= JAMBA_F32_RTOL, f"rwkv train tp={tp} flux "
+                  f"step-0 loss {losses[0]} vs tp=1 {loss1}: relative "
+                  f"{rel_loss}")
+            worst = out32[layers]["grad_worst_leaf"]
+            check(out32[layers]["grad_rel_l2_max"] <= JAMBA_F32_RTOL,
+                  f"rwkv train tp={tp} flux step-0 grad of {worst} vs tp=1 "
+                  f"at {layers} layers: relative L2 "
+                  f"{out32[layers]['grad_rel_l2_max']} > {JAMBA_F32_RTOL}")
+        del g1
+        torch.cuda.empty_cache()
+    loss32 = out32[RWKV_TP_LAYERS]["tp1_step0_loss"]
+    res[f"tp{tp}_flux"] = {"dtype": "float32", "gate_layers":
+                           RWKV_GATE_LAYERS, "depths": out32,
+                           "step0_peak_gb":
+                               torch.cuda.max_memory_allocated() / 1e9,
+                           "phase_s": time.perf_counter() - t0}
+    del p32, model
+    torch.cuda.empty_cache()
+
+    # ---- (c) bf16 at tp=2: flux, then xla ---------------------------------
+    t0 = time.perf_counter()
+    p16 = M.init_model(cut, par2, seed=0, dtype=bf16, device="cuda",
+                       trainable=True)
+    out16 = {}
+    for layers, c in ((RWKV_TP_LAYERS, cut), (RWKV_GATE_LAYERS, gate)):
+        model = p16 if layers == RWKV_TP_LAYERS else first(p16, layers)
+        lf, gf, _, got, want, host_f = tp2_step(model, c, bf16)
+        lx, gx, _, got_x, _, host_x = tp2_step(model, c, bf16, "xla")
+        rel_b = {f"{r}:{n}": _rel_l2(gx[r][n], gf[r][n])
+                 for r in range(tp) for n in gf[r]}
+        del gf, gx
+        worst_b = sorted(rel_b, key=rel_b.get, reverse=True)
+        rel_lx = max(abs(a - b) / abs(b) for a, b in zip(lx, lf))
+        out16[layers] = {
+            "layers": layers, "step0_losses": lf, "xla_step0_losses": lx,
+            "xla_loss_rel_vs_flux": rel_lx,
+            "xla_grad_rel_l2_vs_flux_max": rel_b[worst_b[0]],
+            "xla_grad_worst_leaf": worst_b[0],
+            "xla_grad_rel_l2_vs_flux_worst_leaves": {
+                n: rel_b[n] for n in worst_b[:6]},
+            **launches_ok(f"bf16 {layers}-layer flux", got, want),
+            "xla_launches": {"forward": got_x[0], "backward": got_x[1]},
+            "step0_host": host_f, "xla_step0_host": host_x}
+        check(all(x["ag_gemm"] == 0 and x["gemm_rs"] == 0 for x in got_x),
+              f"the rwkv train xla step launched the fused kernels: "
+              f"{got_x}")
+        if layers == RWKV_TP_LAYERS:
+            rel_lb = abs(lf[0] - loss32) / abs(loss32)
+            out16[layers]["loss_rel_vs_tp1_fp32"] = rel_lb
+            check(rel_lb <= TRAIN_LOSS_RTOL, f"rwkv train tp={tp} bf16 flux "
+                  f"step-0 loss {lf[0]} vs tp=1 fp32 {loss32}: relative "
+                  f"{rel_lb}")
+            cb_fwd, cb_bwd = got
+        else:
+            check(rel_lx <= JAMBA_BF16_MODES_RTOL
+                  and rel_b[worst_b[0]] <= JAMBA_BF16_MODES_RTOL,
+                  f"rwkv train tp={tp} bf16 xla vs flux at {layers} layers: "
+                  f"loss relative {rel_lx}, grad of {worst_b[0]} relative "
+                  f"L2 {rel_b[worst_b[0]]}")
+    res[f"tp{tp}_flux_bf16"] = {"dtype": "bfloat16", "gate_layers":
+                                RWKV_GATE_LAYERS, "depths": out16,
+                                "phase_s": time.perf_counter() - t0}
+    mesh.free_symmetric()
+    del p16, model, tr2, mesh
+    torch.cuda.empty_cache()
+
+    # ---- (d) the Trainer at tp=1, all 32 layers, the CLI's remat ----------
+    t0 = time.perf_counter()
+    par = launch_train.parallel_config(launch_train.parse_args(
+        ["--arch", cfg.name]), cfg)
+    tr = T.Trainer(cfg, par, tc, device="cuda", dtype=bf16)
+    tr.data_cfg = dataclasses.replace(tr.data_cfg, seq_len=seq,
+                                      global_batch=bsz)
+    params, opts = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(torch.equal(tr.batch(0)[n], batch0[n]) for n in batch0),
+          "the trainer's first batch is not the step-0 comparisons' batch")
+    with torch.no_grad():
+        want0 = M.forward_loss(params[0], batch0, T.make_ctx(cfg, par), cfg,
+                               par).item()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    zero_counts()
+    params, opts, hist = tr.train(params, opts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = [h["loss"] for h in hist]
+    ms = [h["seconds"] * 1e3 for h in hist]
+    rel_0 = abs(losses[0] - want0) / abs(want0)
+    res["trainer"] = {
+        "tp": 1, "layers": cfg.num_layers, "remat": par.remat,
+        "dtype": "bfloat16 weights, float32 moments",
+        "losses": losses, "forward_loss_step0": want0,
+        "loss0_rel_vs_forward_loss": rel_0, "step_ms": ms,
+        "step_ms_median": sorted(ms)[len(ms) // 2],
+        "launches": {k: counts[k] for k in ("ag_gemm", "gemm_rs")},
+        "weights": sum(p.numel() for p in params[0].parameters()),
+        "init_s": init_s, "start_mem_gb": start_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(all(map(math.isfinite, losses)), f"rwkv trainer losses {losses}")
+    check(rel_0 <= TRAIN_LOSS_RTOL, f"rwkv trainer step-0 loss {losses[0]} "
+          f"vs forward_loss {want0}: relative {rel_0}")
+    check(not any(counts.values()), f"the tp=1 rwkv trainer launched "
+          f"{counts}: its GEMMs are local and its wkv plain")
+    res["trainer"]["profiled_step"] = device_profile(
+        torch, lambda: tr.run_step(params, opts, tr.step_batch(0)))
+    check(res["trainer"]["profiled_step"]["device_activities"] > 0,
+          "the profiled rwkv trainer step recorded no device activity")
+    res["trainer"]["phase_s"] = time.perf_counter() - t0
+    del params, opts, tr, hist
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["left_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    check(res["trainer"]["peak_mem_gb"] < 80, "the rwkv trainer's peak "
+          f"{res['trainer']['peak_mem_gb']:.1f} GB")
+    check(res["left_mem_gb"] < res["baseline_mem_gb"] + 0.5, f"the rwkv "
+          f"train lane left {res['left_mem_gb']:.3f} GB allocated (it "
+          f"started at {res['baseline_mem_gb']:.3f} GB)")
+    return {kern: {"tp2_step0": {"forward": c_fwd[kern],
+                                 "backward": c_bwd[kern]},
+                   "tp2_step0_bf16": {"forward": cb_fwd[kern],
+                                      "backward": cb_bwd[kern]},
+                   "tp1_trainer_steps": counts[kern]}
+            for kern in ("ag_gemm", "gemm_rs")}
 
 
 def prefill_launches(plans, cfg, tp, mlp_weights, use_kernels):
@@ -6732,9 +7183,11 @@ WIRE_OP_SHAPES = {"mlp_ag": ("ag", 4096, 12288, 2304),
 # CUDA-event calls a wired op (3 until the dp lane came: the script's time
 # budget)
 WIRE_OP_ITERS = 2
-# the wire sweep's timed calls a candidate (after one warm call): its 347
+# the wire sweep's timed calls a candidate, and its warm calls before them
+# (1 until the rwkv train lane came: the script's time budget): its 347
 # rows are a report, not a gate, and the script has a time limit
 WIRE_SWEEP_ITERS = 1
+WIRE_SWEEP_WARMUP = 0
 # the wire lane's server: the tp server lane's 8 requests, 4 new tokens
 # each (its first-token logits are the gate; later tokens are reported)
 WIRE_SERVE_NEW = 4
@@ -7123,7 +7576,8 @@ def phase_wire_lane(torch):
         plans = AT.autotune_model(
             scfg, spar, hw=ect.H100_SXM, group=group,
             tokens_per_dp=TUNE_TOKENS, decode_batch=TUNE_DECODE_BATCH,
-            measure=measured, iters=WIRE_SWEEP_ITERS, warmup=1,
+            measure=measured, iters=WIRE_SWEEP_ITERS,
+            warmup=WIRE_SWEEP_WARMUP,
             results=results, wire_dtypes=AT.WIRE_DTYPE_SWEEP,
             max_logit_rmse=WIRE_BUDGET)
         torch.cuda.synchronize()
@@ -7131,7 +7585,8 @@ def phase_wire_lane(torch):
         add(c)
         if measured:
             want = sweep_launches(results, scfg, spar,
-                                  (1 + WIRE_SWEEP_ITERS) * tp)
+                                  (WIRE_SWEEP_WARMUP + WIRE_SWEEP_ITERS)
+                                  * tp)
             check(c == want, f"the wire sweep launched {c}, its flux rows "
                   f"call for {want}")
         for r in results:
@@ -7940,6 +8395,7 @@ def main():
     jamba = timed("jamba_lane", phase_jamba_lane, torch)
     jamba_train = timed("jamba_train_lane", phase_jamba_train_lane, torch)
     rwkv = timed("rwkv_lane", phase_rwkv_lane, torch)
+    rwkv_train = timed("rwkv_train_lane", phase_rwkv_train_lane, torch)
     tune_counts = timed("tune_lane", phase_tune_lane, torch, tp1_tokens)
     wire_counts = timed("wire_lane", phase_wire_lane, torch)
     timed("train_remat", phase_train_remat, torch)
@@ -8015,6 +8471,7 @@ def main():
          "jamba_train_launches": jamba_train["ag_gemm"],
          "jamba_cases": mla_seam_cases(ag_jamba),
          "rwkv_launches": rwkv["ag_gemm"],
+         "rwkv_train_launches": rwkv_train["ag_gemm"],
          "rwkv_cases": mla_seam_cases(ag_rwkv),
          "mla_tp_launches": mla_tp["prefill"]["ag_gemm"],
          "mla_tp_cases": mla_seam_cases(ag_mla),
@@ -8053,6 +8510,7 @@ def main():
          "jamba_train_launches": jamba_train["gemm_rs"],
          "jamba_cases": mla_seam_cases(rs_jamba),
          "rwkv_launches": rwkv["gemm_rs"],
+         "rwkv_train_launches": rwkv_train["gemm_rs"],
          "rwkv_cases": mla_seam_cases(rs_rwkv),
          "mla_tp_launches": mla_tp["prefill"]["gemm_rs"],
          "mla_tp_cases": mla_seam_cases(rs_mla),

@@ -20,8 +20,8 @@ reads ``mtp``.
 Weights are frozen (``requires_grad=False``) for serving; ``trainable=True``
 makes every leaf a trainable ``nn.Parameter``.  ``backbone`` and
 ``forward_loss`` are the training forward of every ported kind (Mamba's
-scan recomputes each chunk in its backward, ``mamba.selective_scan``;
-RWKV runs them forward only, under no grad: ``check_trainable``), with
+scan and RWKV's wkv recompute each chunk in their backward,
+``mamba.selective_scan``, ``rwkv.wkv``), with
 the MoE's aux loss and the MTP loss, in either residual layout
 (``TPContext.seq_sharded``) and with or without ``ParallelConfig.remat``;
 at tp>1 they run as one rank of the TP group, on that rank's
@@ -72,8 +72,6 @@ PORTED_KINDS = frozenset({(ATTN, DENSE_FFN), (ATTN, MOE_FFN),
                           (MLA, DENSE_FFN), (MLA, MOE_FFN),
                           (MAMBA, DENSE_FFN), (MAMBA, MOE_FFN),
                           (RWKV, RWKV)})
-# the kinds the port serves but does not train (``check_trainable``)
-UNTRAINED_KINDS = frozenset({RWKV})
 REMAT_MODES = ("none", "selective", "full")
 EMBEDS_NOT_PORTED = ("frontend embeddings (batch['embeds']) are not ported "
                      "(ROADMAP queue 1 item 8)")
@@ -631,24 +629,10 @@ def check_forward(cfg: ModelConfig, par: ParallelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig, par: ParallelConfig) -> None:
-    """Raise unless the model trains in the port: ``check_forward``, and
-    no layer of ``UNTRAINED_KINDS`` (every other kind trains, Mamba's
-    through the scan whose backward recomputes).  An RWKV layer raises
-    ``NotImplementedError``: RWKV-6 is served, not trained (ROADMAP 8.5's
-    training half)."""
+    """Raise unless the model trains in the port: every kind it runs
+    trains (Mamba's and RWKV's through the scans whose backward
+    recomputes each chunk), so this is ``check_forward``."""
     check_forward(cfg, par)
-    if any(k in UNTRAINED_KINDS for kinds in expanded_pattern(cfg)
-           for k in kinds):
-        raise NotImplementedError(f"{cfg.name}: {rwkv.NOT_TRAINED}")
-
-
-def _check_run(cfg: ModelConfig, par: ParallelConfig, params: Model) -> None:
-    """``check_trainable`` when the forward records grads (grad mode on
-    and trainable weights), else ``check_forward``."""
-    if torch.is_grad_enabled() and params.trainable:
-        check_trainable(cfg, par)
-    else:
-        check_forward(cfg, par)
 
 
 class _Zero3:
@@ -752,8 +736,8 @@ def backbone(params: Model, x: torch.Tensor, ctx: TPContext,
     blocks.  With ``par.zero3`` each layer gathers its ZeRO-3 leaves over
     the data group (``_Zero3``); once the next layer's input is cut on
     the tape, the previous layer's gathered copies are released (module
-    docstring).  An RWKV model runs it forward only (``check_trainable``)."""
-    _check_run(cfg, par, params)
+    docstring)."""
+    check_forward(cfg, par)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prev = None
     for i, (blk, kinds) in enumerate(zip(params.layers,
@@ -798,9 +782,8 @@ def forward_loss(params: Model, batch: Dict[str, torch.Tensor],
     sequence-sharded layout, a psum to the replicated one), the LM head's
     ``head_ag`` seam the vocab-sharded logits.  At tp>1 every rank
     returns the same loss (its own replicated copy, as in the
-    reference).  An RWKV model computes it forward only, under no grad or
-    with frozen weights (``check_trainable``)."""
-    _check_run(cfg, par, params)
+    reference)."""
+    check_forward(cfg, par)
     if "embeds" in batch:
         raise NotImplementedError(EMBEDS_NOT_PORTED)
     v_pad = pad_vocab(cfg.vocab_size, ctx.tp)

@@ -1,5 +1,5 @@
 """RWKV-6 (Finch) blocks (port of ``repro.models.rwkv``): the time-mix with
-its data-dependent decay and the channel-mix, served (forward only).
+its data-dependent decay and the channel-mix, served and trained.
 
 TP mapping (the reference's): the time-mix's heads and the channel-mix's
 hidden units are cut over the TP ranks.  The five token-shift
@@ -27,14 +27,25 @@ fp32 state carried by a loop over chunks (64 positions, halved until the
 chunk divides S).  The reference computes it in ``jnp`` outside any
 Pallas kernel, so it is plain PyTorch here on both devices.
 
-``rwkv_time_train`` / ``rwkv_channel_train`` are the prefill (and, from a
-carried-in ``cache``, a chunk of the chunked prefill); ``rwkv_time_decode``
-/ ``rwkv_channel_decode`` the O(1) single-token update.  The recurrent
+Under grad the chunk loop is an autograd Function (``_WKV``) that keeps
+no per-chunk intermediate: it saves its inputs and the fp32 state
+carried into each chunk, and its backward walks the chunks last first,
+re-runs each chunk's ``_wkv_chunk`` under grad from its carried state
+and takes autograd's vjp of that one chunk with the grads of its output
+and of the state it hands on.  Autograd through the loop itself would
+keep about ten chunk-sized tensors a chunk (the decayed r and k, the
+masked scores before and after the mask, the exponentials, ...).
+
+``rwkv_time_train`` / ``rwkv_channel_train`` are the training forward and
+the prefill (and, from a carried-in ``cache``, a chunk of the chunked
+prefill).  At tp>1 each cuts its normed input on the seam tape
+(``overlap.cut``): it feeds the token shift's exchange and a seam (the
+channel-mix also cuts the shift's delta, which feeds two mixes).
+``rwkv_time_decode`` / ``rwkv_channel_decode`` are the O(1) single-token
+update, forward only (the reference's serving step).  The recurrent
 state is the time-mix's ``{"state": [B, hl, dh, dh] fp32, "last": [B, D]}``
 and the channel-mix's ``{"last": [B, D]}`` (``rwkv_cache_shapes``): ``last``
-is the last true token's normed input, which seeds the token shift.  All
-four refuse grad: RWKV is served, not trained, in the port (ROADMAP 8.5's
-training half).
+is the last true token's normed input, which seeds the token shift.
 """
 from __future__ import annotations
 
@@ -49,10 +60,9 @@ from repro_torch.models import init_utils as iu
 from repro_torch.models import layers
 from repro_torch.parallel.sharding import TPContext, ceil_mult
 
-NOT_TRAINED = (
-    "RWKV-6 is served, not trained, in the port: its training half (the "
-    "wkv chunk loop's backward and the token shift on the seam tape) is "
-    "ROADMAP 8.5's training half")
+DECODE_NO_GRAD = (
+    "{} is the serving step and runs forward only, as the reference's; "
+    "train through {}")
 STATE_DTYPE = torch.float32          # the wkv state's cache dtype
 LAST_DTYPE = torch.bfloat16          # the token-shift row's cache dtype
 
@@ -129,10 +139,10 @@ def init_rwkv_channel(gen: torch.Generator, cfg: ModelConfig, tp: int,
             "norm": torch.ones(dm, dtype=dtype, device=device)}
 
 
-def _refuse_grad(p: Dict, x: torch.Tensor) -> None:
+def _refuse_grad(p: Dict, x: torch.Tensor, step: str, train: str) -> None:
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in p.values())):
-        raise NotImplementedError(NOT_TRAINED)
+        raise NotImplementedError(DECODE_NO_GRAD.format(step, train))
 
 
 def _wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -171,21 +181,75 @@ def _chunk_len(s: int, chunk: int) -> int:
     return chunk
 
 
+def _wkv_loop(r, k, v, logw, u, s0, step: int, states=None):
+    """The loop over chunks of ``step`` positions carrying the state;
+    ``states`` (a list) takes the state carried into each chunk.  Returns
+    (y, the final state)."""
+    ys, state = [], s0
+    for i in range(0, r.shape[2], step):
+        sl = slice(i, i + step)
+        if states is not None:
+            states.append(state)
+        y, state = _wkv_chunk(r[:, :, sl], k[:, :, sl], v[:, :, sl],
+                              logw[:, :, sl], u, state)
+        ys.append(y)
+    return torch.cat(ys, dim=2), state
+
+
+class _WKV(torch.autograd.Function):
+    """The chunked wkv whose backward re-runs each chunk.  The forward is
+    the serving loop (``_wkv_loop``); it saves its inputs and the fp32
+    state carried into each chunk, [n_chunks, B, H, dh, dh], and no
+    per-chunk intermediate.  The backward walks the chunks last first:
+    it re-runs a chunk's ``_wkv_chunk`` under grad from its carried state
+    and takes the vjp of that chunk alone with the grads of its output
+    and of the state it hands on, which gives the chunk's input grads and
+    the carried state's grad for the chunk before it.  It holds one
+    chunk's intermediates at a time."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, chunk: int):
+        step = _chunk_len(r.shape[2], chunk)
+        states = []
+        y, sfin = _wkv_loop(r, k, v, logw, u, s0, step, states)
+        ctx.step = step
+        ctx.save_for_backward(r, k, v, logw, u, s0, torch.stack(states))
+        return y, sfin
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        r, k, v, logw, u, _, states = ctx.saved_tensors
+        step = ctx.step
+        dr, dk = torch.empty_like(r), torch.empty_like(k)
+        dv, dlogw = torch.empty_like(v), torch.empty_like(logw)
+        du, g = torch.zeros_like(u), ds_fin
+        for c in reversed(range(states.shape[0])):
+            sl = slice(c * step, (c + 1) * step)
+            ins = [t[:, :, sl].detach().requires_grad_()
+                   for t in (r, k, v, logw)]
+            ins += [u.detach().requires_grad_(),
+                    states[c].detach().requires_grad_()]
+            with torch.enable_grad():
+                y, s_new = _wkv_chunk(*ins)
+                (dr[:, :, sl], dk[:, :, sl], dv[:, :, sl], dlogw[:, :, sl],
+                 du_c, g) = torch.autograd.grad((y, s_new), ins,
+                                                (dy[:, :, sl], g))
+            du += du_c
+        return dr, dk, dv, dlogw, du, g, None
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
         chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked WKV over the whole sequence: r, k, v, logw [B, H, S,
     dh], u [H, dh], s0 [B, H, dh, dh], fp32; a loop over chunks carrying
-    the state.  Returns (y [B, H, S, dh], the final state)."""
-    s = r.shape[2]
-    step = _chunk_len(s, chunk)
-    ys, state = [], s0
-    for i in range(0, s, step):
-        sl = slice(i, i + step)
-        y, state = _wkv_chunk(r[:, :, sl], k[:, :, sl], v[:, :, sl],
-                              logw[:, :, sl], u, state)
-        ys.append(y)
-    return torch.cat(ys, dim=2), state
+    the state (the chunk halves until it divides S, the reference's
+    rule).  Returns (y [B, H, S, dh], the final state); under grad its
+    backward re-runs each chunk (``_WKV``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, s0)):
+        return _WKV.apply(r, k, v, logw, u, s0, chunk)
+    return _wkv_loop(r, k, v, logw, u, s0, _chunk_len(r.shape[2], chunk))
 
 
 def _shifted(h: torch.Tensor, ctx: TPContext,
@@ -233,16 +297,19 @@ def rwkv_time_train(p: Dict, x: torch.Tensor, ctx: TPContext,
 
     ``cache`` ({state, last}, optional): the state at position 0, which
     seeds a chunk of the chunked prefill (the replicated layout only: the
-    token shift's boundary is the previous chunk's last token).  Forward
-    only: under grad it raises (``NOT_TRAINED``)."""
-    _refuse_grad(p, x)
+    token shift's boundary is the previous chunk's last token).  Under
+    grad this is the training forward: the wkv's backward re-runs each
+    chunk (``wkv``)."""
     _check_cache(cache, ctx)
     n_heads, dh, _ = _dims(cfg, ctx.tp)
     hl = n_heads // ctx.tp
     b, s_loc, _ = x.shape
     s = s_loc * ctx.seq_factor
 
-    h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+    # the normed input feeds the token shift's exchange and the attn_ag
+    # seam: cut on the seam tape, so the backward walks its segment once
+    h = overlap.cut(layers.rms_norm(x, p["norm"], cfg.norm_eps),
+                    ctx.tape_axis)
     prev = _shifted(h, ctx, cache)
     xcat = torch.cat([h, prev], dim=-1)                  # [B, S_loc, 2D]
 
@@ -291,11 +358,15 @@ def rwkv_channel_train(p: Dict, x: torch.Tensor, ctx: TPContext,
     [B, S/TP, D].  ``cache`` ({last}, optional) seeds the token shift of
     a chunk of the chunked prefill (the replicated layout only);
     ``with_cache`` returns ``{"last"}``, each row's at its ``lengths``.
-    Forward only (``NOT_TRAINED``)."""
-    _refuse_grad(p, x)
+    Under grad this is the training forward."""
     _check_cache(cache, ctx)
-    h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
-    delta = _shifted(h, ctx, cache) - h
+    # the normed input feeds the token shift's exchange, the mlp_ag seam
+    # and the local w_r GEMM, and the shift's delta both mixes (xk into the
+    # seam, xr into the root's segment): each cut on the seam tape, so the
+    # backward walks each segment once
+    h = overlap.cut(layers.rms_norm(x, p["norm"], cfg.norm_eps),
+                    ctx.tape_axis)
+    delta = overlap.cut(_shifted(h, ctx, cache) - h, ctx.tape_axis)
     xk = h + delta * p["mu"][0]
     xr = h + delta * p["mu"][1]
     # the squared ReLU fuses into the AllGather seam's epilogue
@@ -317,8 +388,8 @@ def rwkv_time_decode(p: Dict, x: torch.Tensor,
     replicated layout: x [B, 1, D]; cache {state [B, hl, dh, dh], last
     [B, D]}, read and left as it is.  The projections are local; ``w_o``
     runs on the ``decode_ar`` seam.  Returns (out [B, 1, D], the new
-    {state (fp32), last (the compute dtype)})."""
-    _refuse_grad(p, x)
+    {state (fp32), last (the compute dtype)}).  Forward only."""
+    _refuse_grad(p, x, "rwkv_time_decode", "rwkv_time_train")
     n_heads, dh, _ = _dims(cfg, ctx.tp)
     hl = n_heads // ctx.tp
     b = x.shape[0]
@@ -359,8 +430,8 @@ def rwkv_channel_decode(p: Dict, x: torch.Tensor,
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The channel-mix's single-token step: x [B, 1, D]; cache {last [B,
     D]}; ``w_v`` runs on the ``decode_ar`` seam.  Returns (out [B, 1, D],
-    the new {last})."""
-    _refuse_grad(p, x)
+    the new {last}).  Forward only."""
+    _refuse_grad(p, x, "rwkv_channel_decode", "rwkv_channel_train")
     h = layers.rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]
     delta = cache["last"] - h
     xk = (h + delta * p["mu"][0])[:, None]

@@ -18,7 +18,9 @@ are drawn with numpy from a seed.  The reference's functions run under
   in a CPU ``RankGroup`` in the sequence-sharded layout against the
   reference at tp=1 on the same canonical weights;
 * bf16 weights and compute;
-* under grad every entry point raises, naming ROADMAP 8.5's training half.
+* under grad both decodes raise (the serving step, forward only, as the
+  reference's), and the trainable model's ``forward_loss`` reaches every
+  leaf (the grads themselves: ``tests/test_torch_rwkv_train.py``).
 
 Tolerances, relative L2: fp32 1e-4, bf16 2e-2.  The ``gpu`` case runs the
 channel-mix's AG-GEMM with its squared-ReLU epilogue (activation code 4)
@@ -392,43 +394,45 @@ def test_padded_heads_match_reference_tp1(tp):
 
 
 # ---------------------------------------------------------------------------
-# forward only
+# under grad
 # ---------------------------------------------------------------------------
-def test_grad_raises_naming_the_training_half():
-    """Under grad (an input or a weight that requires grad) each entry
-    point raises ``NotImplementedError`` naming ROADMAP 8.5's training
-    half; so does ``check_trainable``, and a trainable model's
-    ``forward_loss`` with grad on.  Without grad the same calls run."""
+def test_rwkv_decodes_refuse_grad():
+    """Under grad (an input or a weight that requires grad) both decodes
+    raise ``NotImplementedError``: they are the serving step, forward only,
+    and the message names the training forward; without grad they run.
+    ``check_trainable`` passes for rwkv6_3b, and a trainable model's
+    ``forward_loss`` with grad on gives a finite loss whose backward
+    reaches every leaf."""
     cfg = _cfg()
     model = TM.init_model(cfg, ParallelConfig(), dtype=torch.float32,
                           device="cpu")
     mixer, chan = model.layers[0].mixer, model.layers[0].ffn
     ctx = TPContext(seq_sharded=False)
-    x = torch.randn(1, 4, cfg.d_model, requires_grad=True)
+    x = torch.randn(1, 1, cfg.d_model, requires_grad=True)
     time_c = {"state": torch.zeros(1, 4, 32, 32),
               "last": torch.zeros(1, cfg.d_model)}
     chan_c = {"last": torch.zeros(1, cfg.d_model)}
-    calls = [lambda v: TR.rwkv_time_train(mixer, v, ctx, cfg),
-             lambda v: TR.rwkv_channel_train(chan, v, ctx, cfg),
-             lambda v: TR.rwkv_time_decode(mixer, v[:, :1], time_c, ctx, cfg),
-             lambda v: TR.rwkv_channel_decode(chan, v[:, :1], chan_c, ctx,
-                                              cfg)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="8.5's training half"):
+    calls = [("rwkv_time_train", lambda v: TR.rwkv_time_decode(
+                 mixer, v, time_c, ctx, cfg)),
+             ("rwkv_channel_train", lambda v: TR.rwkv_channel_decode(
+                 chan, v, chan_c, ctx, cfg))]
+    for train, call in calls:
+        with pytest.raises(NotImplementedError,
+                           match=f"serving step.*{train}"):
             call(x)
         with torch.no_grad():
-            call(x)
-    with pytest.raises(NotImplementedError, match="8.5's training half"):
-        TM.check_trainable(cfg, ParallelConfig())
+            out, _ = call(x)
+        assert out.shape == (1, 1, cfg.d_model)
+    TM.check_trainable(get_smoke_config(ARCH), ParallelConfig())
     trainable = TM.init_model(cfg, ParallelConfig(), dtype=torch.float32,
                               device="cpu", trainable=True)
-    batch = {"tokens": torch.zeros(1, 8, dtype=torch.long),
-             "labels": torch.zeros(1, 8, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="8.5's training half"):
-        TM.forward_loss(trainable, batch, ctx, cfg, ParallelConfig())
-    with torch.no_grad():
-        assert torch.isfinite(TM.forward_loss(trainable, batch, ctx, cfg,
-                                              ParallelConfig()))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 8)),
+             "labels": torch.randint(0, cfg.vocab_size, (1, 8))}
+    loss = TM.forward_loss(trainable, batch, ctx, cfg, ParallelConfig())
+    assert torch.isfinite(loss)
+    loss.backward()
+    for n, t in trainable.named_parameters():
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all()), n
 
 
 def test_init_matches_reference_layout():
